@@ -1,0 +1,40 @@
+"""collocfem_tpu_torch — the PyTorch/CUDA port of ``collocfem_tpu``.
+
+LGL-collocation parameter estimation for ODE models, on one NVIDIA H100.
+Plain tensor code is PyTorch; the damped KKT solve of every
+Levenberg-Marquardt iteration is a hand-written CUDA kernel
+(``csrc/kkt_spike.cu``), built at first use.  Module names mirror
+``collocfem_tpu``'s so each counterpart is easy to find.  The package never
+imports JAX.
+
+Main path:
+  ``EstimationProblem.build`` -> ``pack_data`` -> ``initial_guess_from_data``
+  -> ``solve.newton.make_gn_solver(problem, options)(z0, data)``.
+
+Importing the package turns TF32 off for float32 matmuls
+(:mod:`collocfem_tpu_torch.precision`).
+"""
+
+from collocfem_tpu_torch import precision
+
+precision.apply()
+
+from collocfem_tpu_torch.model import Model  # noqa: E402
+from collocfem_tpu_torch.ops.basis import LGLBasis, make_basis  # noqa: E402
+from collocfem_tpu_torch.ops.mesh import Mesh, uniform_mesh  # noqa: E402
+from collocfem_tpu_torch.problem import (  # noqa: E402
+    Decision,
+    EstimationProblem,
+    ProblemData,
+)
+
+__all__ = [
+    "Model",
+    "LGLBasis",
+    "make_basis",
+    "Mesh",
+    "uniform_mesh",
+    "EstimationProblem",
+    "ProblemData",
+    "Decision",
+]

@@ -1,0 +1,33 @@
+"""Carry an iterate and a data set from the JAX package into the port.
+
+The estimation problem has no learned weights: what crosses between the two
+packages is the decision vector and the data.  Each function takes the JAX
+package's fields as numpy arrays (``np.asarray`` of each ``Decision`` or
+``ProblemData`` field) and returns the port's tensors.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from collocfem_tpu_torch.problem import Decision, ProblemData
+
+
+def _tensor(x, device, dtype) -> torch.Tensor:
+    return torch.as_tensor(np.array(x), dtype=dtype, device=device)
+
+
+def decision_from_numpy(V, p, device, dtype) -> Decision:
+    """Decision(V (M, nv), p (nq,)) on ``device`` in ``dtype``."""
+    return Decision(V=_tensor(V, device, dtype), p=_tensor(p, device, dtype))
+
+
+def data_from_numpy(y, u, meas_w, p_prior, p_w, x0_prior, x0_w, device,
+                    dtype) -> ProblemData:
+    """ProblemData from the JAX package's fields, in field order."""
+    if np.ndim(x0_w) == 2:
+        raise NotImplementedError(
+            "a full sqrt-information x0 prior is not ported yet")
+    return ProblemData(*(_tensor(x, device, dtype) for x in
+                         (y, u, meas_w, p_prior, p_w, x0_prior, x0_w)))

@@ -1,0 +1,138 @@
+"""Levenberg-Marquardt outer loop (gain ratio + Nielsen damping).
+
+Counterpart of ``collocfem_tpu/solve/lm_core.py`` with ``accept_mode="gain"``.
+The step s solves (H + lam*dmax*I) s = -g; the quadratic model predicts the
+decrease pred = 0.5 * (lam * dmax * s.s - g.s) and the step is accepted iff
+the actual decrease is positive and the gain ratio actual/pred exceeds 1e-4.
+The cost words are float64 scalars: the GPU has native float64, so it
+replaces the JAX package's double-word cost.
+
+The loop is a Python loop over device tensors.  The accept decision, the
+damping update and the done flag stay on the device (``torch.where`` on every
+leaf of the carry); once ``done`` is set every later iteration leaves the
+state as it is, which reproduces the JAX ``while_loop`` exit exactly.  The
+host reads ``done`` only when a tolerance is non-zero, to stop early; the
+fixed-work path never synchronises.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+from torch.utils._pytree import tree_map
+
+HISTORY_COLS = ("cost", "grad_norm", "lam", "step_norm", "accepted")
+
+
+class LMAux(NamedTuple):
+    """Reduced scalars the accept test needs."""
+
+    gnorm: torch.Tensor      # inf-norm of the gradient at the CURRENT iterate
+    gdot: torch.Tensor       # g . s for the step s
+    sds: torch.Tensor        # s^T (dmax I) s, the damping quadratic form
+    step_norm: torch.Tensor  # ||s|| (xtol test + history)
+
+
+class LMState(NamedTuple):
+    z: Any                 # current iterate (a tuple of tensors)
+    carry: Any             # caller state threaded through accepts
+    cost: torch.Tensor     # float64 cost at z
+    lam: torch.Tensor      # dimensionless damping
+    nu: torch.Tensor       # Nielsen reject-escalation factor
+    it: torch.Tensor
+    done: torch.Tensor
+    gnorm: torch.Tensor
+    history: torch.Tensor  # (maxiter, 5) per-iteration table
+
+
+def _select(accept, new, old):
+    return tree_map(lambda a, b: torch.where(accept, a, b), new, old)
+
+
+def lm_loop(z0, carry0, cost0, trial_fn, *, maxiter: int, lam0, gtol=0.0,
+            ftol: float = 0.0, xtol: float = 0.0, lam_min: float = 1e-14,
+            lam_max: float = 1e12, dtype, accept_mode: str = "gain"
+            ) -> LMState:
+    """Run the LM loop; returns the final :class:`LMState`.
+
+    Args:
+      z0: initial iterate (tuple of tensors).
+      carry0: caller state at z0; ``trial_fn`` receives the carry of the
+        current iterate and returns that of the trial iterate, and a
+        rejected step keeps the old one.
+      cost0: float64 cost at z0.
+      trial_fn: ``(z, carry, lam) -> (z_try, carry_try, ct, aux: LMAux)``
+        with ``ct`` the float64 trial cost.
+    """
+    if accept_mode == "decrease":
+        raise NotImplementedError(
+            "accept_mode='decrease' is not ported yet (ROADMAP queue A, "
+            "item 9: the OCP solvers)")
+    if accept_mode != "gain":
+        raise ValueError(f"accept_mode must be 'gain', got {accept_mode!r}")
+    device = cost0.device
+    scalar = lambda v, dt=dtype: torch.as_tensor(v, dtype=dt, device=device)
+    tiny = torch.finfo(dtype).tiny
+    lam_init = torch.maximum(scalar(lam0), scalar(torch.finfo(dtype).eps))
+    st = LMState(
+        z=z0, carry=carry0, cost=cost0, lam=lam_init, nu=scalar(2.0),
+        it=scalar(0, torch.int64), done=scalar(False, torch.bool),
+        gnorm=scalar(float("inf")),
+        history=torch.zeros((maxiter, len(HISTORY_COLS)), dtype=dtype,
+                            device=device),
+    )
+    early_exit = gtol > 0 or ftol > 0 or xtol > 0
+
+    for _ in range(maxiter):
+        if early_exit and bool(st.done):
+            break
+        z_try, carry_try, ct, aux = trial_fn(st.z, st.carry, st.lam)
+        actual64 = st.cost - ct
+        actual = actual64.to(dtype)
+        pred = -0.5 * aux.gdot + 0.5 * st.lam * aux.sds
+        rho = actual / torch.clamp(pred, min=tiny)
+        decrease = torch.isfinite(ct) & (ct < st.cost)
+        accept = decrease & (pred > 0.0) & (rho > 1e-4)
+
+        # Nielsen's adaptive schedule (Madsen-Nielsen-Tingleff).
+        two_rho = 2.0 * rho - 1.0
+        down = torch.clamp(1.0 - two_rho * two_rho * two_rho, min=1.0 / 3.0)
+        lam_new = torch.where(accept, torch.clamp(st.lam * down, min=lam_min),
+                              torch.clamp(st.lam * st.nu, max=lam_max))
+        nu_new = torch.where(accept, scalar(2.0),
+                             torch.clamp(st.nu * 2.0, max=64.0))
+        rel_drop = actual64 / torch.clamp(st.cost, min=1e-300)
+        done = (
+            (aux.gnorm < gtol)
+            | (accept & (ftol > 0.0) & (rel_drop < ftol))
+            | (accept & (xtol > 0.0) & (aux.step_norm < xtol))
+            # lam railed at lam_max: every damping level was rejected.
+            | (~accept & (lam_new >= lam_max))
+        )
+        row = torch.stack([st.cost.to(dtype), aux.gnorm, st.lam,
+                           aux.step_norm, accept.to(dtype)])
+        # A finished loop keeps its state, as the JAX while_loop exit does.
+        keep = st.done
+        take = accept & ~keep
+        small_old = (st.lam, st.nu, st.it, st.done, st.gnorm, st.history)
+        small_new = (lam_new, nu_new, st.it + 1, done, aux.gnorm,
+                     st.history.index_copy(0, st.it.reshape(1), row[None]))
+        lam_s, nu_s, it_s, done_s, gnorm_s, hist_s = _select(
+            keep, small_old, small_new)
+        st = LMState(
+            z=_select(take, z_try, st.z),
+            carry=_select(take, carry_try, st.carry),
+            cost=torch.where(take, ct, st.cost),
+            lam=lam_s, nu=nu_s, it=it_s, done=done_s, gnorm=gnorm_s,
+            history=hist_s,
+        )
+    return st
+
+
+def fused_quadforms(gx_flat, gp, dx_flat, dp):
+    """(g.s, s.s) as one matrix-vector product (these feed only the
+    predicted decrease, so working-precision dots are ample)."""
+    s_cat = torch.cat([dx_flat, dp])
+    sums = torch.stack([torch.cat([gx_flat, gp]), s_cat]) @ s_cat
+    return sums[0], sums[1]

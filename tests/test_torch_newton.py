@@ -1,0 +1,122 @@
+"""Port parity, the whole slice: ``make_gn_solver`` of ``collocfem_tpu_torch``
+against ``collocfem_tpu``'s on the CPU (where both resolve 'auto' to the
+plain cyclic reduction), plus the guard that the port never imports JAX."""
+
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from scipy.integrate import solve_ivp
+
+from collocfem_tpu.models import VanDerPol as JaxVanDerPol
+from collocfem_tpu.ops.mesh import uniform_mesh as jax_uniform_mesh
+from collocfem_tpu.problem import EstimationProblem as JaxProblem
+from collocfem_tpu.solve import SolverOptions as JaxSolverOptions
+from collocfem_tpu.solve.newton import make_gn_solver as jax_make_gn_solver
+from collocfem_tpu_torch.convert import data_from_numpy, decision_from_numpy
+from collocfem_tpu_torch.models import VanDerPol
+from collocfem_tpu_torch.ops.mesh import uniform_mesh
+from collocfem_tpu_torch.problem import EstimationProblem
+from collocfem_tpu_torch.solve.lm_core import lm_loop
+from collocfem_tpu_torch.solve.newton import SolverOptions, make_gn_solver
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MU_TRUE, B_TRUE = 1.0, 0.7
+
+
+def _vdp_data(seed=0, sigma=0.01):
+    """The N = 40 VdP of tests/test_gauss_newton.py, with seeded noise."""
+    tf = 10.0
+    u_fn = lambda t: 0.5 * np.sin(1.1 * t)
+    sol = solve_ivp(
+        lambda t, x: [x[1], MU_TRUE * (1 - x[0] ** 2) * x[1] - x[0]
+                      + B_TRUE * u_fn(t)],
+        (0.0, tf), (2.0, 0.0), rtol=1e-11, atol=1e-12, dense_output=True)
+    t_meas = np.linspace(0.025, tf - 0.025, 200)
+    y = sol.sol(t_meas)[0][:, None]
+    y = y + sigma * np.random.default_rng(seed).standard_normal(y.shape)
+    return tf, t_meas, y, u_fn
+
+
+def test_gn_solver_matches_jax():
+    """15 fixed-work LM iterations in float64: identical accept column,
+    history cost within rtol 1e-8, final V and p within rtol 1e-7."""
+    tf, t_meas, y, u_fn = _vdp_data()
+    jprob = JaxProblem.build(JaxVanDerPol(), jax_uniform_mesh(0.0, tf, 40, 4),
+                             t_meas, defect_weight=30.0)
+    tprob = EstimationProblem.build(VanDerPol(), uniform_mesh(0.0, tf, 40, 4),
+                                    t_meas, defect_weight=30.0, device="cpu",
+                                    dtype=torch.float64)
+    jdata = jprob.pack_data(y, t_meas,
+                            u_nodes=u_fn(jprob.mesh.elem_times)[..., None],
+                            meas_weight=1.0, p_prior=[1.0, 1.0], p_weight=1e-3)
+    jz0 = jprob.initial_guess_from_data(t_meas, y, p0=[2.0, 0.3])
+    # Both packages start from the same iterate and data.
+    tdata = data_from_numpy(*map(np.asarray, jdata), device="cpu",
+                            dtype=torch.float64)
+    tz0 = decision_from_numpy(jz0.V, jz0.p, "cpu", torch.float64)
+
+    fixed = dict(maxiter=15, gtol=0.0, ftol=0.0, xtol=0.0)
+    jz, jst = jax_make_gn_solver(jprob, JaxSolverOptions(**fixed))(jz0, jdata)
+    tz, tst = make_gn_solver(tprob, SolverOptions(**fixed))(tz0, tdata)
+
+    jhist, thist = np.asarray(jst.history), tst.history.numpy()
+    np.testing.assert_array_equal(thist[:, 4], jhist[:, 4])
+    assert int(tst.iterations) == int(jst.iterations) == 15
+    np.testing.assert_allclose(thist[:, 0], jhist[:, 0], rtol=1e-8)
+    np.testing.assert_allclose(tz.V.numpy(), np.asarray(jz.V), rtol=1e-7,
+                               atol=1e-7 * float(jnp.abs(jz.V).max()))
+    np.testing.assert_allclose(tz.p.numpy(), np.asarray(jz.p), rtol=1e-7)
+    assert tst.cost.dtype == torch.float64
+
+
+def test_port_never_imports_jax():
+    """A fresh interpreter builds a small headline problem and runs one LM
+    iteration of the port with JAX nowhere in sys.modules."""
+    code = (
+        "import sys\n"
+        "import collocfem_tpu_torch as ct\n"
+        "from collocfem_tpu_torch.headline import build_headline_problem\n"
+        "from collocfem_tpu_torch.models import VanDerPol\n"
+        "from collocfem_tpu_torch.solve.newton import SolverOptions, "
+        "make_gn_solver\n"
+        "import torch\n"
+        "mesh, t, y, u = build_headline_problem(100)\n"
+        "prob = ct.EstimationProblem.build(VanDerPol(), mesh, t, "
+        "defect_weight=100.0, device='cpu', dtype=torch.float32)\n"
+        "data = prob.pack_data(y, t, u_nodes=u)\n"
+        "z0 = prob.initial_guess_from_data(t, y, p0=[0.5, 0.5])\n"
+        "z, st = make_gn_solver(prob, SolverOptions(maxiter=1, gtol=0.0))"
+        "(z0, data)\n"
+        "assert int(st.iterations) == 1 and bool(torch.isfinite(z.p).all())\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'collocfem_tpu', 'baseline_cpu')]\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+@pytest.mark.parametrize("change", [dict(hessian="newton"),
+                                    dict(state_dw=True),
+                                    dict(kkt_refine=1)])
+def test_unported_solver_paths_raise(change):
+    tprob = EstimationProblem.build(VanDerPol(), uniform_mesh(0.0, 1.0, 4, 4),
+                                    np.linspace(0.1, 0.9, 5), device="cpu",
+                                    dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_gn_solver(tprob, SolverOptions(**change))
+
+
+def test_decrease_accept_mode_raises():
+    zero = torch.zeros((), dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        lm_loop((), (), zero, None, maxiter=1, lam0=1.0, dtype=torch.float64,
+                accept_mode="decrease")
