@@ -1,15 +1,18 @@
 """collocfem_tpu_torch — the PyTorch/CUDA port of ``collocfem_tpu``.
 
 LGL-collocation parameter estimation for ODE models, on one NVIDIA H100.
-Plain tensor code is PyTorch; the damped KKT solve of every
-Levenberg-Marquardt iteration is a hand-written CUDA kernel
-(``csrc/kkt_spike.cu``), built at first use.  Module names mirror
-``collocfem_tpu``'s so each counterpart is easy to find.  The package never
-imports JAX.
+Plain tensor code is PyTorch; every chain solve of a Levenberg-Marquardt
+iteration is a hand-written CUDA kernel (``csrc/``), built at first use.
+Module names mirror ``collocfem_tpu``'s so each counterpart is easy to find.
+The package never imports JAX.
 
-Main path:
-  ``EstimationProblem.build`` -> ``pack_data`` -> ``initial_guess_from_data``
-  -> ``solve.newton.make_gn_solver(problem, options)(z0, data)``.
+Main paths:
+  * one experiment: ``EstimationProblem.build`` -> ``pack_data`` ->
+    ``initial_guess_from_data`` ->
+    ``solve.newton.make_gn_solver(problem, options)(z0, data)``;
+  * a batch sharing p (config 5): ``batched.build_config5_problem`` ->
+    ``parallel.batch.make_multi_experiment_solver(problem, options,
+    layout=...)(z0, data_batch, p_prior, p_w)``.
 
 Importing the package turns TF32 off for float32 matmuls
 (:mod:`collocfem_tpu_torch.precision`).

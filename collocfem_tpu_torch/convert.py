@@ -2,8 +2,8 @@
 
 The estimation problem has no learned weights: what crosses between the two
 packages is the decision vector and the data.  Each function takes the JAX
-package's fields as numpy arrays (``np.asarray`` of each ``Decision`` or
-``ProblemData`` field) and returns the port's tensors.
+package's fields as numpy arrays (``np.asarray`` of each ``Decision``,
+``BatchDecision`` or ``ProblemData`` field) and returns the port's tensors.
 """
 
 from __future__ import annotations
@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from collocfem_tpu_torch.parallel.batch import BatchDecision
 from collocfem_tpu_torch.problem import Decision, ProblemData
 
 
@@ -25,9 +26,15 @@ def decision_from_numpy(V, p, device, dtype) -> Decision:
 
 def data_from_numpy(y, u, meas_w, p_prior, p_w, x0_prior, x0_w, device,
                     dtype) -> ProblemData:
-    """ProblemData from the JAX package's fields, in field order."""
-    if np.ndim(x0_w) == 2:
+    """ProblemData from the JAX package's fields, in field order, for one
+    experiment or stacked over a leading experiment axis."""
+    if np.ndim(x0_w) > np.ndim(x0_prior):
         raise NotImplementedError(
             "a full sqrt-information x0 prior is not ported yet")
     return ProblemData(*(_tensor(x, device, dtype) for x in
                          (y, u, meas_w, p_prior, p_w, x0_prior, x0_w)))
+
+
+def batch_decision_from_numpy(V, p, device, dtype) -> BatchDecision:
+    """BatchDecision(V (E, M, nv), p (nq,)) on ``device`` in ``dtype``."""
+    return BatchDecision(V=_tensor(V, device, dtype), p=_tensor(p, device, dtype))

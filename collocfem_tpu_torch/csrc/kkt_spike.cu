@@ -1,26 +1,33 @@
-// Fused damped-KKT SPIKE solve for NVIDIA Hopper (sm_90a), plain C interface.
+// SPIKE solves of an SPD block-tridiagonal chain for NVIDIA Hopper (sm_90a),
+// plain C interface.  Two entry points share one device core
+// (kkt_spike_kernels.cuh):
 //
-// Replaces the Pallas TPU kernel collocfem_tpu/ops/spike_pallas.py
-// kkt_solve_spike_fused (body _kkt_spike_kernel): equilibration at load,
-// SPIKE over tiles of the block-tridiagonal chain, the interface chain, the
-// arrowhead Schur complement, compose and unscale.
+//   kkt_spike_*    replaces the Pallas TPU kernel
+//                  collocfem_tpu/ops/spike_pallas.py kkt_solve_spike_fused
+//                  (body _kkt_spike_kernel): equilibration at load, SPIKE
+//                  over tiles of the chain, the interface chain, the
+//                  arrowhead Schur complement, compose and unscale.
+//   spike_chain_*  replaces blocktri_solve_spike_fused (body _spike_kernel)
+//                  in the same file: the same SPIKE solve of A X = G with
+//                  raw loads and no Schur step.
 //
-// What bounds it on the card: at the headline shape (K = 10,001 blocks of
-// b = 8, nq = 2) the whole solve reads and writes about 10 MB, a few
-// microseconds at 3.35 TB/s, and does about 50 MFLOP.  The time is latency:
+// What bounds them on the card: at the headline shape (K = 10,001 blocks of
+// b = 8, nq = 2) the whole KKT solve reads and writes about 10 MB, a few
+// microseconds at 3.35 TB/s, and does about 50 MFLOP; the batched chain of
+// config 5 (K = 11,264, r = 3) is the same size.  The time is latency:
 // each tile is a sequential chain of dependent 8x8 block factorisations, the
-// interface chain is sequential, and the solve takes five launches.  The
-// design keeps the sequential depth to about 3 L + 2 T block steps by cutting
-// the chain into T ~ 2 sqrt(K) tiles of L blocks (one thread each; the
-// wrapper picks the split from the measured cost of the two phases), and it
-// launches everything on the caller's stream with no host synchronisation.
-// It is a correct first version: one thread per tile leaves most of the card
-// idle, the per-thread block state spills registers (at float64 in
-// particular), and the interface chain runs on one thread.  Warp-per-tile
-// algebra, a parallel interface reduction and a single cooperative launch
-// are the ways to make it fast.
+// interface chain is sequential, and a solve takes three or five launches.
+// The design keeps the sequential depth to about 3 L + 2 T block steps by
+// cutting the chain into T ~ 2 sqrt(K) tiles of L blocks (one thread each;
+// the wrapper picks the split from the measured cost of the two phases), and
+// it launches everything on the caller's stream with no host
+// synchronisation.  It is a correct first version: one thread per tile
+// leaves most of the card idle, the per-thread block state spills registers
+// (at float64 in particular), and the interface chain runs on one thread.
+// Warp-per-tile algebra, a parallel interface reduction and a single
+// cooperative launch are the ways to make it fast.
 //
-// The device code is in kkt_spike_kernels.cuh.  Build:
+// Build:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -o libkkt_spike.so kkt_spike.cu
 // (collocfem_tpu_torch/ops/_build.py does this at first use).
@@ -29,47 +36,73 @@
 
 #include "kkt_spike_kernels.cuh"
 
-// The (block size, nq) shapes the library is compiled for.  The headline Van
-// der Pol estimation (nx = 2, degree 4, two parameters) is b = 8, nq = 2.
-#define KKT_SHAPES(X) X(8, 2)
+// The shapes the library is compiled for.  The headline Van der Pol
+// estimation (nx = 2, degree 4, two parameters) is b = 8, nq = 2; its chain
+// solves (config 5's concatenated chain, KKT refinement, nq = 0) take
+// r = 1 + nq = 3 or a single right-hand side.
+#define KKT_SHAPES(X) X(8, 2)             /* (b, nq) of the fused KKT solve */
+#define CHAIN_SHAPES(X) X(8, 1) X(8, 3)   /* (b, r) of the plain chain solve */
 
 namespace {
 
 constexpr int kTileThreads = 64;
 constexpr int kComposeThreads = 256;
 
-template <typename F, int B, int NQ>
-int run(const F* D, const F* E, const F* G, const F* inv, const F* cg, F* dx,
-        F* t, F* scratch, long long K, int T, int L, cudaStream_t stream) {
-  kkt::Args<F> a = kkt::carve<F, B, NQ>(D, E, G, inv, cg, dx, t, scratch, K,
-                                        T, L);
-  const int tile_blocks = (T + kTileThreads - 1) / kTileThreads;
+template <typename F, int B, int R, bool KKT>
+int run(const kkt::Args<F>& a, cudaStream_t stream) {
+  const int tile_blocks = (a.T + kTileThreads - 1) / kTileThreads;
   cudaError_t err;
-  kkt::tile_sweep<F, B, NQ><<<tile_blocks, kTileThreads, 0, stream>>>(a);
+  kkt::tile_sweep<F, B, R, KKT><<<tile_blocks, kTileThreads, 0, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  kkt::interface_solve<F, B, NQ><<<1, 1, 0, stream>>>(a);
+  kkt::interface_solve<F, B, R><<<1, 1, 0, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  kkt::back_substitute<F, B, NQ><<<tile_blocks, kTileThreads, 0, stream>>>(a);
+  kkt::back_substitute<F, B, R, KKT><<<tile_blocks, kTileThreads, 0,
+                                       stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  kkt::schur_solve<F, B, NQ><<<1, 1, 0, stream>>>(a);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const long long compose_blocks = (K + kComposeThreads - 1) / kComposeThreads;
-  kkt::compose<F, B, NQ><<<(unsigned)compose_blocks, kComposeThreads, 0,
-                           stream>>>(a);
-  return cudaGetLastError();
+  if constexpr (KKT) {
+    kkt::schur_solve<F, B, R - 1><<<1, 1, 0, stream>>>(a);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    const long long compose_blocks =
+        (a.K + kComposeThreads - 1) / kComposeThreads;
+    kkt::compose<F, B, R - 1><<<(unsigned)compose_blocks, kComposeThreads, 0,
+                                stream>>>(a);
+    return cudaGetLastError();
+  }
+  return cudaSuccess;
+}
+
+bool bad_plan(long long K, int T, int L) {
+  return K < 1 || T < 1 || L < 3 || (long long)T * L < K;
 }
 
 template <typename F>
-int dispatch(const F* D, const F* E, const F* G, const F* inv, const F* cg,
-             F* dx, F* t, F* scratch, int b, int nq, long long K, int T, int L,
-             void* stream) {
-  if (T < 1 || L < 3 || (long long)T * L < K) return cudaErrorInvalidValue;
+int dispatch_kkt(const F* D, const F* E, const F* G, const F* inv,
+                 const F* cg, F* dx, F* t, F* scratch, int b, int nq,
+                 long long K, int T, int L, void* stream) {
+  if (bad_plan(K, T, L)) return cudaErrorInvalidValue;
 #define KKT_RUN(Bv, NQv)                                                  \
   if (b == Bv && nq == NQv)                                               \
-    return run<F, Bv, NQv>(D, E, G, inv, cg, dx, t, scratch, K, T, L,     \
-                           static_cast<cudaStream_t>(stream));
+    return run<F, Bv, NQv + 1, true>(                                     \
+        kkt::carve<F, Bv, NQv + 1>(D, E, G, inv, cg, dx, t, nullptr,      \
+                                   scratch, K, T, L),                     \
+        static_cast<cudaStream_t>(stream));
   KKT_SHAPES(KKT_RUN)
 #undef KKT_RUN
+  return cudaErrorInvalidValue;
+}
+
+template <typename F>
+int dispatch_chain(const F* D, const F* E, const F* G, F* X, F* scratch,
+                   int b, int r, long long K, int T, int L, void* stream) {
+  if (bad_plan(K, T, L)) return cudaErrorInvalidValue;
+#define CHAIN_RUN(Bv, Rv)                                                 \
+  if (b == Bv && r == Rv)                                                 \
+    return run<F, Bv, Rv, false>(                                         \
+        kkt::carve<F, Bv, Rv>(D, E, G, nullptr, nullptr, nullptr, nullptr, \
+                              X, scratch, K, T, L),                       \
+        static_cast<cudaStream_t>(stream));
+  CHAIN_SHAPES(CHAIN_RUN)
+#undef CHAIN_RUN
   return cudaErrorInvalidValue;
 }
 
@@ -86,7 +119,7 @@ int kkt_spike_supported(int b, int nq) {
 
 long long kkt_spike_scratch_elems(int b, int nq, int T, int L) {
 #define KKT_SIZE(Bv, NQv) \
-  if (b == Bv && nq == NQv) return kkt::scratch_elems<Bv, NQv>(T, L);
+  if (b == Bv && nq == NQv) return kkt::scratch_elems<Bv, NQv + 1>(T, L);
   KKT_SHAPES(KKT_SIZE)
 #undef KKT_SIZE
   return -1;
@@ -97,16 +130,44 @@ int kkt_spike_f32(const float* D, const float* E, const float* G,
                   const float* inv, const float* cg, float* dx, float* t,
                   float* scratch, int b, int nq, long long K, int T, int L,
                   void* stream) {
-  return dispatch<float>(D, E, G, inv, cg, dx, t, scratch, b, nq, K, T, L,
-                         stream);
+  return dispatch_kkt<float>(D, E, G, inv, cg, dx, t, scratch, b, nq, K, T,
+                             L, stream);
 }
 
 int kkt_spike_f64(const double* D, const double* E, const double* G,
                   const double* inv, const double* cg, double* dx, double* t,
                   double* scratch, int b, int nq, long long K, int T, int L,
                   void* stream) {
-  return dispatch<double>(D, E, G, inv, cg, dx, t, scratch, b, nq, K, T, L,
-                          stream);
+  return dispatch_kkt<double>(D, E, G, inv, cg, dx, t, scratch, b, nq, K, T,
+                              L, stream);
+}
+
+int spike_chain_supported(int b, int r) {
+#define CHAIN_MATCH(Bv, Rv) if (b == Bv && r == Rv) return 1;
+  CHAIN_SHAPES(CHAIN_MATCH)
+#undef CHAIN_MATCH
+  return 0;
+}
+
+long long spike_chain_scratch_elems(int b, int r, int T, int L) {
+#define CHAIN_SIZE(Bv, Rv) \
+  if (b == Bv && r == Rv) return kkt::scratch_elems<Bv, Rv>(T, L);
+  CHAIN_SHAPES(CHAIN_SIZE)
+#undef CHAIN_SIZE
+  return -1;
+}
+
+// X (b, r, K) with A X = G; returns 0 or the first failed launch's error.
+int spike_chain_f32(const float* D, const float* E, const float* G, float* X,
+                    float* scratch, int b, int r, long long K, int T, int L,
+                    void* stream) {
+  return dispatch_chain<float>(D, E, G, X, scratch, b, r, K, T, L, stream);
+}
+
+int spike_chain_f64(const double* D, const double* E, const double* G,
+                    double* X, double* scratch, int b, int r, long long K,
+                    int T, int L, void* stream) {
+  return dispatch_chain<double>(D, E, G, X, scratch, b, r, K, T, L, stream);
 }
 
 const char* kkt_spike_error_string(int code) {

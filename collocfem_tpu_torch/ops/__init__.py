@@ -1,2 +1,3 @@
 """Core numerical ops: basis and mesh tables, per-element residuals, the
-Gauss-Newton assembly, small-block algebra and the fused KKT kernel."""
+Gauss-Newton assemblies, small-block algebra and the CUDA kernels'
+wrappers with their plain versions."""

@@ -1,22 +1,26 @@
 """Build the package's CUDA sources at first use and load them with ctypes.
 
-Each library is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
-object with a plain C interface, in ``collocfem_tpu_torch/build/``, under a
-name keyed on a hash of every file in ``csrc/`` and the compiler flags.  A
-later process with the same sources loads the existing file.
+Each library ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into a shared object with a plain C interface, in
+``collocfem_tpu_torch/build/``, under a name keyed on a hash of every file in
+``csrc/`` and the compiler flags.  A later process with the same sources
+loads the existing file.  :func:`load_all` runs one ``nvcc`` per library, all
+started together.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -53,25 +57,75 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-@functools.cache
+def _paths(name: str) -> tuple[Path, Path]:
+    so = BUILD_DIR / f"{name}-{_digest()}.so"
+    return so, so.with_suffix(".log")
+
+
+def _compile_one(name: str) -> float:
+    """Run nvcc on ``csrc/<name>.cu``; returns its wall in seconds."""
+    so, log = _paths(name)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        capture_output=True, text=True, check=False)
+    seconds = time.perf_counter() - t0
+    log.write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr[-4000:]}")
+    os.replace(tmp, so)
+    return seconds
+
+
+def _compile(names) -> dict[str, float]:
+    """Compile the libraries whose shared object is missing, one nvcc each,
+    all at once; returns each one's build wall in seconds."""
+    todo = [n for n in names if not _paths(n)[0].exists()]
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with ThreadPoolExecutor(len(todo)) as pool:
+        return dict(zip(todo, pool.map(_compile_one, todo)))
+
+
+_LOADED: dict[str, Built] = {}
+
+
+def load_all(names) -> dict[str, Built]:
+    """Compile the missing libraries concurrently and load every one."""
+    seconds = _compile([n for n in names if n not in _LOADED])
+    for name in names:
+        if name not in _LOADED:
+            so, log = _paths(name)
+            _LOADED[name] = Built(
+                lib=ctypes.CDLL(str(so)), path=so,
+                seconds=seconds.get(name, 0.0),
+                log=log.read_text() if log.exists() else "")
+    return {name: _LOADED[name] for name in names}
+
+
 def load(name: str) -> Built:
     """Compile ``csrc/<name>.cu`` if needed and load it."""
-    so = BUILD_DIR / f"{name}-{_digest()}.so"
-    log = so.with_suffix(".log")
-    seconds = 0.0
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-            capture_output=True, text=True, check=False,
-        )
-        seconds = time.perf_counter() - t0
-        log.write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on {name}.cu:\n{proc.stderr[-4000:]}")
-        os.replace(tmp, so)
-    return Built(lib=ctypes.CDLL(str(so)), path=so, seconds=seconds,
-                 log=log.read_text() if log.exists() else "")
+    return load_all([name])[name]
+
+
+def check_operands(operands, contiguous=None) -> None:
+    """Raise ValueError unless every (name, tensor, shape) in ``operands``
+    has that shape and the first tensor's device and dtype (float32 or
+    float64), and every tensor named in ``contiguous`` (default: all) is
+    contiguous: what a kernel reading raw pointers needs."""
+    ref = operands[0][1]
+    for name, x, want in operands:
+        if tuple(x.shape) != tuple(want):
+            raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
+                             f"{tuple(want)}")
+        if x.device != ref.device or x.dtype != ref.dtype:
+            raise ValueError(f"{name} is {x.dtype} on {x.device}; expected "
+                             f"{ref.dtype} on {ref.device}")
+        if (contiguous is None or name in contiguous) and \
+                not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if ref.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"the kernels take float32 or float64, not "
+                         f"{ref.dtype}")

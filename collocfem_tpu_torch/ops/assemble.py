@@ -1,11 +1,24 @@
 """Gauss-Newton assembly: per-element jacfwd -> block-tridiagonal + arrowhead.
 
-Counterpart of the structure-of-arrays path of ``collocfem_tpu/ops/assemble.py``.
-Nodes are padded to K*d (K = N+1 blocks of d nodes); element e touches block e
-plus the first node of block e+1, so the state Hessian is block tridiagonal
-with uniform (d*nv, d*nv) blocks.  The parameter "arrowhead" is a separate
-(bd, nq, K) strip + (nq, nq) corner, eliminated by a Schur complement in the
-solver.  Every chain array keeps the chain index K on its LAST axis.
+Counterpart of ``collocfem_tpu/ops/assemble.py``.  Nodes are padded to K*d
+(K = N+1 blocks of d nodes); element e touches block e plus the first node of
+block e+1, so the state Hessian is block tridiagonal with uniform
+(d*nv, d*nv) blocks.  The parameter "arrowhead" is a separate strip + (nq, nq)
+corner, eliminated by a Schur complement in the solver.
+
+Two layouts:
+  * structure of arrays (:class:`BlockTriSystemSoA`, the hot path): the
+    chain index K on the LAST axis; :func:`assemble_gn_soa` for one
+    experiment, :func:`assemble_gn_soa_batched` for a batch laid side by
+    side as one concatenated chain;
+  * block-major (:class:`BlockTriSystem`): (..., K, b, b) with optional
+    leading experiment axes; :func:`assemble_gn` and
+    :func:`assemble_gn_batched` (config 5's ``layout="blocks"``).
+
+The batched assemblies carry an explicit experiment axis: ``torch.func.vmap``
+maps only the per-element ``jacfwd`` (the scatters below write in place into
+fresh tensors, which ``vmap`` cannot run).  Every cost is float64, read off
+the assembly's own residuals, in place of the JAX package's double-word cost.
 """
 
 from __future__ import annotations
@@ -126,3 +139,214 @@ def blocks_to_nodes_soa(dx, num_nodes: int, nv: int):
     """(bd, K) SoA solution -> (M, nv) node values."""
     bd, k = dx.shape
     return dx.T.reshape(k * (bd // nv), nv)[:num_nodes]
+
+
+# ---- batched experiments and the block-major layout --------------------------
+
+
+class BlockTriSystem(NamedTuple):
+    """Damped-GN normal equations [[A, B], [B^T, C]] [dx, dp] = -[gx, gp] in
+    block-major layout, with optional leading experiment axes (...).
+
+    ``D`` (..., K, bd, bd) diagonal blocks, ``E`` (..., K, bd, bd) coupling
+    with A[k, k+1] = E[k] (E[K-1] = 0), ``B`` (..., K, bd, nq) parameter
+    strip, ``C`` (..., nq, nq) corner, ``gx`` (..., K, bd), ``gp`` (..., nq).
+    """
+
+    D: torch.Tensor
+    E: torch.Tensor
+    B: torch.Tensor
+    C: torch.Tensor
+    gx: torch.Tensor
+    gp: torch.Tensor
+
+    @property
+    def num_blocks(self) -> int:
+        return self.D.shape[-3]
+
+    @property
+    def block_size(self) -> int:
+        return self.D.shape[-1]
+
+
+def scatter_gn_blocks(hxx, hxp, hpp, gxe, gpe, *, num_blocks, overlap, dtype):
+    """Scatter per-element dense GN blocks into the block-tri + arrowhead form.
+
+    Element ``e`` owns block ``e`` (its first ``bd = s - overlap`` local
+    variables) and the leading ``overlap`` variables of block ``e+1``.
+
+    Args (optional leading experiment axes ``...`` on every argument):
+      hxx (..., N, s, s) per-element J^T J; hxp (..., N, s, nq);
+      hpp (..., nq, nq) summed parameter block; gxe (..., N, s);
+      gpe (..., nq) summed parameter gradient.
+    Returns a :class:`BlockTriSystem` with no priors (the caller adds them).
+    """
+    *lead, n, s, _ = hxx.shape
+    k, bd, nq = num_blocks, s - overlap, hxp.shape[-1]
+    zeros = lambda *shape: torch.zeros((*lead, *shape), dtype=dtype,
+                                       device=hxx.device)
+    D = zeros(k, bd, bd)
+    D[..., :n, :, :] += hxx[..., :bd, :bd]
+    D[..., 1:n + 1, :overlap, :overlap] += hxx[..., bd:, bd:]
+    E = zeros(k, bd, bd)
+    E[..., :n, :, :overlap] += hxx[..., :bd, bd:]
+    B = zeros(k, bd, nq)
+    B[..., :n, :, :] += hxp[..., :bd, :]
+    B[..., 1:n + 1, :overlap, :] += hxp[..., bd:, :]
+    gx = zeros(k, bd)
+    gx[..., :n, :] += gxe[..., :bd]
+    gx[..., 1:n + 1, :overlap] += gxe[..., bd:]
+    # Identity on the trailing pad entries of the last block keeps the
+    # padded system SPD; their solution and gradient are exactly 0.
+    last = torch.diagonal(D[..., k - 1, :, :], dim1=-2, dim2=-1)
+    last[..., overlap:] += 1.0
+    return BlockTriSystem(D=D, E=E, B=B, C=hpp, gx=gx, gp=gpe)
+
+
+def _batched_jacobians(problem, Vb, p, data_batch):
+    """Residuals and Jacobians of every element of every experiment:
+    r (E, N, m), jx (E, N, m, s), jp (E, N, m, nq).  ``vmap`` over the
+    elements of ``jacfwd``, then over experiments with the shared tables
+    unbatched."""
+    if data_batch.x0_w.ndim == 3:
+        raise NotImplementedError(
+            "a full sqrt-information x0 prior is not ported yet "
+            "(ROADMAP queue A, the MHE port)")
+    ed, dims = problem.elem_data_batched(data_batch)
+
+    def res_aux(xe_flat, p_, edata):
+        r = problem.elem_residual(xe_flat, p_, edata)
+        return r, r
+
+    def per_elem(xe_flat, edata):
+        (jx, jp), r = jacfwd(res_aux, argnums=(0, 1), has_aux=True)(
+            xe_flat, p, edata)
+        return r, jx, jp
+
+    return vmap(vmap(per_elem), in_dims=(0, dims))(
+        problem.gather_elements(Vb), ed)
+
+
+def cost64_from_residuals(problem, r, Vb, p, data_batch):
+    """float64 0.5 * ||r||^2 over the element residuals ``r`` (E, N, m) and
+    every experiment's own priors (a shared prior is the caller's)."""
+    r64 = torch.cat([
+        r.reshape(-1),
+        problem.prior_residuals_batched(Vb, p, data_batch).reshape(-1),
+    ]).double()
+    return 0.5 * torch.sum(r64 * r64)
+
+
+def assemble_gn_batched(problem, Vb, p, data_batch, with_cost: bool = False):
+    """Block-major Gauss-Newton systems of a batch of experiments sharing p.
+
+    Counterpart of ``vmap(assemble_gn)`` over experiments in the JAX
+    package's ``parallel.batch.shared_gn_step``.  ``Vb`` (E, M, nv),
+    ``data_batch`` a :class:`ProblemData` with a leading experiment axis.
+    Returns a :class:`BlockTriSystem` with a leading experiment axis on every
+    field (C (E, nq, nq) and gp (E, nq) per experiment, each with its own
+    p prior) and, with ``with_cost``, the float64 cost summed over the
+    batch.
+    """
+    mesh, model = problem.mesh, problem.model
+    nv, nx = problem.nv, model.nx
+    r, jx, jp = _batched_jacobians(problem, Vb, p, data_batch)
+    sys = scatter_gn_blocks(
+        torch.einsum("xemi,xemj->xeij", jx, jx),
+        torch.einsum("xemi,xemq->xeiq", jx, jp),
+        torch.einsum("xemq,xemr->xqr", jp, jp),
+        torch.einsum("xemi,xem->xei", jx, r),
+        torch.einsum("xemq,xem->xq", jp, r),
+        num_blocks=mesh.num_blocks, overlap=nv, dtype=Vb.dtype)
+    pw2 = data_batch.p_w**2                                   # (E, nq)
+    x0w2 = data_batch.x0_w**2                                 # (E, nx)
+    D, gx = sys.D, sys.gx
+    torch.diagonal(D[:, 0], dim1=-2, dim2=-1)[:, :nx] += x0w2
+    gx[:, 0, :nx] += x0w2 * (Vb[:, 0, :nx] - data_batch.x0_prior)
+    out = BlockTriSystem(
+        D=D, E=sys.E, B=sys.B, C=sys.C + torch.diag_embed(pw2), gx=gx,
+        gp=sys.gp + pw2 * (p - data_batch.p_prior))
+    if with_cost:
+        return out, cost64_from_residuals(problem, r, Vb, p, data_batch)
+    return out
+
+
+def _stack_one(data):
+    return type(data)(*(x[None] for x in data))
+
+
+def assemble_gn(problem, z, data, with_cost: bool = False):
+    """Block-major Gauss-Newton system of one experiment at iterate ``z``:
+    :func:`assemble_gn_batched` over a batch of one.  With ``with_cost``
+    also the float64 cost at ``z``."""
+    out = assemble_gn_batched(problem, z.V[None], z.p, _stack_one(data),
+                              with_cost)
+    if with_cost:
+        sys, cost = out
+        return type(sys)(*(x[0] for x in sys)), cost
+    return type(out)(*(x[0] for x in out))
+
+
+def assemble_gn_soa_batched(problem, Vb, p, data_batch,
+                            with_cost: bool = False):
+    """Batched-experiment SoA assembly: ONE concatenated chain for the whole
+    batch (config 5's hot path).
+
+    Chain slot ``x*K + k`` holds experiment x's block k; the coupling slot
+    at each experiment's last block stays exactly zero, so the concatenated
+    matrix is block diagonal over experiments, a valid chain for the SPIKE
+    solve.  B and C accumulate over all experiments, so the arrowhead Schur
+    complement of the concatenated system is the shared-parameter Schur sum.
+    Per-experiment p priors (``data_batch.p_w``) enter C and gp; the batch
+    solvers pass them as zero and add the shared prior once.  Every scatter
+    is a static slice of (bd, bd, E, K) intermediates.
+
+    Returns a :class:`BlockTriSystemSoA` with chain length E*K and, with
+    ``with_cost``, the float64 cost of the batch (without a shared prior).
+    """
+    mesh, model = problem.mesh, problem.model
+    n, d, nv, nq = mesh.num_elements, mesh.degree, problem.nv, model.nq
+    k, bd, nx = n + 1, d * nv, model.nx
+    n_exp = Vb.shape[0]
+    r, jx, jp = _batched_jacobians(problem, Vb, p, data_batch)
+    hxx = torch.einsum("xemi,xemj->ijxe", jx, jx)           # (s, s, E, N)
+    hxp = torch.einsum("xemi,xemq->iqxe", jx, jp)           # (s, nq, E, N)
+    gxe = torch.einsum("xemi,xem->ixe", jx, r)              # (s, E, N)
+
+    zeros = lambda *shape: torch.zeros(shape, dtype=Vb.dtype, device=Vb.device)
+    D = zeros(bd, bd, n_exp, k)
+    D[:, :, :, :n] += hxx[:bd, :bd]
+    D[:nv, :nv, :, 1:] += hxx[bd:, bd:]
+    E = zeros(bd, bd, n_exp, k)
+    E[:, :nv, :, :n] = hxx[:bd, bd:]      # slot K-1 stays 0: experiments
+    B = zeros(bd, nq, n_exp, k)           # decouple at the boundary
+    B[:, :, :, :n] += hxp[:bd]
+    B[:nv, :, :, 1:] += hxp[bd:]
+    gx = zeros(bd, n_exp, k)
+    gx[:, :, :n] += gxe[:bd]
+    gx[:nv, :, 1:] += gxe[bd:]
+
+    pw2 = data_batch.p_w**2                                 # (E, nq)
+    C = torch.einsum("xemq,xemr->qr", jp, jp) + torch.diag(pw2.sum(0))
+    gp = (torch.einsum("xemq,xem->q", jp, r)
+          + torch.sum(pw2 * (p - data_batch.p_prior), dim=0))
+    x0w2 = data_batch.x0_w**2                               # (E, nx)
+    diag_add = zeros(bd, n_exp, k)
+    diag_add[nv:, :, k - 1] = 1.0
+    diag_add[:nx, :, 0] += x0w2.T
+    gx[:nx, :, 0] += (x0w2 * (Vb[:, 0, :nx] - data_batch.x0_prior)).T
+    torch.diagonal(D, dim1=0, dim2=1)[...] += diag_add.permute(1, 2, 0)
+
+    out = BlockTriSystemSoA(
+        D=D.reshape(bd, bd, n_exp * k), E=E.reshape(bd, bd, n_exp * k),
+        B=B.reshape(bd, nq, n_exp * k), C=C, gx=gx.reshape(bd, n_exp * k),
+        gp=gp)
+    if with_cost:
+        return out, cost64_from_residuals(problem, r, Vb, p, data_batch)
+    return out
+
+
+def blocks_to_nodes(dx_blocks, num_nodes: int, nv: int):
+    """(..., K, bd) block-stacked solution -> (..., M, nv) node values."""
+    *lead, k, bd = dx_blocks.shape
+    return dx_blocks.reshape(*lead, k * (bd // nv), nv)[..., :num_nodes, :]

@@ -1,16 +1,21 @@
-"""Fused damped-KKT solve: the CUDA kernel's wrapper and its plain version.
+"""SPIKE chain solves: the CUDA kernels' wrappers and their plain versions.
 
-Counterpart of ``collocfem_tpu/ops/spike_pallas.py::kkt_solve_spike_fused``.
-:func:`kkt_solve_spike_fused` does in torch what the JAX wrapper does in XLA
-around its kernel (damping scale, Jacobi scales, the scaled Schur corner and
-the right-hand-side group [gx | B inv_sp]), launches the hand-written CUDA
-kernel ``csrc/kkt_spike.cu`` on the current stream, and forms
-dp = -t inv_sp.  On a CPU tensor it calls :func:`kkt_solve_spike_fused_ref`,
-the plain version; on a CUDA tensor it launches the kernel or raises.
+Counterpart of ``collocfem_tpu/ops/spike_pallas.py``.  Both kernels live in
+the CUDA library ``csrc/kkt_spike.cu`` and share one SPIKE core:
 
-Each function counts its calls in a plain integer attribute
-(``kkt_solve_spike_fused.launches``, ``kkt_solve_spike_fused_ref.launches``)
-so that a run can show which path it took.
+  * :func:`kkt_solve_spike_fused` (``kkt_solve_spike_fused``, kernel #1)
+    does in torch what the JAX wrapper does in XLA around its kernel
+    (damping scale, Jacobi scales, the scaled Schur corner and the
+    right-hand-side group [gx | B inv_sp]), launches the fused damped-KKT
+    solve, and forms dp = -t inv_sp.
+  * :func:`blocktri_solve_spike_fused` (``blocktri_solve_spike_fused``,
+    kernel #2) solves A X = G for the raw chain: no scaling, no Schur step.
+
+On a CPU tensor each wrapper calls its plain version
+(:func:`kkt_solve_spike_fused_ref`, :func:`blocktri_solve_spike_fused_ref`);
+on a CUDA tensor it launches the kernel or raises.  Each function counts its
+calls in a plain integer attribute (``.launches``) so that a run can show
+which path it took.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 
 from collocfem_tpu_torch.ops import _build
 from collocfem_tpu_torch.ops.assemble import BlockTriSystemSoA
+from collocfem_tpu_torch.solve.blocktri import blocktri_cr_factor_soa
 from collocfem_tpu_torch.solve.kkt import damping_scales, solve_kkt_plain
 
 
@@ -47,23 +53,29 @@ def _library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [ptr] * 8 + [i32, i32, i64, i32, i32, ptr]
         fn.restype = i32
-    lib.kkt_spike_supported.argtypes = [i32, i32]
-    lib.kkt_spike_supported.restype = i32
-    lib.kkt_spike_scratch_elems.argtypes = [i32, i32, i32, i32]
-    lib.kkt_spike_scratch_elems.restype = i64
+    for name in ("spike_chain_f32", "spike_chain_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr] * 5 + [i32, i32, i64, i32, i32, ptr]
+        fn.restype = i32
+    for name in ("kkt_spike_supported", "spike_chain_supported"):
+        getattr(lib, name).argtypes = [i32, i32]
+        getattr(lib, name).restype = i32
+    for name in ("kkt_spike_scratch_elems", "spike_chain_scratch_elems"):
+        getattr(lib, name).argtypes = [i32, i32, i32, i32]
+        getattr(lib, name).restype = i64
     lib.kkt_spike_error_string.argtypes = [i32]
     lib.kkt_spike_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def build_kernel() -> _build.Built:
-    """Build (or reuse) and load the kernel library; returns the build record."""
-    return _build.load("kkt_spike")
-
-
 def kernel_supports(block_size: int, nq: int) -> bool:
-    """Whether the CUDA library is compiled for this (block size, nq)."""
+    """Whether the fused KKT kernel is compiled for this (block size, nq)."""
     return bool(_library().kkt_spike_supported(block_size, nq))
+
+
+def chain_kernel_supports(block_size: int, nrhs: int) -> bool:
+    """Whether the plain chain kernel is compiled for this (block size, r)."""
+    return bool(_library().spike_chain_supported(block_size, nrhs))
 
 
 def kkt_solve_spike_fused_ref(D, E, B, gx, C, gp, lam, damp_scale=None):
@@ -78,24 +90,13 @@ kkt_solve_spike_fused_ref.launches = 0
 
 
 def _check(D, E, B, gx, C, gp):
-    b, b2, K = D.shape
+    b, _, K = D.shape
     nq = B.shape[1]
-    want = {"D": (b, b, K), "E": (b, b, K), "B": (b, nq, K), "gx": (b, K),
-            "C": (nq, nq), "gp": (nq,)}
-    for name, x in zip(want, (D, E, B, gx, C, gp)):
-        if tuple(x.shape) != want[name]:
-            raise ValueError(f"{name} has shape {tuple(x.shape)}, "
-                             f"expected {want[name]}")
-        if x.device != D.device or x.dtype != D.dtype:
-            raise ValueError(f"{name} is {x.dtype} on {x.device}; expected "
-                             f"{D.dtype} on {D.device}")
-    if b != b2 or nq < 1:
-        raise ValueError("D must be (b, b, K) and B must have nq >= 1 columns")
-    if D.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"the kernel takes float32 or float64, not {D.dtype}")
-    if not (D.is_contiguous() and E.is_contiguous()):
-        raise ValueError("D and E must be contiguous")
-    if not kernel_supports(b, nq):
+    _build.check_operands(
+        [("D", D, (b, b, K)), ("E", E, (b, b, K)), ("B", B, (b, nq, K)),
+         ("gx", gx, (b, K)), ("C", C, (nq, nq)), ("gp", gp, (nq,))],
+        contiguous=("D", "E"))
+    if nq < 1 or not kernel_supports(b, nq):
         raise ValueError(f"the kernel is not built for b={b}, nq={nq}")
 
 
@@ -139,3 +140,54 @@ def kkt_solve_spike_fused(D, E, B, gx, C, gp, lam, damp_scale=None):
 
 
 kkt_solve_spike_fused.launches = 0
+
+
+# ---- kernel #2: the plain SPIKE chain solve -----------------------------------
+
+
+def blocktri_solve_spike_fused_ref(Ds, Es, Gs):
+    """Plain version of the chain kernel: cyclic reduction
+    (``solve.blocktri.blocktri_cr_factor_soa``), what the JAX package's
+    ``parallel.batch.concat_chain_solver`` runs off the TPU."""
+    blocktri_solve_spike_fused_ref.launches += 1
+    return blocktri_cr_factor_soa(Ds, Es)(Gs)
+
+
+blocktri_solve_spike_fused_ref.launches = 0
+
+
+def blocktri_solve_spike_fused(Ds, Es, Gs):
+    """SPIKE solve of the SPD block-tridiagonal chain A X = G in one kernel
+    library call (three launches).
+
+    SoA inputs: Ds, Es (b, b, K) with Es[..., K-1] ignored, Gs (b, r, K).
+    Returns X (b, r, K).  Couplings that are exactly zero (experiment
+    boundaries of a concatenated chain) are ordinary blocks to the kernel.
+    """
+    if Ds.device.type == "cpu":
+        return blocktri_solve_spike_fused_ref(Ds, Es, Gs)
+    if Ds.device.type != "cuda":
+        raise ValueError(f"no kernel for tensors on {Ds.device}")
+    b, _, K = Ds.shape
+    r = Gs.shape[1]
+    _build.check_operands([("Ds", Ds, (b, b, K)), ("Es", Es, (b, b, K)),
+                           ("Gs", Gs, (b, r, K))])
+    if not chain_kernel_supports(b, r):
+        raise ValueError(f"the chain kernel is not built for b={b}, r={r}")
+    T, L = _plan(K)
+    lib = _library()
+    scratch = Ds.new_empty(lib.spike_chain_scratch_elems(b, r, T, L))
+    X = Ds.new_empty((b, r, K))
+    fn = lib.spike_chain_f32 if Ds.dtype == torch.float32 else \
+        lib.spike_chain_f64
+    with torch.cuda.device(Ds.device):
+        rc = fn(*(x.data_ptr() for x in (Ds, Es, Gs, X, scratch)), b, r, K,
+                T, L, torch.cuda.current_stream(Ds.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("spike_chain launch failed: "
+                           + lib.kkt_spike_error_string(rc).decode())
+    blocktri_solve_spike_fused.launches += 1
+    return X
+
+
+blocktri_solve_spike_fused.launches = 0

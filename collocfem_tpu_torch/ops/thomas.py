@@ -1,0 +1,97 @@
+"""Batched block-Thomas solve: the CUDA kernel's wrapper and its plain version.
+
+Counterpart of ``collocfem_tpu/ops/blocktri_pallas.py::batched_thomas_solve``:
+many independent short SPD block-tridiagonal chains (config 5's block-major
+layout: 1024 experiments of K = 11 blocks), each solved by a pivot-free
+block-Cholesky forward sweep and back-substitution.
+
+:func:`batched_thomas_solve` launches the hand-written CUDA kernel
+``csrc/thomas.cu`` on a CUDA tensor (or raises) and calls
+:func:`batched_thomas_solve_ref`, the plain version, on a CPU tensor.  Each
+counts its calls in a plain integer attribute (``.launches``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from collocfem_tpu_torch.ops import _build
+from collocfem_tpu_torch.ops import smallblocks as sb
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = _build.load("thomas").lib
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for name in ("thomas_f32", "thomas_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr] * 5 + [i32, i32, i64, i32, ptr]
+        fn.restype = i32
+    lib.thomas_supported.argtypes = [i32, i32]
+    lib.thomas_supported.restype = i32
+    lib.thomas_error_string.argtypes = [i32]
+    lib.thomas_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def kernel_supports(block_size: int, nrhs: int) -> bool:
+    """Whether the CUDA library is compiled for this (block size, r)."""
+    return bool(_library().thomas_supported(block_size, nrhs))
+
+
+def batched_thomas_solve_ref(D, E, G):
+    """Plain version: the algorithm of the TPU kernel's ``_thomas_kernel``,
+    a loop over the chain with batched block ops over the experiments."""
+    batched_thomas_solve_ref.launches += 1
+    k = D.shape[1]
+    ls, ys = [sb.chol(D[:, 0])], [G[:, 0]]
+    for i in range(1, k):
+        e_prev = E[:, i - 1]
+        w = sb.chol_solve(ls[-1], e_prev)                    # S^-1 E
+        ls.append(sb.chol(D[:, i] - e_prev.mT @ w))          # D - E^T S^-1 E
+        ys.append(G[:, i] - w.mT @ ys[-1])
+    xs = [sb.chol_solve(ls[-1], ys[-1])]
+    for i in range(k - 2, -1, -1):
+        xs.append(sb.chol_solve(ls[i], ys[i] - E[:, i] @ xs[-1]))
+    return torch.stack(xs[::-1], dim=1)
+
+
+batched_thomas_solve_ref.launches = 0
+
+
+def batched_thomas_solve(D, E, G):
+    """Solve a batch of SPD block-tridiagonal systems.
+
+    D, E (n_exp, K, b, b) with E[:, K-1] ignored, G (n_exp, K, b, r).
+    Returns X (n_exp, K, b, r) with A_e X_e = G_e for every experiment e.
+    """
+    if D.device.type == "cpu":
+        return batched_thomas_solve_ref(D, E, G)
+    if D.device.type != "cuda":
+        raise ValueError(f"no kernel for tensors on {D.device}")
+    n_exp, k, b, _ = D.shape
+    r = G.shape[-1]
+    _build.check_operands([("D", D, (n_exp, k, b, b)),
+                           ("E", E, (n_exp, k, b, b)),
+                           ("G", G, (n_exp, k, b, r))])
+    if n_exp < 1 or k < 1 or not kernel_supports(b, r):
+        raise ValueError(f"the kernel is not built for b={b}, r={r} "
+                         f"(n_exp={n_exp}, K={k})")
+    lib = _library()
+    X = G.new_empty(G.shape)
+    lf = D.new_empty(D.shape)
+    fn = lib.thomas_f32 if D.dtype == torch.float32 else lib.thomas_f64
+    with torch.cuda.device(D.device):
+        rc = fn(*(x.data_ptr() for x in (D, E, G, X, lf)), b, r, n_exp, k,
+                torch.cuda.current_stream(D.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("thomas launch failed: "
+                           + lib.thomas_error_string(rc).decode())
+    batched_thomas_solve.launches += 1
+    return X
+
+
+batched_thomas_solve.launches = 0

@@ -1,0 +1,284 @@
+"""Multi-experiment estimation: a batch of experiments sharing parameters.
+
+Counterpart of ``collocfem_tpu/parallel/batch.py`` on one device (config 5:
+1024 Van der Pol experiments of 10 elements).  The experiments share the
+parameter vector p, which couples them only through the tiny (nq, nq)
+parameter Schur complement:
+
+  per experiment e:  A_e dx_e + B_e dp = -gx_e   (block-tridiagonal A_e)
+  shared:            S = sum_e (C_e - B_e^T A_e^-1 B_e) + prior,
+                     r = sum_e (gp_e - B_e^T A_e^-1 gx_e) + prior,
+                     dp = -S^-1 r;   dx_e = -A_e^-1 (gx_e + B_e dp).
+
+Two layouts, chosen by ``make_multi_experiment_solver(layout=...)``:
+
+  * ``"soa"`` (the default): one concatenated SoA chain of E*K blocks
+    (:func:`ops.assemble.assemble_gn_soa_batched`) solved by the SPIKE chain
+    kernel, the trial cost read off the trial assembly's residuals;
+  * ``"blocks"``: block-major per-experiment systems
+    (:func:`ops.assemble.assemble_gn_batched`) solved by the batched Thomas
+    kernel, the trial cost a separate residual pass.
+
+The accept/damping logic is the shared :func:`solve.lm_core.lm_loop`; the
+JAX package's double-word cost sums and dot products are float64 sums here.
+Sharding over a "dp" device axis is not ported (ROADMAP queue A, item 12).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from collocfem_tpu_torch.ops.assemble import (
+    assemble_gn_batched,
+    assemble_gn_soa_batched,
+    blocks_to_nodes,
+    cost64_from_residuals,
+)
+from collocfem_tpu_torch.ops.smallblocks import spd_solve
+from collocfem_tpu_torch.solve.lm_core import LMAux, lm_loop
+from collocfem_tpu_torch.solve.newton import SolverOptions, SolveStats
+
+
+class BatchDecision(NamedTuple):
+    """V: (n_exp, M, nv) per-experiment state paths; p: (nq,) shared."""
+
+    V: torch.Tensor
+    p: torch.Tensor
+
+
+def batched_chain_solver():
+    """Chain solve of the block-major layout: every experiment's chain in
+    one call of the batched Thomas kernel (:mod:`ops.thomas`) on a CUDA
+    tensor, its plain version on the CPU.  Signature ``solve(D, E, G) -> X``
+    with a leading experiment axis: (E, K, b, b), (E, K, b, r)."""
+    from collocfem_tpu_torch.ops.thomas import batched_thomas_solve
+
+    return batched_thomas_solve
+
+
+def concat_chain_solver():
+    """Chain solve of the concatenated SoA chain: the SPIKE chain kernel
+    (:func:`ops.spike.blocktri_solve_spike_fused`) on a CUDA tensor, its
+    plain version (cyclic reduction) on the CPU.  Signature
+    ``solve(D, E, G) -> X`` in the SoA (b, b, K) / (b, r, K) convention."""
+    from collocfem_tpu_torch.ops.spike import blocktri_solve_spike_fused
+
+    return blocktri_solve_spike_fused
+
+
+def batch_cost(problem, z: BatchDecision, data_batch, p_prior, p_w):
+    """float64 total cost over the batch plus the shared parameter prior.
+
+    Per-experiment ``data_batch.p_w`` must be zero: the shared prior enters
+    exactly once, here.
+    """
+    r = problem.residuals_batched(z.V, z.p, data_batch)
+    return (cost64_from_residuals(problem, r, z.V, z.p, data_batch)
+            + _prior_cost(z.p, p_prior, p_w))
+
+
+def _prior_cost(p, p_prior, p_w):
+    rp = (p_w * (p - p_prior)).double()
+    return 0.5 * torch.sum(rp * rp)
+
+
+def _dot64(a, b):
+    return torch.dot(a.reshape(-1).double(), b.reshape(-1).double())
+
+
+def _shared_schur_step(s_loc, r_loc, gp_sum, lam, p, p_prior, p_w):
+    """Add the shared prior and the damping lam * smax to the summed Schur
+    system and solve it.  Returns (dp, gp_tot, smax)."""
+    nq = s_loc.shape[0]
+    pw2 = p_w**2
+    prior_g = pw2 * (p - p_prior)
+    s_tot = s_loc + torch.diag(pw2)
+    smax = torch.clamp(torch.diagonal(s_tot).max(),
+                       min=torch.finfo(s_tot.dtype).tiny)
+    s_tot = s_tot + (lam * smax) * torch.eye(nq, dtype=s_tot.dtype,
+                                             device=s_tot.device)
+    dp = -spd_solve(s_tot, (r_loc + prior_g)[:, None])[:, 0]
+    return dp, gp_sum + prior_g, smax
+
+
+def scale_concat_chain(sys, lam, n_exp: int):
+    """Per-experiment damping and Jacobi scaling of the concatenated chain.
+
+    Damping is dimensionless per EXPERIMENT: lam times the max diagonal of
+    experiment e's blocks.  Returns the scaled chain and right-hand sides
+    (Dsc, Esc (bd, bd, Kt), rhs = [gx | B] scaled (bd, 1 + nq, Kt)), the
+    scales inv (bd, Kt) and dmax_e (n_exp,).
+    """
+    bd, _, kt = sys.D.shape
+    k = kt // n_exp
+    dtype = sys.D.dtype
+    diag = torch.diagonal(sys.D, dim1=0, dim2=1).T               # (bd, Kt)
+    dmax_e = torch.clamp(diag.reshape(bd, n_exp, k).amax(dim=(0, 2)),
+                         min=torch.finfo(dtype).tiny)            # (n_exp,)
+    lam_lane = (lam * dmax_e)[:, None].expand(n_exp, k).reshape(kt)
+    eye = torch.eye(bd, dtype=dtype, device=sys.D.device)[:, :, None]
+    inv = 1.0 / torch.sqrt(diag + lam_lane)
+    Dsc = (sys.D + lam_lane * eye) * inv[:, None, :] * inv[None, :, :]
+    inv_next = torch.cat([inv[:, 1:], torch.ones_like(inv[:, :1])], dim=-1)
+    Esc = sys.E * inv[:, None, :] * inv_next[None, :, :]
+    rhs = torch.cat([(sys.gx * inv)[:, None, :], sys.B * inv[:, None, :]],
+                    dim=1)
+    return Dsc, Esc, rhs, inv, dmax_e
+
+
+def shared_gn_step_soa(problem, sys, lam, p, p_prior, p_w, *, n_exp: int,
+                       chain_solve):
+    """One damped shared-parameter GN step from the concatenated-chain SoA
+    system (:func:`ops.assemble.assemble_gn_soa_batched`), config 5's hot
+    path.  The chain solve (:func:`concat_chain_solver`) runs on the
+    Jacobi-scaled chain; the damping quadratic form in ``aux.sds`` is that
+    of the block-diagonal damping matrix, sum_e dmax_e ||dx_e||^2 +
+    smax ||dp||^2.
+
+    Returns (dV (n_exp, M, nv), dp (nq,), aux: LMAux).
+    """
+    bd, _, kt = sys.D.shape
+    k = kt // n_exp
+    nv = problem.nv
+    Dsc, Esc, rhs, inv, dmax_e = scale_concat_chain(sys, lam, n_exp)
+    x = chain_solve(Dsc, Esc, rhs)                           # (bd, 1+nq, Kt)
+    # Unscale: A_d^-1 = S X~ S for the state-side Jacobi scaling S.
+    a_g = x[:, 0, :] * inv
+    a_b = x[:, 1:, :] * inv[:, None, :]
+    s_loc = sys.C - torch.einsum("bqk,brk->qr", sys.B, a_b)
+    r_loc = sys.gp - torch.einsum("bqk,bk->q", sys.B, a_g)
+    dp, gp_tot, smax = _shared_schur_step(s_loc, r_loc, sys.gp, lam, p,
+                                          p_prior, p_w)
+    dx = -(a_g + torch.einsum("bqk,q->bk", a_b, dp))        # (bd, Kt)
+    dV = (dx.reshape(bd, n_exp, k).permute(1, 2, 0)
+          .reshape(n_exp, k * (bd // nv), nv)[:, :problem.num_nodes])
+
+    dx2_e = torch.sum(dx.reshape(bd, n_exp, k) ** 2, dim=(0, 2))
+    dp2 = torch.dot(dp, dp)
+    gdot = (_dot64(sys.gx, dx) + _dot64(gp_tot, dp)).to(dx.dtype)
+    gnorm = torch.maximum(sys.gx.abs().max(), gp_tot.abs().max())
+    aux = LMAux(gnorm=gnorm, gdot=gdot,
+                sds=torch.dot(dmax_e, dx2_e) + smax * dp2,
+                step_norm=torch.sqrt(dx2_e.sum() + dp2))
+    return dV, dp, aux
+
+
+def damp_blocks(D, lam):
+    """Per-experiment dimensionless damping of block-major chains
+    D (E, K, b, b): D + lam * dmax_e * I.  Returns (D_damped, dmax_e)."""
+    dmax = torch.clamp(torch.diagonal(D, dim1=-2, dim2=-1).amax(dim=(1, 2)),
+                       min=torch.finfo(D.dtype).tiny)        # (n_exp,)
+    eye = torch.eye(D.shape[-1], dtype=D.dtype, device=D.device)
+    return D + (lam * dmax)[:, None, None, None] * eye, dmax
+
+
+def shared_gn_step(problem, z: BatchDecision, data_batch, lam, p_prior,
+                   p_w):
+    """One damped shared-parameter GN step in the block-major layout.
+
+    Assembles every experiment at ``z`` (:func:`ops.assemble.
+    assemble_gn_batched`), damps each by lam * its own max diagonal (no
+    Jacobi scaling), and solves all chains at once
+    (:func:`batched_chain_solver`).
+
+    Returns (dV (n_exp, M, nv), dp (nq,), gnorm, aux: LMAux).
+    """
+    chain_solver = batched_chain_solver()
+    sys_b = assemble_gn_batched(problem, z.V, z.p, data_batch)
+    d_damped, dmax = damp_blocks(sys_b.D, lam)
+    rhs = torch.cat([sys_b.gx[..., None], sys_b.B], dim=-1)
+    x = chain_solver(d_damped, sys_b.E, rhs)                # (E, K, bd, 1+nq)
+    a_g, a_b = x[..., 0], x[..., 1:]
+    s_loc = sys_b.C.sum(0) - torch.einsum("ekbq,ekbr->qr", sys_b.B, a_b)
+    r_loc = sys_b.gp.sum(0) - torch.einsum("ekbq,ekb->q", sys_b.B, a_g)
+    dp, gp_tot, smax = _shared_schur_step(s_loc, r_loc, sys_b.gp.sum(0), lam,
+                                          z.p, p_prior, p_w)
+    dx = -(a_g + torch.einsum("ekbq,q->ekb", a_b, dp))
+    dV = blocks_to_nodes(dx, problem.num_nodes, problem.nv)
+
+    gnorm = torch.maximum(sys_b.gx.abs().max(), sys_b.gp.abs().max())
+    dx2_e = torch.sum(dx * dx, dim=(1, 2))
+    dp2 = torch.dot(dp, dp)
+    gdot = (_dot64(sys_b.gx, dx) + _dot64(gp_tot, dp)).to(dx.dtype)
+    aux = LMAux(gnorm=gnorm, gdot=gdot,
+                sds=torch.dot(dmax, dx2_e) + smax * dp2,
+                step_norm=torch.sqrt(dx2_e.sum() + dp2))
+    return dV, dp, gnorm, aux
+
+
+def _stats(st) -> SolveStats:
+    return SolveStats(iterations=st.it, converged=st.done, cost=st.cost,
+                      grad_norm=st.gnorm, lam=st.lam, history=st.history)
+
+
+def make_multi_experiment_solver(problem, options: SolverOptions =
+                                 SolverOptions(), *, dp_axis=None,
+                                 layout: str = "auto"):
+    """Shared-parameter LM solver over a batch of experiments.
+
+    Returns ``solve(z0: BatchDecision, data_batch, p_prior, p_w) ->
+    (BatchDecision, SolveStats)``.  ``data_batch`` is a ProblemData with a
+    leading experiment axis on every leaf and ``p_w == 0`` (the shared
+    prior is passed explicitly).
+
+    ``layout``: ``"soa"`` (concatenated chain, SPIKE chain kernel; also
+    what ``"auto"`` selects) or ``"blocks"`` (block-major, batched Thomas
+    kernel).  The JAX package's custom ``chain_solver`` closures exist for
+    its sharded SPIKE solve and are not ported.  On the CPU each kernel's
+    wrapper runs its plain version.  ``options.method`` and
+    ``options.kkt_refine`` do not apply.
+    """
+    if dp_axis is not None:
+        raise NotImplementedError(
+            "sharding over a dp axis is not ported yet (ROADMAP queue A, "
+            "item 12)")
+    opt = options
+    if layout == "auto":
+        layout = "soa"
+    if layout not in ("soa", "blocks"):
+        raise ValueError(f"unknown layout {layout!r}")
+    lm_args = dict(maxiter=opt.maxiter, lam0=opt.lam0, gtol=opt.gtol,
+                   ftol=opt.ftol, xtol=opt.xtol, lam_min=opt.lam_min,
+                   lam_max=opt.lam_max)
+
+    if layout == "soa":
+        chain_solve = concat_chain_solver()
+
+        def solve(z0: BatchDecision, data_batch, p_prior, p_w):
+            n_exp = z0.V.shape[0]
+
+            def assemble(z):
+                sys, ct = assemble_gn_soa_batched(problem, z.V, z.p,
+                                                  data_batch, with_cost=True)
+                return sys, ct + _prior_cost(z.p, p_prior, p_w)
+
+            def trial_fn(z, sys, lam):
+                dV, dp, aux = shared_gn_step_soa(
+                    problem, sys, lam, z.p, p_prior, p_w, n_exp=n_exp,
+                    chain_solve=chain_solve)
+                z_try = BatchDecision(V=z.V + dV, p=z.p + dp)
+                sys_try, ct = assemble(z_try)
+                return z_try, sys_try, ct, aux
+
+            carry0, c0 = assemble(z0)
+            st = lm_loop(z0, carry0, c0, trial_fn, dtype=z0.V.dtype,
+                         **lm_args)
+            return st.z, _stats(st)
+
+        return solve
+
+    def solve(z0: BatchDecision, data_batch, p_prior, p_w):
+        def trial_fn(z, carry, lam):
+            dV, dp, _, aux = shared_gn_step(problem, z, data_batch, lam,
+                                            p_prior, p_w)
+            z_try = BatchDecision(V=z.V + dV, p=z.p + dp)
+            ct = batch_cost(problem, z_try, data_batch, p_prior, p_w)
+            return z_try, carry, ct, aux
+
+        c0 = batch_cost(problem, z0, data_batch, p_prior, p_w)
+        st = lm_loop(z0, (), c0, trial_fn, dtype=z0.V.dtype, **lm_args)
+        return st.z, _stats(st)
+
+    return solve

@@ -251,14 +251,45 @@ class EstimationProblem(nn.Module):
         return torch.cat([defect.reshape(-1), meas.reshape(-1)])
 
     def gather_elements(self, V):
-        """(M, nv) node values -> (N, (d+1)*nv) per-element flats.
+        """(..., M, nv) node values -> (..., N, (d+1)*nv) per-element flats.
 
         Element e spans global nodes e*d + j (j = 0..d, endpoints shared),
         so the overlapping windows are d+1 static strided slices.
         """
         n, d = self.mesh.num_elements, self.mesh.degree
-        cols = [V[j:j + (n - 1) * d + 1:d] for j in range(d + 1)]
-        return torch.stack(cols, dim=1).reshape(n, -1)
+        cols = [V[..., j:j + (n - 1) * d + 1:d, :] for j in range(d + 1)]
+        return torch.stack(cols, dim=-2).reshape(*V.shape[:-2], n, -1)
+
+    def elem_data_batched(self, data_batch: ProblemData):
+        """Element data of a batch of experiments (a leading experiment axis
+        on every ``data_batch`` leaf), with the ``vmap`` in_dims that map
+        the experiment axis: the shared tables are not batched (None)."""
+        n, s = self.mmask.shape
+        e = data_batch.y.shape[0]
+        ed = ElemData(
+            width=self.widths, times=self.elem_times, u=data_batch.u,
+            dscale=self.dscale, rows=self.mrows, mask=self.mmask,
+            mtimes=self.mtimes, y=data_batch.y,
+            meas_w=data_batch.meas_w[:, None, None, :].expand(
+                e, n, s, self.model.ny),
+        )
+        dims = ElemData(width=None, times=None, u=0, dscale=None, rows=None,
+                        mask=None, mtimes=None, y=0, meas_w=0)
+        return ed, dims
+
+    def residuals_batched(self, Vb, p, data_batch: ProblemData):
+        """Element residuals of every experiment: (E, N, m), shared p."""
+        ed, dims = self.elem_data_batched(data_batch)
+        per_exp = vmap(self.elem_residual, in_dims=(0, None, 0))
+        return vmap(per_exp, in_dims=(0, None, dims))(
+            self.gather_elements(Vb), p, ed)
+
+    def prior_residuals_batched(self, Vb, p, data_batch: ProblemData):
+        """(E, nq + nx) per-experiment prior residuals (p and x(t0))."""
+        r_p = data_batch.p_w * (p - data_batch.p_prior)
+        r_x0 = data_batch.x0_w * (Vb[:, 0, :self.model.nx]
+                                  - data_batch.x0_prior)
+        return torch.cat([r_p, r_x0], dim=-1)
 
     def prior_residuals(self, z: Decision, data: ProblemData):
         """(nq + nx,) residuals of the parameter and initial-state priors."""

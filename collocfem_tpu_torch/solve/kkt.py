@@ -5,10 +5,12 @@ parameters touch every block (arrowhead columns); they are eliminated by a
 Schur complement: solve the chain against [gx | B] in one multi-RHS pass,
 then a tiny dense (nq, nq) solve, then compose.
 
-Ported: ``refine == 0``, ``nq > 0``, no double-word tier.  On a CUDA device
-the solve runs the fused CUDA kernel (:mod:`collocfem_tpu_torch.ops.spike`);
-the plain cyclic-reduction path below is the CPU path and that kernel's
-reference.
+Ported: every case but the double-word tier (``dw=True`` raises; float64
+takes its place on the card).  On a CUDA device the solve runs the CUDA
+kernels of :mod:`collocfem_tpu_torch.ops.spike`: the fused KKT kernel for
+``refine == 0`` with ``nq > 0``, and the plain SPIKE chain kernel as the
+chain solve of the refinement passes and of ``nq == 0``.  The plain
+cyclic-reduction path below is the CPU path and the kernels' reference.
 """
 
 from __future__ import annotations
@@ -19,22 +21,31 @@ from collocfem_tpu_torch.ops import smallblocks_soa as soa
 from collocfem_tpu_torch.solve.blocktri import blocktri_cr_factor_soa
 
 
-def resolve_auto_method(block_size: int, nq: int, device) -> str:
-    """'auto' method policy: the fused CUDA kernel on a CUDA device, the
+def resolve_auto_method(block_size: int, nq: int, device,
+                        refine: int = 0) -> str:
+    """'auto' method policy: the SPIKE CUDA kernels on a CUDA device, the
     plain cyclic reduction on the CPU.
 
-    The gate is the kernel's own limit: it is compiled for a fixed set of
-    (block size, nq) shapes.  A shape outside that set raises on the card
-    rather than quietly running the plain solve there.
+    The gate is the kernels' own limit: each is compiled for a fixed set of
+    shapes.  ``refine == 0`` with ``nq > 0`` needs the fused KKT kernel at
+    (block size, nq); refinement and ``nq == 0`` need the chain kernel at
+    (block size, 1 + nq) and (block size, 1).  A shape outside that set
+    raises on the card rather than quietly running the plain solve there.
     """
     if torch.device(device).type != "cuda":
         return "cr"
-    from collocfem_tpu_torch.ops.spike import kernel_supports
+    from collocfem_tpu_torch.ops.spike import (chain_kernel_supports,
+                                               kernel_supports)
 
-    if not kernel_supports(block_size, nq):
+    if nq > 0 and refine == 0:
+        ok, what = kernel_supports(block_size, nq), f"nq={nq}"
+    else:
+        ok = all(chain_kernel_supports(block_size, r) for r in {1, 1 + nq})
+        what = f"r in {{1, {1 + nq}}}"
+    if not ok:
         raise ValueError(
-            f"the fused KKT kernel is not built for block size {block_size} "
-            f"with nq={nq}; add the shape to csrc/kkt_spike.cu")
+            f"the SPIKE kernels are not built for block size {block_size} "
+            f"with {what}; add the shape to csrc/kkt_spike.cu")
     return "spike"
 
 
@@ -56,7 +67,9 @@ def damping_scales(D, C, lam, damp_scale=None):
     dtype, device = D.dtype, D.device
     diag = torch.diagonal(D, dim1=0, dim2=1).T                   # (bd, K)
     if damp_scale is None:
-        dmax = torch.maximum(diag.max(), torch.diagonal(C).max())
+        dmax = diag.max()
+        if C.shape[0]:
+            dmax = torch.maximum(dmax, torch.diagonal(C).max())
     else:
         dmax = torch.as_tensor(damp_scale, dtype=dtype, device=device)
     lam_abs = lam * torch.clamp(dmax, min=torch.finfo(dtype).tiny)
@@ -86,6 +99,53 @@ def _equilibrate_soa(sys, lam, damp_scale=None):
     return scaled, inv, inv_sp, dmax
 
 
+def _matvec_soa(D, E, X):
+    """y = A X in SoA: D, E (bd, bd, K), X (bd, K); E[..., K-1] ignored."""
+    e = E[..., :-1]
+    y = torch.einsum("ijk,jk->ik", D, X)
+    up = torch.einsum("ijk,jk->ik", e, X[:, 1:])
+    lo = torch.einsum("jik,jk->ik", e, X[:, :-1])
+    zero = torch.zeros_like(X[:, :1])
+    return y + torch.cat([up, zero], dim=1) + torch.cat([zero, lo], dim=1)
+
+
+def _solve_equilibrated(sys, lam, refine, damp_scale, spike):
+    """Equilibrate, solve the chain against [gx | B], Schur solve, compose,
+    ``refine`` refinement passes, unscale.  Returns (dx, dp, dmax)."""
+    nq = sys.C.shape[0]
+    s, inv, inv_sp, dmax = _equilibrate_soa(sys, lam, damp_scale)
+    if spike:
+        from collocfem_tpu_torch.ops.spike import blocktri_solve_spike_fused
+
+        apply_fn = lambda G: blocktri_solve_spike_fused(s.D, s.E,
+                                                        G.contiguous())
+    else:
+        apply_fn = blocktri_cr_factor_soa(s.D, s.E)
+
+    if nq == 0:
+        dx = -apply_fn(s.gx[:, None, :])[:, 0, :]
+        for _ in range(refine):
+            res = s.gx + _matvec_soa(s.D, s.E, dx)
+            dx = dx - apply_fn(res[:, None, :])[:, 0, :]
+        return dx * inv, sys.D.new_zeros((0,)), dmax
+
+    x = apply_fn(torch.cat([s.gx[:, None, :], s.B], dim=1))
+    a_g, a_b = x[:, 0, :], x[:, 1:, :]
+    schur = s.C - torch.einsum("bqk,brk->qr", s.B, a_b)
+    rp = s.gp - torch.einsum("bqk,bk->q", s.B, a_g)
+    dp = -_schur_solve(schur, rp)
+    dx = -(a_g + torch.einsum("bqk,q->bk", a_b, dp))
+    for _ in range(refine):
+        res_x = (s.gx + _matvec_soa(s.D, s.E, dx)
+                 + torch.einsum("bqk,q->bk", s.B, dp))
+        res_p = s.gp + torch.einsum("bqk,bk->q", s.B, dx) + s.C @ dp
+        ax = apply_fn(res_x[:, None, :])[:, 0, :]
+        cp = _schur_solve(schur, res_p - torch.einsum("bqk,bk->q", s.B, ax))
+        dx = dx - (ax - torch.einsum("bqk,q->bk", a_b, cp))
+        dp = dp - cp
+    return dx * inv, dp * inv_sp, dmax
+
+
 def solve_kkt_plain(sys, lam, damp_scale=None):
     """The plain damped KKT solve: equilibrate, cyclic reduction on
     [gx | B], Schur solve, compose and unscale.  Returns (dx, dp, dmax).
@@ -94,15 +154,7 @@ def solve_kkt_plain(sys, lam, damp_scale=None):
     (``ops.spike.kkt_solve_spike_fused_ref`` calls it); the solver runs it
     only on the CPU.
     """
-    s, inv, inv_sp, dmax = _equilibrate_soa(sys, lam, damp_scale)
-    apply = blocktri_cr_factor_soa(s.D, s.E)
-    x = apply(torch.cat([s.gx[:, None, :], s.B], dim=1))
-    a_g, a_b = x[:, 0, :], x[:, 1:, :]
-    schur = s.C - torch.einsum("bqk,brk->qr", s.B, a_b)
-    rp = s.gp - torch.einsum("bqk,bk->q", s.B, a_g)
-    dp = -_schur_solve(schur, rp)
-    dx = -(a_g + torch.einsum("bqk,q->bk", a_b, dp))
-    return dx * inv, dp * inv_sp, dmax
+    return _solve_equilibrated(sys, lam, 0, damp_scale, spike=False)
 
 
 def solve_kkt_soa(sys, lam, refine: int = 0, dw: bool = False,
@@ -110,25 +162,28 @@ def solve_kkt_soa(sys, lam, refine: int = 0, dw: bool = False,
                   with_dmax: bool = False):
     """Solve the damped KKT system [[A, B], [B^T, C]] [dx, dp] = -[gx, gp].
 
-    ``sys`` is an ``ops.assemble.BlockTriSystemSoA``.  ``spike=True`` runs
-    the fused kernel wrapper (:func:`ops.spike.kkt_solve_spike_fused`);
-    otherwise :func:`solve_kkt_plain`, which is refused on a CUDA device.
-    Returns (dx (bd, K), dp (nq,)) and, with ``with_dmax``, the damping
-    scale.
+    ``sys`` is an ``ops.assemble.BlockTriSystemSoA``.  With ``spike=True``
+    the chain runs on the CUDA kernels: for ``refine == 0`` and ``nq > 0``
+    the fused KKT kernel (:func:`ops.spike.kkt_solve_spike_fused`), else the
+    plain SPIKE chain kernel (:func:`ops.spike.blocktri_solve_spike_fused`)
+    for every chain solve, each call refactoring.  Otherwise the plain
+    cyclic reduction factors once and is reused; it is refused on a CUDA
+    device.  ``refine`` iterative-refinement passes re-solve the scaled
+    KKT residual.  Returns (dx (bd, K), dp (nq,)) and, with ``with_dmax``,
+    the damping scale.
     """
-    nq = sys.C.shape[0]
-    if refine or dw or nq == 0:
+    if dw:
         raise NotImplementedError(
-            "only refine=0, dw=False, nq>0 is ported (ROADMAP queue B: "
-            "kernel #2 serves nq=0 and refinement)")
-    if spike:
+            "the double-word factorisation (dw=True) is not ported: float64 "
+            "takes its place on the card (ROADMAP queue A, item 7)")
+    if not spike and sys.D.is_cuda:
+        raise ValueError("the plain KKT solve runs on the CPU only; on a "
+                         "CUDA device use spike=True (the CUDA kernels)")
+    if spike and sys.C.shape[0] > 0 and refine == 0:
         from collocfem_tpu_torch.ops.spike import kkt_solve_spike_fused
 
         out = kkt_solve_spike_fused(
             sys.D, sys.E, sys.B, sys.gx, sys.C, sys.gp, lam, damp_scale)
-    elif sys.D.is_cuda:
-        raise ValueError("the plain KKT solve runs on the CPU only; on a "
-                         "CUDA device use spike=True (the fused kernel)")
     else:
-        out = solve_kkt_plain(sys, lam, damp_scale)
+        out = _solve_equilibrated(sys, lam, refine, damp_scale, spike)
     return out if with_dmax else out[:2]

@@ -41,10 +41,10 @@ class SolverOptions:
     lam0: float = 1e-9
     lam_min: float = 1e-14
     lam_max: float = 1e12
-    # 'auto': the fused CUDA kernel on a CUDA device, the plain cyclic
-    # reduction on the CPU.
+    # 'auto': the SPIKE CUDA kernels on a CUDA device, the plain cyclic
+    # reduction on the CPU.  'cr_dw' (double-word CR) is not ported.
     method: str = "auto"     # 'auto' | 'spike' | 'cr'
-    kkt_refine: int = 0      # only 0 is ported
+    kkt_refine: int = 0      # iterative-refinement passes per KKT solve
     hessian: str = "gn"      # only 'gn' is ported
     state_dw: bool = False   # not ported
 
@@ -68,13 +68,15 @@ def make_gn_solver(problem, options: SolverOptions = SolverOptions()):
         raise NotImplementedError(
             "state_dw is not ported yet (ROADMAP queue A, item 8; float64 is "
             "its candidate replacement)")
-    if opt.kkt_refine:
+    if opt.method == "cr_dw":
         raise NotImplementedError(
-            "kkt_refine > 0 is not ported yet (ROADMAP queue B, kernel #2)")
+            "method='cr_dw' is not ported: float64 takes the place of the "
+            "double-word factorisation (ROADMAP queue A, item 7)")
     method = opt.method
     if method == "auto":
         method = resolve_auto_method(problem.mesh.degree * problem.nv,
-                                     problem.model.nq, problem.device)
+                                     problem.model.nq, problem.device,
+                                     opt.kkt_refine)
     if method not in ("spike", "cr"):
         raise ValueError(f"unknown method {method!r}")
     nv = problem.nv
@@ -83,7 +85,8 @@ def make_gn_solver(problem, options: SolverOptions = SolverOptions()):
     def solve(z0: Decision, data):
         def trial_fn(z, sys, lam):
             gnorm = torch.maximum(sys.gx.abs().max(), sys.gp.abs().max())
-            dx, dp, dmax = solve_kkt_soa(sys, lam, spike=method == "spike",
+            dx, dp, dmax = solve_kkt_soa(sys, lam, opt.kkt_refine,
+                                         spike=method == "spike",
                                          with_dmax=True)
             z_try = Decision(V=z.V + blocks_to_nodes_soa(dx, num_nodes, nv),
                              p=z.p + dp)

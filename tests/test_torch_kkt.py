@@ -114,3 +114,53 @@ def test_tile_plan(k):
     T, L = spike._plan(k)
     assert L >= 3 and T >= 1
     assert T * L >= k and T * L - k < L  # no tile is all padding
+
+
+@pytest.mark.parametrize("nq,refine", [(2, 1), (2, 2), (0, 0), (0, 1)])
+def test_refined_and_parameter_free_kkt_match_jax(nq, refine):
+    """solve_kkt_soa with refinement passes and with nq = 0 (the chain
+    solve behind them is kernel #2's plain version on the CPU) against JAX
+    solve_kkt_soa(spike=False): rtol 1e-10 (float64), and the damping
+    scale exactly."""
+    from collocfem_tpu_torch.ops.assemble import BlockTriSystemSoA
+    from collocfem_tpu_torch.solve.kkt import solve_kkt_soa
+
+    arrays = _kkt_arrays(37, 8, max(nq, 1), seed=nq + refine)
+    if nq == 0:
+        arrays[2] = arrays[2][:, :0, :]
+        arrays[4] = arrays[4][:0, :0]
+        arrays[5] = arrays[5][:0]
+    D, E, B, gx, C, gp = _jax(arrays)
+    want = jax_solve_kkt_soa(JaxSystem(D, E, B, C, gx, gp), 1e-3,
+                             refine=refine, with_dmax=True)
+    got = solve_kkt_soa(BlockTriSystemSoA(*arrays[:3], arrays[4], arrays[3],
+                                          arrays[5]),
+                        1e-3, refine=refine, with_dmax=True)
+    for g, w in zip(got[:2], want[:2]):
+        if w.size:
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-10,
+                                       atol=1e-10 * float(np.abs(w).max()))
+        else:
+            assert tuple(g.shape) == (0,)
+    assert float(got[2]) == float(want[2])
+
+
+def test_refine_changes_nothing_in_exact_arithmetic():
+    """One refinement pass on a well-conditioned float64 system moves the
+    step by no more than rounding."""
+    from collocfem_tpu_torch.solve.kkt import solve_kkt_soa
+
+    s = random_kkt_system(50, 8, 2, seed=5)
+    a = solve_kkt_soa(s, 1e-3)
+    b = solve_kkt_soa(s, 1e-3, refine=1)
+    for x, y in zip(a, b):
+        assert float((x - y).abs().max() / x.abs().max()) <= 1e-13
+
+
+def test_double_word_tier_raises():
+    from collocfem_tpu_torch.solve.kkt import solve_kkt_soa
+
+    with pytest.raises(NotImplementedError, match="float64"):
+        solve_kkt_soa(random_kkt_system(5, 8, 2, seed=0), 1e-3, dw=True)
+    assert resolve_auto_method(8, 0, "cpu") == "cr"
+    assert resolve_auto_method(8, 2, "cpu", refine=1) == "cr"

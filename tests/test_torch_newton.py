@@ -74,6 +74,29 @@ def test_gn_solver_matches_jax():
     assert tst.cost.dtype == torch.float64
 
 
+def test_gn_solver_with_refinement_matches_jax():
+    """make_gn_solver(kkt_refine=1) against JAX's at N = 40, float64, 12
+    fixed-work iterations: identical accept column, p within rtol 1e-8."""
+    tf, t_meas, y, u_fn = _vdp_data(seed=1)
+    jprob = JaxProblem.build(JaxVanDerPol(), jax_uniform_mesh(0.0, tf, 40, 4),
+                             t_meas, defect_weight=30.0)
+    tprob = EstimationProblem.build(VanDerPol(), uniform_mesh(0.0, tf, 40, 4),
+                                    t_meas, defect_weight=30.0, device="cpu",
+                                    dtype=torch.float64)
+    jdata = jprob.pack_data(y, t_meas,
+                            u_nodes=u_fn(jprob.mesh.elem_times)[..., None])
+    jz0 = jprob.initial_guess_from_data(t_meas, y, p0=[2.0, 0.3])
+    tdata = data_from_numpy(*map(np.asarray, jdata), device="cpu",
+                            dtype=torch.float64)
+    tz0 = decision_from_numpy(jz0.V, jz0.p, "cpu", torch.float64)
+    fixed = dict(maxiter=12, gtol=0.0, ftol=0.0, xtol=0.0, kkt_refine=1)
+    jz, jst = jax_make_gn_solver(jprob, JaxSolverOptions(**fixed))(jz0, jdata)
+    tz, tst = make_gn_solver(tprob, SolverOptions(**fixed))(tz0, tdata)
+    np.testing.assert_array_equal(tst.history.numpy()[:, 4],
+                                  np.asarray(jst.history)[:, 4])
+    np.testing.assert_allclose(tz.p.numpy(), np.asarray(jz.p), rtol=1e-8)
+
+
 def test_port_never_imports_jax():
     """A fresh interpreter builds a small headline problem and runs one LM
     iteration of the port with JAX nowhere in sys.modules."""
@@ -106,7 +129,7 @@ def test_port_never_imports_jax():
 
 @pytest.mark.parametrize("change", [dict(hessian="newton"),
                                     dict(state_dw=True),
-                                    dict(kkt_refine=1)])
+                                    dict(method="cr_dw")])
 def test_unported_solver_paths_raise(change):
     tprob = EstimationProblem.build(VanDerPol(), uniform_mesh(0.0, 1.0, 4, 4),
                                     np.linspace(0.1, 0.9, 5), device="cpu",

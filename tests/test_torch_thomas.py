@@ -1,0 +1,52 @@
+"""Port parity, kernel #7: the batched block-Thomas solve's plain version and
+its wrapper's dispatch, against ``collocfem_tpu``'s Pallas kernel run in
+interpret mode, in float64.  The CUDA kernel itself runs only on a card
+(tests/test_torch_cuda.py)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from collocfem_tpu.ops.blocktri_pallas import (
+    batched_thomas_solve as jax_batched_thomas,
+)
+from collocfem_tpu_torch.ops import thomas
+from collocfem_tpu_torch.testing import batch_residual, random_chain_batch
+
+
+# The shapes of tests/test_blocktri_pallas.py:26 and :41 (tile_e pads the
+# batch there), plus single-block chains.
+@pytest.mark.parametrize("shape,tile_e", [((4, 5, 3, 2), 2),
+                                          ((5, 9, 4, 2), 8),
+                                          ((3, 1, 8, 3), 2)])
+def test_plain_matches_pallas_interpret(shape, tile_e):
+    """rtol 1e-9 (the JAX package's own bar for this kernel)."""
+    args = random_chain_batch(*shape, seed=sum(shape))
+    want = np.asarray(jax_batched_thomas(
+        *(jnp.asarray(a.numpy()) for a in args), tile_e=tile_e,
+        interpret=True))
+    got = thomas.batched_thomas_solve_ref(*args)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("k", [1, 2, 11])
+def test_plain_solves_each_chain(k):
+    """A X = G per experiment, E[:, K-1] ignored: residual <= 1e-12 x |G|."""
+    D, E, G = random_chain_batch(6, k, 8, 3, seed=k)
+    assert batch_residual(D, E, G,
+                          thomas.batched_thomas_solve_ref(D, E, G)) <= 1e-12
+
+
+def test_wrapper_dispatch():
+    """A CPU tensor goes to the plain version and moves only its counter; a
+    tensor on a device with no kernel raises."""
+    D, E, G = random_chain_batch(5, 11, 8, 3, seed=0)
+    kernel0 = thomas.batched_thomas_solve.launches
+    plain0 = thomas.batched_thomas_solve_ref.launches
+    np.testing.assert_array_equal(
+        thomas.batched_thomas_solve(D, E, G).numpy(),
+        thomas.batched_thomas_solve_ref(D, E, G).numpy())
+    assert thomas.batched_thomas_solve.launches == kernel0
+    assert thomas.batched_thomas_solve_ref.launches == plain0 + 2
+    with pytest.raises(ValueError, match="no kernel"):
+        thomas.batched_thomas_solve(*(a.to("meta") for a in (D, E, G)))
