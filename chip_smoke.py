@@ -22,8 +22,19 @@ Phases, each printing its own line; any failure raises and exits non-zero:
          11264}, r in {1, 3}; residual ||AX - G||_inf / ||G||_inf;
        kernel #7 (batched block Thomas): config 5's damped block-major
          systems at the initial guess (1024 x 11 blocks, b = 8, r = 3) and
-         seeded batches, n_exp in {1, 5, 1000}, K in {1, 2, 11}.
-     Times each kernel and its plain version (CUDA events);
+         seeded batches, n_exp in {1, 5, 1000}, K in {1, 2, 11};
+       kernels #3-#6 (cyclic-reduction levels): the headline's
+         equilibrated, damped chain at N = 20,000 (K = 20,001 padded to
+         32,768), level by level down to 8 blocks (G = [gx | B], r = 3; the
+         fused level #3 with G = B, r = 2, covariance's shape), and seeded
+         chains, K in {16, 17, 130, 1000}, r in {1, 2, 3}, at their first
+         level.  Per level, float32 is held against the float64 plain
+         level: the kernel's error at most 10x the plain version's.  Whole
+         solves through blocktri_cr_factor_soa and blocktri_solve_cr are
+         held against the plain chain solve (the float32 bar is the chain
+         residual).
+     Times each kernel and its plain version (CUDA events; kernels #3-#6:
+     the sum over the 12 levels of one headline solve at N = 20,000);
   3. the headline fixed work: Van der Pol, N = 10,000 elements, degree 4,
      float32, 15 LM iterations; the cost must fall more than 10x, p must be
      finite, and the kernel's launch count must rise by exactly 15 with no
@@ -35,7 +46,19 @@ Phases, each printing its own line; any failure raises and exits non-zero:
      the layout's kernel launches exactly 15 times and no plain version is
      called; p's error against (1.3, 0.5) and the best-of-3 wall;
   6. config 5 in float64 to convergence (soa): p within 1e-6 (relative,
-     inf-norm) of the JAX package's float64 result on the same problem.
+     inf-norm) of the JAX package's float64 result on the same problem;
+  7. the headline at N = 20,000 through the CR kernels: fixed work with
+     method='cr' (kernels #4, #5 and #6 launch exactly 15 x 12 times, no
+     other kernel or plain version; p finite and the cost falls), in
+     float32 (its best-of-3 wall; the ratio is printed beside the JAX
+     package's, with no 10x bar: float32 runs at its factorisation cliff
+     at this N) and in float64 (cost falls more than 10x, p within 1e-6 of
+     the JAX package's float64 run); the converged ladder (1,250 -> 5,000
+     -> 20,000 elements, the fine level on 'cr') in float32, gated on
+     ||p - [1, 1]||_inf < 1e-4, and in float64, p within 1e-6 of the JAX
+     package's float64 ladder; parameter_std at the float64 solution
+     (kernels #3 and #6, 12 launches each) against the plain CR solve of
+     the same schedule, <= 1e-9; state_std at the coarse level, its wall.
 
 The second-to-last lines are the card's name and power limit and a JSON
 object describing every kernel of the path; the last line is
@@ -55,17 +78,36 @@ import sys
 import time
 
 ELEMENTS = 10000
+ELEMENTS_CR = 20000       # K = 20,001: past the TPU fused kernel's 16,384
 N_EXP = 1024
 SPIKE_SOURCE = "collocfem_tpu_torch/csrc/kkt_spike.cu"
 THOMAS_SOURCE = "collocfem_tpu_torch/csrc/thomas.cu"
+CR_SOURCE = "collocfem_tpu_torch/csrc/cr.cu"
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "kkt_solve_spike_fused": (SPIKE_SOURCE,
                               "collocfem_tpu/ops/spike_pallas.py:761"),
     "blocktri_solve_spike_fused": (SPIKE_SOURCE,
                                    "collocfem_tpu/ops/spike_pallas.py:714"),
+    "cr_level": (CR_SOURCE, "collocfem_tpu/ops/cr_pallas.py:221"),
+    "cr_level_factor": (CR_SOURCE, "collocfem_tpu/ops/cr_pallas.py:275"),
+    "cr_level_apply": (CR_SOURCE, "collocfem_tpu/ops/cr_pallas.py:318"),
+    "cr_backsub": (CR_SOURCE, "collocfem_tpu/ops/cr_pallas.py:360"),
     "batched_thomas_solve": (THOMAS_SOURCE,
                              "collocfem_tpu/ops/blocktri_pallas.py:78"),
 }
+CR_NAMES = ("cr_level", "cr_level_factor", "cr_level_apply", "cr_backsub")
+
+
+def _cr_level_count(num_blocks: int) -> int:
+    """Kernel levels of a CR solve: the chain padded to a power of two and
+    halved down to the tail's 8 blocks (12 at K = 20,001, padded to
+    32,768)."""
+    from collocfem_tpu_torch.solve.blocktri import TAIL
+
+    kp = 1 << (num_blocks - 1).bit_length()
+    return max(0, (kp // TAIL).bit_length() - 1)
+
+
 C5_FIXED = dict(maxiter=15, gtol=0.0, lam0=1e-6, lam_max=1e30)
 C5_CONVERGED = dict(maxiter=60, gtol=1e-10, xtol=1e-12, lam0=1e-6,
                     lam_max=1e30)
@@ -95,6 +137,63 @@ C5_CONVERGED = dict(maxiter=60, gtol=1e-10, xtol=1e-12, lam0=1e-6,
 #   print(repr(z.p.tolist()), int(st.iterations))
 #   EOF
 P_JAX_F64 = (1.247731543218769, 0.4868102224118944)
+# The JAX package's converged ladder at N = 20,000 on the CPU (bench.py's
+# run_converged schedule: 1,250 -> 5,000 -> 20,000 elements, maxiter 60 /
+# 30 / 30, lam0 3e-6 / 1e-9 / 1e-9, gtol=0, prolongation by
+# make_prolongation), produced from the root of the repo by
+#   JAX_PLATFORMS=cpu python - <<'EOF'
+#   import jax; jax.config.update("jax_enable_x64", True)  # False: float32
+#   import numpy as np
+#   from baseline_cpu.run_baseline import TF, build_headline_problem
+#   from collocfem_tpu.models import VanDerPol
+#   from collocfem_tpu.ops.mesh import make_prolongation, uniform_mesh
+#   from collocfem_tpu.problem import Decision, EstimationProblem
+#   from collocfem_tpu.solve import SolverOptions
+#   from collocfem_tpu.solve.newton import make_gn_solver
+#   _, t_meas, y, _ = build_headline_problem(20000)
+#   z = prev = None
+#   for i, n in enumerate([1250, 5000, 20000]):
+#       mesh = uniform_mesh(0.0, TF, n, 4)
+#       prob = EstimationProblem.build(VanDerPol(), mesh, t_meas,
+#                                      defect_weight=100.0)
+#       data = prob.pack_data(y, t_meas,
+#                             u_nodes=np.sin(0.9 * mesh.elem_times)[..., None])
+#       z0 = (prob.initial_guess_from_data(t_meas, y, p0=[0.5, 0.5])
+#             if z is None else Decision(V=make_prolongation(
+#                 prev, mesh.node_times)(z.V).astype(prob.dtype), p=z.p))
+#       z, st = make_gn_solver(prob, SolverOptions(
+#           maxiter=60 if i == 0 else 30, gtol=0.0,
+#           lam0=3e-6 if i == 0 else 1e-9))(z0, data)
+#       prev = mesh
+#   print(repr(np.asarray(z.p, np.float64).tolist()))
+#   EOF
+# (on the CPU 'auto' runs the XLA cyclic reduction at every level).
+P_JAX_LADDER_F64 = (0.9999999999787036, 1.000000000003182)
+# The same command in float32: p = (0.9999775290489197, 0.9999942183494568).
+P_ERR_JAX_LADDER_F32 = 2.2470951080322266e-05
+# The JAX package's fixed work at N = 20,000 on the CPU ('auto' is the XLA
+# cyclic reduction there), produced from the root of the repo by
+#   JAX_PLATFORMS=cpu python - <<'EOF'
+#   import jax; jax.config.update("jax_enable_x64", True)  # False: float32
+#   import numpy as np
+#   from baseline_cpu.run_baseline import build_headline_problem
+#   from collocfem_tpu.models import VanDerPol
+#   from collocfem_tpu.problem import EstimationProblem
+#   from collocfem_tpu.solve import SolverOptions
+#   from collocfem_tpu.solve.newton import make_gn_solver
+#   mesh, t_meas, y, u_nodes = build_headline_problem(20000)
+#   prob = EstimationProblem.build(VanDerPol(), mesh, t_meas,
+#                                  defect_weight=100.0)
+#   data = prob.pack_data(y, t_meas, u_nodes=u_nodes)
+#   z0 = prob.initial_guess_from_data(t_meas, y, p0=[0.5, 0.5])
+#   z, st = make_gn_solver(prob, SolverOptions(
+#       maxiter=15, gtol=0.0, ftol=0.0, xtol=0.0, kkt_refine=0, lam0=3e-6,
+#       lam_max=1e30))(z0, data)
+#   print(repr(np.asarray(z.p).tolist()),
+#         float(prob.cost(z0, data)) / float(st.cost))
+#   EOF
+CR_FIXED_JAX_F64_P = (2.855885277895221, -0.5179073605763589)
+CR_FIXED_JAX_F32_RATIO = 36.434286928965115
 
 
 def _card() -> str:
@@ -137,10 +236,6 @@ def _kkt_residual(sys_, dx, dp, lam, dmax):
     return float(y.abs().max() / gx.abs().max())
 
 
-def _rel_diff(got, want):
-    return float((got - want).abs().max() / want.abs().max())
-
-
 def _ptxas_summary(log: str) -> list[str]:
     """One line per compiled kernel: its name, registers and spills."""
     names = {}
@@ -173,11 +268,13 @@ def _hold(label, dtype, got, want, residual):
     error."""
     import torch
 
+    from collocfem_tpu_torch.testing import rel_err
+
     torch.cuda.synchronize()
     if not bool(torch.isfinite(got).all()):
         raise RuntimeError(f"{label}: the kernel returned non-finite values")
     if dtype == torch.float64:
-        rel = _rel_diff(got, want)
+        rel = rel_err(got, want)
         ok = rel <= 1e-9
         print(f"  {label}: rel diff {rel:.3e} (<= 1e-9) "
               f"{'ok' if ok else 'FAIL'}")
@@ -192,26 +289,37 @@ def _hold(label, dtype, got, want, residual):
     return float((got - want).abs().max())
 
 
-def _reset_counts():
-    from collocfem_tpu_torch.ops import spike, thomas
+def _wrappers():
+    """{kernel name: (wrapper, plain version)} for every kernel."""
+    from collocfem_tpu_torch.ops import cr, spike, thomas
 
-    for fn in (spike.kkt_solve_spike_fused, spike.kkt_solve_spike_fused_ref,
-               spike.blocktri_solve_spike_fused,
-               spike.blocktri_solve_spike_fused_ref,
-               thomas.batched_thomas_solve, thomas.batched_thomas_solve_ref):
-        fn.launches = 0
+    mods = {"kkt_solve_spike_fused": spike,
+            "blocktri_solve_spike_fused": spike,
+            "batched_thomas_solve": thomas, **{n: cr for n in CR_NAMES}}
+    return {name: (getattr(mod, name), getattr(mod, name + "_ref"))
+            for name, mod in mods.items()}
+
+
+def _reset_counts():
+    for fns in _wrappers().values():
+        for fn in fns:
+            fn.launches = 0
 
 
 def _counts():
-    from collocfem_tpu_torch.ops import spike, thomas
+    """({kernel name: launches}, calls of all plain versions together)."""
+    w = _wrappers()
+    return ({name: k.launches for name, (k, _) in w.items()},
+            sum(p.launches for _, p in w.values()))
 
-    kernels = {"kkt_solve_spike_fused": spike.kkt_solve_spike_fused,
-               "blocktri_solve_spike_fused": spike.blocktri_solve_spike_fused,
-               "batched_thomas_solve": thomas.batched_thomas_solve}
-    plain = sum(f.launches for f in (spike.kkt_solve_spike_fused_ref,
-                                     spike.blocktri_solve_spike_fused_ref,
-                                     thomas.batched_thomas_solve_ref))
-    return {k: f.launches for k, f in kernels.items()}, plain
+
+def _expect_only(counts, plain_calls, want, label):
+    """Raise unless the kernels in ``want`` launched exactly that many times
+    and every other kernel and every plain version not at all."""
+    got = {k: v for k, v in counts.items() if v or k in want}
+    if got != want or plain_calls != 0:
+        raise RuntimeError(f"{label}: expected launches {want} and no plain "
+                           f"call, got {got} and {plain_calls} plain calls")
 
 
 def _config5_systems(c5, lam):
@@ -240,6 +348,7 @@ def _compare(sys_, lam, damp_scale, label):
     import torch
 
     from collocfem_tpu_torch.ops import spike
+    from collocfem_tpu_torch.testing import rel_err
 
     args = (sys_.D, sys_.E, sys_.B, sys_.gx, sys_.C, sys_.gp, lam, damp_scale)
     got = spike.kkt_solve_spike_fused(*args)
@@ -250,7 +359,7 @@ def _compare(sys_, lam, damp_scale, label):
             raise RuntimeError(f"{label}: the kernel returned non-finite values")
     err = max(float((g - w).abs().max()) for g, w in zip(got[:2], want[:2]))
     if sys_.D.dtype == torch.float64:
-        rel = [_rel_diff(g, w) for g, w in zip(got[:2], want[:2])]
+        rel = [rel_err(g, w) for g, w in zip(got[:2], want[:2])]
         ok = max(rel) <= 1e-9
         print(f"  {label}: rel diff dx {rel[0]:.3e} dp {rel[1]:.3e} "
               f"(<= 1e-9) {'ok' if ok else 'FAIL'}")
@@ -266,18 +375,290 @@ def _compare(sys_, lam, damp_scale, label):
     return err
 
 
-def _headline(dtype, device):
+def _headline(dtype, device, elements=ELEMENTS):
     from collocfem_tpu_torch.headline import build_headline_problem
     from collocfem_tpu_torch.models import VanDerPol
     from collocfem_tpu_torch.problem import EstimationProblem
 
-    mesh, t_meas, y, u_nodes = build_headline_problem(ELEMENTS)
+    mesh, t_meas, y, u_nodes = build_headline_problem(elements)
     prob = EstimationProblem.build(VanDerPol(), mesh, t_meas,
                                    defect_weight=100.0, device=device,
                                    dtype=dtype)
     data = prob.pack_data(y, t_meas, u_nodes=u_nodes)
     z0 = prob.initial_guess_from_data(t_meas, y, p0=[0.5, 0.5])
     return prob, data, z0
+
+
+def _cr_headline_chain(dtype, device, lam):
+    """The headline's equilibrated, damped chain at N = ELEMENTS_CR and
+    the initial guess, padded to a power of two: (Ds, Es (b, b, Kp), G3 =
+    [gx | B] (b, 3, Kp), B (b, 2, Kp)), and the unpadded (D, E, G3, B)."""
+    import torch
+
+    from collocfem_tpu_torch.ops.assemble import assemble_gn_soa
+    from collocfem_tpu_torch.solve import blocktri as bt
+    from collocfem_tpu_torch.solve.kkt import _equilibrate_soa
+
+    prob, data, z0 = _headline(dtype, device, ELEMENTS_CR)
+    s, _, _, _ = _equilibrate_soa(assemble_gn_soa(prob, z0, data), lam)
+    G3 = torch.cat([s.gx[:, None, :], s.B], dim=1).contiguous()
+    Ds, Es = bt._pad_pow2_soa(s.D, s.E)
+    kp = Ds.shape[-1]
+    return ((Ds, Es, bt._pad_rhs(G3, kp), bt._pad_rhs(s.B, kp)),
+            (s.D, s.E, G3, s.B.contiguous()))
+
+
+def _hold_cr(label, dtype, Ds, Es, Gs, Gs_level=None):
+    """Every CR kernel against its plain version on one level (testing.
+    level_bar); returns {kernel name: max abs error of its outputs}."""
+    import torch
+
+    from collocfem_tpu_torch.testing import cr_level_comparison, level_bar
+
+    errs = {}
+    for name, (got, want, exact) in cr_level_comparison(
+            Ds, Es, Gs, Gs_level).items():
+        torch.cuda.synchronize()
+        if not all(bool(torch.isfinite(g).all()) for g in got):
+            raise RuntimeError(f"{label} {name}: non-finite values")
+        ok, worst = level_bar(got, want, exact)
+        if not ok:
+            raise RuntimeError(f"{label} {name}: the kernel disagrees with its "
+                               f"plain version (worst ratio {worst:.3g})")
+        errs[name] = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    return errs
+
+
+def _hold_cr_solves(label, dtype, D, E, G, B):
+    """Whole solves through the CR kernels against the plain solves of the
+    same schedule: blocktri_cr_factor_soa on G, blocktri_solve_cr
+    (block-major) on B."""
+    from collocfem_tpu_torch.solve import blocktri as bt
+    from collocfem_tpu_torch.testing import chain_residual
+
+    aos = lambda a: a.permute(2, 0, 1)
+    for name, got, want, rhs in (
+            ("blocktri_cr_factor_soa", bt.blocktri_cr_factor_soa(D, E)(G),
+             bt.blocktri_cr_factor_plain(D, E)(G), G),
+            ("blocktri_solve_cr", bt.blocktri_solve_cr(
+                aos(D), aos(E), aos(B)).permute(1, 2, 0),
+             bt.blocktri_solve_cr_plain(aos(D), aos(E), aos(B)).permute(
+                 1, 2, 0), B)):
+        _hold(f"{label} {name}", dtype, got, want,
+              lambda X: chain_residual(D, E, rhs, X))
+
+
+def _cr_levels(Ds, Es, Gs, Bs):
+    """The inputs of every CR level of one solve of (Ds, Es) down to the
+    tail, walked with the plain level: a list of (Ds, Es, Gs, Bs, factor,
+    g_new, s_g), with G = [gx | B] and B carried side by side."""
+    from collocfem_tpu_torch.ops import cr
+    from collocfem_tpu_torch.solve.blocktri import TAIL
+
+    levels = []
+    while Ds.shape[-1] > TAIL:
+        (dn, en), fac = cr.level_factor_plain(Ds, Es)
+        g_new, s_g = cr.level_apply_plain(fac, Gs)
+        levels.append((Ds, Es, Gs, Bs, fac, g_new.contiguous(), s_g))
+        Bs = cr.level_apply_plain(fac, Bs)[0].contiguous()
+        Ds, Es, Gs = dn.contiguous(), en.contiguous(), g_new.contiguous()
+    return levels
+
+
+def _cr_times(levels):
+    """CUDA-event ms of each CR kernel and its plain version, summed over
+    the levels of one solve: {name: (kernel ms, plain ms)}.  The fused
+    level #3 takes B (covariance's r = 2), the others G (r = 3)."""
+    from collocfem_tpu_torch.ops import cr
+
+    calls = {
+        "cr_level": lambda f: [f(d, e, b) for d, e, _, b, *_ in levels],
+        "cr_level_factor": lambda f: [f(d, e) for d, e, *_ in levels],
+        "cr_level_apply": lambda f: [f(fac, g) for _, _, g, _, fac, _, _
+                                     in levels],
+        "cr_backsub": lambda f: [f(x, fac.s_up, fac.s_lo, sg) for
+                                 *_, fac, x, sg in levels],
+    }
+    return {name: (_cuda_ms(lambda: call(getattr(cr, name)), 20),
+                   _cuda_ms(lambda: call(getattr(cr, name + "_ref")), 3))
+            for name, call in calls.items()}
+
+
+def _timed(fn):
+    """(result, wall in s) of fn() bracketed by torch.cuda.synchronize()."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _run_ladder(ladder, label, card):
+    """Run a ConvergedLadder once with the launch counts read after every
+    level, then once more without the reads for the wall.  With gtol = 0
+    every level runs all its maxiter trial solves (the lambda rail stops
+    its progress, not its loop), so a level on 'auto' launches kernel #1
+    maxiter times and a level on 'cr' launches kernels #4-#6 (levels x
+    maxiter) times each; nothing else may launch and no plain version may run.
+    Returns (z of every level, stats, per-level records, wall)."""
+    zs, per_level = [], []
+
+    def on_level(i, z, stats):
+        import torch
+
+        torch.cuda.synchronize()
+        counts, plain = _counts()
+        lvl = ladder.levels[i]
+        n = lvl.options.maxiter
+        want = ({"kkt_solve_spike_fused": n}
+                if lvl.options.method == "auto" else
+                {k: _cr_level_count(lvl.elements + 1) * n
+                 for k in CR_NAMES[1:]})
+        _expect_only(counts, plain, want, f"{label} level {i}")
+        per_level.append(dict(elements=lvl.elements,
+                              method=lvl.options.method,
+                              iterations=int(stats.iterations),
+                              launches=want, p=z.p.tolist()))
+        zs.append(z)
+        _reset_counts()
+
+    _reset_counts()
+    (z, stats), first = _timed(lambda: ladder(on_level))
+    (z2, _), wall = _timed(ladder)
+    for r in per_level:
+        print(f"  {label} level {r['elements']} ({r['method']}): "
+              f"{r['iterations']} iterations, launches {r['launches']}, "
+              f"p={r['p']}")
+    print(f"  {label}: wall {wall:.3f} s (first run, with per-level reads: "
+          f"{first:.3f} s) on {card}")
+    return zs, stats, per_level, wall
+
+
+def _phase7(dev, card, record):
+    """Phase 7: the headline at N = ELEMENTS_CR through the CR kernels.
+    Returns the launches of kernels #3-#6 on their main paths."""
+    import torch
+
+    from collocfem_tpu_torch.headline import ConvergedLadder
+    from collocfem_tpu_torch.ops.assemble import assemble_gn
+    from collocfem_tpu_torch.solve import blocktri as bt
+    from collocfem_tpu_torch.solve import covariance as cov
+    from collocfem_tpu_torch.solve.newton import SolverOptions, make_gn_solver
+    from collocfem_tpu_torch.testing import rel_err
+
+    n_levels = _cr_level_count(ELEMENTS_CR + 1)
+    launches = {}
+    # Fixed work with method='cr': float32 (best-of-3 wall), then float64
+    # (held against the JAX package's float64 run).
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[1]
+        prob, data, z0 = _headline(dtype, dev, ELEMENTS_CR)
+        solve = make_gn_solver(prob, SolverOptions(
+            maxiter=15, gtol=0.0, ftol=0.0, xtol=0.0, kkt_refine=0,
+            lam0=3e-6, lam_max=1e30, method="cr"))
+        _reset_counts()
+        z, stats = solve(z0, data)
+        torch.cuda.synchronize()
+        counts, plain_calls = _counts()
+        walls = [_timed(lambda: solve(z0, data))[1]
+                 for _ in range(3 if dtype == torch.float32 else 1)]
+        c0, c_end = float(prob.cost(z0, data)), float(stats.cost)
+        p = z.p.tolist()
+        record[f"cr_fixed_work_{name}"] = dict(
+            wall_s=min(walls), walls_s=walls, cost=[c0, c_end], p=p,
+            launches=counts, accepts=stats.history[:, 4].tolist(),
+            lam=stats.history[:, 2].tolist())
+        print(f"phase 7: N={ELEMENTS_CR} {name} method='cr', 15 LM "
+              f"iterations: cost {c0:.6e} -> {c_end:.6e} ({c0 / c_end:.2f}x), "
+              f"p={p}, accepted {int(stats.history[:, 4].sum())} of 15, "
+              f"launches { {k: v for k, v in counts.items() if v} }, plain "
+              f"calls {plain_calls}; wall {min(walls):.4f} s (best of "
+              f"{len(walls)}) on {card}")
+        _expect_only(counts, plain_calls,
+                     {k: 15 * n_levels for k in CR_NAMES[1:]},
+                     f"phase 7 fixed work {name}")
+        if not (c_end < c0 and all(math.isfinite(v) for v in p)):
+            raise RuntimeError(f"the CR fixed-work solve ({name}) did no "
+                               "useful work")
+        if dtype == torch.float32:
+            # No >10x bar here: at N = 20,000 the float32 LM drives lam
+            # below the float32 rounding of the unit diagonal, and whether
+            # a step's factorisation survives is a rounding coin flip.
+            print(f"  (float32 at this N runs at the float32 factorisation "
+                  f"cliff; the JAX package's CPU float32 run: "
+                  f"{CR_FIXED_JAX_F32_RATIO:.2f}x)")
+            launches.update({k: counts[k] for k in CR_NAMES[1:]})
+        else:
+            p_dev = (max(abs(a - b) for a, b in zip(p, CR_FIXED_JAX_F64_P))
+                     / max(abs(b) for b in CR_FIXED_JAX_F64_P))
+            record["cr_fixed_work_float64"]["p_vs_jax"] = p_dev
+            print(f"  float64: |p - p_jax|/|p_jax| {p_dev:.3e} (<= 1e-6), "
+                  f"cost falls more than 10x")
+            if not (c_end < 0.1 * c0 and p_dev <= 1e-6):
+                raise RuntimeError("the float64 CR fixed work disagrees with "
+                                   "the JAX package's")
+        del prob, data, z0, solve, z, stats
+
+    # The converged ladder, float32 then float64.
+    ladder = ConvergedLadder(ELEMENTS_CR, device=dev, dtype=torch.float32)
+    _, _, per_level, wall = _run_ladder(ladder, "ladder float32", card)
+    p = per_level[-1]["p"]
+    p_err = max(abs(v - 1.0) for v in p)
+    record["ladder_f32"] = dict(wall_s=wall, levels=per_level, p_err=p_err)
+    print(f"  ladder float32: p={p}, ||p - 1||_inf {p_err:.3e} (< 1e-4; the "
+          f"JAX package's CPU float32 ladder: {P_ERR_JAX_LADDER_F32:.3e})")
+    if not p_err < 1e-4:
+        raise RuntimeError("the float32 ladder did not reach ||p - 1|| < 1e-4")
+    del ladder
+
+    ladder = ConvergedLadder(ELEMENTS_CR, device=dev, dtype=torch.float64)
+    zs, _, per_level, wall = _run_ladder(ladder, "ladder float64", card)
+    p = per_level[-1]["p"]
+    p_dev = (max(abs(a - b) for a, b in zip(p, P_JAX_LADDER_F64))
+             / max(abs(b) for b in P_JAX_LADDER_F64))
+    record["ladder_f64"] = dict(wall_s=wall, levels=per_level, p_vs_jax=p_dev)
+    print(f"  ladder float64: p={p}, |p - p_jax|/|p_jax| {p_dev:.3e} "
+          f"(<= 1e-6)")
+    if not p_dev <= 1e-6:
+        raise RuntimeError("the float64 ladder's p disagrees with the JAX "
+                           "package's")
+
+    # Uncertainty at the float64 ladder's solutions.
+    fine, coarse = ladder.levels[-1], ladder.levels[0]
+    _reset_counts()
+    std, wall = _timed(lambda: cov.parameter_std(fine.problem, zs[-1],
+                                                 fine.data))
+    counts, plain_calls = _counts()
+    _expect_only(counts, plain_calls,
+                 {"cr_level": n_levels, "cr_backsub": n_levels},
+                 "phase 7 parameter_std")
+    launches["cr_level"] = counts["cr_level"]
+    sys_ = assemble_gn(fine.problem, zs[-1], fine.data)
+    a_b = bt.blocktri_solve_cr_plain(sys_.D, sys_.E, sys_.B)
+    schur = sys_.C - torch.einsum("kbq,kbr->qr", sys_.B, a_b)
+    want = torch.sqrt(torch.diagonal(torch.linalg.inv(schur)))
+    rel = rel_err(std, want)
+    record["parameter_std"] = dict(std=std.tolist(), rel_vs_plain=rel,
+                                   wall_s=wall)
+    print(f"  parameter_std at N={ELEMENTS_CR} float64: {std.tolist()}, "
+          f"rel diff vs the plain solve {rel:.3e} (<= 1e-9), wall "
+          f"{wall:.3f} s")
+    if not rel <= 1e-9:
+        raise RuntimeError("parameter_std disagrees with the plain solve")
+    sstd, wall = _timed(lambda: cov.state_std(coarse.problem, zs[0],
+                                              coarse.data))
+    ok = bool(torch.isfinite(sstd).all()) and bool((sstd > 0).all())
+    record["state_std"] = dict(elements=coarse.elements, wall_s=wall,
+                               max=float(sstd.max()), min=float(sstd.min()))
+    print(f"  state_std at N={coarse.elements} float64: shape "
+          f"{tuple(sstd.shape)}, range [{float(sstd.min()):.3e}, "
+          f"{float(sstd.max()):.3e}], wall {wall:.3f} s (the selected "
+          f"inverse is a sequential recursion, no kernel)")
+    if not ok or tuple(sstd.shape) != (coarse.problem.num_nodes, 2):
+        raise RuntimeError("state_std returned no usable band")
+    return launches
 
 
 def main() -> int:
@@ -293,6 +674,7 @@ def main() -> int:
     import collocfem_tpu_torch  # noqa: F401  (applies the precision policy)
     from collocfem_tpu_torch.batched import MU_TRUE, B_TRUE, build_config5_problem
     from collocfem_tpu_torch.ops import _build, spike, thomas
+    from collocfem_tpu_torch.solve import blocktri as bt
     from collocfem_tpu_torch.ops.assemble import assemble_gn_soa
     from collocfem_tpu_torch.parallel.batch import (batch_cost,
                                                     make_multi_experiment_solver)
@@ -310,7 +692,7 @@ def main() -> int:
 
     # ---- phase 1: build ----------------------------------------------------
     t0 = time.perf_counter()
-    built = _build.load_all(["kkt_spike", "thomas"])
+    built = _build.load_all(["kkt_spike", "thomas", "cr"])
     record["build_wall_s"] = time.perf_counter() - t0
     record["build_s"], record["ptxas"] = {}, {}
     print(f"phase 1: built {len(built)} libraries in "
@@ -400,6 +782,40 @@ def main() -> int:
                       lambda X: batch_residual(D, E, G, X))
     record["config5_ms"] = c5_ms
 
+    cr_errs, cr_ms = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[1]
+        padded, unpadded = _cr_headline_chain(dtype, dev, lam)
+        levels = _cr_levels(*padded)
+        for i, (D, E, G, B, *_) in enumerate(levels):
+            for k, v in _hold_cr(f"CR headline {name} level {i} "
+                                 f"m={D.shape[-1]}", dtype, D, E, G,
+                                 B).items():
+                cr_errs[(k, name)] = max(cr_errs.get((k, name), 0.0), v)
+        print(f"  kernels #3-#6 {name}: {len(levels)} levels of the headline "
+              f"chain at N={ELEMENTS_CR} ok; max abs err "
+              + ", ".join(f"{k} {v:.3e}" for (k, n), v in cr_errs.items()
+                          if n == name))
+        _hold_cr_solves(f"CR headline {name} K={unpadded[0].shape[-1]}",
+                        dtype, *unpadded)
+        cr_ms[name] = _cr_times(levels)
+        for k, (k_ms, p_ms) in cr_ms[name].items():
+            print(f"  {k} {name}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
+                  f"per solve ({len(levels)} levels)")
+        del padded, unpadded, levels
+        for k in (16, 17, 130, 1000):
+            for r in (1, 2, 3):
+                D, E, G = random_chain(k, 8, r, seed=k + r, dtype=dtype,
+                                       device=dev)
+                Dp, Ep = bt._pad_pow2_soa(D, E)
+                _hold_cr(f"CR random {name} K={k} r={r}", dtype, Dp, Ep,
+                         bt._pad_rhs(G, Dp.shape[-1]))
+                _hold_cr_solves(f"CR random {name} K={k} r={r}", dtype,
+                                D, E, G, G)
+        print(f"  kernels #3-#6 {name}: seeded chains K in (16, 17, 130, "
+              "1000), r in (1, 2, 3) ok")
+    record["cr_ms"] = cr_ms
+
     # ---- phase 3: headline fixed work, float32 -----------------------------
     prob, data, z0 = _headline(torch.float32, dev)
     opts = SolverOptions(maxiter=15, gtol=0.0, ftol=0.0, xtol=0.0,
@@ -427,9 +843,8 @@ def main() -> int:
           f"{plain_calls}; best of 3 wall {min(walls):.4f} s on {card}")
     if not (c_end < 0.1 * c0 and all(math.isfinite(v) for v in p)):
         raise RuntimeError("the fixed-work solve did no useful work")
-    if launches != 15 or plain_calls != 0:
-        raise RuntimeError(f"expected 15 kernel launches and no plain calls, "
-                           f"got {launches} and {plain_calls}")
+    _expect_only(counts, plain_calls, {"kkt_solve_spike_fused": 15},
+                 "phase 3")
 
     # ---- phase 4: float64 convergence --------------------------------------
     prob, data, z0 = _headline(torch.float64, dev)
@@ -483,12 +898,7 @@ def main() -> int:
               f"{plain_calls}; best of 3 wall {min(walls):.4f} s on {card}")
         if not (c_end < 0.1 * c0 and all(math.isfinite(v) for v in p)):
             raise RuntimeError(f"config 5 {layout} did no useful work")
-        others = sum(v for k, v in counts.items() if k != kname)
-        if counts[kname] != 15 or plain_calls != 0 or others != 0:
-            raise RuntimeError(
-                f"config 5 {layout}: expected 15 launches of {kname} and no "
-                f"other kernel or plain call, got {counts}, plain "
-                f"{plain_calls}")
+        _expect_only(counts, plain_calls, {kname: 15}, f"phase 5 {layout}")
 
     # ---- phase 6: config 5 float64 convergence -----------------------------
     prob, z0, data, p_prior, p_w = c5[torch.float64]
@@ -512,12 +922,16 @@ def main() -> int:
         raise RuntimeError("config 5 float64 p disagrees with the JAX "
                            "package's")
 
+    main_launches.update(_phase7(dev, card, record))
+
     ms = {"kkt_solve_spike_fused": times["float32"],
           "blocktri_solve_spike_fused": c5_ms["float32"]["chain"],
-          "batched_thomas_solve": c5_ms["float32"]["thomas"]}
+          "batched_thomas_solve": c5_ms["float32"]["thomas"],
+          **cr_ms["float32"]}
     err = {"kkt_solve_spike_fused": max_err,
            "blocktri_solve_spike_fused": errs[("chain", "float64")],
-           "batched_thomas_solve": errs[("thomas", "float64")]}
+           "batched_thomas_solve": errs[("thomas", "float64")],
+           **{k: cr_errs[(k, "float64")] for k in CR_NAMES}}
     kernels = {"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": main_launches[name], "max_abs_err": err[name],

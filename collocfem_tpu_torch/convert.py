@@ -1,9 +1,10 @@
 """Carry an iterate and a data set from the JAX package into the port.
 
 The estimation problem has no learned weights: what crosses between the two
-packages is the decision vector and the data.  Each function takes the JAX
-package's fields as numpy arrays (``np.asarray`` of each ``Decision``,
-``BatchDecision`` or ``ProblemData`` field) and returns the port's tensors.
+packages is the decision vector, the data and the mesh.  Each function takes
+the JAX package's fields as numpy arrays (``np.asarray`` of each
+``Decision``, ``BatchDecision`` or ``ProblemData`` field, or a ``Mesh``'s
+breakpoints) and returns the port's tensors (or ``Mesh``).
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from collocfem_tpu_torch.ops.basis import make_basis
+from collocfem_tpu_torch.ops.mesh import Mesh
 from collocfem_tpu_torch.parallel.batch import BatchDecision
 from collocfem_tpu_torch.problem import Decision, ProblemData
 
@@ -38,3 +41,9 @@ def data_from_numpy(y, u, meas_w, p_prior, p_w, x0_prior, x0_w, device,
 def batch_decision_from_numpy(V, p, device, dtype) -> BatchDecision:
     """BatchDecision(V (E, M, nv), p (nq,)) on ``device`` in ``dtype``."""
     return BatchDecision(V=_tensor(V, device, dtype), p=_tensor(p, device, dtype))
+
+
+def mesh_from_numpy(breakpoints, degree: int) -> Mesh:
+    """The port's Mesh of a JAX ``Mesh`` (its breakpoints and degree)."""
+    return Mesh(basis=make_basis(int(degree)),
+                breakpoints=np.asarray(breakpoints, dtype=np.float64))

@@ -1,17 +1,25 @@
 """The headline estimation problem: Van der Pol on a uniform LGL mesh.
 
-Counterpart of ``baseline_cpu/run_baseline.py::build_headline_problem``, in
-numpy and scipy only: the same horizon, measurement times, reference
-trajectory (``solve_ivp`` at rtol 1e-10, atol 1e-11) and input at the
-collocation nodes.
+:func:`build_headline_problem` is the counterpart of
+``baseline_cpu/run_baseline.py::build_headline_problem``, in numpy and scipy
+only: the same horizon, measurement times, reference trajectory
+(``solve_ivp`` at rtol 1e-10, atol 1e-11) and input at the collocation
+nodes.  :class:`ConvergedLadder` is the schedule of ``bench.py``'s converged
+run (``run_converged``).
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 from scipy.integrate import solve_ivp
 
-from collocfem_tpu_torch.ops.mesh import uniform_mesh
+from collocfem_tpu_torch.models import VanDerPol
+from collocfem_tpu_torch.ops.mesh import make_prolongation, uniform_mesh
+from collocfem_tpu_torch.problem import Decision, EstimationProblem, ProblemData
+from collocfem_tpu_torch.refine import level_sizes
+from collocfem_tpu_torch.solve.newton import SolverOptions, make_gn_solver
 
 MU_TRUE, B_TRUE = 1.0, 1.0
 TF = 10.0
@@ -31,3 +39,71 @@ def build_headline_problem(num_elements: int, degree: int = 4):
     y = sol.sol(t_meas)[0][:, None]
     u_nodes = np.sin(0.9 * mesh.elem_times)[..., None]
     return mesh, t_meas, y, u_nodes
+
+
+# The TPU's fused SPIKE kernel holds the chain in VMEM up to 16,384 blocks
+# at b = 8, r = 3 (collocfem_tpu/ops/spike_pallas.py:60,65-73); 'auto' runs
+# longer chains through the per-level cyclic reduction
+# (collocfem_tpu/solve/kkt.py:21-37).  The ladder gives each level that
+# method, so the fine level at N = 20,000 runs 'cr' here too.
+TPU_SPIKE_CHAIN = 16_384
+
+
+class LadderLevel(NamedTuple):
+    elements: int
+    options: SolverOptions
+    problem: EstimationProblem
+    data: ProblemData
+    solve: object        # make_gn_solver(problem, options)
+    prolong: object      # previous level's V -> this level's V0, or None
+
+
+class ConvergedLadder:
+    """``bench.run_converged``'s warm-started nested iteration on the
+    headline problem: three uniform meshes, each 4x coarser than the next
+    (:func:`refine.level_sizes`), 60 / 30 / 30 LM iterations with
+    ``gtol=0`` (the lambda rail ends each level), lam0 3e-6 on the cold
+    level and 1e-9 on the warm ones.
+
+    Every level's problem, data, solver and device prolongation is built
+    here, up front; calling the ladder runs it from the cold initial guess
+    and returns (z, stats) of the finest level.
+    """
+
+    def __init__(self, elements: int, *, device, dtype):
+        _, self.t_meas, self.y, _ = build_headline_problem(elements)
+        self.levels = []
+        prev = None
+        for i, n in enumerate(level_sizes(elements)):
+            mesh = uniform_mesh(0.0, TF, n, 4)
+            prob = EstimationProblem.build(VanDerPol(), mesh, self.t_meas,
+                                           defect_weight=100.0, device=device,
+                                           dtype=dtype)
+            data = prob.pack_data(
+                self.y, self.t_meas,
+                u_nodes=np.sin(0.9 * mesh.elem_times)[..., None])
+            method = "cr" if mesh.num_blocks > TPU_SPIKE_CHAIN else "auto"
+            opts = SolverOptions(maxiter=60 if i == 0 else 30, gtol=0.0,
+                                 lam0=3e-6 if i == 0 else 1e-9,
+                                 method=method)
+            prolong = (None if prev is None else make_prolongation(
+                prev, mesh.node_times, device=device, dtype=dtype))
+            self.levels.append(LadderLevel(n, opts, prob, data,
+                                           make_gn_solver(prob, opts),
+                                           prolong))
+            prev = mesh
+
+    def __call__(self, on_level=None):
+        """Run every level; ``on_level(index, z, stats)`` is called after
+        each one.  Returns (z, stats) of the last level."""
+        z = None
+        for i, lvl in enumerate(self.levels):
+            if z is None:
+                z0 = lvl.problem.initial_guess_from_data(self.t_meas, self.y,
+                                                         p0=[0.5, 0.5])
+            else:
+                z0 = Decision(V=lvl.prolong(z.V), p=z.p)
+            z, stats = lvl.solve(z0, lvl.data)
+            if on_level is not None:
+                on_level(i, z, stats)
+        return z, stats

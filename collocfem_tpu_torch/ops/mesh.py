@@ -1,6 +1,8 @@
 """Mesh / discretization layer: elements, global node indexing, time scaling.
 
-Counterpart of ``collocfem_tpu/ops/mesh.py`` (host numpy, no tensors).
+Counterpart of ``collocfem_tpu/ops/mesh.py``.  The mesh and its tables are
+host numpy; :func:`interpolate_trajectory` and :func:`make_prolongation`
+evaluate the collocation polynomial on tensors.
 
 The horizon [t0, tf] is split into N elements; element e carries a degree-d
 LGL node set and adjacent elements share their boundary node, so there are
@@ -14,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from collocfem_tpu_torch.ops.basis import LGLBasis, make_basis
 
@@ -52,6 +55,14 @@ class Mesh:
     def num_blocks(self) -> int:
         """K = N+1 groups of d nodes each (last group padded)."""
         return self.num_elements + 1
+
+    @property
+    def t0(self) -> float:
+        return float(self.breakpoints[0])
+
+    @property
+    def tf(self) -> float:
+        return float(self.breakpoints[-1])
 
     @property
     def widths(self) -> np.ndarray:
@@ -112,3 +123,60 @@ def uniform_mesh(t0: float, tf: float, num_elements: int, degree: int) -> Mesh:
         basis=make_basis(degree),
         breakpoints=np.linspace(float(t0), float(tf), num_elements + 1),
     )
+
+
+def interpolate_trajectory(mesh: Mesh, V, times, derivative: bool = False):
+    """Evaluate the piecewise collocation polynomial (and optionally d/dt).
+
+    ``V`` (M, n) global node values (a tensor), ``times`` (T,) physical
+    times.  The element location and Lagrange rows are computed on the host
+    per call.  Returns (T, n) values, or (values, derivatives).
+    """
+    e, rows = mesh.interp_rows(times)
+    Ve = V[torch.as_tensor(mesh.elem_node_idx[e], device=V.device,
+                           dtype=torch.long)]                   # (T, d+1, n)
+    as_t = lambda a: torch.as_tensor(np.array(a), dtype=V.dtype,
+                                     device=V.device)
+    vals = torch.einsum("tj,tjn->tn", as_t(rows), Ve)
+    if not derivative:
+        return vals
+    # p' at the nodes is D @ p (exact for degree <= d); interpolate those.
+    dVe = torch.einsum("kj,tjn->tkn", as_t(mesh.basis.diff), Ve)
+    scale = as_t(2.0 / mesh.widths[e])[:, None]
+    return vals, torch.einsum("tj,tjn->tn", as_t(rows), dVe) * scale
+
+
+def make_prolongation(mesh: Mesh, times, *, device, dtype):
+    """A device-side evaluator of the collocation polynomial at fixed
+    ``times`` (the multilevel ladder's warm start between levels).
+
+    The element and Lagrange-row tables are built on the host once and
+    placed on ``device``; the returned ``prolong(V) -> (T, n)`` is a gather
+    and an einsum, with no host work or transfer per call.
+    """
+    e, rows = mesh.interp_rows(np.asarray(times, dtype=np.float64))
+    idx = torch.as_tensor(mesh.elem_node_idx[e], dtype=torch.long,
+                          device=device)                        # (T, d+1)
+    rows_t = torch.as_tensor(rows, dtype=dtype, device=device)
+
+    def prolong(V):
+        return torch.einsum("tj,tjn->tn", rows_t, V[idx])
+
+    return prolong
+
+
+def refined_mesh(t0: float, tf: float, num_elements: int, degree: int,
+                 density: np.ndarray) -> Mesh:
+    """Graded mesh whose breakpoint density follows ``density`` (> 0,
+    (num_elements_old,)): each new element receives equal integrated
+    density."""
+    w = np.asarray(density, dtype=np.float64)
+    if w.ndim != 1 or np.any(w <= 0):
+        raise ValueError("density must be 1-D and strictly positive")
+    cdf = np.concatenate([[0.0], np.cumsum(w)])
+    cdf /= cdf[-1]
+    grid = np.linspace(0.0, 1.0, w.size + 1)
+    targets = np.linspace(0.0, 1.0, num_elements + 1)
+    bp = t0 + (tf - t0) * np.interp(targets, cdf, grid)
+    bp[0], bp[-1] = t0, tf
+    return Mesh(basis=make_basis(degree), breakpoints=bp)

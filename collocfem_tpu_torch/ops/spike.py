@@ -28,7 +28,7 @@ import torch
 
 from collocfem_tpu_torch.ops import _build
 from collocfem_tpu_torch.ops.assemble import BlockTriSystemSoA
-from collocfem_tpu_torch.solve.blocktri import blocktri_cr_factor_soa
+from collocfem_tpu_torch.solve.blocktri import blocktri_cr_factor_plain
 from collocfem_tpu_torch.solve.kkt import damping_scales, solve_kkt_plain
 
 
@@ -146,11 +146,12 @@ kkt_solve_spike_fused.launches = 0
 
 
 def blocktri_solve_spike_fused_ref(Ds, Es, Gs):
-    """Plain version of the chain kernel: cyclic reduction
-    (``solve.blocktri.blocktri_cr_factor_soa``), what the JAX package's
-    ``parallel.batch.concat_chain_solver`` runs off the TPU."""
+    """Plain version of the chain kernel: the plain cyclic reduction
+    (``solve.blocktri.blocktri_cr_factor_plain``, no kernel on any device),
+    what the JAX package's ``parallel.batch.concat_chain_solver`` runs off
+    the TPU."""
     blocktri_solve_spike_fused_ref.launches += 1
-    return blocktri_cr_factor_soa(Ds, Es)(Gs)
+    return blocktri_cr_factor_plain(Ds, Es)(Gs)
 
 
 blocktri_solve_spike_fused_ref.launches = 0

@@ -6,11 +6,14 @@ Schur complement: solve the chain against [gx | B] in one multi-RHS pass,
 then a tiny dense (nq, nq) solve, then compose.
 
 Ported: every case but the double-word tier (``dw=True`` raises; float64
-takes its place on the card).  On a CUDA device the solve runs the CUDA
-kernels of :mod:`collocfem_tpu_torch.ops.spike`: the fused KKT kernel for
-``refine == 0`` with ``nq > 0``, and the plain SPIKE chain kernel as the
-chain solve of the refinement passes and of ``nq == 0``.  The plain
-cyclic-reduction path below is the CPU path and the kernels' reference.
+takes its place on the card).  On a CUDA device the solve runs CUDA kernels:
+with ``spike=True`` those of :mod:`collocfem_tpu_torch.ops.spike` (the fused
+KKT kernel for ``refine == 0`` with ``nq > 0``, the SPIKE chain kernel as the
+chain solve of the refinement passes and of ``nq == 0``), otherwise the
+per-level cyclic-reduction kernels of :mod:`collocfem_tpu_torch.ops.cr`.  On
+the CPU the same cyclic reduction runs its plain versions.
+:func:`solve_kkt_plain`, the fused kernel's reference, runs the plain chain
+solve on any device.
 """
 
 from __future__ import annotations
@@ -18,7 +21,10 @@ from __future__ import annotations
 import torch
 
 from collocfem_tpu_torch.ops import smallblocks_soa as soa
-from collocfem_tpu_torch.solve.blocktri import blocktri_cr_factor_soa
+from collocfem_tpu_torch.solve.blocktri import (
+    blocktri_cr_factor_plain,
+    blocktri_cr_factor_soa,
+)
 
 
 def resolve_auto_method(block_size: int, nq: int, device,
@@ -47,6 +53,22 @@ def resolve_auto_method(block_size: int, nq: int, device,
             f"the SPIKE kernels are not built for block size {block_size} "
             f"with {what}; add the shape to csrc/kkt_spike.cu")
     return "spike"
+
+
+def require_cr_shapes(block_size: int, nq: int, device, refine: int = 0):
+    """On a CUDA device, raise unless the CR kernels are compiled for every
+    right-hand-side count the KKT solve gives them: r = 1 + nq for
+    [gx | B] and r = 1 for refinement passes or nq = 0."""
+    if torch.device(device).type != "cuda":
+        return
+    from collocfem_tpu_torch.ops.cr import kernel_supports
+
+    counts = {1 + nq} | ({1} if refine or nq == 0 else set())
+    missing = sorted(r for r in counts if not kernel_supports(block_size, r))
+    if missing:
+        raise ValueError(
+            f"the CR kernels are not built for block size {block_size} with "
+            f"r in {missing}; add the shape to csrc/cr.cu")
 
 
 def _schur_solve(schur, rhs):
@@ -109,18 +131,23 @@ def _matvec_soa(D, E, X):
     return y + torch.cat([up, zero], dim=1) + torch.cat([zero, lo], dim=1)
 
 
-def _solve_equilibrated(sys, lam, refine, damp_scale, spike):
+def _solve_equilibrated(sys, lam, refine, damp_scale, chain):
     """Equilibrate, solve the chain against [gx | B], Schur solve, compose,
-    ``refine`` refinement passes, unscale.  Returns (dx, dp, dmax)."""
+    ``refine`` refinement passes, unscale.  ``chain`` names the chain solve:
+    'spike' (kernel #2), 'cr' (the CR kernels, or their plain versions on
+    the CPU) or 'plain' (the plain CR on any device).  Returns (dx, dp,
+    dmax)."""
     nq = sys.C.shape[0]
     s, inv, inv_sp, dmax = _equilibrate_soa(sys, lam, damp_scale)
-    if spike:
+    if chain == "spike":
         from collocfem_tpu_torch.ops.spike import blocktri_solve_spike_fused
 
         apply_fn = lambda G: blocktri_solve_spike_fused(s.D, s.E,
                                                         G.contiguous())
-    else:
+    elif chain == "cr":
         apply_fn = blocktri_cr_factor_soa(s.D, s.E)
+    else:
+        apply_fn = blocktri_cr_factor_plain(s.D, s.E)
 
     if nq == 0:
         dx = -apply_fn(s.gx[:, None, :])[:, 0, :]
@@ -151,10 +178,10 @@ def solve_kkt_plain(sys, lam, damp_scale=None):
     [gx | B], Schur solve, compose and unscale.  Returns (dx, dp, dmax).
 
     This is the reference of the fused kernel
-    (``ops.spike.kkt_solve_spike_fused_ref`` calls it); the solver runs it
-    only on the CPU.
+    (``ops.spike.kkt_solve_spike_fused_ref`` calls it): it launches no
+    kernel on any device.
     """
-    return _solve_equilibrated(sys, lam, 0, damp_scale, spike=False)
+    return _solve_equilibrated(sys, lam, 0, damp_scale, "plain")
 
 
 def solve_kkt_soa(sys, lam, refine: int = 0, dw: bool = False,
@@ -166,24 +193,22 @@ def solve_kkt_soa(sys, lam, refine: int = 0, dw: bool = False,
     the chain runs on the CUDA kernels: for ``refine == 0`` and ``nq > 0``
     the fused KKT kernel (:func:`ops.spike.kkt_solve_spike_fused`), else the
     plain SPIKE chain kernel (:func:`ops.spike.blocktri_solve_spike_fused`)
-    for every chain solve, each call refactoring.  Otherwise the plain
-    cyclic reduction factors once and is reused; it is refused on a CUDA
-    device.  ``refine`` iterative-refinement passes re-solve the scaled
-    KKT residual.  Returns (dx (bd, K), dp (nq,)) and, with ``with_dmax``,
-    the damping scale.
+    for every chain solve, each call refactoring.  Otherwise cyclic
+    reduction factors once and is reused (on a CUDA device the CR kernels
+    #4-#6, on the CPU their plain versions).  ``refine``
+    iterative-refinement passes re-solve the scaled KKT residual.  Returns
+    (dx (bd, K), dp (nq,)) and, with ``with_dmax``, the damping scale.
     """
     if dw:
         raise NotImplementedError(
             "the double-word factorisation (dw=True) is not ported: float64 "
             "takes its place on the card (ROADMAP queue A, item 7)")
-    if not spike and sys.D.is_cuda:
-        raise ValueError("the plain KKT solve runs on the CPU only; on a "
-                         "CUDA device use spike=True (the CUDA kernels)")
     if spike and sys.C.shape[0] > 0 and refine == 0:
         from collocfem_tpu_torch.ops.spike import kkt_solve_spike_fused
 
         out = kkt_solve_spike_fused(
             sys.D, sys.E, sys.B, sys.gx, sys.C, sys.gp, lam, damp_scale)
     else:
-        out = _solve_equilibrated(sys, lam, refine, damp_scale, spike)
+        out = _solve_equilibrated(sys, lam, refine, damp_scale,
+                                  "spike" if spike else "cr")
     return out if with_dmax else out[:2]

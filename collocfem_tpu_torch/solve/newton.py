@@ -18,7 +18,11 @@ import torch
 
 from collocfem_tpu_torch.ops.assemble import assemble_gn_soa, blocks_to_nodes_soa
 from collocfem_tpu_torch.problem import Decision
-from collocfem_tpu_torch.solve.kkt import resolve_auto_method, solve_kkt_soa
+from collocfem_tpu_torch.solve.kkt import (
+    require_cr_shapes,
+    resolve_auto_method,
+    solve_kkt_soa,
+)
 from collocfem_tpu_torch.solve.lm_core import (
     HISTORY_COLS,
     LMAux,
@@ -41,8 +45,9 @@ class SolverOptions:
     lam0: float = 1e-9
     lam_min: float = 1e-14
     lam_max: float = 1e12
-    # 'auto': the SPIKE CUDA kernels on a CUDA device, the plain cyclic
-    # reduction on the CPU.  'cr_dw' (double-word CR) is not ported.
+    # 'auto': the SPIKE CUDA kernels on a CUDA device, cyclic reduction on
+    # the CPU.  'cr': the per-level CR kernels on a CUDA device.  'cr_dw'
+    # (double-word CR) is not ported: float64 takes its place.
     method: str = "auto"     # 'auto' | 'spike' | 'cr'
     kkt_refine: int = 0      # iterative-refinement passes per KKT solve
     hessian: str = "gn"      # only 'gn' is ported
@@ -73,12 +78,15 @@ def make_gn_solver(problem, options: SolverOptions = SolverOptions()):
             "method='cr_dw' is not ported: float64 takes the place of the "
             "double-word factorisation (ROADMAP queue A, item 7)")
     method = opt.method
+    block_size = problem.mesh.degree * problem.nv
     if method == "auto":
-        method = resolve_auto_method(problem.mesh.degree * problem.nv,
-                                     problem.model.nq, problem.device,
-                                     opt.kkt_refine)
+        method = resolve_auto_method(block_size, problem.model.nq,
+                                     problem.device, opt.kkt_refine)
     if method not in ("spike", "cr"):
         raise ValueError(f"unknown method {method!r}")
+    if method == "cr":
+        require_cr_shapes(block_size, problem.model.nq, problem.device,
+                          opt.kkt_refine)
     nv = problem.nv
     num_nodes = problem.num_nodes
 

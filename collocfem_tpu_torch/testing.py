@@ -72,6 +72,64 @@ def chain_residual(D, E, G, X) -> float:
     return float((AX - G).abs().max() / G.abs().max())
 
 
+def rel_err(x, want) -> float:
+    """max|x - want| / max|want|, in float64."""
+    x, want = x.double(), want.double()
+    return float((x - want).abs().max() / want.abs().max())
+
+
+def cr_level_comparison(Ds, Es, Gs, Gs_level=None):
+    """Every CR kernel, its plain version and the plain version in float64
+    on one level's inputs (Ds, Es (b, b, m), Gs (b, r, m)).
+
+    Returns {kernel name: (kernel outputs, plain outputs, float64 plain
+    outputs)}, each a list of tensors.  The apply kernel reduces Gs through
+    the factor kernel's own output, its plain version through the plain
+    factor; the back-substitution takes g_new as x_even; the fused level
+    takes ``Gs_level`` (default Gs).
+    """
+    from collocfem_tpu_torch.ops import cr
+
+    out = {}
+    (dn, en), fac = cr.cr_level_factor(Ds, Es)
+    (dn_p, en_p), fac_p = cr.cr_level_factor_ref(Ds, Es)
+    (dn_x, en_x), fac_x = cr.level_factor_plain(Ds.double(), Es.double())
+    out["cr_level_factor"] = tuple(
+        [d, e, f.L, f.s_up, f.s_lo] for d, e, f in
+        ((dn, en, fac), (dn_p, en_p, fac_p), (dn_x, en_x, fac_x)))
+    applied = (cr.cr_level_apply(fac, Gs), cr.cr_level_apply_ref(fac_p, Gs),
+               cr.level_apply_plain(fac_x, Gs.double()))
+    out["cr_level_apply"] = tuple(list(a) for a in applied)
+    Gl = Gs if Gs_level is None else Gs_level
+    levels = (cr.cr_level(Ds, Es, Gl), cr.cr_level_ref(Ds, Es, Gl),
+              cr.level_plain(Ds.double(), Es.double(), Gl.double()))
+    out["cr_level"] = tuple(list(a) + list(s) for a, s in levels)
+    x_even = applied[1][0].contiguous()
+    out["cr_backsub"] = (
+        [cr.cr_backsub(x_even, fac.s_up, fac.s_lo, applied[0][1])],
+        [cr.cr_backsub_ref(x_even, fac_p.s_up, fac_p.s_lo, applied[1][1])],
+        [cr.backsub_plain(x_even.double(), fac_x.s_up, fac_x.s_lo,
+                          applied[2][1])])
+    return out
+
+
+def level_bar(got, want, exact) -> tuple[bool, float]:
+    """The bar a CR kernel's outputs must meet on one level.  float64: every
+    output within 1e-9 (relative) of the plain version's.  float32: every
+    output's error against the float64 plain level at most 10x the plain
+    version's (taken as at least one float32 epsilon).  Returns (ok, the
+    worst ratio of error to allowance)."""
+    worst = 0.0
+    for g, w, x in zip(got, want, exact):
+        if g.dtype == torch.float64:
+            ratio = rel_err(g, w) / 1e-9
+        else:
+            allowed = 10.0 * max(rel_err(w, x), torch.finfo(g.dtype).eps)
+            ratio = rel_err(g, x) / allowed
+        worst = max(worst, ratio)
+    return worst <= 1.0, worst
+
+
 def batch_residual(D, E, G, X) -> float:
     """||A X - G||_inf / ||G||_inf in float64 over a block-major batch of
     chains (E[:, K-1] ignored)."""

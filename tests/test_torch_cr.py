@@ -1,0 +1,151 @@
+"""Port parity, cyclic reduction: the CR kernels' plain versions against the
+Pallas kernels of ``collocfem_tpu/ops/cr_pallas.py`` (interpret mode, as the
+JAX package's own tests run them on the CPU), and the chain solves of
+``solve/blocktri.py`` against the JAX package's, in float64.  The CUDA
+kernels themselves run only on a card (tests/test_torch_cuda.py)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from collocfem_tpu.ops import cr_pallas
+from collocfem_tpu.solve import blocktri as jax_bt
+from collocfem_tpu_torch.ops import cr
+from collocfem_tpu_torch.solve import blocktri as bt
+from collocfem_tpu_torch.testing import random_chain
+
+
+def _np(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _close(got, want, rtol):
+    """max|got - want| <= rtol * max|want|, array by array."""
+    for g, w in zip(got, want):
+        g, w = _np(g), _np(w)
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, w, rtol=0,
+                                   atol=rtol * float(np.abs(w).max()))
+
+
+@pytest.fixture(scope="module", params=[(8, 3), (4, 1)], ids=str)
+def level(request):
+    """One level's inputs at m = 64 (torch and JAX) and the JAX kernels'
+    outputs, each computed once."""
+    b, r = request.param
+    Ds, Es, Gs = random_chain(64, b, r, seed=b + r)
+    J = [jnp.asarray(a.numpy()) for a in (Ds, Es, Gs)]
+    (dn, en), fac_rows = cr_pallas.cr_level_factor(*J[:2], interpret=True)
+    applied = cr_pallas.cr_level_apply(fac_rows, J[2], interpret=True)
+    fused = cr_pallas.cr_level(*J, interpret=True)
+    x_even = J[2][..., :32]
+    s_up, s_lo = (a.reshape(b, b, 32) for a in fac_rows[3:])
+    back = cr_pallas.cr_backsub(x_even, s_up, s_lo, applied[1],
+                                interpret=True)
+    return (Ds, Es, Gs), dict(factor=((dn, en), fac_rows), apply=applied,
+                              level=fused, backsub=back)
+
+
+def test_level_factor_ref_matches_pallas(level):
+    """cr_level_factor_ref against the Pallas factor kernel: the halved
+    (D, E) and the factor rows (L, e_up, e_lo, s_up, s_lo) within 1e-10."""
+    (Ds, Es, _), jax_out = level
+    (dn, en), fac = cr.cr_level_factor_ref(Ds, Es)
+    (jdn, jen), rows = jax_out["factor"]
+    b, h = Ds.shape[0], Ds.shape[-1] // 2
+    _close([dn, en, fac.L, fac.e_up, fac.e_lo, fac.s_up, fac.s_lo],
+           [jdn, jen] + [np.asarray(a).reshape(b, b, h) for a in rows],
+           1e-10)
+
+
+def test_level_apply_ref_matches_pallas(level):
+    """cr_level_apply_ref through the port's own factor against the Pallas
+    apply kernel through the JAX factor: (g_new, s_g) within 1e-10."""
+    (Ds, Es, Gs), jax_out = level
+    _, fac = cr.cr_level_factor_ref(Ds, Es)
+    _close(cr.cr_level_apply_ref(fac, Gs), jax_out["apply"], 1e-10)
+
+
+def test_level_ref_matches_pallas(level):
+    """cr_level_ref against the fused Pallas level: every output within
+    1e-10."""
+    (Ds, Es, Gs), jax_out = level
+    (got_sys, got_fac), (want_sys, want_fac) = (cr.cr_level_ref(Ds, Es, Gs),
+                                                jax_out["level"])
+    _close(list(got_sys) + list(got_fac), list(want_sys) + list(want_fac),
+           1e-10)
+
+
+def test_backsub_ref_matches_pallas(level):
+    """cr_backsub_ref against the Pallas back-substitution: within 1e-10."""
+    (Ds, Es, Gs), jax_out = level
+    _, fac = cr.cr_level_factor_ref(Ds, Es)
+    _, s_g = cr.cr_level_apply_ref(fac, Gs)
+    got = cr.cr_backsub_ref(Gs[..., :Gs.shape[-1] // 2], fac.s_up, fac.s_lo,
+                            s_g)
+    _close([got], [jax_out["backsub"]], 1e-10)
+
+
+@pytest.mark.parametrize("k", [1, 2, 9, 130, 300])
+def test_chain_solves_match_jax(k):
+    """The port's chain solves against JAX blocktri_solve_cr (pallas_min =
+    16, the XLA path on the CPU) at b = 8, r = 3: blocktri_solve_cr,
+    blocktri_cr_factor, blocktri_cr_factor_soa, the plain CRs of the same
+    schedule, the unrolled CR and the dense solve, all within 1e-9."""
+    D, E, G = random_chain(k, 8, 3, seed=k)
+    aos = [a.permute(2, 0, 1).contiguous() for a in (D, E, G)]
+    want = np.asarray(jax_bt.blocktri_solve_cr(
+        *(jnp.asarray(a.numpy()) for a in aos), pallas_min=16))
+    got = [bt.blocktri_solve_cr(*aos), bt.blocktri_cr_factor(*aos[:2])(aos[2]),
+           bt.blocktri_cr_factor_soa(D, E)(G).permute(2, 0, 1),
+           bt.blocktri_cr_factor_plain(D, E)(G).permute(2, 0, 1),
+           bt.blocktri_solve_cr_plain(*aos),
+           bt.blocktri_solve_cr_unrolled(*aos), bt.blocktri_solve_dense(*aos)]
+    _close(got, [want] * len(got), 1e-9)
+    # A vector right-hand side (K, b) comes back as a vector.
+    x1 = bt.blocktri_solve_cr(aos[0], aos[1], aos[2][..., 0])
+    _close([x1], [want[..., 0]], 1e-9)
+
+
+@pytest.mark.parametrize("k", [1, 2, 9, 130])
+def test_inverse_blocks_match_jax(k):
+    """blocktri_inverse_blocks against JAX's Takahashi recursion: the
+    diagonal and super-diagonal blocks of A^-1 within 1e-9."""
+    D, E, _ = random_chain(k, 8, 1, seed=k + 1)
+    D, E = (a.permute(2, 0, 1).contiguous() for a in (D, E))
+    E[-1] = 0.0
+    want = jax_bt.blocktri_inverse_blocks(jnp.asarray(D.numpy()),
+                                          jnp.asarray(E.numpy()))
+    got = bt.blocktri_inverse_blocks(D, E)
+    assert tuple(got[1].shape) == (k - 1, 8, 8)
+    _close(got[:1] if k == 1 else got, want[:1] if k == 1 else want, 1e-9)
+
+
+def test_wrappers_dispatch_on_the_device():
+    """On CPU tensors the wrappers run their plain versions and count
+    nothing themselves; a device with no kernel raises."""
+    Ds, Es, Gs = random_chain(16, 8, 3, seed=0)
+    kernels = [f.launches for f in (cr.cr_level, cr.cr_level_factor,
+                                    cr.cr_level_apply, cr.cr_backsub)]
+    refs = [f.launches for f in (cr.cr_level_ref, cr.cr_level_factor_ref,
+                                 cr.cr_level_apply_ref, cr.cr_backsub_ref)]
+    (_, _, g), sol = cr.cr_level(Ds, Es, Gs)
+    _, fac = cr.cr_level_factor(Ds, Es)
+    cr.cr_level_apply(fac, Gs)
+    cr.cr_backsub(g, *sol)
+    assert [f.launches for f in (cr.cr_level, cr.cr_level_factor,
+                                 cr.cr_level_apply, cr.cr_backsub)] == kernels
+    assert [f.launches for f in (cr.cr_level_ref, cr.cr_level_factor_ref,
+                                 cr.cr_level_apply_ref,
+                                 cr.cr_backsub_ref)] == [n + 1 for n in refs]
+    meta = [a.to("meta") for a in (Ds, Es, Gs)]
+    with pytest.raises(ValueError, match="no kernel"):
+        cr.cr_level(*meta)
+    with pytest.raises(ValueError, match="no kernel"):
+        cr.cr_level_factor(*meta[:2])
+    # The plain chain solve calls none of the wrappers or plain versions.
+    bt.blocktri_cr_factor_plain(Ds, Es)(Gs)
+    assert [f.launches for f in (cr.cr_level_ref, cr.cr_level_factor_ref,
+                                 cr.cr_level_apply_ref,
+                                 cr.cr_backsub_ref)] == [n + 1 for n in refs]

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card, against their plain PyTorch versions.
 
-Kernel #1 (fused damped KKT), kernel #2 (SPIKE chain solve) and kernel #7
-(batched block Thomas).  Every test here is marked ``cuda`` and skips where
+Kernel #1 (fused damped KKT), kernel #2 (SPIKE chain solve), kernels #3-#6
+(the per-level cyclic reduction) and kernel #7 (batched block Thomas).
+Every test here is marked ``cuda`` and skips where
 there is no GPU (the kernels have no CPU mode).  The file imports no JAX, so
 it also runs on a machine without it:
 
@@ -11,14 +12,24 @@ it also runs on a machine without it:
 import pytest
 import torch
 
-from collocfem_tpu_torch.ops import spike, thomas
+from collocfem_tpu_torch.ops import cr, spike, thomas
+from collocfem_tpu_torch.solve import blocktri as bt
 from collocfem_tpu_torch.testing import (
     batch_residual,
     chain_residual,
+    cr_level_comparison,
+    level_bar,
     random_chain,
     random_chain_batch,
     random_kkt_system,
+    rel_err,
 )
+
+CR_KERNELS = (cr.cr_level, cr.cr_level_factor, cr.cr_level_apply,
+              cr.cr_backsub)
+KERNELS = CR_KERNELS + (spike.kkt_solve_spike_fused,
+                        spike.blocktri_solve_spike_fused,
+                        thomas.batched_thomas_solve)
 
 
 @pytest.fixture
@@ -72,10 +83,6 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
                                     small.gp, 1e-3)
 
 
-def _rel(got, want):
-    return float((got - want).abs().max() / want.abs().max())
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("r", [1, 3])
 @pytest.mark.parametrize("k", [1, 3, 7, 1000, 11264])
@@ -93,7 +100,7 @@ def test_chain_kernel_matches_plain(cuda_device, k, r):
         assert spike.blocktri_solve_spike_fused.launches == launches + 1
         want = spike.blocktri_solve_spike_fused_ref(D, E, G)
         if dtype == torch.float64:
-            assert _rel(got, want) <= 1e-9
+            assert rel_err(got, want) <= 1e-9
         else:
             assert chain_residual(D, E, G, got) <= \
                 10 * chain_residual(D, E, G, want)
@@ -113,7 +120,7 @@ def test_thomas_kernel_matches_plain(cuda_device, n_exp, k):
         assert thomas.batched_thomas_solve.launches == launches + 1
         want = thomas.batched_thomas_solve_ref(D, E, G)
         if dtype == torch.float64:
-            assert _rel(got, want) <= 1e-9
+            assert rel_err(got, want) <= 1e-9
         else:
             assert batch_residual(D, E, G, got) <= \
                 10 * batch_residual(D, E, G, want)
@@ -138,9 +145,9 @@ def test_refined_kkt_runs_the_chain_kernel(cuda_device, nq, refine):
     assert spike.blocktri_solve_spike_fused.launches == launches + 1 + refine
     want = solve_kkt_soa(BlockTriSystemSoA(*(a.cpu() for a in s)), 1e-3,
                          refine=refine)
-    assert _rel(got[0].cpu(), want[0]) <= 1e-9
+    assert rel_err(got[0].cpu(), want[0]) <= 1e-9
     if nq:
-        assert _rel(got[1].cpu(), want[1]) <= 1e-9
+        assert rel_err(got[1].cpu(), want[1]) <= 1e-9
 
 
 @pytest.mark.cuda
@@ -153,3 +160,123 @@ def test_chain_kernels_reject_what_they_do_not_take(cuda_device):
     D, E, G = random_chain_batch(4, 3, 8, 2, seed=0, device=cuda_device)
     with pytest.raises(ValueError, match="not built"):
         thomas.batched_thomas_solve(D, E, G)
+
+
+def _launches(fns):
+    return [f.launches for f in fns]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [1, 2, 3])
+@pytest.mark.parametrize("k", [16, 17, 130, 1000])
+def test_cr_kernels_match_plain(cuda_device, k, r):
+    """Kernels #3-#6 on the first level of a seeded chain padded to a power
+    of two, each against its plain version (``testing.level_bar``: float64
+    relative difference <= 1e-9; float32 error against the float64 plain
+    level at most 10x the plain version's), then whole solves through
+    blocktri_cr_factor_soa and blocktri_solve_cr against the plain solves
+    of the same schedule (float64 <= 1e-9; float32 residual at most 10x the
+    plain one)."""
+    for dtype in (torch.float64, torch.float32):
+        D, E, G = random_chain(k, 8, r, seed=k + r, dtype=dtype,
+                               device=cuda_device)
+        Ds, Es = bt._pad_pow2_soa(D, E)
+        Gs = bt._pad_rhs(G, Ds.shape[-1])
+        before = _launches(CR_KERNELS)
+        for name, outs in cr_level_comparison(Ds, Es, Gs).items():
+            ok, worst = level_bar(*outs)
+            assert ok, (name, dtype, worst)
+        assert _launches(CR_KERNELS) == [n + 1 for n in before]
+        aos = [a.permute(2, 0, 1) for a in (D, E, G)]
+        for got, want in (
+                (bt.blocktri_cr_factor_soa(D, E)(G),
+                 bt.blocktri_cr_factor_plain(D, E)(G)),
+                (bt.blocktri_solve_cr(*aos).permute(1, 2, 0),
+                 bt.blocktri_solve_cr_plain(*aos).permute(1, 2, 0))):
+            torch.cuda.synchronize()
+            if dtype == torch.float64:
+                assert rel_err(got, want) <= 1e-9
+            else:
+                assert chain_residual(D, E, G, got) <= \
+                    10 * chain_residual(D, E, G, want)
+
+
+@pytest.mark.cuda
+def test_cr_kernels_reject_what_they_do_not_take(cuda_device):
+    D, E, G = random_chain(16, 8, 4, seed=0, device=cuda_device)
+    with pytest.raises(ValueError, match="not built"):
+        cr.cr_level(D, E, G)
+    (_, _), fac = cr.cr_level_factor(D, E)
+    with pytest.raises(ValueError, match="not built"):
+        cr.cr_level_apply(fac, G)
+    D3, E3, _ = random_chain(16, 3, 1, seed=0, device=cuda_device)
+    with pytest.raises(ValueError, match="not built"):
+        cr.cr_level_factor(D3, E3)
+    with pytest.raises(ValueError, match="even"):
+        cr.cr_level_factor(D[..., :15].contiguous(), E[..., :15].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        cr.cr_level_factor(D.transpose(0, 1), E)
+
+
+@pytest.mark.cuda
+def test_method_cr_runs_only_the_cr_kernels(cuda_device):
+    """make_gn_solver(method='cr') on the card: 3 LM iterations of a small
+    Van der Pol problem (K = 101, padded to 128: 4 kernel levels) launch
+    the factor, apply and back-substitution kernels 3 x 4 times each and no
+    other kernel or plain version, and land on the CPU run's p (float64,
+    relative difference <= 1e-9)."""
+    from collocfem_tpu_torch.headline import build_headline_problem
+    from collocfem_tpu_torch.models import VanDerPol
+    from collocfem_tpu_torch.problem import EstimationProblem
+    from collocfem_tpu_torch.solve.newton import SolverOptions, make_gn_solver
+
+    mesh, t, y, u = build_headline_problem(100)
+    ps = []
+    for device in (cuda_device, "cpu"):
+        prob = EstimationProblem.build(VanDerPol(), mesh, t,
+                                       defect_weight=100.0, device=device,
+                                       dtype=torch.float64)
+        data = prob.pack_data(y, t, u_nodes=u)
+        z0 = prob.initial_guess_from_data(t, y, p0=[0.5, 0.5])
+        solve = make_gn_solver(prob, SolverOptions(maxiter=3, gtol=0.0,
+                                                   method="cr"))
+        plain = (spike.kkt_solve_spike_fused_ref,
+                 spike.blocktri_solve_spike_fused_ref,
+                 thomas.batched_thomas_solve_ref, cr.cr_level_ref,
+                 cr.cr_level_factor_ref, cr.cr_level_apply_ref,
+                 cr.cr_backsub_ref)
+        before, before_plain = _launches(KERNELS), _launches(plain)
+        z, _ = solve(z0, data)
+        if device != "cpu":
+            torch.cuda.synchronize()
+            ran = [a - b for a, b in zip(_launches(KERNELS), before)]
+            assert ran == [0, 12, 12, 12, 0, 0, 0]
+            assert _launches(plain) == before_plain
+        ps.append(z.p.cpu())
+    assert rel_err(ps[0], ps[1]) <= 1e-9
+
+
+@pytest.mark.cuda
+def test_plain_versions_launch_no_kernel(cuda_device):
+    """The plain versions of kernels #1-#7 on CUDA tensors run plain torch
+    only: no kernel's launch count moves."""
+    from collocfem_tpu_torch.solve.kkt import solve_kkt_plain
+
+    s = random_kkt_system(300, 8, 2, seed=1, device=cuda_device)
+    D, E, G = random_chain(300, 8, 3, seed=2, device=cuda_device)
+    Ds, Es = bt._pad_pow2_soa(D, E)
+    Gs = bt._pad_rhs(G, Ds.shape[-1])
+    Db, Eb, Gb = random_chain_batch(4, 11, 8, 3, seed=3, device=cuda_device)
+    before = _launches(KERNELS)
+    spike.kkt_solve_spike_fused_ref(s.D, s.E, s.B, s.gx, s.C, s.gp, 1e-3)
+    solve_kkt_plain(s, 1e-3)
+    spike.blocktri_solve_spike_fused_ref(D, E, G)
+    bt.blocktri_cr_factor_plain(D, E)(G)
+    bt.blocktri_solve_cr_plain(*(a.permute(2, 0, 1) for a in (D, E, G)))
+    (dn, en, gn), sol = cr.cr_level_ref(Ds, Es, Gs)
+    cr.cr_backsub_ref(gn, *sol)
+    _, fac = cr.cr_level_factor_ref(Ds, Es)
+    cr.cr_level_apply_ref(fac, Gs)
+    thomas.batched_thomas_solve_ref(Db, Eb, Gb)
+    torch.cuda.synchronize()
+    assert _launches(KERNELS) == before
