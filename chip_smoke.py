@@ -14,12 +14,13 @@ Phases, each printing its own line; any failure raises and exits non-zero:
      are ill-conditioned): the kernel's relative residual, computed in
      float64, is at most 10x the plain version's.
        kernel #1 (fused damped KKT): the headline system at the initial
-         guess (K = 10,001, b = 8, nq = 2) and seeded SPD chains; the
-         residual is ||(A + lam I) dx + B dp + gx||_inf / ||gx||_inf;
+         guess (K = 10,001, b = 8, nq = 2; two runs bit-identical) and
+         seeded SPD chains, K in EDGES + {7, 1000, 10001}; the residual is
+         ||(A + lam I) dx + B dp + gx||_inf / ||gx||_inf;
        kernel #2 (SPIKE chain solve): config 5's concatenated chain at the
          initial guess after the per-experiment damping and scaling
-         (K = 11,264, b = 8, r = 3) and seeded chains, K in {1, 3, 7, 1000,
-         11264}, r in {1, 3}; residual ||AX - G||_inf / ||G||_inf;
+         (K = 11,264, b = 8, r = 3) and seeded chains, K in EDGES + {7,
+         1000, 11264}, r in {1, 3}; residual ||AX - G||_inf / ||G||_inf;
        kernel #7 (batched block Thomas): config 5's damped block-major
          systems at the initial guess (1024 x 11 blocks, b = 8, r = 3) and
          seeded batches, n_exp in {1, 5, 1000}, K in {1, 2, 11};
@@ -34,19 +35,24 @@ Phases, each printing its own line; any failure raises and exits non-zero:
          held against the plain chain solve (the float32 bar is the chain
          residual).
      Times each kernel and its plain version (CUDA events; kernels #3-#6:
-     the sum over the 12 levels of one headline solve at N = 20,000);
+     the sum over the 12 levels of one headline solve at N = 20,000), and
+     kernel #7's library yardstick, torch.linalg.solve on the same 1024
+     systems assembled dense (88 x 88, r = 3); computes each kernel's bound
+     from the bytes and operations of its float32 call;
   3. the headline fixed work: Van der Pol, N = 10,000 elements, degree 4,
      float32, 15 LM iterations; the cost must fall more than 10x, p must be
      finite, and the kernel's launch count must rise by exactly 15 with no
      call of a plain version;
-  4. the same problem in float64 to convergence: ||p - [1, 1]||_inf < 1e-4;
+  4. the same problem in float64 to convergence: ||p - [1, 1]||_inf < 1e-4
+     (printed beside the one-thread kernel's 2.95e-11);
   5. config 5's fixed work: 1024 experiments x 10 elements, degree 4,
      float32, 15 LM iterations, in both layouts: "soa" (kernel #2) and
      "blocks" (kernel #7).  Each: the cost falls more than 10x, p is finite,
      the layout's kernel launches exactly 15 times and no plain version is
      called; p's error against (1.3, 0.5) and the best-of-3 wall;
   6. config 5 in float64 to convergence (soa): p within 1e-6 (relative,
-     inf-norm) of the JAX package's float64 result on the same problem;
+     inf-norm) of the JAX package's float64 result on the same problem
+     (printed beside the one-thread kernel's 4.220e-11);
   7. the headline at N = 20,000 through the CR kernels: fixed work with
      method='cr' (kernels #4, #5 and #6 launch exactly 15 x 12 times, no
      other kernel or plain version; p finite and the cost falls), in
@@ -96,6 +102,13 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                              "collocfem_tpu/ops/blocktri_pallas.py:78"),
 }
 CR_NAMES = ("cr_level", "cr_level_factor", "cr_level_apply", "cr_backsub")
+# Chain lengths at the edges of kernel #1's and #2's tile plan (one tile,
+# L = 3, a last tile mostly padding, a tile count not a multiple of four).
+EDGES = (1, 2, 3, 4, 5, 9, 13, 97)
+# The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
+# bandwidth and float32 outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
 
 
 def _cr_level_count(num_blocks: int) -> int:
@@ -484,6 +497,73 @@ def _cr_times(levels):
             for name, call in calls.items()}
 
 
+def _bound(nbytes, flops):
+    """(bound in ms, what binds it): the larger of the bytes over the HBM
+    bandwidth and the operations over the float32 peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _thomas_flops(b, r, blocks):
+    """Operations of a block-tridiagonal solve by block Thomas: per block a
+    Cholesky (b^3 / 3), W = S^-1 E and E^T W (4 b^3), and for the r
+    right-hand sides the forward reduction, two triangular solves and the
+    back-substitution (6 b^2 r)."""
+    return blocks * (b ** 3 / 3 + 4 * b ** 3 + 6 * b * b * r)
+
+
+def _bounds(K1, K2, n_exp, k7, levels):
+    """{kernel: (bound ms, binding)} of each kernel's float32 call at the
+    shapes timed in phase 2.  Bytes: each input read once and each output
+    written once (#1: D, E, G = [gx | B], inv in, dx out; #2, #7: D, E, G
+    in, X out; #3-#6: the level's inputs and outputs, summed over the
+    levels of one solve).  Operations: block Thomas for #1, #2, #7; for a
+    CR pair of blocks, the odd block's Cholesky and four b x b products
+    and solves (#4), 6 b^2 r for the right-hand sides (#5, #3) and 4 b^2 r
+    for the back-substitution (#6)."""
+    b, f = 8, 4
+    out = {
+        "kkt_solve_spike_fused": _bound(
+            f * K1 * (2 * b * b + 3 * b + b + b),
+            _thomas_flops(b, 3, K1) + K1 * 2 * b * 2 * 3),
+        "blocktri_solve_spike_fused": _bound(
+            f * K2 * (2 * b * b + 2 * 3 * b), _thomas_flops(b, 3, K2)),
+        "batched_thomas_solve": _bound(
+            f * n_exp * k7 * (2 * b * b + 2 * 3 * b),
+            _thomas_flops(b, 3, n_exp * k7)),
+    }
+    bb, r, r_cov = b * b, 3, 2   # #3 is timed with covariance's r = 2
+    per_pair = {   # (elements moved, operations) per pair of blocks
+        "cr_level_factor": (9 * bb, bb * b / 3 + 5 * 2 * bb * b),
+        "cr_level_apply": (3 * bb + 4 * b * r, 6 * bb * r),
+        "cr_level": (8 * bb + 4 * b * r_cov,
+                     bb * b / 3 + 5 * 2 * bb * b + 6 * bb * r_cov),
+        "cr_backsub": (2 * bb + 4 * b * r, 4 * bb * r),
+    }
+    pairs = sum(lv[0].shape[-1] // 2 for lv in levels)
+    for name, (elems, ops) in per_pair.items():
+        out[name] = _bound(f * elems * pairs, ops * pairs)
+    return out
+
+
+def _dense_batch(D, E, G):
+    """The block-major chains (n, K, b, b) as dense (n, K b, K b) matrices
+    with right-hand sides (n, K b, r)."""
+    import torch
+
+    n, K, b, _ = D.shape
+    A = D.new_zeros((n, K * b, K * b))
+    for k in range(K):
+        s = slice(k * b, (k + 1) * b)
+        A[:, s, s] = D[:, k]
+        if k + 1 < K:
+            t = slice((k + 1) * b, (k + 2) * b)
+            A[:, s, t] = E[:, k]
+            A[:, t, s] = E[:, k].transpose(1, 2)
+    return A, G.reshape(n, K * b, G.shape[-1])
+
+
 def _timed(fn):
     """(result, wall in s) of fn() bracketed by torch.cuda.synchronize()."""
     import torch
@@ -681,7 +761,7 @@ def main() -> int:
     from collocfem_tpu_torch.solve.newton import SolverOptions, make_gn_solver
     from collocfem_tpu_torch.testing import (batch_residual, chain_residual,
                                              random_chain, random_chain_batch,
-                                             random_kkt_system)
+                                             random_kkt_system, rel_err)
 
     dev = torch.device("cuda", 0)
     card = _card()
@@ -724,7 +804,14 @@ def main() -> int:
             _cuda_ms(lambda: spike.kkt_solve_spike_fused_ref(*call), 3))
         print(f"  headline {name}: kernel {times[name][0]:.3f} ms/call, "
               f"plain {times[name][1]:.3f} ms/call")
-        for k in (3, 7, 1000, 10001):
+        first = spike.kkt_solve_spike_fused(*call)
+        again = spike.kkt_solve_spike_fused(*call)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(first[:2], again[:2])):
+            raise RuntimeError(f"headline {name}: two runs of kernel #1 "
+                               "differ")
+        print(f"  headline {name}: two runs bit-identical")
+        for k in (*EDGES, 7, 1000, 10001):
             for damp_scale in ((None, 50.0) if k == 1000 else (None,)):
                 rs = random_kkt_system(k, 8, 2, seed=k, dtype=dtype,
                                        device=dev)
@@ -764,7 +851,17 @@ def main() -> int:
         for key, (k_ms, p_ms) in c5_ms[name].items():
             print(f"  config 5 {name} {key}: kernel {k_ms:.3f} ms/call, "
                   f"plain {p_ms:.3f} ms/call")
-        for k in (1, 3, 7, 1000, 11264):
+        if dtype == torch.float32:
+            A, rhs = _dense_batch(Db, Eb, Gb)
+            lib_ms = _cuda_ms(lambda: torch.linalg.solve(A, rhs), 20)
+            lib_err = rel_err(torch.linalg.solve(A, rhs).reshape(Gb.shape),
+                              thomas.batched_thomas_solve(Db, Eb, Gb))
+            k7_shape = Db.shape[:2]
+            print(f"  config 5 {name}: torch.linalg.solve on the dense "
+                  f"{tuple(A.shape)} batch {lib_ms:.3f} ms/call (rel diff "
+                  f"to kernel #7 {lib_err:.2e})")
+            del A, rhs
+        for k in (*EDGES, 7, 1000, 11264):
             for r in (1, 3):
                 D, E, G = random_chain(k, 8, r, seed=k + r, boundary=11,
                                        dtype=dtype, device=dev)
@@ -799,6 +896,9 @@ def main() -> int:
         _hold_cr_solves(f"CR headline {name} K={unpadded[0].shape[-1]}",
                         dtype, *unpadded)
         cr_ms[name] = _cr_times(levels)
+        if dtype == torch.float32:
+            bounds = _bounds(sys_.num_blocks, Dc.shape[-1], *k7_shape,
+                             levels)
         for k, (k_ms, p_ms) in cr_ms[name].items():
             print(f"  {k} {name}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
                   f"per solve ({len(levels)} levels)")
@@ -861,7 +961,8 @@ def main() -> int:
     record.update(f64_wall_s=wall, f64_iterations=its, f64_p=p,
                   f64_p_err=p_err, f64_converged=bool(stats.converged))
     print(f"phase 4: N={ELEMENTS} float64: {its} iterations, p={p}, "
-          f"p err {p_err:.3e}, wall {wall:.3f} s on {card}")
+          f"p err {p_err:.3e} (one-thread kernel: 2.95e-11), wall {wall:.3f} s on "
+          f"{card}")
     if not p_err < 1e-4:
         raise RuntimeError("the float64 solve did not reach ||p - 1|| < 1e-4")
 
@@ -916,8 +1017,8 @@ def main() -> int:
     record.update(config5_f64_wall_s=wall, config5_f64_iterations=its,
                   config5_f64_p=p, config5_f64_p_vs_jax=p_dev)
     print(f"phase 6: config 5 float64 soa: {its} iterations, p={p}, "
-          f"|p - p_jax|/|p_jax| {p_dev:.3e} (<= 1e-6), wall {wall:.3f} s "
-          f"on {card}")
+          f"|p - p_jax|/|p_jax| {p_dev:.3e} (<= 1e-6; one-thread kernel: 4.220e-11), "
+          f"wall {wall:.3f} s on {card}")
     if not p_dev <= 1e-6:
         raise RuntimeError("config 5 float64 p disagrees with the JAX "
                            "package's")
@@ -936,6 +1037,8 @@ def main() -> int:
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": main_launches[name], "max_abs_err": err[name],
         "ms": ms[name][0], "plain_ms": ms[name][1],
+        "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+        "library_ms": lib_ms if name == "batched_thomas_solve" else None,
     } for name, (source, replaces) in KERNELS.items()]}
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

@@ -12,20 +12,24 @@
 //                  raw loads and no Schur step.
 //
 // What bounds them on the card: at the headline shape (K = 10,001 blocks of
-// b = 8, nq = 2) the whole KKT solve reads and writes about 10 MB, a few
-// microseconds at 3.35 TB/s, and does about 50 MFLOP; the batched chain of
-// config 5 (K = 11,264, r = 3) is the same size.  The time is latency:
-// each tile is a sequential chain of dependent 8x8 block factorisations, the
-// interface chain is sequential, and a solve takes three or five launches.
-// The design keeps the sequential depth to about 3 L + 2 T block steps by
-// cutting the chain into T ~ 2 sqrt(K) tiles of L blocks (one thread each;
-// the wrapper picks the split from the measured cost of the two phases), and
-// it launches everything on the caller's stream with no host
-// synchronisation.  It is a correct first version: one thread per tile
-// leaves most of the card idle, the per-thread block state spills registers
-// (at float64 in particular), and the interface chain runs on one thread.
-// Warp-per-tile algebra, a parallel interface reduction and a single
-// cooperative launch are the ways to make it fast.
+// b = 8, nq = 2) the KKT solve reads and writes 6.7 MB, 2.0 microseconds at
+// 3.35 TB/s, and does ~35 MFLOP; the batched chain of config 5 (K = 11,264,
+// r = 3) moves 7.9 MB.  The time is latency: each tile is a chain of
+// dependent 8x8 block steps, the interface chain is sequential, and a
+// solve takes three or five launches.  The design cuts the chain into T ~
+// 1.1 sqrt(K) tiles of L blocks (the wrapper picks the split from the
+// measured cost of the tile and interface steps), so the sequential depth
+// is about 3 L + 4 T block steps, and runs each block step on a group of b
+// lanes, one row of every block per lane: a step's dot products run in
+// parallel across the rows, and the rows a lane needs from the others come
+// by warp shuffles, which set most of the cost of a step (~7 cycles of
+// issue a shuffle for one warp: ~335 shuffles in a forward tile step, ~420
+// in a backward one with its 19 right-hand-side columns).  Each step loads the next step's
+// rows into registers before its own algebra, so no step waits on memory.
+// Everything launches on the caller's stream with no host
+// synchronisation.  What is left: the interface chain is still sequential
+// over 2T blocks (a log-depth reduction is the next step), and the loads
+// are per lane, not coalesced.
 //
 // Build:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -45,16 +49,18 @@
 
 namespace {
 
-constexpr int kTileThreads = 64;
+constexpr int kTileThreads = 32;   // one warp: four tiles of b = 8 lanes
 constexpr int kComposeThreads = 256;
 
 template <typename F, int B, int R, bool KKT>
 int run(const kkt::Args<F>& a, cudaStream_t stream) {
-  const int tile_blocks = (a.T + kTileThreads - 1) / kTileThreads;
+  const long long lanes = (long long)a.T * B;
+  const unsigned tile_blocks =
+      (unsigned)((lanes + kTileThreads - 1) / kTileThreads);
   cudaError_t err;
   kkt::tile_sweep<F, B, R, KKT><<<tile_blocks, kTileThreads, 0, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  kkt::interface_solve<F, B, R><<<1, 1, 0, stream>>>(a);
+  kkt::interface_solve<F, B, R><<<1, B, 0, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   kkt::back_substitute<F, B, R, KKT><<<tile_blocks, kTileThreads, 0,
                                        stream>>>(a);

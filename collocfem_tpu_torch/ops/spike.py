@@ -32,15 +32,22 @@ from collocfem_tpu_torch.solve.blocktri import blocktri_cr_factor_plain
 from collocfem_tpu_torch.solve.kkt import damping_scales, solve_kkt_plain
 
 
-def _plan(K: int) -> tuple[int, int]:
+def _plan(K: int, T: int | None = None) -> tuple[int, int]:
     """Tiles (T, L) for a K-block chain: L >= 3 blocks per tile, T L >= K.
+    ``T`` asks for about that many tiles (``tools/spike_tiles.py`` sweeps
+    it); by default it comes from the cost model below.
 
-    The kernel's time is about a L (the per-tile sweeps) + b T (the
-    one-thread interface chain); measured on the H100, a/b is about 4 (the
-    tile sweep in PERF.md), so T ~ 2 sqrt(K) minimises it.  T is then
-    trimmed so fewer than L blocks are padding.
+    The kernel's time is about a L + b T: the tile phases take a forward
+    and a backward block step per block of a tile (then one of the
+    back-substitution), all tiles at once, and the interface chain takes a
+    forward and a backward step per boundary block, two per tile, on one
+    lane group.  Measured on the H100 (PERF.md, ``tools/spike_tiles.py``):
+    a ~ 5.2 us and b ~ 5.0 us in float32, a ~ 10 us and b ~ 7.4 us in
+    float64, so T = sqrt(a K / b) ~ 1.0-1.2 sqrt(K) minimises it; T = 1.1
+    sqrt(K).  T is then trimmed so fewer than L blocks are padding.
     """
-    T = max(1, min(round(2.0 * math.sqrt(K)), K // 3))
+    if T is None:
+        T = max(1, min(round(1.1 * math.sqrt(K)), K // 3))
     L = max(3, -(-K // T))
     return -(-K // L), L
 

@@ -30,6 +30,12 @@ CR_KERNELS = (cr.cr_level, cr.cr_level_factor, cr.cr_level_apply,
 KERNELS = CR_KERNELS + (spike.kkt_solve_spike_fused,
                         spike.blocktri_solve_spike_fused,
                         thomas.batched_thomas_solve)
+# Chain lengths at the edges of the tile plan of kernels #1 and #2
+# (ops/spike.py _plan): one tile (K <= 5, L = 3 for K <= 3), three tiles of
+# L = 3 (K = 9), a last tile that is mostly padding (K = 13: four tiles of
+# 4, the last with one block), and a tile count that is not a multiple of
+# the four tiles of a warp (K = 97: 11 tiles).
+EDGES = [1, 2, 3, 4, 5, 9, 13, 97]
 
 
 @pytest.fixture
@@ -50,7 +56,7 @@ def _solve_both(sys_, lam, damp_scale):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("damp_scale", [None, 40.0])
-@pytest.mark.parametrize("k", [1, 3, 7, 1000, 10001])
+@pytest.mark.parametrize("k", EDGES + [7, 1000, 10001])
 def test_kernel_matches_plain_float64(cuda_device, k, damp_scale):
     """float64: max|dx - dx_ref| / max|dx_ref| <= 1e-9, the same for dp."""
     sys_ = random_kkt_system(k, 8, 2, seed=k, device=cuda_device)
@@ -61,7 +67,7 @@ def test_kernel_matches_plain_float64(cuda_device, k, damp_scale):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [7, 10001])
+@pytest.mark.parametrize("k", EDGES + [7, 10001])
 def test_kernel_matches_plain_float32(cuda_device, k):
     """float32 on a well-conditioned chain: relative difference <= 1e-4."""
     sys_ = random_kkt_system(k, 8, 2, seed=k, dtype=torch.float32,
@@ -69,6 +75,19 @@ def test_kernel_matches_plain_float32(cuda_device, k):
     got, want = _solve_both(sys_, 1e-3, None)
     for g, w in zip(got[:2], want[:2]):
         assert float((g - w).abs().max() / w.abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_kernel_is_deterministic(cuda_device):
+    """Two runs of kernel #1 on the same input give bit-identical dx and dp
+    (the Schur partial sums are reduced in tile order, no atomics)."""
+    sys_ = random_kkt_system(10001, 8, 2, seed=3, device=cuda_device)
+    args = (sys_.D, sys_.E, sys_.B, sys_.gx, sys_.C, sys_.gp, 1e-3)
+    first = spike.kkt_solve_spike_fused(*args)
+    second = spike.kkt_solve_spike_fused(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
 
 
 @pytest.mark.cuda
@@ -85,7 +104,7 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("r", [1, 3])
-@pytest.mark.parametrize("k", [1, 3, 7, 1000, 11264])
+@pytest.mark.parametrize("k", EDGES + [7, 1000, 11264])
 def test_chain_kernel_matches_plain(cuda_device, k, r):
     """Kernel #2 on chains with zero couplings every 11 blocks (config 5's
     experiment boundaries).  float64: max|X - X_ref| / max|X_ref| <= 1e-9;

@@ -50,3 +50,20 @@ def test_wrapper_dispatch():
     assert thomas.batched_thomas_solve_ref.launches == plain0 + 2
     with pytest.raises(ValueError, match="no kernel"):
         thomas.batched_thomas_solve(*(a.to("meta") for a in (D, E, G)))
+
+
+@pytest.mark.parametrize("k", [1, 2, 11])
+def test_dense_yardstick_solves_the_same_systems(k):
+    """chip_smoke.py times torch.linalg.solve on the chains assembled dense
+    as kernel #7's library yardstick: it must solve the same systems (E[:,
+    K-1] ignored); float64 relative difference <= 1e-12."""
+    import torch
+
+    from chip_smoke import _dense_batch
+    from collocfem_tpu_torch.testing import rel_err
+
+    D, E, G = random_chain_batch(4, k, 8, 3, seed=10 + k)
+    A, rhs = _dense_batch(D, E, G)
+    assert A.shape == (4, 8 * k, 8 * k) and rhs.shape == (4, 8 * k, 3)
+    got = torch.linalg.solve(A, rhs).reshape(G.shape)
+    assert rel_err(got, thomas.batched_thomas_solve_ref(D, E, G)) <= 1e-12
