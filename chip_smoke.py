@@ -30,12 +30,17 @@ Phases, each printing its own line; any failure raises and exits non-zero:
          fused level #3 with G = B, r = 2, covariance's shape), and seeded
          chains, K in {16, 17, 130, 1000}, r in {1, 2, 3}, at their first
          level.  Per level, float32 is held against the float64 plain
-         level: the kernel's error at most 10x the plain version's.  Whole
-         solves through blocktri_cr_factor_soa and blocktri_solve_cr are
-         held against the plain chain solve (the float32 bar is the chain
+         level: the kernel's error at most 10x the plain version's.  The
+         sweeps of #4 and #5 (one library call each, as the main path
+         calls them) are held level by level against the plain walk with
+         the same bar and, bit for bit, against the per-level kernel
+         calls; each sweep's device launches are printed.  Whole solves
+         through blocktri_cr_factor_soa and blocktri_solve_cr are held
+         against the plain chain solve (the float32 bar is the chain
          residual).
      Times each kernel and its plain version (CUDA events; kernels #3-#6:
-     the sum over the 12 levels of one headline solve at N = 20,000), and
+     the sum over the 12 levels of one headline solve at N = 20,000, #4
+     and #5 through their sweeps, with the per-level calls' time beside), and
      kernel #7's library yardstick, torch.linalg.solve on the same 1024
      systems assembled dense (88 x 88, r = 3); computes each kernel's bound
      from the bytes and operations of its float32 call;
@@ -464,7 +469,8 @@ def _hold_cr_solves(label, dtype, D, E, G, B):
 def _cr_levels(Ds, Es, Gs, Bs):
     """The inputs of every CR level of one solve of (Ds, Es) down to the
     tail, walked with the plain level: a list of (Ds, Es, Gs, Bs, factor,
-    g_new, s_g), with G = [gx | B] and B carried side by side."""
+    g_new, s_g), with G = [gx | B] and B carried side by side, and the
+    tail's (Ds, Es, Gs)."""
     from collocfem_tpu_torch.ops import cr
     from collocfem_tpu_torch.solve.blocktri import TAIL
 
@@ -475,15 +481,76 @@ def _cr_levels(Ds, Es, Gs, Bs):
         levels.append((Ds, Es, Gs, Bs, fac, g_new.contiguous(), s_g))
         Bs = cr.level_apply_plain(fac, Bs)[0].contiguous()
         Ds, Es, Gs = dn.contiguous(), en.contiguous(), g_new.contiguous()
-    return levels
+    return levels, (Ds, Es, Gs)
 
 
-def _cr_times(levels):
-    """CUDA-event ms of each CR kernel and its plain version, summed over
-    the levels of one solve: {name: (kernel ms, plain ms)}.  The fused
-    level #3 takes B (covariance's r = 2), the others G (r = 3)."""
+def _hold_cr_sweeps(label, levels, tail, exact_levels, exact_tail):
+    """The sweeps of kernels #4 and #5 on the chain of ``levels``: each one
+    library call and one device launch per level; every level's outputs
+    against the plain walk (testing.level_bar, ``exact_*`` the float64
+    walk) and, bit for bit, against the per-level kernel calls.  Returns
+    the kernel factors of every level."""
+    import torch
+
     from collocfem_tpu_torch.ops import cr
+    from collocfem_tpu_torch.solve.blocktri import TAIL
+    from collocfem_tpu_torch.testing import level_bar
 
+    Ds, Es, Gs = levels[0][:3]
+    n0 = cr.device_launches()
+    (dt, et), facs = cr.cr_factor_sweep(Ds, Es, TAIL)
+    n1 = cr.device_launches()
+    gt, s_gs = cr.cr_apply_sweep(facs, Gs)
+    n2 = cr.device_launches()
+    torch.cuda.synchronize()
+    print(f"  {label}: factor sweep {n1 - n0} device launches, apply sweep "
+          f"{n2 - n1}, for {len(levels)} levels, one library call each")
+    if (n1 - n0, n2 - n1) != (len(levels), len(levels)):
+        raise RuntimeError(f"{label}: a sweep must launch once per level")
+
+    def outputs(walk, end):
+        return ([[lv[4].L, lv[4].s_up, lv[4].s_lo, lv[6]] for lv in walk]
+                + [list(end)])
+
+    got = ([[f.L, f.s_up, f.s_lo, sg] for f, sg in zip(facs, s_gs)]
+           + [[dt, et, gt]])
+    worst = 0.0
+    for i, (g, w, x) in enumerate(zip(got, outputs(levels, tail),
+                                      outputs(exact_levels, exact_tail))):
+        if not all(bool(torch.isfinite(a).all()) for a in g):
+            raise RuntimeError(f"{label} level {i}: non-finite values")
+        ok, ratio = level_bar(g, w, x)
+        worst = max(worst, ratio)
+        if not ok:
+            raise RuntimeError(f"{label} level {i}: the sweep disagrees with "
+                               f"the plain walk (worst ratio {ratio:.3g})")
+    d, e, g = Ds, Es, Gs
+    for fac_s, sg_s in zip(facs, s_gs):
+        (d, e), fac = cr.cr_level_factor(d, e)
+        g, sg = cr.cr_level_apply(fac, g)
+        if not all(torch.equal(a, b) for a, b in zip(
+                (fac.L, fac.s_up, fac.s_lo, fac.E, sg), (*fac_s, sg_s))):
+            raise RuntimeError(f"{label}: the sweep and the per-level calls "
+                               "differ")
+    if not (torch.equal(d, dt) and torch.equal(e, et) and torch.equal(g, gt)):
+        raise RuntimeError(f"{label}: the sweep's tail and the per-level "
+                           "calls' differ")
+    print(f"  {label}: every level within the bar of the plain walk (worst "
+          f"ratio {worst:.3g}); equal to the per-level calls bit for bit")
+    return facs
+
+
+def _cr_times(levels, facs):
+    """CUDA-event ms of each CR kernel and its plain version, summed over
+    the levels of one solve: ({name: (kernel ms, plain ms)}, {name: ms of
+    the per-level kernel calls} for #4 and #5).  #4 and #5 are timed through
+    their sweeps, as the main path calls them (``facs``: the kernel factors
+    of the chain).  The fused level #3 takes B (covariance's r = 2), the
+    others G (r = 3)."""
+    from collocfem_tpu_torch.ops import cr
+    from collocfem_tpu_torch.solve.blocktri import TAIL
+
+    Ds, Es, Gs = levels[0][:3]
     calls = {
         "cr_level": lambda f: [f(d, e, b) for d, e, _, b, *_ in levels],
         "cr_level_factor": lambda f: [f(d, e) for d, e, *_ in levels],
@@ -492,9 +559,15 @@ def _cr_times(levels):
         "cr_backsub": lambda f: [f(x, fac.s_up, fac.s_lo, sg) for
                                  *_, fac, x, sg in levels],
     }
-    return {name: (_cuda_ms(lambda: call(getattr(cr, name)), 20),
-                   _cuda_ms(lambda: call(getattr(cr, name + "_ref")), 3))
-            for name, call in calls.items()}
+    kernel = {name: (lambda name=name: calls[name](getattr(cr, name)))
+              for name in calls}
+    per_level = {name: _cuda_ms(kernel[name], 20)
+                 for name in ("cr_level_factor", "cr_level_apply")}
+    kernel["cr_level_factor"] = lambda: cr.cr_factor_sweep(Ds, Es, TAIL)
+    kernel["cr_level_apply"] = lambda: cr.cr_apply_sweep(facs, Gs)
+    return ({name: (_cuda_ms(kernel[name], 20),
+                    _cuda_ms(lambda: call(getattr(cr, name + "_ref")), 3))
+             for name, call in calls.items()}, per_level)
 
 
 def _bound(nbytes, flops):
@@ -883,7 +956,7 @@ def main() -> int:
     for dtype in (torch.float32, torch.float64):
         name = str(dtype).split(".")[1]
         padded, unpadded = _cr_headline_chain(dtype, dev, lam)
-        levels = _cr_levels(*padded)
+        levels, tail = _cr_levels(*padded)
         for i, (D, E, G, B, *_) in enumerate(levels):
             for k, v in _hold_cr(f"CR headline {name} level {i} "
                                  f"m={D.shape[-1]}", dtype, D, E, G,
@@ -893,16 +966,23 @@ def main() -> int:
               f"chain at N={ELEMENTS_CR} ok; max abs err "
               + ", ".join(f"{k} {v:.3e}" for (k, n), v in cr_errs.items()
                           if n == name))
+        facs = _hold_cr_sweeps(
+            f"CR sweeps {name}", levels, tail,
+            *_cr_levels(*(a.double() for a in padded)))
         _hold_cr_solves(f"CR headline {name} K={unpadded[0].shape[-1]}",
                         dtype, *unpadded)
-        cr_ms[name] = _cr_times(levels)
+        cr_ms[name], per_level = _cr_times(levels, facs)
+        record.setdefault("cr_per_level_calls_ms", {})[name] = per_level
         if dtype == torch.float32:
             bounds = _bounds(sys_.num_blocks, Dc.shape[-1], *k7_shape,
                              levels)
         for k, (k_ms, p_ms) in cr_ms[name].items():
             print(f"  {k} {name}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
-                  f"per solve ({len(levels)} levels)")
-        del padded, unpadded, levels
+                  f"per solve ({len(levels)} levels)"
+                  + (f"; one sweep call, against {per_level[k]:.3f} ms "
+                     f"through {len(levels)} per-level calls"
+                     if k in per_level else ""))
+        del padded, unpadded, levels, tail, facs
         for k in (16, 17, 130, 1000):
             for r in (1, 2, 3):
                 D, E, G = random_chain(k, 8, r, seed=k + r, dtype=dtype,

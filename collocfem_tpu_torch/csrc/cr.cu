@@ -2,33 +2,51 @@
 // interface.  Replaces the four Pallas TPU kernels of
 // collocfem_tpu/ops/cr_pallas.py:
 //
-//   cr_level_*    cr_level (body _fwd_kernel): one fused CR level, both the
-//                 elimination of the odd blocks and the right-hand-side sweep;
-//   cr_factor_*   cr_level_factor (body _factor_kernel): the G-independent
-//                 half, which also stores the Cholesky factor of the odd
-//                 blocks for the later sweeps;
-//   cr_apply_*    cr_level_apply (body _apply_kernel): reduces G through the
-//                 stored factor;
-//   cr_backsub_*  cr_backsub (body _bwd_kernel): recovers the odd blocks and
-//                 writes the interleaved solution.
+//   cr_level_*         cr_level (body _fwd_kernel): one fused CR level, both
+//                      the elimination of the odd blocks and the
+//                      right-hand-side sweep;
+//   cr_factor_sweep_*  cr_level_factor (body _factor_kernel), level after
+//                      level: the G-independent half, which also stores the
+//                      Cholesky factor of the odd blocks for later sweeps;
+//   cr_apply_sweep_*   cr_level_apply (body _apply_kernel), level after
+//                      level: reduces G through the stored factors;
+//   cr_backsub_*       cr_backsub (body _bwd_kernel): recovers the odd blocks
+//                      and writes the interleaved solution.
 //
 // The Pallas kernels emit each pair's cross term for the next pair and let
-// XLA shift-subtract it outside; here the same shift-subtract is a second,
-// elementwise launch on the caller's stream (cr_level: two, for D and G).
-// The factor kernel stores no copy of e_up / e_lo: the apply kernel reads
-// them from the level's input E, which the caller keeps.
+// XLA shift-subtract it outside, because a TPU kernel could not store to a
+// neighbour's lane.  Here the cross term travels one lane up inside the pair
+// pass (cr_kernels.cuh), so a level is one launch and writes d_new / g_new
+// complete.  The factor kernel stores no copy of e_up / e_lo: the apply
+// kernel reads them from the level's input E, which the caller keeps.
 //
-// What bounds them on the card: at the first level of the headline chain
-// at N = 20,000 (K padded to 32,768, b = 8, 16,384 pairs) the factor pass
-// reads about 1 KB and writes about 1.5 KB per pair in float32 (the cross
-// pass moves 0.75 KB more), ~55 MB in all, some 20 us of HBM traffic, and
-// does ~7,500 flops per pair (~120 MFLOP, a few us at the card's float32
-// rate); the apply and back-substitution passes move a few MB.  So the big
-// levels are memory bound and the small ones (a chain halves per level, 12
-// levels down to 8 blocks) are launch and latency bound.  One thread per
-// pair, SoA loads coalesced across the warp.  A first version: the levels
-// could fuse (several levels per launch in shared memory once a chain fits
-// a block) and the cross-term pass could fold into the next level's loads.
+// A sweep is one call of this library: it launches every level from here, on
+// the caller's stream, each level reading the one before from the sweep's
+// workspace (layout: cr::sweep_offset).  The caller allocates the workspace
+// and nothing here synchronises.
+//
+// What bounds them on the card: at the first level of the headline chain at
+// N = 20,000 (K padded to 32,768, b = 8, 16,384 pairs) the factor pass reads
+// 1 KB and writes 1.25 KB per pair in float32, 37.7 MB, some 11 us of HBM
+// traffic, against ~7,500 flops per pair (~120 MFLOP, 2 us at the card's
+// float32 rate): the big levels are bound by bytes.  A chain halves per level
+// (12 levels down to 8 blocks), and eight of the twelve have at most 1,024
+// pairs: they are bound by the latency of one thread's dependent work and by
+// the launch.  The warp-per-column layout cuts that work from a whole pair
+// to one column of it, and the staging in shared memory cuts a thread's
+// rounds of loads to one.
+//
+// Measured (collocfem_tpu_torch/tools/cr_sweeps.py, NVIDIA H100 80GB HBM3,
+// 700.00 W, device time by torch.profiler): the 12 levels of the factor
+// pass take 19.6, 8.4, 5.7 and then 4.3 to 3.9 us each in float32, 71 us a
+// sweep (float64: 33.3, 15.5, 8.9, then 6.5 to 5.2; 111 us); the apply pass
+// with r = 3, 6.5, 5.2 and then ~4 us each, 51 us a sweep (float64 82 us).
+// The one-thread-per-pair version before took ~19 us a level for the factor
+// pass and ~9 us for the apply pass, plus a cross-term launch each.  So the
+// top level runs at about twice its byte bound and a small level at ~4 us,
+// of which the launch itself is about half; fusing the small levels into one
+// launch is the next step.  By CUDA events a whole sweep takes ~0.25 ms,
+// because the host cannot launch it faster (PERF.md).
 //
 // The device code is in cr_kernels.cuh.  Build:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -48,33 +66,56 @@
 
 namespace {
 
-constexpr int kPairThreads = 64;
-constexpr int kElemThreads = 256;
+constexpr int kBacksubThreads = 64;
 
-unsigned blocks_for(long long n, int threads) {
-  return (unsigned)((n + threads - 1) / threads);
-}
+// Kernel launches made by this library since it was loaded.
+unsigned long long device_launches = 0;
 
-template <typename F>
-cudaError_t shift_subtract(F* out, const F* cross, long long rows,
-                           long long h, cudaStream_t stream) {
-  cr::shift_sub<F><<<blocks_for(rows * h, kElemThreads), kElemThreads, 0,
-                     stream>>>(out, cross, rows, h);
+// Launch Kernel with `bytes` of dynamic shared memory (above the 48 KB a
+// block may use by default, the kernel is first given leave to) and count it.
+template <auto Kernel, typename... Args>
+cudaError_t launch(unsigned grid, int threads, size_t bytes, cudaStream_t s,
+                   Args... args) {
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+  }
+  Kernel<<<grid, threads, bytes, s>>>(args...);
+  ++device_launches;
   return cudaGetLastError();
 }
 
+unsigned blocks_for(long long n, int per_block) {
+  return (unsigned)((n + per_block - 1) / per_block);
+}
+
+// Whether `levels` levels can run from a chain of 2 h0 blocks: every level's
+// chain must be even.
+bool sweep_ok(long long h0, int levels) {
+  return levels >= 1 && levels < 62 && h0 >= 1 &&
+         (2 * h0) % (1LL << levels) == 0;
+}
+
 template <typename F>
-int factor(const F* D, const F* E, F* dn, F* en, F* su, F* sl, F* lo, F* cd,
-           int b, long long h, void* stream) {
-  if (h < 1) return cudaErrorInvalidValue;
+int factor_sweep(const F* D, const F* E, F* ws, int b, long long h0,
+                 int levels, void* stream) {
+  if (!sweep_ok(h0, levels)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define CR_FACTOR(Bv)                                                       \
-  if (b == Bv) {                                                            \
-    cr::factor_pairs<F, Bv><<<blocks_for(h, kPairThreads), kPairThreads, 0, \
-                              s>>>(D, E, dn, en, su, sl, lo, cd, h);        \
-    cudaError_t err = cudaGetLastError();                                   \
-    if (err != cudaSuccess) return err;                                     \
-    return shift_subtract<F>(dn, cd, (long long)Bv * Bv, h, s);             \
+#define CR_FACTOR(Bv)                                                        \
+  if (b == Bv) {                                                             \
+    for (int lv = 0; lv < levels; ++lv) {                                    \
+      const long long h = h0 >> lv, n = (long long)Bv * Bv * h;              \
+      F* out = ws + cr::sweep_offset(5, Bv * Bv, h0, h);                     \
+      const cudaError_t err = launch<cr::factor_pairs<F, Bv>>(               \
+          blocks_for(h, cr::kNew), Bv * cr::kLanes,                          \
+          cr::factor_tile(Bv) * sizeof(F), s, D, E, out, out + n,            \
+          out + 2 * n, out + 3 * n, out + 4 * n, h);                         \
+      if (err != cudaSuccess) return err;                                    \
+      D = out;                                                               \
+      E = out + n;                                                           \
+    }                                                                        \
+    return cudaSuccess;                                                      \
   }
   CR_BLOCKS(CR_FACTOR)
 #undef CR_FACTOR
@@ -82,17 +123,23 @@ int factor(const F* D, const F* E, F* dn, F* en, F* su, F* sl, F* lo, F* cd,
 }
 
 template <typename F>
-int apply(const F* lo, const F* E, const F* G, F* gn, F* sg, F* cg, int b,
-          int r, long long h, void* stream) {
-  if (h < 1) return cudaErrorInvalidValue;
+int apply_sweep(const F* const* lo, const F* const* E, const F* G, F* ws,
+                int b, int r, long long h0, int levels, void* stream) {
+  if (!sweep_ok(h0, levels)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define CR_APPLY(Bv, Rv)                                                    \
-  if (b == Bv && r == Rv) {                                                 \
-    cr::apply_pairs<F, Bv, Rv><<<blocks_for(h, kPairThreads), kPairThreads, \
-                                 0, s>>>(lo, E, G, gn, sg, cg, h);          \
-    cudaError_t err = cudaGetLastError();                                   \
-    if (err != cudaSuccess) return err;                                     \
-    return shift_subtract<F>(gn, cg, (long long)Bv * Rv, h, s);             \
+#define CR_APPLY(Bv, Rv)                                                     \
+  if (b == Bv && r == Rv) {                                                  \
+    for (int lv = 0; lv < levels; ++lv) {                                    \
+      const long long h = h0 >> lv, n = (long long)Bv * Rv * h;              \
+      F* out = ws + cr::sweep_offset(2, Bv * Rv, h0, h);                     \
+      const cudaError_t err = launch<cr::apply_pairs<F, Bv, Rv>>(            \
+          blocks_for(h, cr::kNew), cr::kApplyWarps<Rv> * cr::kLanes,         \
+          cr::apply_tile(Bv, Rv) * sizeof(F), s, lo[lv], E[lv], G, out,      \
+          out + n, h);                                                       \
+      if (err != cudaSuccess) return err;                                    \
+      G = out;                                                               \
+    }                                                                        \
+    return cudaSuccess;                                                      \
   }
   CR_SHAPES(CR_APPLY)
 #undef CR_APPLY
@@ -101,20 +148,15 @@ int apply(const F* lo, const F* E, const F* G, F* gn, F* sg, F* cg, int b,
 
 template <typename F>
 int level(const F* D, const F* E, const F* G, F* dn, F* en, F* gn, F* su,
-          F* sl, F* sg, F* cd, F* cg, int b, int r, long long h,
-          void* stream) {
+          F* sl, F* sg, int b, int r, long long h, void* stream) {
   if (h < 1) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define CR_LEVEL(Bv, Rv)                                                    \
-  if (b == Bv && r == Rv) {                                                 \
-    cr::level_pairs<F, Bv, Rv><<<blocks_for(h, kPairThreads), kPairThreads, \
-                                 0, s>>>(D, E, G, dn, en, gn, su, sl, sg,   \
-                                         cd, cg, h);                        \
-    cudaError_t err = cudaGetLastError();                                   \
-    if (err != cudaSuccess) return err;                                     \
-    err = shift_subtract<F>(dn, cd, (long long)Bv * Bv, h, s);              \
-    if (err != cudaSuccess) return err;                                     \
-    return shift_subtract<F>(gn, cg, (long long)Bv * Rv, h, s);             \
+#define CR_LEVEL(Bv, Rv)                                                     \
+  if (b == Bv && r == Rv) {                                                  \
+    return launch<cr::level_pairs<F, Bv, Rv>>(                               \
+        blocks_for(h, cr::kNew), Bv * cr::kLanes,                            \
+        cr::level_tile(Bv, Rv) * sizeof(F), s, D, E, G, dn, en, gn, su, sl,  \
+        sg, h);                                                              \
   }
   CR_SHAPES(CR_LEVEL)
 #undef CR_LEVEL
@@ -126,11 +168,11 @@ int backsub(const F* xe, const F* su, const F* sl, const F* sg, F* X, int b,
             int r, long long h, void* stream) {
   if (h < 1) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define CR_BACKSUB(Bv, Rv)                                                  \
-  if (b == Bv && r == Rv) {                                                 \
-    cr::backsub<F, Bv, Rv><<<blocks_for(h, kPairThreads), kPairThreads, 0,  \
-                             s>>>(xe, su, sl, sg, X, h);                    \
-    return cudaGetLastError();                                              \
+#define CR_BACKSUB(Bv, Rv)                                                   \
+  if (b == Bv && r == Rv) {                                                  \
+    return launch<cr::backsub<F, Bv, Rv>>(blocks_for(h, kBacksubThreads),    \
+                                          kBacksubThreads, 0, s, xe, su, sl, \
+                                          sg, X, h);                         \
   }
   CR_SHAPES(CR_BACKSUB)
 #undef CR_BACKSUB
@@ -156,47 +198,55 @@ int cr_supported(int b, int r) {
   return 0;
 }
 
-// All arrays SoA with the chain last: inputs of chain length 2h, outputs
-// and scratch (cd, cg: the cross terms) of length h, X of length 2h.  Each
-// returns 0 or the cudaError_t of its first failed launch.
-int cr_factor_f32(const float* D, const float* E, float* dn, float* en,
-                  float* su, float* sl, float* lo, float* cd, int b,
-                  long long h, void* stream) {
-  return factor<float>(D, E, dn, en, su, sl, lo, cd, b, h, stream);
+// Kernel launches made by this library since it was loaded (every entry
+// below adds one per kernel it launches).
+unsigned long long cr_device_launches() { return device_launches; }
+
+// All arrays SoA with the chain last.  Each entry returns 0 or the
+// cudaError_t of its first failed launch.
+//
+// cr_factor_sweep: `levels` factor levels from the chain D, E of 2 h0 blocks
+// (2 h0 a multiple of 2^levels).  Level lv (h = h0 >> lv pairs) writes dn,
+// en, su, sl, lo, each (b, b, h), one after the other from
+// ws + cr::sweep_offset(5, b b, h0, h); the next level reads its dn, en.
+int cr_factor_sweep_f32(const float* D, const float* E, float* ws, int b,
+                        long long h0, int levels, void* stream) {
+  return factor_sweep<float>(D, E, ws, b, h0, levels, stream);
 }
 
-int cr_factor_f64(const double* D, const double* E, double* dn, double* en,
-                  double* su, double* sl, double* lo, double* cd, int b,
-                  long long h, void* stream) {
-  return factor<double>(D, E, dn, en, su, sl, lo, cd, b, h, stream);
+int cr_factor_sweep_f64(const double* D, const double* E, double* ws, int b,
+                        long long h0, int levels, void* stream) {
+  return factor_sweep<double>(D, E, ws, b, h0, levels, stream);
 }
 
-int cr_apply_f32(const float* lo, const float* E, const float* G, float* gn,
-                 float* sg, float* cg, int b, int r, long long h,
-                 void* stream) {
-  return apply<float>(lo, E, G, gn, sg, cg, b, r, h, stream);
+// cr_apply_sweep: `levels` apply levels from G (b, r, 2 h0) through the
+// factors lo[lv] (b, b, h) and the levels' input couplings E[lv] (b, b, 2h)
+// (host arrays of device pointers).  Level lv writes gn, sg, each (b, r, h),
+// from ws + cr::sweep_offset(2, b r, h0, h); the next level reads its gn.
+int cr_apply_sweep_f32(const float* const* lo, const float* const* E,
+                       const float* G, float* ws, int b, int r, long long h0,
+                       int levels, void* stream) {
+  return apply_sweep<float>(lo, E, G, ws, b, r, h0, levels, stream);
 }
 
-int cr_apply_f64(const double* lo, const double* E, const double* G,
-                 double* gn, double* sg, double* cg, int b, int r,
-                 long long h, void* stream) {
-  return apply<double>(lo, E, G, gn, sg, cg, b, r, h, stream);
+int cr_apply_sweep_f64(const double* const* lo, const double* const* E,
+                       const double* G, double* ws, int b, int r,
+                       long long h0, int levels, void* stream) {
+  return apply_sweep<double>(lo, E, G, ws, b, r, h0, levels, stream);
 }
 
+// cr_level, cr_backsub: inputs of chain length 2h, outputs of length h, X of
+// length 2h.
 int cr_level_f32(const float* D, const float* E, const float* G, float* dn,
-                 float* en, float* gn, float* su, float* sl, float* sg,
-                 float* cd, float* cg, int b, int r, long long h,
-                 void* stream) {
-  return level<float>(D, E, G, dn, en, gn, su, sl, sg, cd, cg, b, r, h,
-                      stream);
+                 float* en, float* gn, float* su, float* sl, float* sg, int b,
+                 int r, long long h, void* stream) {
+  return level<float>(D, E, G, dn, en, gn, su, sl, sg, b, r, h, stream);
 }
 
 int cr_level_f64(const double* D, const double* E, const double* G,
                  double* dn, double* en, double* gn, double* su, double* sl,
-                 double* sg, double* cd, double* cg, int b, int r,
-                 long long h, void* stream) {
-  return level<double>(D, E, G, dn, en, gn, su, sl, sg, cd, cg, b, r, h,
-                       stream);
+                 double* sg, int b, int r, long long h, void* stream) {
+  return level<double>(D, E, G, dn, en, gn, su, sl, sg, b, r, h, stream);
 }
 
 int cr_backsub_f32(const float* xe, const float* su, const float* sl,

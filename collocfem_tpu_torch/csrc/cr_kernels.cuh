@@ -16,22 +16,133 @@
 // and the back-substitution x_odd = s_g - s_up x_even[p] - s_lo x_even[p + 1]
 // (x_even[h] = 0) interleaves x_even and x_odd into the (b, r, 2h) solution.
 //
-// One thread per pair.  Every load and store is SoA with the pair index
-// fastest, so neighbouring threads touch neighbouring addresses (stride 2 on
-// the level's input, stride 1 on its outputs).  Pair p's cross term belongs
-// to pair p + 1, which another thread owns: the pair kernels write it to
-// scratch and shift_sub subtracts it in a second, elementwise launch.
+// The pair passes (kernels #3, #4, #5): a warp per block column.  A block of
+// b warps works on 32 consecutive pairs: warp c owns column c of every b x b
+// (or b x r) result of those pairs, and lane l owns the pair p0 + l.  All a
+// pair computes is column-parallel: column c of s_lo, s_up and s_g is one
+// pair of triangular solves with the pair's factor, and column c of d_new,
+// e_new, g_new and of the cross terms needs the whole of e_up / e_lo and only
+// that column of s.  So the algebra needs no exchange between threads, and a
+// level's latency is one column's work (a Cholesky, two solves, three
+// matrix-vector products) instead of one thread's whole pair.  Every warp
+// factors D_odd of its 32 pairs itself (8 square roots and reciprocals):
+// b-fold redundant work, but no barrier inside the algebra.  (Factoring on
+// one warp and handing L through shared memory was measured and was slower
+// on the large levels and no faster on the small ones.)  The apply pass
+// loads the stored factor instead; its first r warps take a column each.
 //
-// Registers: a thread holds the Cholesky factor (b (b + 1) / 2 values and b
-// inverse pivots) and one b x b solve at a time; e_up and e_lo are re-read
-// row by row (or column by column) from the level's input instead of being
-// held, so a b = 8 thread keeps about 120 values live.
+// The inputs go through shared memory.  The 32 pairs of a block are 64
+// neighbouring chain slots.  The block first copies those slots of every
+// row of D, E (and G, and the stored factor's lower triangle) into a tile,
+// all threads at once and neighbouring threads on neighbouring slots: one
+// round of loads that uses whole cache lines, instead of each thread
+// fetching its rows at stride 2 as its algebra reaches them, round trip
+// after round trip.  (Reading the level's input directly took 1.6x the time
+// on every level; prefetching it into L1 did not help.)  The tile keeps a
+// row's even slots first and its odd ones after them, so a warp reads 32
+// neighbouring words.  Outputs are written SoA with the pair index across
+// the lanes.
+//
+// The cross term.  Pair p's cross_d / cross_g belongs to pair p + 1, the
+// next lane of the same warp: one __shfl_up_sync per value with the whole
+// warp's constant mask.  Lane 0 needs the pair before the block's first, so
+// each block computes that pair again as a halo and stores nothing for it:
+// a block stores kNew = 31 pairs.  A slot before or past the chain reads the
+// nearest one, so the lanes there work on a harmless pair and store nothing;
+// the pair before the chain passes a zero cross term on.  d_new and g_new
+// are so written once, complete, as (d_even - e_up s_up) - cross, the order
+// of the plain version.
+//
+// Arithmetic per pair: the Cholesky without pivoting, column-by-column
+// solves and every dot product summed over k = 0 .. b - 1 from zero, as the
+// plain versions (ops/cr.py) do them.
+//
+// Registers: a thread holds the factor (b (b + 1) / 2 values and b inverse
+// pivots), its columns of s_lo and s_up, the cross column and one row of E.
+// Shared memory per block, b = 8: 32 KB (float32) / 64 KB (float64) for the
+// factor pass, up to 38 / 76 KB for the fused level, up to 30 / 60 KB for
+// the apply pass; above 48 KB it is dynamic shared memory by leave.
 
 #pragma once
 
 #include "kkt_spike_kernels.cuh"
 
 namespace cr {
+
+constexpr int kLanes = 32;        // pairs a block works on, the halo included
+constexpr int kNew = kLanes - 1;  // pairs a block stores
+constexpr unsigned kWarp = 0xffffffffu;
+
+// Start of level lv's arrays in a sweep's workspace, in elements.  A sweep
+// runs levels lv = 0, 1, ... on chains of 2 h0 >> lv blocks, and level lv
+// writes `arrays` outputs of `rows` rows and h = h0 >> lv columns each, one
+// after the other; the levels follow each other, so level lv starts at
+// arrays * rows * (h0 + h0 / 2 + ... + 2 h) = arrays * rows * 2 (h0 - h).
+// The workspace of `levels` levels holds sweep_offset(..., h0 >> levels)
+// elements.  ops/cr.py computes the same (sweep_layout).
+inline long long sweep_offset(int arrays, int rows, long long h0,
+                              long long h) {
+  return (long long)arrays * rows * 2 * (h0 - h);
+}
+
+// The pair a lane works on.
+struct Lane {
+  long long p;   // the pair; in the chain where store is set
+  bool store;    // this lane writes its pair's outputs
+  bool before;   // the pair before the chain: its cross term is zero
+  int lane;      // this thread's lane: its pair's place in the block
+  int col;       // the column this thread's warp owns
+  __device__ __forceinline__ explicit Lane(long long h) {
+    lane = threadIdx.x % kLanes;
+    p = (long long)blockIdx.x * kNew + lane - 1;
+    store = lane > 0 && p < h;
+    before = p < 0;
+    col = threadIdx.x / kLanes;
+  }
+};
+
+// The pair's inputs as a lane reads them from the block's tiles: arrays of
+// row stride n with the even block at slot ke and the odd block at ko.
+template <typename F>
+struct Inputs {
+  const F *D, *E, *G;
+  long long n, ke, ko;
+};
+
+// The block's dynamic shared memory.
+template <typename F>
+__device__ __forceinline__ F* dynamic_smem() {
+  extern __shared__ __align__(16) unsigned char raw[];
+  return reinterpret_cast<F*>(raw);
+}
+
+// Copy rows 0 .. ROWS - 1 of the SLOTS chain slots from s0 on of an SoA array
+// with chain length n into tile (ROWS, SLOTS), all THREADS threads of the
+// block together, neighbouring threads on neighbouring slots; a slot before
+// or past the chain reads the nearest one.  With SPLIT the even slots of a
+// row come first and the odd ones after them, so that lane l finds its
+// pair's even block at l and its odd block at SLOTS / 2 + l.  With LOWER > 0
+// the rows are those of a LOWER x LOWER block and only its lower triangle
+// is copied.
+template <typename F, int ROWS, int SLOTS, int THREADS, bool SPLIT,
+          int LOWER = 0>
+__device__ __forceinline__ void stage(const F* a, long long n, long long s0,
+                                      F* tile) {
+  static_assert(THREADS % SLOTS == 0 && ROWS % (THREADS / SLOTS) == 0,
+                "whole rows per pass");
+  constexpr int kRowsPerPass = THREADS / SLOTS, kPasses = ROWS / kRowsPerPass;
+  constexpr int kBlock = LOWER > 0 ? LOWER : 1;
+  const int j = threadIdx.x % SLOTS, r0 = threadIdx.x / SLOTS;
+  long long s = s0 + j;
+  s = s < 0 ? 0 : (s < n ? s : n - 1);
+  const int dst = SPLIT ? (j & 1) * (SLOTS / 2) + j / 2 : j;
+#pragma unroll(kPasses <= 32 ? kPasses : 16)
+  for (int k = 0; k < kPasses; ++k) {
+    const int row = k * kRowsPerPass + r0;
+    if (LOWER > 0 && row % kBlock > row / kBlock) continue;
+    tile[row * SLOTS + dst] = a[(long long)row * n + s];
+  }
+}
 
 // Block of M x N at slot k of an SoA array with chain length n.
 template <typename F, int M, int N>
@@ -43,194 +154,271 @@ __device__ __forceinline__ void ld(const F* a, long long n, long long k,
     for (int j = 0; j < N; ++j) out[i][j] = a[(long long)(i * N + j) * n + k];
 }
 
-template <typename F, int M, int N>
-__device__ __forceinline__ void st(F* a, long long n, long long k,
-                                   const F in[M][N]) {
-#pragma unroll
-  for (int i = 0; i < M; ++i)
-#pragma unroll
-    for (int j = 0; j < N; ++j) a[(long long)(i * N + j) * n + k] = in[i][j];
-}
-
-// The transposed B x B block: out[i][j] = A[j][i].
+// The lower triangle of the B x B block at slot k (the rest is left alone).
 template <typename F, int B>
-__device__ __forceinline__ void ld_t(const F* a, long long n, long long k,
-                                     F out[B][B]) {
+__device__ __forceinline__ void ld_lower(const F* a, long long n, long long k,
+                                         F out[B][B]) {
 #pragma unroll
   for (int i = 0; i < B; ++i)
 #pragma unroll
-    for (int j = 0; j < B; ++j) out[i][j] = a[(long long)(j * B + i) * n + k];
+    for (int j = 0; j <= i; ++j) out[i][j] = a[(long long)(i * B + j) * n + k];
 }
 
-// x <- (L L^T)^-1 x with the lower factor in l and its inverse pivots.
-template <typename F, int B, int N>
-__device__ __forceinline__ void chol_solve(const F l[B][B], const F inv[B],
-                                           F x[B][N]) {
+// In-place lower Cholesky of the lower triangle of a, with inv[j] = 1 /
+// a[j][j] (correctly rounded, the value of the division).  Each pivot is
+// clamped at tiny (a NaN stays NaN), so a noise-indefinite block gives a
+// finite junk factor and the LM loop rejects the step.
+template <typename F, int B>
+__device__ __forceinline__ void chol_inv(F a[B][B], F inv[B]) {
+  using N = kkt::Num<F>;
 #pragma unroll
-  for (int i = 0; i < B; ++i)
+  for (int j = 0; j < B; ++j) {
+    F s = a[j][j];
 #pragma unroll
-    for (int c = 0; c < N; ++c) {
-      F s = x[i][c];
+    for (int k = 0; k < j; ++k) s -= a[j][k] * a[j][k];
+    const F d = N::sqrt_(s < N::tiny ? N::tiny : s);
+    a[j][j] = d;
+    inv[j] = N::rcp(d);
 #pragma unroll
-      for (int k = 0; k < i; ++k) s -= l[i][k] * x[k][c];
-      x[i][c] = s * inv[i];
+    for (int i = j + 1; i < B; ++i) {
+      F s2 = a[i][j];
+#pragma unroll
+      for (int k = 0; k < j; ++k) s2 -= a[i][k] * a[j][k];
+      a[i][j] = s2 * inv[j];
     }
-#pragma unroll
-  for (int i = B - 1; i >= 0; --i)
-#pragma unroll
-    for (int c = 0; c < N; ++c) {
-      F s = x[i][c];
-#pragma unroll
-      for (int k = i + 1; k < B; ++k) s -= l[k][i] * x[k][c];
-      x[i][c] = s * inv[i];
-    }
+  }
 }
 
-// Writes out[..., p] = base[..., kb] - (e_up s) (or 0 - (e_up s) without a
-// base) for the N-column s, reading e_up = E[..., ke] row by row.
-template <typename F, int B, int N, bool BASE>
-__device__ __forceinline__ void minus_eup_times(const F* E, long long m,
-                                                long long ke, const F s[B][N],
-                                                const F* base, F* out,
-                                                long long h, long long p) {
+// x <- (L L^T)^-1 x for one column, with the lower factor in l and its
+// inverse pivots.
+template <typename F, int B>
+__device__ __forceinline__ void solve_col(const F l[B][B], const F inv[B],
+                                          F x[B]) {
+#pragma unroll
+  for (int i = 0; i < B; ++i) {
+    F s = x[i];
+#pragma unroll
+    for (int k = 0; k < i; ++k) s -= l[i][k] * x[k];
+    x[i] = s * inv[i];
+  }
+#pragma unroll
+  for (int i = B - 1; i >= 0; --i) {
+    F s = x[i];
+#pragma unroll
+    for (int k = i + 1; k < B; ++k) s -= l[k][i] * x[k];
+    x[i] = s * inv[i];
+  }
+}
+
+// (e_lo^T s)[i] for the pair before this lane's: this pair's column of the
+// cross term, zero for the pair before the chain, handed one lane up.  Every
+// lane of the warp must call it.
+template <typename F, int B>
+__device__ __forceinline__ void cross_from_below(const F* E, long long m,
+                                                 long long ko, const F s[B],
+                                                 bool before, F cross[B]) {
+#pragma unroll
+  for (int i = 0; i < B; ++i) {
+    F t = F(0);
+#pragma unroll
+    for (int k = 0; k < B; ++k) t += E[(long long)(k * B + i) * m + ko] * s[k];
+    cross[i] = __shfl_up_sync(kWarp, before ? F(0) : t, 1);
+  }
+}
+
+// Column ln.col of the G-independent half of pair ln.p through the factor
+// in l / inv: s_lo, s_up, e_new and d_new, complete with the cross term of
+// the pair before.
+template <typename F, int B>
+__device__ __forceinline__ void factor_column(const F l[B][B], const F inv[B],
+                                              const Inputs<F>& in,
+                                              long long h, const Lane& ln,
+                                              F* dn, F* en, F* su, F* sl) {
+  const F *D = in.D, *E = in.E;
+  const long long m = in.n, ke = in.ke, ko = in.ko, p = ln.p;
+  const int c = ln.col;
+  F x[B], y[B], cross[B];
+#pragma unroll
+  for (int i = 0; i < B; ++i) {
+    x[i] = E[(long long)(i * B + c) * m + ko];   // column c of e_lo
+    y[i] = E[(long long)(c * B + i) * m + ke];   // column c of e_up^T
+  }
+  solve_col<F, B>(l, inv, x);                    // s_lo[:, c]
+  solve_col<F, B>(l, inv, y);                    // s_up[:, c]
+  cross_from_below<F, B>(E, m, ko, x, ln.before, cross);
 #pragma unroll
   for (int i = 0; i < B; ++i) {
     F er[B];
 #pragma unroll
     for (int k = 0; k < B; ++k) er[k] = E[(long long)(i * B + k) * m + ke];
+    const F d = D[(long long)(i * B + c) * m + ke];
+    F t1 = F(0), t2 = F(0);
 #pragma unroll
-    for (int c = 0; c < N; ++c) {
-      F v = BASE ? base[(long long)(i * N + c) * m + ke] : F(0);
-      F t = F(0);
-#pragma unroll
-      for (int k = 0; k < B; ++k) t += er[k] * s[k][c];
-      out[(long long)(i * N + c) * h + p] = v - t;
+    for (int k = 0; k < B; ++k) {
+      t1 += er[k] * x[k];
+      t2 += er[k] * y[k];
+    }
+    if (ln.store) {
+      const long long o = (long long)(i * B + c) * h + p;
+      en[o] = F(0) - t1;
+      dn[o] = (d - t2) - cross[i];
+      sl[o] = x[i];
+      su[o] = y[i];
     }
   }
 }
 
-// out[..., p] = e_lo^T s with e_lo = E[..., ko], read column by column.
-template <typename F, int B, int N>
-__device__ __forceinline__ void elo_t_times(const F* E, long long m,
-                                            long long ko, const F s[B][N],
-                                            F* out, long long h, long long p) {
+// Column ln.col of the right-hand-side half of pair ln.p: s_g and g_new,
+// complete with the cross term of the pair before.
+template <typename F, int B, int R>
+__device__ __forceinline__ void apply_column(const F l[B][B], const F inv[B],
+                                             const Inputs<F>& in,
+                                             long long h, const Lane& ln,
+                                             F* gn, F* sg) {
+  const F *E = in.E, *G = in.G;
+  const long long m = in.n, ke = in.ke, ko = in.ko, p = ln.p;
+  const int c = ln.col;
+  F s[B], cross[B];
+#pragma unroll
+  for (int i = 0; i < B; ++i) s[i] = G[(long long)(i * R + c) * m + ko];
+  solve_col<F, B>(l, inv, s);                    // s_g[:, c]
+  cross_from_below<F, B>(E, m, ko, s, ln.before, cross);
 #pragma unroll
   for (int i = 0; i < B; ++i) {
-    F ec[B];
+    const F g = G[(long long)(i * R + c) * m + ke];
+    F t = F(0);
 #pragma unroll
-    for (int k = 0; k < B; ++k) ec[k] = E[(long long)(k * B + i) * m + ko];
-#pragma unroll
-    for (int c = 0; c < N; ++c) {
-      F t = F(0);
-#pragma unroll
-      for (int k = 0; k < B; ++k) t += ec[k] * s[k][c];
-      out[(long long)(i * N + c) * h + p] = t;
+    for (int k = 0; k < B; ++k) t += E[(long long)(i * B + k) * m + ke] * s[k];
+    if (ln.store) {
+      const long long o = (long long)(i * R + c) * h + p;
+      gn[o] = (g - t) - cross[i];
+      sg[o] = s[i];
     }
   }
 }
 
-// The G-independent half of pair p: factor D_odd into l / inv (and, with
-// STORE_L, the lower factor with zeros above to lo), then s_lo, cross_d,
-// e_new, s_up and d_new (before its cross term).
-template <typename F, int B, bool STORE_L>
-__device__ __forceinline__ void factor_pair(const F* D, const F* E,
-                                            long long h, long long p, F* dn,
-                                            F* en, F* su, F* sl, F* lo,
-                                            F* cd, F l[B][B], F inv[B]) {
-  const long long m = 2 * h, ke = 2 * p, ko = 2 * p + 1;
-  ld<F, B, B>(D, m, ko, l);
-  kkt::chol<F, B>(l);
-#pragma unroll
-  for (int i = 0; i < B; ++i) inv[i] = F(1) / l[i][i];
-  if constexpr (STORE_L) {
-#pragma unroll
-    for (int i = 0; i < B; ++i)
-#pragma unroll
-      for (int j = 0; j < B; ++j)
-        lo[(long long)(i * B + j) * h + p] = j <= i ? l[i][j] : F(0);
-  }
-  {
-    F s[B][B];
-    ld<F, B, B>(E, m, ko, s);
-    chol_solve<F, B, B>(l, inv, s);                      // s_lo
-    st<F, B, B>(sl, h, p, s);
-    elo_t_times<F, B, B>(E, m, ko, s, cd, h, p);         // cross_d
-    minus_eup_times<F, B, B, false>(E, m, ke, s, nullptr, en, h, p);
-  }
-  {
-    F s[B][B];
-    ld_t<F, B>(E, m, ke, s);
-    chol_solve<F, B, B>(l, inv, s);                      // s_up
-    st<F, B, B>(su, h, p, s);
-    minus_eup_times<F, B, B, true>(E, m, ke, s, D, dn, h, p);
-  }
+// First chain slot of the block's pairs (the halo pair's even block).
+__device__ __forceinline__ long long first_slot() {
+  return 2 * ((long long)blockIdx.x * kNew - 1);
 }
 
-// The right-hand-side half of pair p through the factor in l / inv: s_g,
-// g_new (before its cross term) and cross_g.
-template <typename F, int B, int R>
-__device__ __forceinline__ void apply_pair(const F l[B][B], const F inv[B],
-                                           const F* E, const F* G,
-                                           long long h, long long p, F* gn,
-                                           F* sg, F* cg) {
-  const long long m = 2 * h, ke = 2 * p, ko = 2 * p + 1;
-  F s[B][R];
-  ld<F, B, R>(G, m, ko, s);
-  chol_solve<F, B, R>(l, inv, s);
-  st<F, B, R>(sg, h, p, s);
-  minus_eup_times<F, B, R, true>(E, m, ke, s, G, gn, h, p);
-  elo_t_times<F, B, R>(E, m, ko, s, cg, h, p);
+// Stage the block's 2 * kLanes chain slots of the b x b arrays D, E (either
+// may be null) and of the b x R array G (R > 0) into tile, with a block of
+// THREADS threads.  The caller synchronises the block before reading.
+template <typename F, int B, int R, int THREADS>
+__device__ __forceinline__ Inputs<F> staged(const F* D, const F* E,
+                                            const F* G, long long h,
+                                            const Lane& ln, F* tile) {
+  constexpr int kSlots = 2 * kLanes;
+  const long long s0 = first_slot();
+  Inputs<F> in{nullptr, nullptr, nullptr, kSlots, ln.lane, kLanes + ln.lane};
+  if (D) {
+    stage<F, B * B, kSlots, THREADS, true>(D, 2 * h, s0, tile);
+    in.D = tile;
+    tile += B * B * kSlots;
+  }
+  if (E) {
+    stage<F, B * B, kSlots, THREADS, true>(E, 2 * h, s0, tile);
+    in.E = tile;
+    tile += B * B * kSlots;
+  }
+  if constexpr (R > 0) {
+    stage<F, B * R, kSlots, THREADS, true>(G, 2 * h, s0, tile);
+    in.G = tile;
+  }
+  return in;
+}
+
+// Column ln.col of the lower factor in l, with zeros above the diagonal, to
+// lo.
+template <typename F, int B>
+__device__ __forceinline__ void store_factor(const F l[B][B], long long h,
+                                             const Lane& ln, F* lo) {
+  if (!ln.store) return;
+#pragma unroll
+  for (int i = 0; i < B; ++i) {
+    F v = F(0);
+#pragma unroll
+    for (int j = 0; j <= i; ++j) v = (j == ln.col) ? l[i][j] : v;
+    lo[(long long)(i * B + ln.col) * h + ln.p] = v;
+  }
 }
 
 // ---- kernels ---------------------------------------------------------------
 
-// Kernel #4's pair pass: the G-independent half of a level.
+// Warps of an apply block: one per right-hand-side column, and at least
+// four to stage the inputs.
+template <int R>
+constexpr int kApplyWarps = R < 4 ? 4 : R;
+
+// Elements of dynamic shared memory a block of each pair pass stages: the
+// level's D and E (b b rows each) and G (b r rows) at 2 * kLanes slots, the
+// stored factor at kLanes.
+constexpr int factor_tile(int b) { return 2 * b * b * 2 * kLanes; }
+constexpr int level_tile(int b, int r) {
+  return factor_tile(b) + b * r * 2 * kLanes;
+}
+constexpr int apply_tile(int b, int r) {
+  return b * b * kLanes + b * b * 2 * kLanes + b * r * 2 * kLanes;
+}
+
+// Kernel #4's pair pass: the G-independent half of a level, b warps a block.
+// Also stores the lower factor with zeros above the diagonal to lo.
 template <typename F, int B>
-__global__ void factor_pairs(const F* D, const F* E, F* dn, F* en, F* su,
-                             F* sl, F* lo, F* cd, long long h) {
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= h) return;
+__global__ void __launch_bounds__(B * kLanes)
+factor_pairs(const F* D, const F* E, F* dn, F* en, F* su, F* sl, F* lo,
+             long long h) {
+  const Lane ln(h);
+  const Inputs<F> in = staged<F, B, 0, B * kLanes>(D, E, nullptr, h, ln,
+                                                   dynamic_smem<F>());
+  __syncthreads();
   F l[B][B], inv[B];
-  factor_pair<F, B, true>(D, E, h, p, dn, en, su, sl, lo, cd, l, inv);
+  ld_lower<F, B>(in.D, in.n, in.ko, l);
+  chol_inv<F, B>(l, inv);
+  store_factor<F, B>(l, h, ln, lo);
+  factor_column<F, B>(l, inv, in, h, ln, dn, en, su, sl);
 }
 
-// Kernel #5's pair pass: reduce G through the stored factor lo.
+// Kernel #5's pair pass: reduce G through the stored factor lo; every warp
+// of the block stages, the first r take a right-hand-side column each.
 template <typename F, int B, int R>
-__global__ void apply_pairs(const F* lo, const F* E, const F* G, F* gn, F* sg,
-                            F* cg, long long h) {
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= h) return;
+__global__ void __launch_bounds__(kApplyWarps<R> * kLanes)
+apply_pairs(const F* lo, const F* E, const F* G, F* gn, F* sg, long long h) {
+  constexpr int kThreads = kApplyWarps<R> * kLanes;
+  const Lane ln(h);
+  F* lt = dynamic_smem<F>();
+  stage<F, B * B, kLanes, kThreads, false, B>(lo, h, first_slot() / 2, lt);
+  const Inputs<F> in = staged<F, B, R, kThreads>(nullptr, E, G, h, ln,
+                                                 lt + B * B * kLanes);
+  __syncthreads();
+  if (ln.col >= R) return;
   F l[B][B], inv[B];
-  ld<F, B, B>(lo, h, p, l);
+  ld_lower<F, B>(lt, kLanes, ln.lane, l);
 #pragma unroll
-  for (int i = 0; i < B; ++i) inv[i] = F(1) / l[i][i];
-  apply_pair<F, B, R>(l, inv, E, G, h, p, gn, sg, cg);
+  for (int i = 0; i < B; ++i) inv[i] = kkt::Num<F>::rcp(l[i][i]);
+  apply_column<F, B, R>(l, inv, in, h, ln, gn, sg);
 }
 
-// Kernel #3's pair pass: both halves with the factor kept in registers.
+// Kernel #3's pair pass: both halves with the factor kept in registers, b
+// warps a block; the first r warps also take a right-hand-side column.
 template <typename F, int B, int R>
-__global__ void level_pairs(const F* D, const F* E, const F* G, F* dn, F* en,
-                            F* gn, F* su, F* sl, F* sg, F* cd, F* cg,
-                            long long h) {
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= h) return;
+__global__ void __launch_bounds__(B * kLanes)
+level_pairs(const F* D, const F* E, const F* G, F* dn, F* en, F* gn, F* su,
+            F* sl, F* sg, long long h) {
+  static_assert(R <= B, "a warp per right-hand-side column");
+  const Lane ln(h);
+  const Inputs<F> in = staged<F, B, R, B * kLanes>(D, E, G, h, ln,
+                                                   dynamic_smem<F>());
+  __syncthreads();
   F l[B][B], inv[B];
-  factor_pair<F, B, false>(D, E, h, p, dn, en, su, sl, nullptr, cd, l, inv);
-  apply_pair<F, B, R>(l, inv, E, G, h, p, gn, sg, cg);
-}
-
-// out[row, p] -= cross[row, p - 1] for p >= 1: pair p - 1's cross term
-// lands on pair p.  One thread per element of the (rows, h) array.
-template <typename F>
-__global__ void shift_sub(F* out, const F* cross, long long rows,
-                          long long h) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= rows * h || i % h == 0) return;
-  out[i] -= cross[i - 1];
+  ld_lower<F, B>(in.D, in.n, in.ko, l);
+  chol_inv<F, B>(l, inv);
+  factor_column<F, B>(l, inv, in, h, ln, dn, en, su, sl);
+  if (ln.col < R) apply_column<F, B, R>(l, inv, in, h, ln, gn, sg);
 }
 
 // Kernel #6: x_odd = s_g - s_up x_even[p] - s_lo x_even[p + 1], written
-// interleaved with x_even into X (b, r, 2h).
+// interleaved with x_even into X (b, r, 2h).  One thread per pair.
 template <typename F, int B, int R>
 __global__ void backsub(const F* xe, const F* su, const F* sl, const F* sg,
                         F* X, long long h) {

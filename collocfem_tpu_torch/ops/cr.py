@@ -9,7 +9,10 @@ reduction on an SPD chain in SoA layout (blocks (b, b, m), right-hand sides
     the halved (D, E) and a :class:`LevelFactor` for later sweeps;
   * :func:`cr_level_apply` (kernel #5): reduces G through a stored factor;
   * :func:`cr_backsub` (kernel #6): recovers the odd blocks of the solution
-    and interleaves them with the even ones.
+    and interleaves them with the even ones;
+  * :func:`cr_factor_sweep` and :func:`cr_apply_sweep`: kernels #4 and #5
+    level after level down to a tail, each one call of the library on a
+    CUDA tensor, with every level's outputs a view of one workspace.
 
 The plain math is :func:`level_factor_plain`, :func:`level_apply_plain`,
 :func:`level_plain` and :func:`backsub_plain`: pure torch, never a kernel.
@@ -17,7 +20,8 @@ The plain versions (``*_ref``) count their calls and run it; so do the
 plain chain solves of ``solve.blocktri`` that kernels #1 and #2 are held
 against.  On a CPU tensor each wrapper calls its plain version; on a CUDA
 tensor it launches the kernel of ``csrc/cr.cu`` or raises.  Each function
-counts its calls in a plain integer attribute (``.launches``).
+counts its calls in a plain integer attribute (``.launches``); a sweep adds
+its number of levels to the count of its per-level wrapper.
 """
 
 from __future__ import annotations
@@ -101,6 +105,49 @@ def backsub_plain(x_even, s_up, s_lo, s_g):
     return torch.stack([x_even, x_odd], dim=-1).reshape(b, r, 2 * h)
 
 
+def sweep_levels(m: int, tail: int) -> int:
+    """Levels a sweep runs on a chain of m blocks: it halves the chain while
+    it has more than ``tail`` blocks.  Every level needs an even chain."""
+    levels = 0
+    while m > tail:
+        if m % 2:
+            raise ValueError("a CR level needs an even chain length, not "
+                             f"{m} (level {levels} of the sweep)")
+        m //= 2
+        levels += 1
+    return levels
+
+
+def _walk_factor(factor, Ds, Es, tail):
+    """``factor`` level after level while the chain has more than ``tail``
+    blocks: ((Ds, Es) of the tail, [LevelFactor per level])."""
+    facs = []
+    for _ in range(sweep_levels(Ds.shape[-1], tail)):
+        (Ds, Es), fac = factor(Ds, Es)
+        facs.append(fac)
+    return (Ds, Es), facs
+
+
+def _walk_apply(apply, facs, Gs):
+    """``apply`` through every level's factor: (Gs of the tail, [s_g per
+    level])."""
+    s_gs = []
+    for fac in facs:
+        Gs, s_g = apply(fac, Gs)
+        s_gs.append(s_g)
+    return Gs, s_gs
+
+
+def factor_sweep_plain(Ds, Es, tail):
+    """:func:`cr_factor_sweep` on the plain level math, on any device."""
+    return _walk_factor(level_factor_plain, Ds, Es, tail)
+
+
+def apply_sweep_plain(facs, Gs):
+    """:func:`cr_apply_sweep` on the plain level math, on any device."""
+    return _walk_apply(level_apply_plain, facs, Gs)
+
+
 # ---- plain versions (counted) -------------------------------------------------
 
 
@@ -140,9 +187,9 @@ for _fn in (cr_level_ref, cr_level_factor_ref, cr_level_apply_ref,
 def _library() -> ctypes.CDLL:
     lib = _build.load("cr").lib
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    signatures = {"cr_factor": [ptr] * 8 + [i32, i64, ptr],
-                  "cr_apply": [ptr] * 6 + [i32, i32, i64, ptr],
-                  "cr_level": [ptr] * 11 + [i32, i32, i64, ptr],
+    signatures = {"cr_factor_sweep": [ptr] * 3 + [i32, i64, i32, ptr],
+                  "cr_apply_sweep": [ptr] * 4 + [i32, i32, i64, i32, ptr],
+                  "cr_level": [ptr] * 9 + [i32, i32, i64, ptr],
                   "cr_backsub": [ptr] * 5 + [i32, i32, i64, ptr]}
     for name, argtypes in signatures.items():
         for suffix in ("_f32", "_f64"):
@@ -151,6 +198,8 @@ def _library() -> ctypes.CDLL:
             fn.restype = i32
     lib.cr_supported.argtypes = [i32, i32]
     lib.cr_supported.restype = i32
+    lib.cr_device_launches.argtypes = []
+    lib.cr_device_launches.restype = ctypes.c_ulonglong
     lib.cr_error_string.argtypes = [i32]
     lib.cr_error_string.restype = ctypes.c_char_p
     return lib
@@ -160,6 +209,11 @@ def kernel_supports(block_size: int, nrhs: int) -> bool:
     """Whether the CR kernels are compiled for (block size, r); ``nrhs=0``
     asks for the factor kernel alone, which needs only the block size."""
     return bool(_library().cr_supported(block_size, nrhs))
+
+
+def device_launches() -> int:
+    """Kernel launches the CR library has made since it was loaded."""
+    return int(_library().cr_device_launches())
 
 
 def _launch(name, dtype, device, *args):
@@ -191,6 +245,71 @@ def _level_shape(Ds, nrhs):
     return b, m // 2
 
 
+def sweep_layout(arrays: int, rows: int, h0: int, levels: int):
+    """Where a sweep's levels lie in its one workspace: ([start of level lv,
+    in elements], total elements).  Level lv (h = h0 >> lv pairs) holds
+    ``arrays`` outputs of ``rows`` rows and h columns each, one after the
+    other, and the levels follow each other, so level lv starts at arrays *
+    rows * 2 (h0 - h): ``cr::sweep_offset`` of ``csrc/cr_kernels.cuh``."""
+    start = lambda h: arrays * rows * 2 * (h0 - h)
+    return [start(h0 >> lv) for lv in range(levels)], start(h0 >> levels)
+
+
+def _level_views(ws, start, arrays, rows_shape, h):
+    """The ``arrays`` outputs (*rows_shape, h) of the level at ``start``."""
+    shape, strides = (arrays, *rows_shape, h), [1]
+    for d in reversed(shape[1:]):
+        strides.insert(0, strides[0] * d)
+    return ws.as_strided(shape, strides, start).unbind(0)
+
+
+def _factor_levels(Ds, Es, levels):
+    """``levels`` levels of kernel #4 on a CUDA chain, one library call."""
+    b, m = Ds.shape[0], Ds.shape[-1]
+    _build.check_operands([("Ds", Ds, (b, b, m)), ("Es", Es, (b, b, m))])
+    b, h0 = _level_shape(Ds, 0)
+    starts, total = sweep_layout(5, b * b, h0, levels)
+    ws = Ds.new_empty(total)
+    _launch("cr_factor_sweep", Ds.dtype, Ds.device, Ds.data_ptr(),
+            Es.data_ptr(), ws.data_ptr(), b, h0, levels)
+    cr_level_factor.launches += levels
+    facs = []
+    for lv, start in enumerate(starts):
+        dn, en, su, sl, lo = _level_views(ws, start, 5, (b, b), h0 >> lv)
+        facs.append(LevelFactor(lo, su, sl, Es))
+        Es = en
+    return (dn, en), facs
+
+
+def _apply_levels(facs, Gs):
+    """Kernel #5 through every level's factor on CUDA tensors, one library
+    call."""
+    b, r, m = Gs.shape
+    levels = len(facs)
+    operands = [("Gs", Gs, (b, r, m))]
+    for lv, fac in enumerate(facs):
+        operands += [("L", fac.L, (b, b, m >> (lv + 1))),
+                     ("E", fac.E, (b, b, m >> lv))]
+    _build.check_operands(operands)
+    if m % (1 << levels):
+        raise ValueError(f"a CR level needs an even chain length: {m} blocks "
+                         f"do not halve {levels} times")
+    b, h0 = _level_shape(facs[0].E, r)
+    starts, total = sweep_layout(2, b * r, h0, levels)
+    ws = Gs.new_empty(total)
+    pointers = ctypes.c_void_p * levels
+    _launch("cr_apply_sweep", Gs.dtype, Gs.device,
+            pointers(*(fac.L.data_ptr() for fac in facs)),
+            pointers(*(fac.E.data_ptr() for fac in facs)), Gs.data_ptr(),
+            ws.data_ptr(), b, r, h0, levels)
+    cr_level_apply.launches += levels
+    s_gs = []
+    for lv, start in enumerate(starts):
+        gn, sg = _level_views(ws, start, 2, (b, r), h0 >> lv)
+        s_gs.append(sg)
+    return gn, s_gs
+
+
 def cr_level_factor(Ds, Es):
     """G-independent half of one level (kernel #4).
 
@@ -199,14 +318,8 @@ def cr_level_factor(Ds, Es):
     """
     if not _on_card(Ds):
         return cr_level_factor_ref(Ds, Es)
-    b, m = Ds.shape[0], Ds.shape[-1]
-    _build.check_operands([("Ds", Ds, (b, b, m)), ("Es", Es, (b, b, m))])
-    b, h = _level_shape(Ds, 0)
-    dn, en, su, sl, lo, cd = (Ds.new_empty((b, b, h)) for _ in range(6))
-    _launch("cr_factor", Ds.dtype, Ds.device,
-            *(x.data_ptr() for x in (Ds, Es, dn, en, su, sl, lo, cd)), b, h)
-    cr_level_factor.launches += 1
-    return (dn, en), LevelFactor(lo, su, sl, Es)
+    (dn, en), (fac,) = _factor_levels(Ds, Es, 1)
+    return (dn, en), fac
 
 
 def cr_level_apply(fac: LevelFactor, Gs):
@@ -214,15 +327,31 @@ def cr_level_apply(fac: LevelFactor, Gs):
     #5).  Gs (b, r, m).  Returns (g_new, s_g), each (b, r, m/2)."""
     if not _on_card(Gs):
         return cr_level_apply_ref(fac, Gs)
-    b, r, m = Gs.shape
-    _build.check_operands([("Gs", Gs, (b, r, m)), ("L", fac.L, (b, b, m // 2)),
-                           ("E", fac.E, (b, b, m))])
-    b, h = _level_shape(fac.E, r)
-    gn, sg, cg = (Gs.new_empty((b, r, h)) for _ in range(3))
-    _launch("cr_apply", Gs.dtype, Gs.device,
-            *(x.data_ptr() for x in (fac.L, fac.E, Gs, gn, sg, cg)), b, r, h)
-    cr_level_apply.launches += 1
+    gn, (sg,) = _apply_levels([fac], Gs)
     return gn, sg
+
+
+def cr_factor_sweep(Ds, Es, tail: int):
+    """Kernel #4 level after level while the chain has more than ``tail``
+    blocks.  Returns ((Ds, Es) of the tail, [:class:`LevelFactor` per
+    level]).  On a CUDA tensor the whole sweep is one call of the library
+    (a kernel launch per level) and every level's outputs are views of one
+    workspace; on a CPU tensor it walks the per-level plain version.  Adds
+    its levels to ``cr_level_factor.launches``."""
+    if not _on_card(Ds):
+        return _walk_factor(cr_level_factor_ref, Ds, Es, tail)
+    levels = sweep_levels(Ds.shape[-1], tail)
+    return _factor_levels(Ds, Es, levels) if levels else ((Ds, Es), [])
+
+
+def cr_apply_sweep(facs, Gs):
+    """Kernel #5 through the factors of :func:`cr_factor_sweep`.  Returns
+    (Gs of the tail, [s_g per level]); one call of the library on a CUDA
+    tensor, the per-level plain version on a CPU tensor.  Adds its levels to
+    ``cr_level_apply.launches``."""
+    if not _on_card(Gs):
+        return _walk_apply(cr_level_apply_ref, facs, Gs)
+    return _apply_levels(facs, Gs) if facs else (Gs, [])
 
 
 def cr_level(Ds, Es, Gs):
@@ -237,11 +366,11 @@ def cr_level(Ds, Es, Gs):
     _build.check_operands([("Ds", Ds, (b, b, m)), ("Es", Es, (b, b, m)),
                            ("Gs", Gs, (b, r, m))])
     b, h = _level_shape(Ds, r)
-    dn, en, su, sl, cd = (Ds.new_empty((b, b, h)) for _ in range(5))
-    gn, sg, cg = (Ds.new_empty((b, r, h)) for _ in range(3))
+    dn, en, su, sl = (Ds.new_empty((b, b, h)) for _ in range(4))
+    gn, sg = (Ds.new_empty((b, r, h)) for _ in range(2))
     _launch("cr_level", Ds.dtype, Ds.device,
-            *(x.data_ptr() for x in (Ds, Es, Gs, dn, en, gn, su, sl, sg, cd,
-                                     cg)), b, r, h)
+            *(x.data_ptr() for x in (Ds, Es, Gs, dn, en, gn, su, sl, sg)),
+            b, r, h)
     cr_level.launches += 1
     return (dn, en, gn), (su, sl, sg)
 

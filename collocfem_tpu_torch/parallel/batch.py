@@ -21,7 +21,8 @@ Two layouts, chosen by ``make_multi_experiment_solver(layout=...)``:
 
 The accept/damping logic is the shared :func:`solve.lm_core.lm_loop`; the
 JAX package's double-word cost sums and dot products are float64 sums here.
-Sharding over a "dp" device axis is not ported (ROADMAP queue A, item 12).
+Sharding over a "dp" device axis is not ported (ROADMAP queue A,
+multi-device).
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from collocfem_tpu_torch.ops.assemble import (
     cost64_from_residuals,
 )
 from collocfem_tpu_torch.ops.smallblocks import spd_solve
-from collocfem_tpu_torch.solve.lm_core import LMAux, lm_loop
+from collocfem_tpu_torch.solve.lm_core import LMAux, grad_inf_norm, lm_loop
 from collocfem_tpu_torch.solve.newton import SolverOptions, SolveStats
 
 
@@ -158,7 +159,7 @@ def shared_gn_step_soa(problem, sys, lam, p, p_prior, p_w, *, n_exp: int,
     dx2_e = torch.sum(dx.reshape(bd, n_exp, k) ** 2, dim=(0, 2))
     dp2 = torch.dot(dp, dp)
     gdot = (_dot64(sys.gx, dx) + _dot64(gp_tot, dp)).to(dx.dtype)
-    gnorm = torch.maximum(sys.gx.abs().max(), gp_tot.abs().max())
+    gnorm = grad_inf_norm(sys.gx, gp_tot)
     aux = LMAux(gnorm=gnorm, gdot=gdot,
                 sds=torch.dot(dmax_e, dx2_e) + smax * dp2,
                 step_norm=torch.sqrt(dx2_e.sum() + dp2))
@@ -198,7 +199,7 @@ def shared_gn_step(problem, z: BatchDecision, data_batch, lam, p_prior,
     dx = -(a_g + torch.einsum("ekbq,q->ekb", a_b, dp))
     dV = blocks_to_nodes(dx, problem.num_nodes, problem.nv)
 
-    gnorm = torch.maximum(sys_b.gx.abs().max(), sys_b.gp.abs().max())
+    gnorm = grad_inf_norm(sys_b.gx, sys_b.gp)
     dx2_e = torch.sum(dx * dx, dim=(1, 2))
     dp2 = torch.dot(dp, dp)
     gdot = (_dot64(sys_b.gx, dx) + _dot64(gp_tot, dp)).to(dx.dtype)
@@ -233,7 +234,7 @@ def make_multi_experiment_solver(problem, options: SolverOptions =
     if dp_axis is not None:
         raise NotImplementedError(
             "sharding over a dp axis is not ported yet (ROADMAP queue A, "
-            "item 12)")
+            "multi-device)")
     opt = options
     if layout == "auto":
         layout = "soa"

@@ -7,8 +7,9 @@ the damped Gauss-Newton system keeps every Schur complement SPD.
     once and apply to any number of right-hand sides.  The chain is padded to
     a power of two with identity blocks; levels run while the chain has more
     than ``TAIL`` = 8 blocks, through the per-level CR kernels of
-    :mod:`collocfem_tpu_torch.ops.cr` on a CUDA device (#4 factor, #5 apply,
-    #6 back-substitution) and their plain versions on the CPU, and the last
+    :mod:`collocfem_tpu_torch.ops.cr` on a CUDA device (#4 factor and #5
+    apply, each a whole sweep in one call of the library, and #6
+    back-substitution) and their plain versions on the CPU, and the last
     8 blocks finish with a block Cholesky (Thomas) tail.  This is the TPU's
     level schedule: Pallas levels while the chain has >= 16 and > 8 blocks.
     :func:`blocktri_cr_factor` is its block-major wrapper.
@@ -44,17 +45,17 @@ TAIL = 8
 
 
 class _Levels(NamedTuple):
-    factor: object
-    apply: object
+    factor_sweep: object
+    apply_sweep: object
     level: object
     backsub: object
 
 
 # On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it runs
 # its plain version.
-_KERNELS = _Levels(cr.cr_level_factor, cr.cr_level_apply, cr.cr_level,
+_KERNELS = _Levels(cr.cr_factor_sweep, cr.cr_apply_sweep, cr.cr_level,
                    cr.cr_backsub)
-_PLAIN = _Levels(cr.level_factor_plain, cr.level_apply_plain, cr.level_plain,
+_PLAIN = _Levels(cr.factor_sweep_plain, cr.apply_sweep_plain, cr.level_plain,
                  cr.backsub_plain)
 
 
@@ -107,18 +108,11 @@ def _cr_factor(Ds, Es, levels: _Levels):
     k0 = Ds.shape[-1]
     Ds, Es = _pad_pow2_soa(Ds, Es)
     kp = Ds.shape[-1]
-    facs = []
-    while Ds.shape[-1] > TAIL:
-        (Ds, Es), fac = levels.factor(Ds, Es)
-        facs.append(fac)
+    (Ds, Es), facs = levels.factor_sweep(Ds, Es, TAIL)
     l_tail = _tail_factor(Ds, Es)
 
     def apply(Gs):
-        Gs = _pad_rhs(Gs, kp)
-        s_gs = []
-        for fac in facs:
-            Gs, s_g = levels.apply(fac, Gs)
-            s_gs.append(s_g)
+        Gs, s_gs = levels.apply_sweep(facs, _pad_rhs(Gs, kp))
         X = _tail_solve(l_tail, Gs)
         for fac, s_g in zip(reversed(facs), reversed(s_gs)):
             X = levels.backsub(X.contiguous(), fac.s_up, fac.s_lo, s_g)
@@ -132,8 +126,8 @@ def blocktri_cr_factor_soa(Ds, Es):
 
     Ds, Es (b, b, K); ``apply`` maps Gs (b, r, K) to X (b, r, K) with
     A X = G.  On a CUDA device every level above the tail is kernel #4
-    (factor), #5 (apply) and #6 (back-substitution); on the CPU their plain
-    versions.
+    (factor), #5 (apply) and #6 (back-substitution), #4 and #5 as one sweep
+    each; on the CPU their plain versions.
     """
     return _cr_factor(Ds, Es, _KERNELS)
 

@@ -202,7 +202,7 @@ def solve_kkt_soa(sys, lam, refine: int = 0, dw: bool = False,
     if dw:
         raise NotImplementedError(
             "the double-word factorisation (dw=True) is not ported: float64 "
-            "takes its place on the card (ROADMAP queue A, item 7)")
+            "takes its place on the card (ROADMAP queue A)")
     if spike and sys.C.shape[0] > 0 and refine == 0:
         from collocfem_tpu_torch.ops.spike import kkt_solve_spike_fused
 

@@ -67,8 +67,8 @@ def lm_loop(z0, carry0, cost0, trial_fn, *, maxiter: int, lam0, gtol=0.0,
     """
     if accept_mode == "decrease":
         raise NotImplementedError(
-            "accept_mode='decrease' is not ported yet (ROADMAP queue A, "
-            "item 9: the OCP solvers)")
+            "accept_mode='decrease' is not ported yet (ROADMAP queue A: "
+            "the OCP solvers)")
     if accept_mode != "gain":
         raise ValueError(f"accept_mode must be 'gain', got {accept_mode!r}")
     device = cost0.device
@@ -128,6 +128,13 @@ def lm_loop(z0, carry0, cost0, trial_fn, *, maxiter: int, lam0, gtol=0.0,
             history=hist_s,
         )
     return st
+
+
+def grad_inf_norm(gx, gp):
+    """max(max|gx|, max|gp|) with gp possibly empty (nq = 0).  The branch is
+    on the shape, so it costs no device synchronisation."""
+    gnorm = gx.abs().max()
+    return torch.maximum(gnorm, gp.abs().max()) if gp.numel() else gnorm
 
 
 def fused_quadforms(gx_flat, gp, dx_flat, dp):

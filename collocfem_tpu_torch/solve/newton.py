@@ -27,6 +27,7 @@ from collocfem_tpu_torch.solve.lm_core import (
     HISTORY_COLS,
     LMAux,
     fused_quadforms,
+    grad_inf_norm,
     lm_loop,
 )
 
@@ -68,15 +69,16 @@ def make_gn_solver(problem, options: SolverOptions = SolverOptions()):
     opt = options
     if opt.hessian != "gn":
         raise NotImplementedError(
-            "hessian='newton' is not ported yet (ROADMAP queue A, item 8)")
+            "hessian='newton' is not ported yet (ROADMAP queue A, Newton and "
+            "IRLS)")
     if opt.state_dw:
         raise NotImplementedError(
-            "state_dw is not ported yet (ROADMAP queue A, item 8; float64 is "
-            "its candidate replacement)")
+            "state_dw is not ported: float64 takes its place (ROADMAP queue "
+            "A, Newton and IRLS)")
     if opt.method == "cr_dw":
         raise NotImplementedError(
             "method='cr_dw' is not ported: float64 takes the place of the "
-            "double-word factorisation (ROADMAP queue A, item 7)")
+            "double-word factorisation (ROADMAP queue A)")
     method = opt.method
     block_size = problem.mesh.degree * problem.nv
     if method == "auto":
@@ -92,7 +94,7 @@ def make_gn_solver(problem, options: SolverOptions = SolverOptions()):
 
     def solve(z0: Decision, data):
         def trial_fn(z, sys, lam):
-            gnorm = torch.maximum(sys.gx.abs().max(), sys.gp.abs().max())
+            gnorm = grad_inf_norm(sys.gx, sys.gp)
             dx, dp, dmax = solve_kkt_soa(sys, lam, opt.kkt_refine,
                                          spike=method == "spike",
                                          with_dmax=True)

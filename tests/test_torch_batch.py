@@ -307,3 +307,24 @@ def test_stack_data_adds_experiment_axis():
     for i in range(3):
         for a, b in zip(st, ds[i]):
             np.testing.assert_array_equal(a[i].numpy(), b.numpy())
+
+
+@pytest.mark.parametrize("nq", [0, 2])
+def test_gradient_norm_takes_an_empty_parameter_gradient(nq):
+    """The gradient inf-norm of both shared-parameter steps
+    (``lm_core.grad_inf_norm``) with nq = 0: the maximum over an empty gp is
+    taken as 0, as the JAX package's ``jnp.max(..., initial=0.0)`` does.
+    The JAX package's multi-experiment step itself cannot run at nq = 0 (its
+    Schur step takes ``jnp.max`` of an empty diagonal and raises, checked
+    here), so the two lines are held by this test of the helper."""
+    from collocfem_tpu_torch.solve.lm_core import grad_inf_norm
+
+    rng = np.random.default_rng(nq)
+    gx, gp = rng.standard_normal((8, 13)), 5.0 * rng.standard_normal(nq)
+    want = jnp.maximum(jnp.max(jnp.abs(gx)),
+                       jnp.max(jnp.abs(jnp.asarray(gp)), initial=0.0))
+    got = grad_inf_norm(torch.as_tensor(gx), torch.as_tensor(gp))
+    assert got.shape == () and float(got) == float(want)
+    if nq == 0:
+        with pytest.raises(ValueError, match="zero-size"):
+            jnp.max(jnp.diag(jnp.zeros((0, 0))))

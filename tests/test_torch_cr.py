@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import _cr_level_count
 from collocfem_tpu.ops import cr_pallas
 from collocfem_tpu.solve import blocktri as jax_bt
 from collocfem_tpu_torch.ops import cr
@@ -149,3 +150,71 @@ def test_wrappers_dispatch_on_the_device():
     assert [f.launches for f in (cr.cr_level_ref, cr.cr_level_factor_ref,
                                  cr.cr_level_apply_ref,
                                  cr.cr_backsub_ref)] == [n + 1 for n in refs]
+
+
+@pytest.mark.parametrize("k", [1, 2, 9, 130, 300])
+def test_sweeps_equal_the_per_level_walk_and_match_jax(k):
+    """On the CPU cr_factor_sweep / cr_apply_sweep give exactly what the
+    per-level plain walk gives (every level's factor and s_g, and the
+    tail), count one plain call per level, and blocktri_cr_factor_soa, which
+    runs them, matches the JAX package's blocktri_cr_factor within 1e-9."""
+    D, E, G = random_chain(k, 8, 3, seed=k)
+    Ds, Es = bt._pad_pow2_soa(D, E)
+    Gs = bt._pad_rhs(G, Ds.shape[-1])
+    levels = _cr_level_count(k)
+    assert cr.sweep_levels(Ds.shape[-1], bt.TAIL) == levels
+    before = (cr.cr_level_factor_ref.launches, cr.cr_level_apply_ref.launches)
+    (dt, et), facs = cr.cr_factor_sweep(Ds, Es, bt.TAIL)
+    gt, s_gs = cr.cr_apply_sweep(facs, Gs)
+    assert (cr.cr_level_factor_ref.launches - before[0],
+            cr.cr_level_apply_ref.launches - before[1]) == (levels, levels)
+    assert len(facs) == len(s_gs) == levels
+    d, e, g = Ds, Es, Gs
+    for fac_s, sg_s in zip(facs, s_gs):
+        (d, e), fac = cr.level_factor_plain(d, e)
+        g, sg = cr.level_apply_plain(fac, g)
+        for a, b in zip((*fac, sg), (*fac_s, sg_s)):
+            assert torch.equal(a, b)
+    assert torch.equal(d, dt) and torch.equal(e, et) and torch.equal(g, gt)
+    (dp, ep), facs_p = cr.factor_sweep_plain(Ds, Es, bt.TAIL)
+    assert torch.equal(dp, dt) and torch.equal(ep, et)
+    assert torch.equal(cr.apply_sweep_plain(facs_p, Gs)[0], gt)
+    aos = [jnp.asarray(a.permute(2, 0, 1).contiguous().numpy())
+           for a in (D, E, G)]
+    want = np.asarray(jax_bt.blocktri_cr_factor(*aos[:2])(aos[2]))
+    _close([bt.blocktri_cr_factor_soa(D, E)(G).permute(2, 0, 1)], [want],
+           1e-9)
+
+
+@pytest.mark.parametrize("arrays,rows", [(5, 64), (2, 24), (2, 8)])
+@pytest.mark.parametrize("k", [9, 16, 17, 130, 20001])
+def test_sweep_workspace_layout(k, arrays, rows):
+    """The views of a sweep's workspace (5 arrays of b b rows for the factor
+    sweep, 2 of b r for the apply sweep) follow each other without gap or
+    overlap, fill the allocation, and there is one level per kernel level
+    of the chain solve."""
+    kp = 1 << (k - 1).bit_length()
+    levels = cr.sweep_levels(kp, bt.TAIL)
+    assert levels == _cr_level_count(k) >= 1
+    h0 = kp // 2
+    starts, total = cr.sweep_layout(arrays, rows, h0, levels)
+    assert len(starts) == levels and starts[0] == 0
+    ws = torch.zeros(total, dtype=torch.int32)
+    for lv, start in enumerate(starts):
+        views = cr._level_views(ws, start, arrays, (rows,), h0 >> lv)
+        assert len(views) == arrays
+        for v in views:
+            assert tuple(v.shape) == (rows, h0 >> lv) and v.is_contiguous()
+            v += 1
+    assert bool((ws == 1).all())
+    assert total == arrays * rows * sum(h0 >> lv for lv in range(levels))
+
+
+def test_sweeps_refuse_an_odd_level():
+    """A chain that does not halve evenly down to the tail raises."""
+    D, E, _ = random_chain(24, 8, 1, seed=0)
+    with pytest.raises(ValueError, match="even"):
+        cr.cr_factor_sweep(D[..., :18].contiguous(), E[..., :18].contiguous(),
+                           bt.TAIL)
+    (Dt, Et), facs = cr.cr_factor_sweep(D[..., :8], E[..., :8], bt.TAIL)
+    assert facs == [] and Dt.shape[-1] == 8

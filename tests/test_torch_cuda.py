@@ -221,6 +221,71 @@ def test_cr_kernels_match_plain(cuda_device, k, r):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("r", [1, 2, 3])
+@pytest.mark.parametrize("m", [2, 4, 62, 64, 66, 126, 1000])
+def test_cr_pair_passes_at_the_block_edges(cuda_device, m, r):
+    """Kernels #3-#6 on one level of m blocks, m / 2 pairs on both sides of
+    the 31 pairs a thread block of the pair passes stores (one pair, two, 31,
+    32, 33, 63, 500), each against its plain version with
+    ``testing.level_bar``."""
+    for dtype in (torch.float64, torch.float32):
+        D, E, G = random_chain(m, 8, r, seed=m + r, dtype=dtype,
+                               device=cuda_device)
+        for name, outs in cr_level_comparison(D, E, G).items():
+            torch.cuda.synchronize()
+            ok, worst = level_bar(*outs)
+            assert ok, (name, dtype, worst)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [16, 17, 130, 1000, 20001])
+def test_cr_sweeps_equal_the_per_level_calls(cuda_device, k):
+    """cr_factor_sweep and cr_apply_sweep (one library call each, a device
+    launch per level) give bit for bit what the per-level kernel calls give,
+    count their levels, and two runs are bit-identical."""
+    for dtype in (torch.float64, torch.float32):
+        D, E, G = random_chain(k, 8, 3, seed=k, dtype=dtype,
+                               device=cuda_device)
+        Ds, Es = bt._pad_pow2_soa(D, E)
+        Gs = bt._pad_rhs(G, Ds.shape[-1])
+        levels = cr.sweep_levels(Ds.shape[-1], bt.TAIL)
+        before, n0 = _launches(CR_KERNELS), cr.device_launches()
+        (dt, et), facs = cr.cr_factor_sweep(Ds, Es, bt.TAIL)
+        n1 = cr.device_launches()
+        gt, s_gs = cr.cr_apply_sweep(facs, Gs)
+        assert (n1 - n0, cr.device_launches() - n1) == (levels, levels)
+        assert [a - b for a, b in zip(_launches(CR_KERNELS), before)] == \
+            [0, levels, levels, 0]
+        (dt2, et2), facs2 = cr.cr_factor_sweep(Ds, Es, bt.TAIL)
+        gt2, s_gs2 = cr.cr_apply_sweep(facs2, Gs)
+        d, e, g = Ds, Es, Gs
+        for fac_s, sg_s, fac_2, sg_2 in zip(facs, s_gs, facs2, s_gs2):
+            (d, e), fac = cr.cr_level_factor(d, e)
+            g, sg = cr.cr_level_apply(fac, g)
+            torch.cuda.synchronize()
+            for a, b, c in zip((*fac, sg), (*fac_s, sg_s), (*fac_2, sg_2)):
+                assert torch.equal(a, b) and torch.equal(b, c)
+        for a, b, c in zip((d, e, g), (dt, et, gt), (dt2, et2, gt2)):
+            assert torch.equal(a, b) and torch.equal(b, c)
+
+
+@pytest.mark.cuda
+def test_cr_sweep_on_a_tail_launches_nothing(cuda_device):
+    """A chain of at most TAIL blocks has no level: the sweeps return their
+    inputs and launch no kernel."""
+    D, E, G = random_chain(bt.TAIL, 8, 3, seed=0, device=cuda_device)
+    before, n0 = _launches(CR_KERNELS), cr.device_launches()
+    (Dt, Et), facs = cr.cr_factor_sweep(D, E, bt.TAIL)
+    Gt, s_gs = cr.cr_apply_sweep(facs, G)
+    assert facs == [] and s_gs == []
+    assert Dt is D and Et is E and Gt is G
+    assert _launches(CR_KERNELS) == before and cr.device_launches() == n0
+    with pytest.raises(ValueError, match="even"):
+        cr.cr_factor_sweep(*random_chain(18, 8, 1, seed=0,
+                                         device=cuda_device)[:2], bt.TAIL)
+
+
+@pytest.mark.cuda
 def test_cr_kernels_reject_what_they_do_not_take(cuda_device):
     D, E, G = random_chain(16, 8, 4, seed=0, device=cuda_device)
     with pytest.raises(ValueError, match="not built"):

@@ -12,12 +12,14 @@ import pytest
 import torch
 from scipy.integrate import solve_ivp
 
+from collocfem_tpu.model import Model as JaxModel
 from collocfem_tpu.models import VanDerPol as JaxVanDerPol
 from collocfem_tpu.ops.mesh import uniform_mesh as jax_uniform_mesh
 from collocfem_tpu.problem import EstimationProblem as JaxProblem
 from collocfem_tpu.solve import SolverOptions as JaxSolverOptions
 from collocfem_tpu.solve.newton import make_gn_solver as jax_make_gn_solver
 from collocfem_tpu_torch.convert import data_from_numpy, decision_from_numpy
+from collocfem_tpu_torch.model import Model
 from collocfem_tpu_torch.models import VanDerPol
 from collocfem_tpu_torch.ops.mesh import uniform_mesh
 from collocfem_tpu_torch.problem import EstimationProblem
@@ -95,6 +97,60 @@ def test_gn_solver_with_refinement_matches_jax():
     np.testing.assert_array_equal(tst.history.numpy()[:, 4],
                                   np.asarray(jst.history)[:, 4])
     np.testing.assert_allclose(tz.p.numpy(), np.asarray(jz.p), rtol=1e-8)
+
+
+class _JaxOscillator(JaxModel):
+    """x1' = x2, x2' = -x1 - 0.2 x2 + u: two states, one input, no
+    parameter."""
+
+    nx, nu, nq = 2, 1, 0
+
+    def f(self, x, u, p, t):
+        return jnp.stack([x[1], -x[0] - 0.2 * x[1] + u[0]])
+
+
+class _Oscillator(Model):
+    nx, nu, nq = 2, 1, 0
+
+    def f(self, x, u, p, t):
+        return torch.stack([x[1], -x[0] - 0.2 * x[1] + u[0]])
+
+
+def test_gn_solver_without_parameters_matches_jax():
+    """make_gn_solver at nq = 0 (state estimation only; the gradient norm
+    must take an empty gp): a damped oscillator, N = 20, degree 4, float64,
+    method='cr', maxiter=5.  Both packages stop after the same number of
+    iterations; V within 1e-9 of max|V| and the cost within 1e-9
+    (relative)."""
+    tf = 5.0
+    u_fn = lambda t: np.sin(1.3 * t)
+    sol = solve_ivp(lambda t, x: [x[1], -x[0] - 0.2 * x[1] + u_fn(t)],
+                    (0.0, tf), (1.0, 0.0), rtol=1e-11, atol=1e-12,
+                    dense_output=True)
+    t_meas = np.linspace(0.05, tf - 0.05, 60)
+    y = sol.sol(t_meas).T
+    y = y + 1e-3 * np.random.default_rng(0).standard_normal(y.shape)
+    jprob = JaxProblem.build(_JaxOscillator(), jax_uniform_mesh(0.0, tf, 20, 4),
+                             t_meas, defect_weight=30.0)
+    tprob = EstimationProblem.build(_Oscillator(),
+                                    uniform_mesh(0.0, tf, 20, 4), t_meas,
+                                    defect_weight=30.0, device="cpu",
+                                    dtype=torch.float64)
+    jdata = jprob.pack_data(y, t_meas,
+                            u_nodes=u_fn(jprob.mesh.elem_times)[..., None])
+    jz0 = jprob.initial_guess_from_data(t_meas, y, p0=np.zeros(0))
+    tdata = data_from_numpy(*map(np.asarray, jdata), device="cpu",
+                            dtype=torch.float64)
+    tz0 = decision_from_numpy(jz0.V, jz0.p, "cpu", torch.float64)
+    opts = dict(maxiter=5, method="cr")
+    jz, jst = jax_make_gn_solver(jprob, JaxSolverOptions(**opts))(jz0, jdata)
+    tz, tst = make_gn_solver(tprob, SolverOptions(**opts))(tz0, tdata)
+    assert tuple(tz.p.shape) == (0,)
+    assert int(tst.iterations) == int(jst.iterations) >= 1
+    assert float(tst.cost) < 1e-3 * float(tprob.cost(tz0, tdata))
+    np.testing.assert_allclose(float(tst.cost), float(jst.cost), rtol=1e-9)
+    np.testing.assert_allclose(tz.V.numpy(), np.asarray(jz.V), rtol=0,
+                               atol=1e-9 * float(jnp.abs(jz.V).max()))
 
 
 def test_port_never_imports_jax():
