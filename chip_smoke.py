@@ -23,7 +23,7 @@ Phases, each printing its own line; any failure raises and exits non-zero:
          1000, 11264}, r in {1, 3}; residual ||AX - G||_inf / ||G||_inf;
        kernel #7 (batched block Thomas): config 5's damped block-major
          systems at the initial guess (1024 x 11 blocks, b = 8, r = 3) and
-         seeded batches, n_exp in {1, 5, 1000}, K in {1, 2, 11};
+         seeded batches, n_exp in {1, 3, 5, 1000, 1023}, K in {1, 2, 11, 64};
        kernels #3-#6 (cyclic-reduction levels): the headline's
          equilibrated, damped chain at N = 20,000 (K = 20,001 padded to
          32,768), level by level down to 8 blocks (G = [gx | B], r = 3; the
@@ -31,19 +31,23 @@ Phases, each printing its own line; any failure raises and exits non-zero:
          chains, K in {16, 17, 130, 1000}, r in {1, 2, 3}, at their first
          level.  Per level, float32 is held against the float64 plain
          level: the kernel's error at most 10x the plain version's.  The
-         sweeps of #4 and #5 (one library call each, as the main path
-         calls them) are held level by level against the plain walk with
-         the same bar and, bit for bit, against the per-level kernel
-         calls; each sweep's device launches are printed.  Whole solves
+         sweeps of #4, #5 and #6 (one library call each, as the main path
+         calls them) are held against the plain walk with the same bar
+         (#4, #5 level by level, #6 on its result) and, bit for bit,
+         against the per-level kernel calls; each sweep's device launches
+         are printed, and #6's must be what its design says (one launch
+         for the levels of at most cr.BACKSUB_SMALL_PAIRS pairs, one for
+         each bigger level: fewer than the 12 levels).  Whole solves
          through blocktri_cr_factor_soa and blocktri_solve_cr are held
          against the plain chain solve (the float32 bar is the chain
          residual).
      Times each kernel and its plain version (CUDA events; kernels #3-#6:
-     the sum over the 12 levels of one headline solve at N = 20,000, #4
-     and #5 through their sweeps, with the per-level calls' time beside), and
-     kernel #7's library yardstick, torch.linalg.solve on the same 1024
-     systems assembled dense (88 x 88, r = 3); computes each kernel's bound
-     from the bytes and operations of its float32 call;
+     the sum over the 12 levels of one headline solve at N = 20,000, #4,
+     #5 and #6 through their sweeps, with the per-level calls' time
+     beside), kernel #7's device time by torch.profiler, and kernel #7's
+     library yardstick, torch.linalg.solve on the same 1024 systems
+     assembled dense (88 x 88, r = 3); computes each kernel's bound from
+     the bytes and operations of its float32 call;
   3. the headline fixed work: Van der Pol, N = 10,000 elements, degree 4,
      float32, 15 LM iterations; the cost must fall more than 10x, p must be
      finite, and the kernel's launch count must rise by exactly 15 with no
@@ -236,6 +240,27 @@ def _cuda_ms(fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_us(fn, key, reps=10):
+    """Device µs per call of fn()'s kernels whose name holds ``key``, by
+    torch.profiler (0.0 when the profiler shows no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for evt in prof.key_averages():
+        if key in evt.key:
+            total += next((float(v) for v in (
+                getattr(evt, "device_time_total", 0),
+                getattr(evt, "cuda_time_total", 0)) if v), 0.0)
+    return total / reps
 
 
 def _kkt_residual(sys_, dx, dp, lam, dmax):
@@ -489,16 +514,16 @@ def _hold_cr_sweeps(label, levels, tail, exact_levels, exact_tail):
     library call and one device launch per level; every level's outputs
     against the plain walk (testing.level_bar, ``exact_*`` the float64
     walk) and, bit for bit, against the per-level kernel calls.  Returns
-    the kernel factors of every level."""
+    the kernel factors and s_g of every level, and the tail's solution."""
     import torch
 
     from collocfem_tpu_torch.ops import cr
-    from collocfem_tpu_torch.solve.blocktri import TAIL
+    from collocfem_tpu_torch.solve import blocktri as bt
     from collocfem_tpu_torch.testing import level_bar
 
     Ds, Es, Gs = levels[0][:3]
     n0 = cr.device_launches()
-    (dt, et), facs = cr.cr_factor_sweep(Ds, Es, TAIL)
+    (dt, et), facs = cr.cr_factor_sweep(Ds, Es, bt.TAIL)
     n1 = cr.device_launches()
     gt, s_gs = cr.cr_apply_sweep(facs, Gs)
     n2 = cr.device_launches()
@@ -537,15 +562,64 @@ def _hold_cr_sweeps(label, levels, tail, exact_levels, exact_tail):
                            "calls' differ")
     print(f"  {label}: every level within the bar of the plain walk (worst "
           f"ratio {worst:.3g}); equal to the per-level calls bit for bit")
-    return facs
+    return facs, s_gs, bt._tail_solve(bt._tail_factor(dt, et), gt).contiguous()
 
 
-def _cr_times(levels, facs):
+def _hold_backsub_sweep(label, facs, s_gs, X):
+    """Kernel #6's sweep from the tail's solution X through the kernel
+    factors and s_g of every level, as the main path calls it: one library
+    call with the device launches of its design, within testing.level_bar
+    of the plain walk on the same levels (float64 exact: that walk in
+    float64) and bit for bit the per-level kernel calls.  Returns the max
+    abs error against the plain walk."""
+    import torch
+
+    from collocfem_tpu_torch.ops import cr
+    from collocfem_tpu_torch.testing import level_bar
+
+    s_up, s_lo = cr.factor_columns(facs)
+    levels, h0 = len(s_gs), X.shape[-1] << (len(s_gs) - 1)
+    n0 = cr.device_launches()
+    got = cr.cr_backsub_sweep(X, s_up, s_lo, s_gs)
+    launches = cr.device_launches() - n0
+    want_launches = cr.backsub_sweep_launches(h0, levels)
+    print(f"  {label}: backsub sweep {launches} device launches for {levels} "
+          f"levels (one for the levels of at most {cr.BACKSUB_SMALL_PAIRS} "
+          f"pairs, one for each bigger level: {want_launches}), one library "
+          "call")
+    if launches != want_launches or launches >= levels > 1:
+        raise RuntimeError(f"{label}: the backsub sweep made {launches} "
+                           f"launches, its design {want_launches}")
+    per_level = X
+    for lv in reversed(range(levels)):
+        per_level = cr.cr_backsub(per_level, s_up[lv], s_lo[lv], s_gs[lv])
+    views = [list(a) for a in (s_up, s_lo, s_gs)]
+    want = cr.backsub_sweep_plain(X, *views)
+    exact = cr.backsub_sweep_plain(X.double(), *([v.double() for v in a]
+                                                 for a in views))
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        raise RuntimeError(f"{label}: the backsub sweep returned non-finite "
+                           "values")
+    ok, worst = level_bar([got], [want], [exact])
+    if not ok:
+        raise RuntimeError(f"{label}: the backsub sweep disagrees with the "
+                           f"plain walk (worst ratio {worst:.3g})")
+    if not torch.equal(got, per_level):
+        raise RuntimeError(f"{label}: the backsub sweep and the per-level "
+                           "calls differ")
+    print(f"  {label}: backsub sweep within the bar of the plain walk (ratio "
+          f"{worst:.3g}); equal to the per-level calls bit for bit")
+    return float((got - want).abs().max())
+
+
+def _cr_times(levels, facs, s_gs, X):
     """CUDA-event ms of each CR kernel and its plain version, summed over
     the levels of one solve: ({name: (kernel ms, plain ms)}, {name: ms of
-    the per-level kernel calls} for #4 and #5).  #4 and #5 are timed through
-    their sweeps, as the main path calls them (``facs``: the kernel factors
-    of the chain).  The fused level #3 takes B (covariance's r = 2), the
+    the per-level kernel calls} for #4, #5 and #6).  #4, #5 and #6 are
+    timed through their sweeps, as the main path calls them (``facs``,
+    ``s_gs``: the kernel factors and s_g of the chain's levels, ``X`` the
+    tail's solution).  The fused level #3 takes B (covariance's r = 2), the
     others G (r = 3)."""
     from collocfem_tpu_torch.ops import cr
     from collocfem_tpu_torch.solve.blocktri import TAIL
@@ -562,9 +636,12 @@ def _cr_times(levels, facs):
     kernel = {name: (lambda name=name: calls[name](getattr(cr, name)))
               for name in calls}
     per_level = {name: _cuda_ms(kernel[name], 20)
-                 for name in ("cr_level_factor", "cr_level_apply")}
+                 for name in ("cr_level_factor", "cr_level_apply",
+                              "cr_backsub")}
     kernel["cr_level_factor"] = lambda: cr.cr_factor_sweep(Ds, Es, TAIL)
     kernel["cr_level_apply"] = lambda: cr.cr_apply_sweep(facs, Gs)
+    s_up, s_lo = cr.factor_columns(facs)
+    kernel["cr_backsub"] = lambda: cr.cr_backsub_sweep(X, s_up, s_lo, s_gs)
     return ({name: (_cuda_ms(kernel[name], 20),
                     _cuda_ms(lambda: call(getattr(cr, name + "_ref")), 3))
              for name, call in calls.items()}, per_level)
@@ -924,6 +1001,11 @@ def main() -> int:
         for key, (k_ms, p_ms) in c5_ms[name].items():
             print(f"  config 5 {name} {key}: kernel {k_ms:.3f} ms/call, "
                   f"plain {p_ms:.3f} ms/call")
+        us = _device_us(lambda: thomas.batched_thomas_solve(Db, Eb, Gb),
+                        "batched_thomas")
+        record.setdefault("thomas_device_us", {})[name] = us
+        print(f"  config 5 {name} thomas: {us:.1f} us on the device "
+              "(torch.profiler)")
         if dtype == torch.float32:
             A, rhs = _dense_batch(Db, Eb, Gb)
             lib_ms = _cuda_ms(lambda: torch.linalg.solve(A, rhs), 20)
@@ -942,8 +1024,8 @@ def main() -> int:
                       spike.blocktri_solve_spike_fused(D, E, G),
                       spike.blocktri_solve_spike_fused_ref(D, E, G),
                       lambda X: chain_residual(D, E, G, X))
-        for n_exp in (1, 5, 1000):
-            for k in (1, 2, 11):
+        for n_exp in (1, 3, 5, 1000, 1023):
+            for k in (1, 2, 11, 64):
                 D, E, G = random_chain_batch(n_exp, k, 8, 3, seed=n_exp + k,
                                              dtype=dtype, device=dev)
                 _hold(f"kernel #7 random {name} n_exp={n_exp} K={k}", dtype,
@@ -966,12 +1048,15 @@ def main() -> int:
               f"chain at N={ELEMENTS_CR} ok; max abs err "
               + ", ".join(f"{k} {v:.3e}" for (k, n), v in cr_errs.items()
                           if n == name))
-        facs = _hold_cr_sweeps(
+        facs, s_gs, x_tail = _hold_cr_sweeps(
             f"CR sweeps {name}", levels, tail,
             *_cr_levels(*(a.double() for a in padded)))
+        err = _hold_backsub_sweep(f"CR sweeps {name}", facs, s_gs, x_tail)
+        cr_errs[("cr_backsub", name)] = max(cr_errs[("cr_backsub", name)],
+                                            err)
         _hold_cr_solves(f"CR headline {name} K={unpadded[0].shape[-1]}",
                         dtype, *unpadded)
-        cr_ms[name], per_level = _cr_times(levels, facs)
+        cr_ms[name], per_level = _cr_times(levels, facs, s_gs, x_tail)
         record.setdefault("cr_per_level_calls_ms", {})[name] = per_level
         if dtype == torch.float32:
             bounds = _bounds(sys_.num_blocks, Dc.shape[-1], *k7_shape,
@@ -982,7 +1067,7 @@ def main() -> int:
                   + (f"; one sweep call, against {per_level[k]:.3f} ms "
                      f"through {len(levels)} per-level calls"
                      if k in per_level else ""))
-        del padded, unpadded, levels, tail, facs
+        del padded, unpadded, levels, tail, facs, s_gs, x_tail
         for k in (16, 17, 130, 1000):
             for r in (1, 2, 3):
                 D, E, G = random_chain(k, 8, r, seed=k + r, dtype=dtype,

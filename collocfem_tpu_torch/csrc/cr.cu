@@ -10,8 +10,9 @@
 //                      Cholesky factor of the odd blocks for later sweeps;
 //   cr_apply_sweep_*   cr_level_apply (body _apply_kernel), level after
 //                      level: reduces G through the stored factors;
-//   cr_backsub_*       cr_backsub (body _bwd_kernel): recovers the odd blocks
-//                      and writes the interleaved solution.
+//   cr_backsub_sweep_* cr_backsub (body _bwd_kernel), level after level from
+//                      the tail up: recovers the odd blocks and writes the
+//                      interleaved solution.
 //
 // The Pallas kernels emit each pair's cross term for the next pair and let
 // XLA shift-subtract it outside, because a TPU kernel could not store to a
@@ -34,20 +35,27 @@
 // pairs: they are bound by the latency of one thread's dependent work and by
 // the launch.  The warp-per-column layout cuts that work from a whole pair
 // to one column of it, and the staging in shared memory cuts a thread's
-// rounds of loads to one.
+// rounds of loads to one.  The back-substitution moves 29.4 MB a float32
+// sweep (8.8 us), half of it at the top level; it spreads a pair over b
+// threads, one a row, and runs its levels of at most 64 pairs
+// (ops/cr.py BACKSUB_SMALL_PAIRS) in one launch of one block.
 //
 // Measured (collocfem_tpu_torch/tools/cr_sweeps.py, NVIDIA H100 80GB HBM3,
 // 700.00 W, device time by torch.profiler): the 12 levels of the factor
 // pass take 19.6, 8.4, 5.7 and then 4.3 to 3.9 us each in float32, 71 us a
 // sweep (float64: 33.3, 15.5, 8.9, then 6.5 to 5.2; 111 us); the apply pass
 // with r = 3, 6.5, 5.2 and then ~4 us each, 51 us a sweep (float64 82 us).
-// The one-thread-per-pair version before took ~19 us a level for the factor
-// pass and ~9 us for the apply pass, plus a cross-term launch each.  So the
-// top level runs at about twice its byte bound and a small level at ~4 us,
-// of which the launch itself is about half; fusing the small levels into one
-// launch is the next step.  By CUDA events a whole sweep takes ~0.25 ms,
-// because the host cannot launch it faster (PERF.md).
-//
+// The back-substitution's top level takes 4.8 us in float32 (its bytes: 4.4
+// us; float64 12.6), each bigger level 2.3 to 3.3 us, mostly the launch,
+// and the four levels of at most 64 pairs 5.6 us in their one launch
+// (float64 7.5) against 8.8 (11.1) in four: 29.2 / 48.0 us a sweep (the
+// one-thread-per-pair kernel before: ~105 / ~123).  Fusing 16, 32, 64, 128
+// or 256 pairs gave 31.6, 30.2, 29.2, 29.4, 32.0 us (float64 50.8, 49.3,
+// 48.0, 48.4, 52.8): a fused level costs ~1.2 us, the latency of its rows'
+// loads, which the block prefetches only one step ahead.  By CUDA events a
+// whole sweep takes ~0.1-0.25 ms, because the host cannot launch it faster
+// (PERF.md).
+
 // The device code is in cr_kernels.cuh.  Build:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -o libcr.so cr.cu
@@ -65,8 +73,6 @@
 #define CR_BLOCKS(X) X(8)
 
 namespace {
-
-constexpr int kBacksubThreads = 64;
 
 // Kernel launches made by this library since it was loaded.
 unsigned long long device_launches = 0;
@@ -163,17 +169,57 @@ int level(const F* D, const F* E, const F* G, F* dn, F* en, F* gn, F* su,
   return cudaErrorInvalidValue;
 }
 
-template <typename F>
-int backsub(const F* xe, const F* su, const F* sl, const F* sg, F* X, int b,
-            int r, long long h, void* stream) {
-  if (h < 1) return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define CR_BACKSUB(Bv, Rv)                                                   \
-  if (b == Bv && r == Rv) {                                                  \
-    return launch<cr::backsub<F, Bv, Rv>>(blocks_for(h, kBacksubThreads),    \
-                                          kBacksubThreads, 0, s, xe, su, sl, \
-                                          sg, X, h);                         \
+// Level lv of a back-substitution sweep reads the X of level lv + 1 (the
+// tail's, xt, for the last level) and writes its own to X (lv = 0) or to the
+// workspace.  The levels of at most h_small pairs run first, in one launch
+// that keeps their X in shared memory but for the last one's.
+template <typename F, int B, int R>
+int backsub_levels(const F* xt, const F* const* su, const F* const* sl,
+                   const F* const* sg, F* X, F* ws, long long h0, int levels,
+                   long long h_small, cudaStream_t s) {
+  const auto out = [&](int lv) {
+    return lv == 0 ? X : ws + cr::backsub_offset(B * R, h0, h0 >> lv);
+  };
+  const auto in = [&](int lv) -> const F* {
+    return lv + 1 == levels ? xt : out(lv + 1);
+  };
+  int lv = levels - 1;
+  cr::SmallLevels<F> small{};
+  small.xt = xt;
+  for (; lv >= 0 && (h0 >> lv) <= h_small; --lv, ++small.n) {
+    small.su[small.n] = su[lv];
+    small.sl[small.n] = sl[lv];
+    small.sg[small.n] = sg[lv];
+    small.h[small.n] = h0 >> lv;
   }
+  if (small.n) {
+    small.X = out(lv + 1);
+    const cudaError_t err = launch<cr::backsub_small<F, B, R>>(
+        1, cr::kSmallThreads,
+        cr::small_bytes<F, B, R>(small.h[small.n - 1]), s, small);
+    if (err != cudaSuccess) return err;
+  }
+  for (; lv >= 0; --lv) {
+    const long long h = h0 >> lv;
+    const cudaError_t err = launch<cr::backsub_pairs<F, B, R>>(
+        blocks_for(h, cr::kLanes), B * cr::kLanes, 0, s, in(lv), su[lv],
+        sl[lv], sg[lv], out(lv), h);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+template <typename F>
+int backsub_sweep(const F* xt, const F* const* su, const F* const* sl,
+                  const F* const* sg, F* X, F* ws, int b, int r, long long h0,
+                  int levels, long long h_small, void* stream) {
+  if (!sweep_ok(h0, levels) || h_small < 0 || h_small > cr::kMaxSmallPairs)
+    return cudaErrorInvalidValue;
+#define CR_BACKSUB(Bv, Rv)                                                   \
+  if (b == Bv && r == Rv)                                                    \
+    return backsub_levels<F, Bv, Rv>(xt, su, sl, sg, X, ws, h0, levels,      \
+                                     h_small,                                \
+                                     static_cast<cudaStream_t>(stream));
   CR_SHAPES(CR_BACKSUB)
 #undef CR_BACKSUB
   return cudaErrorInvalidValue;
@@ -235,8 +281,30 @@ int cr_apply_sweep_f64(const double* const* lo, const double* const* E,
   return apply_sweep<double>(lo, E, G, ws, b, r, h0, levels, stream);
 }
 
-// cr_level, cr_backsub: inputs of chain length 2h, outputs of length h, X of
-// length 2h.
+// cr_backsub_sweep: `levels` back-substitution levels from the tail's X xt
+// (b, r, h0 >> (levels - 1)) up to X (b, r, 2 h0), through level lv's s_up
+// su[lv], s_lo sl[lv] (b, b, h) and s_g sg[lv] (b, r, h), h = h0 >> lv (host
+// arrays of device pointers).  Level lv >= 1 writes its X (b, r, 2h) to
+// ws + cr::backsub_offset(b r, h0, h).  Every level of at most h_small
+// pairs (0 <= h_small <= cr::kMaxSmallPairs) runs in one launch, which
+// writes the X of only its last level.
+int cr_backsub_sweep_f32(const float* xt, const float* const* su,
+                         const float* const* sl, const float* const* sg,
+                         float* X, float* ws, int b, int r, long long h0,
+                         int levels, long long h_small, void* stream) {
+  return backsub_sweep<float>(xt, su, sl, sg, X, ws, b, r, h0, levels,
+                              h_small, stream);
+}
+
+int cr_backsub_sweep_f64(const double* xt, const double* const* su,
+                         const double* const* sl, const double* const* sg,
+                         double* X, double* ws, int b, int r, long long h0,
+                         int levels, long long h_small, void* stream) {
+  return backsub_sweep<double>(xt, su, sl, sg, X, ws, b, r, h0, levels,
+                               h_small, stream);
+}
+
+// cr_level: inputs of chain length 2h, outputs of length h.
 int cr_level_f32(const float* D, const float* E, const float* G, float* dn,
                  float* en, float* gn, float* su, float* sl, float* sg, int b,
                  int r, long long h, void* stream) {
@@ -247,18 +315,6 @@ int cr_level_f64(const double* D, const double* E, const double* G,
                  double* dn, double* en, double* gn, double* su, double* sl,
                  double* sg, int b, int r, long long h, void* stream) {
   return level<double>(D, E, G, dn, en, gn, su, sl, sg, b, r, h, stream);
-}
-
-int cr_backsub_f32(const float* xe, const float* su, const float* sl,
-                   const float* sg, float* X, int b, int r, long long h,
-                   void* stream) {
-  return backsub<float>(xe, su, sl, sg, X, b, r, h, stream);
-}
-
-int cr_backsub_f64(const double* xe, const double* su, const double* sl,
-                   const double* sg, double* X, int b, int r, long long h,
-                   void* stream) {
-  return backsub<double>(xe, su, sl, sg, X, b, r, h, stream);
 }
 
 const char* cr_error_string(int code) {

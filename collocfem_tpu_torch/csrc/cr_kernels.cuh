@@ -1,4 +1,4 @@
-// Device code of the per-level cyclic-reduction kernels (see cr.cu).
+// Device code of the cyclic-reduction kernels (see cr.cu).
 //
 // One level of block cyclic reduction on an SPD block-tridiagonal chain of m
 // blocks of b x b in SoA layout: D, E (b, b, m) with E[..., k] coupling block
@@ -142,16 +142,6 @@ __device__ __forceinline__ void stage(const F* a, long long n, long long s0,
     if (LOWER > 0 && row % kBlock > row / kBlock) continue;
     tile[row * SLOTS + dst] = a[(long long)row * n + s];
   }
-}
-
-// Block of M x N at slot k of an SoA array with chain length n.
-template <typename F, int M, int N>
-__device__ __forceinline__ void ld(const F* a, long long n, long long k,
-                                   F out[M][N]) {
-#pragma unroll
-  for (int i = 0; i < M; ++i)
-#pragma unroll
-    for (int j = 0; j < N; ++j) out[i][j] = a[(long long)(i * N + j) * n + k];
 }
 
 // The lower triangle of the B x B block at slot k (the rest is left alone).
@@ -417,43 +407,177 @@ level_pairs(const F* D, const F* E, const F* G, F* dn, F* en, F* gn, F* su,
   if (ln.col < R) apply_column<F, B, R>(l, inv, in, h, ln, gn, sg);
 }
 
-// Kernel #6: x_odd = s_g - s_up x_even[p] - s_lo x_even[p + 1], written
-// interleaved with x_even into X (b, r, 2h).  One thread per pair.
+// ---- kernel #6: the back-substitution ----------------------------------------
+//
+// x_odd[p] = s_g - s_up x_even[p] - s_lo x_even[p + 1] (x_even[h] = 0),
+// written interleaved with x_even into X (b, r, 2h).  A level's pairs do not
+// depend on each other, only on the level below (its X is this level's
+// x_even), so a sweep runs
+//
+//   backsub_small  every level of at most h_small pairs in one launch: one
+//                  block of kSmallThreads walks them from the tail up, with a
+//                  __syncthreads() between levels and their X in shared
+//                  memory (the last one's to global memory);
+//   backsub_pairs  each bigger level in a launch of its own: a block of b
+//                  warps on kLanes neighbouring pairs stages x_even of those
+//                  pairs and of the next one (x_right of its last pair) in
+//                  shared memory.
+//
+// In both, thread (row i, pair p) sits in warp i of its group of b warps and
+// on lane p % kLanes: it loads its rows of s_up, s_lo and s_g (neighbouring
+// lanes on neighbouring pairs) before it waits for x_even, then writes
+// (x_even, x_odd) of each of its r columns as one two-element store at 2p,
+// neighbouring lanes to neighbouring addresses.  Arithmetic: t1 = sum_k
+// s_up[i][k] x_even[k][c] and t2 = sum_k s_lo[i][k] x_right[k][c], each
+// summed over k = 0 .. b - 1 from zero, x_odd = s_g - t1 - t2: the order of
+// the one-thread-per-pair kernel before, so the results are equal bit for
+// bit.
+
+// Start, in elements, of the X (rows, 2h) that level lv (h = h0 >> lv pairs,
+// lv >= 1) of a back-substitution sweep writes for the level above, in the
+// sweep's workspace.  Level 0 writes the sweep's output instead; levels 1,
+// 2, ... follow each other, so level lv starts at rows * 2 (h0 / 2 + ... +
+// 2h) = 2 rows (h0 - 2h).  ops/cr.py computes the same (backsub_layout).
+inline long long backsub_offset(int rows, long long h0, long long h) {
+  return 2LL * rows * (h0 - 2 * h);
+}
+
+constexpr int kSmallThreads = 512;            // the block of backsub_small
+constexpr long long kMaxSmallPairs = 256;     // pairs of its largest level
+constexpr int kMaxSmall = 9;                  // levels it can walk: 1 .. 256
+
+template <typename F> struct Vec2;
+template <> struct Vec2<float> { using T = float2; };
+template <> struct Vec2<double> { using T = double2; };
+
+// p[0] = a, p[1] = b in one store (p is 2-element aligned).
+template <typename F>
+__device__ __forceinline__ void store2(F* p, F a, F b) {
+  typename Vec2<F>::T v;
+  v.x = a;
+  v.y = b;
+  *reinterpret_cast<typename Vec2<F>::T*>(p) = v;
+}
+
+// Thread (row i, pair p) of a level: its rows of s_up, s_lo (b, b, h) and of
+// s_g (b, r, h), loaded before x_even is needed.
 template <typename F, int B, int R>
-__global__ void backsub(const F* xe, const F* su, const F* sl, const F* sg,
-                        F* X, long long h) {
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= h) return;
-  F x[B][R], xr[B][R];
-  ld<F, B, R>(xe, h, p, x);
-  if (p + 1 < h) {
-    ld<F, B, R>(xe, h, p + 1, xr);
-  } else {
-#pragma unroll
-    for (int i = 0; i < B; ++i)
-#pragma unroll
-      for (int c = 0; c < R; ++c) xr[i][c] = F(0);
-  }
-  const long long m = 2 * h;
-#pragma unroll
-  for (int i = 0; i < B; ++i) {
-    F a[B], b[B];
+struct BacksubRow {
+  F up[B], lo[B], g[R];
+
+  __device__ __forceinline__ void load(const F* su, const F* sl, const F* sg,
+                                       long long h, long long p, int i) {
 #pragma unroll
     for (int k = 0; k < B; ++k) {
-      a[k] = su[(long long)(i * B + k) * h + p];
-      b[k] = sl[(long long)(i * B + k) * h + p];
+      up[k] = su[(long long)(i * B + k) * h + p];
+      lo[k] = sl[(long long)(i * B + k) * h + p];
     }
+#pragma unroll
+    for (int c = 0; c < R; ++c) g[c] = sg[(long long)(i * R + c) * h + p];
+  }
+
+  // Row i of the pair's (x_even, x_odd) to X (b, r, 2h); xe(j) and xr(j)
+  // are row j = k * R + c of x_even at the pair and at the next pair.
+  template <typename XE, typename XR>
+  __device__ __forceinline__ void solve(XE xe, XR xr, F* X, long long h,
+                                        long long p, int i) const {
 #pragma unroll
     for (int c = 0; c < R; ++c) {
       F t1 = F(0), t2 = F(0);
 #pragma unroll
       for (int k = 0; k < B; ++k) {
-        t1 += a[k] * x[k][c];
-        t2 += b[k] * xr[k][c];
+        t1 += up[k] * xe(k * R + c);
+        t2 += lo[k] * xr(k * R + c);
       }
-      const long long row = (long long)(i * R + c) * m;
-      X[row + 2 * p] = x[i][c];
-      X[row + 2 * p + 1] = sg[(long long)(i * R + c) * h + p] - t1 - t2;
+      store2<F>(X + (long long)(i * R + c) * 2 * h + 2 * p, xe(i * R + c),
+                g[c] - t1 - t2);
+    }
+  }
+};
+
+// One level of more than the sweep's h_small pairs: x_even (b, r, h), s_up,
+// s_lo (b, b, h), s_g (b, r, h) -> X (b, r, 2h).
+template <typename F, int B, int R>
+__global__ void __launch_bounds__(B * kLanes)
+backsub_pairs(const F* xe, const F* su, const F* sl, const F* sg, F* X,
+              long long h) {
+  constexpr int kSlots = kLanes + 1;          // the block's pairs and the next
+  __shared__ F tile[B * R * kSlots];
+  const int lane = threadIdx.x % kLanes, i = threadIdx.x / kLanes;
+  const long long p0 = (long long)blockIdx.x * kLanes, p = p0 + lane;
+  BacksubRow<F, B, R> row;
+  if (p < h) row.load(su, sl, sg, h, p, i);
+  for (int e = threadIdx.x; e < B * R * kSlots; e += B * kLanes) {
+    const int j = e % kSlots;
+    tile[e] = p0 + j < h ? xe[(long long)(e / kSlots) * h + p0 + j] : F(0);
+  }
+  __syncthreads();
+  if (p >= h) return;
+  row.solve([&](int j) { return tile[j * kSlots + lane]; },
+            [&](int j) { return tile[j * kSlots + lane + 1]; }, X, h, p, i);
+}
+
+// The levels backsub_small walks, in the order it runs them: level l has
+// h[l] pairs and reads s_up su[l], s_lo sl[l] (b, b, h[l]) and s_g sg[l]
+// (b, r, h[l]); the first reads x_even xt (b, r, h[0]), the last writes X
+// (b, r, 2 h[n - 1]).
+template <typename F>
+struct SmallLevels {
+  const F* xt;
+  F* X;
+  const F* su[kMaxSmall];
+  const F* sl[kMaxSmall];
+  const F* sg[kMaxSmall];
+  long long h[kMaxSmall];
+  int n;
+};
+
+// Shared memory of backsub_small: two buffers of the largest x_even.
+template <typename F, int B, int R>
+inline size_t small_bytes(long long h_last) {
+  return 2 * (size_t)B * R * h_last * sizeof(F);
+}
+
+// Every level of at most h_small pairs in one block: kSmallPairs pairs a
+// step, a level after the one below it.  x_even and the X of every level but
+// the last stay in shared memory, in two buffers that the levels take in
+// turn; the __syncthreads() at a level's first step orders its reads after
+// the writes of the level below and its writes after that level's reads.
+// A thread loads its rows of the next step's s_up, s_lo and s_g before it
+// waits, so the loads of one level overlap the algebra of the one before.
+template <typename F, int B, int R>
+__global__ void __launch_bounds__(kSmallThreads)
+backsub_small(SmallLevels<F> lv) {
+  constexpr int kPairs = kSmallThreads / B;
+  static_assert(kPairs % kLanes == 0, "whole groups of b warps");
+  F* buf[2] = {dynamic_smem<F>(),
+               dynamic_smem<F>() + (long long)B * R * lv.h[lv.n - 1]};
+  const int lane = threadIdx.x % kLanes, i = (threadIdx.x / kLanes) % B;
+  const int q = (threadIdx.x / (kLanes * B)) * kLanes + lane;
+  for (int e = threadIdx.x; e < B * R * lv.h[0]; e += kSmallThreads)
+    buf[0][e] = lv.xt[e];
+  BacksubRow<F, B, R> row, next;
+  if (q < lv.h[0]) row.load(lv.su[0], lv.sl[0], lv.sg[0], lv.h[0], q, i);
+  for (int l = 0; l < lv.n; ++l) {
+    const long long h = lv.h[l];
+    const F* xe = buf[l & 1];
+    F* X = l + 1 == lv.n ? lv.X : buf[(l + 1) & 1];
+    for (long long p0 = 0; p0 < h; p0 += kPairs) {
+      const long long p = p0 + q;
+      // The next step: this level's next pairs, or the next level's first.
+      const bool more = p0 + kPairs < h;
+      const int ln = more ? l : l + 1;
+      const long long pn = more ? p + kPairs : q;
+      if (ln < lv.n && pn < lv.h[ln])
+        next.load(lv.su[ln], lv.sl[ln], lv.sg[ln], lv.h[ln], pn, i);
+      if (p0 == 0) __syncthreads();           // the level below is written
+      if (p < h)
+        row.solve([&](int j) { return xe[(long long)j * h + p]; },
+                  [&](int j) {
+                    return p + 1 < h ? xe[(long long)j * h + p + 1] : F(0);
+                  },
+                  X, h, p, i);
+      row = next;
     }
   }
 }

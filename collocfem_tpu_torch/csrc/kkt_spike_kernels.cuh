@@ -144,23 +144,7 @@ inline Args<F> carve(const F* D, const F* E, const F* G, const F* inv,
   return a;
 }
 
-// ---- one-thread dense algebra (the Schur solve; kernel #7 shares it) ----------
-
-template <typename F, int M, int N>
-__device__ __forceinline__ void ld(const F* p, F out[M][N]) {
-#pragma unroll
-  for (int i = 0; i < M; ++i)
-#pragma unroll
-    for (int j = 0; j < N; ++j) out[i][j] = p[i * N + j];
-}
-
-template <typename F, int M, int N>
-__device__ __forceinline__ void st(F* p, const F in[M][N]) {
-#pragma unroll
-  for (int i = 0; i < M; ++i)
-#pragma unroll
-    for (int j = 0; j < N; ++j) p[i * N + j] = in[i][j];
-}
+// ---- one-thread dense algebra (the Schur solve) -----------------------------
 
 // In-place lower Cholesky; each pivot is clamped at tiny (a NaN stays NaN),
 // so a noise-indefinite block gives a finite junk factor and the LM loop
@@ -211,48 +195,13 @@ __device__ __forceinline__ void chol_solve(const F l[B][B], F x[B][N]) {
     }
 }
 
-// out <- out - op(e) v, op(e) = e or e^T (e is B x B, v and out B x N).
-template <typename F, int B, int N, bool TRANS>
-__device__ __forceinline__ void sub_mm(const F e[B][B], const F v[B][N],
-                                       F out[B][N]) {
-#pragma unroll
-  for (int i = 0; i < B; ++i)
-#pragma unroll
-    for (int c = 0; c < N; ++c) {
-      F s = out[i][c];
-#pragma unroll
-      for (int k = 0; k < B; ++k) s -= (TRANS ? e[k][i] : e[i][k]) * v[k][c];
-      out[i][c] = s;
-    }
-}
-
-// x <- [r0 | 0] - op(e) x in place (op(e) = e or e^T); columns of the
-// right-hand side at or past NR are zero.
-template <typename F, int B, int N, int NR, bool TRANS>
-__device__ __forceinline__ void rhs_minus(const F e[B][B], const F r0[B][NR],
-                                          F x[B][N]) {
-#pragma unroll
-  for (int c = 0; c < N; ++c) {
-    F col[B];
-#pragma unroll
-    for (int i = 0; i < B; ++i) {
-      F s = (c < NR) ? r0[i][c < NR ? c : 0] : F(0);
-#pragma unroll
-      for (int k = 0; k < B; ++k) s -= (TRANS ? e[k][i] : e[i][k]) * x[k][c];
-      col[i] = s;
-    }
-#pragma unroll
-    for (int i = 0; i < B; ++i) x[i][c] = col[i];
-  }
-}
-
 // ---- the lane group ----------------------------------------------------------
 
 // B neighbouring lanes of a warp (B a power of two); lane = this thread's
 // row.  bc(v, j) is lane j's v, with j relative to the group.  The mask
 // names every lane that runs the shuffle together: the whole warp in the
-// tile phases (every group of the warp runs every step), the one group of
-// the interface chain.  A mask known at compile time lets the compiler
+// tile phases and in kernel #7 (thomas_kernels.cuh), where every group of
+// the warp runs every step, the one group of the interface chain.  A mask known at compile time lets the compiler
 // emit a plain shuffle, with no convergence bookkeeping around it.
 template <int B>
 struct Group {

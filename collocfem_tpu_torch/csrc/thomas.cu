@@ -8,16 +8,22 @@
 // iteration.
 //
 // What bounds it on the card: in float32 the batch reads about 7 MB (D, E,
-// G) and moves about 8 MB more through the factor scratch and X, a few
-// microseconds of HBM traffic, and does about 40 MFLOP.  The time is the
-// length of one chain's dependent 8x8 steps (2 K - 1 factor or solve
-// steps).  The TPU kernel carried the batch
-// on its vector lanes; here one thread carries one chain, with K a runtime
-// argument and the factors in global scratch, and small blocks of threads
-// spread the chains over as many SMs as possible.  A first version: one
-// thread per chain keeps the whole 8x8 state in registers (spilling at
-// float64) and loads its blocks without coalescing across the warp; a warp
-// per chain, or chains interleaved in memory, are the ways to make it fast.
+// G) and writes 1 MB of X, 2.4 us of HBM traffic, and does about 40 MFLOP.
+// The time is the length of one chain's dependent 8x8 steps (2 K - 1
+// factor or solve steps), each a few hundred warp shuffles.  The TPU kernel
+// carried the batch on its vector lanes; here a group of b = 8 lanes
+// carries one chain on the SPIKE core's row-per-lane algebra
+// (thomas_kernels.cuh), four chains a warp, in blocks of two warps: config
+// 5's 1024 chains are 256 warps over 128 of the 132 SMs.  K is a runtime
+// argument; the factors go to a global scratch (5.8 MB float32 at config 5,
+// held in L2).
+//
+// Measured (chip_smoke.py phase 2, config 5's 1024 chains of K = 11, NVIDIA
+// H100 80GB HBM3, 700.00 W): 36.5 us on the device in float32, 59.4 us in
+// float64 (torch.profiler); 0.040 / 0.065 ms a call by CUDA events.  The
+// one-thread-per-chain kernel before took 0.155 / 0.183 ms by events, on 32
+// SMs, loading its blocks without coalescing and spilling 1,356 bytes in
+// float64; ptxas now: 122 / 194 registers, no spill.
 //
 // The device code is in thomas_kernels.cuh.  Build:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -34,17 +40,16 @@
 
 namespace {
 
-constexpr int kThreads = 32;
-
 template <typename F>
 int dispatch(const F* D, const F* E, const F* G, F* X, F* lf, int b, int r,
              long long n_exp, int K, void* stream) {
   if (n_exp < 1 || K < 1) return cudaErrorInvalidValue;
-  const long long blocks = (n_exp + kThreads - 1) / kThreads;
+  const long long blocks =
+      (n_exp * b + thomas::kThreads - 1) / thomas::kThreads;
 #define THOMAS_RUN(Bv, Rv)                                                \
   if (b == Bv && r == Rv) {                                               \
-    thomas::batched_thomas<F, Bv, Rv><<<(unsigned)blocks, kThreads, 0,    \
-        static_cast<cudaStream_t>(stream)>>>(D, E, G, X, lf, n_exp, K);   \
+    thomas::batched_thomas<F, Bv, Rv><<<(unsigned)blocks, thomas::kThreads, \
+        0, static_cast<cudaStream_t>(stream)>>>(D, E, G, X, lf, n_exp, K); \
     return cudaGetLastError();                                            \
   }
   THOMAS_SHAPES(THOMAS_RUN)
@@ -63,7 +68,7 @@ int thomas_supported(int b, int r) {
   return 0;
 }
 
-// X (n_exp, K, b, r) with A_e X_e = G_e; lf is scratch of n_exp K b b
+// X (n_exp, K, b, r) with A_e X_e = G_e; lf is scratch of n_exp K b 2b
 // elements.  Returns 0 or the launch's cudaError_t.
 int thomas_f32(const float* D, const float* E, const float* G, float* X,
                float* lf, int b, int r, long long n_exp, int K,

@@ -10,9 +10,12 @@ reduction on an SPD chain in SoA layout (blocks (b, b, m), right-hand sides
   * :func:`cr_level_apply` (kernel #5): reduces G through a stored factor;
   * :func:`cr_backsub` (kernel #6): recovers the odd blocks of the solution
     and interleaves them with the even ones;
-  * :func:`cr_factor_sweep` and :func:`cr_apply_sweep`: kernels #4 and #5
-    level after level down to a tail, each one call of the library on a
-    CUDA tensor, with every level's outputs a view of one workspace.
+  * :func:`cr_factor_sweep`, :func:`cr_apply_sweep` and
+    :func:`cr_backsub_sweep`: kernels #4, #5 and #6 level after level (down
+    to a tail, and back up), each one call of the library on a CUDA tensor.
+    The factor and apply sweeps write every level into one workspace and
+    hand it back as :class:`SweepArrays`, whose levels' addresses the next
+    sweep computes without making a view.
 
 The plain math is :func:`level_factor_plain`, :func:`level_apply_plain`,
 :func:`level_plain` and :func:`backsub_plain`: pure torch, never a kernel.
@@ -28,6 +31,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from collections.abc import Sequence
 from typing import NamedTuple
 
 import torch
@@ -138,6 +143,14 @@ def _walk_apply(apply, facs, Gs):
     return Gs, s_gs
 
 
+def _walk_backsub(backsub, X, s_up, s_lo, s_g):
+    """``backsub`` through every level from the last (the tail's X) up to
+    level 0."""
+    for lv in reversed(range(len(s_g))):
+        X = backsub(X, s_up[lv], s_lo[lv], s_g[lv])
+    return X
+
+
 def factor_sweep_plain(Ds, Es, tail):
     """:func:`cr_factor_sweep` on the plain level math, on any device."""
     return _walk_factor(level_factor_plain, Ds, Es, tail)
@@ -146,6 +159,11 @@ def factor_sweep_plain(Ds, Es, tail):
 def apply_sweep_plain(facs, Gs):
     """:func:`cr_apply_sweep` on the plain level math, on any device."""
     return _walk_apply(level_apply_plain, facs, Gs)
+
+
+def backsub_sweep_plain(X, s_up, s_lo, s_g):
+    """:func:`cr_backsub_sweep` on the plain level math, on any device."""
+    return _walk_backsub(backsub_plain, X, s_up, s_lo, s_g)
 
 
 # ---- plain versions (counted) -------------------------------------------------
@@ -182,6 +200,11 @@ for _fn in (cr_level_ref, cr_level_factor_ref, cr_level_apply_ref,
 
 # ---- the kernels --------------------------------------------------------------
 
+# Levels of at most this many pairs run in one launch of the back-substitution
+# sweep (``backsub_small`` of ``csrc/cr_kernels.cuh``); chosen by measurement
+# (``tools/cr_sweeps.py``, PERF.md).
+BACKSUB_SMALL_PAIRS = 64
+
 
 @functools.cache
 def _library() -> ctypes.CDLL:
@@ -189,8 +212,9 @@ def _library() -> ctypes.CDLL:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     signatures = {"cr_factor_sweep": [ptr] * 3 + [i32, i64, i32, ptr],
                   "cr_apply_sweep": [ptr] * 4 + [i32, i32, i64, i32, ptr],
-                  "cr_level": [ptr] * 9 + [i32, i32, i64, ptr],
-                  "cr_backsub": [ptr] * 5 + [i32, i32, i64, ptr]}
+                  "cr_backsub_sweep": [ptr] * 6 + [i32, i32, i64, i32, i64,
+                                                   ptr],
+                  "cr_level": [ptr] * 9 + [i32, i32, i64, ptr]}
     for name, argtypes in signatures.items():
         for suffix in ("_f32", "_f64"):
             fn = getattr(lib, name + suffix)
@@ -255,59 +279,197 @@ def sweep_layout(arrays: int, rows: int, h0: int, levels: int):
     return [start(h0 >> lv) for lv in range(levels)], start(h0 >> levels)
 
 
+def backsub_layout(rows: int, h0: int, levels: int):
+    """Where a back-substitution sweep's levels put their X in its
+    workspace: ([start of level lv's X (rows, 2 (h0 >> lv)) for lv = 1 ..
+    levels - 1, in elements], total elements).  Level 0 writes the sweep's
+    output instead; levels 1, 2, ... follow each other, so level lv starts
+    at 2 rows (h0 - 2h): ``cr::backsub_offset`` of ``csrc/cr_kernels.cuh``."""
+    start = lambda h: 2 * rows * (h0 - 2 * h)
+    last = h0 >> (levels - 1)
+    return ([start(h0 >> lv) for lv in range(1, levels)],
+            start(last) + 2 * rows * last)
+
+
+def backsub_sweep_launches(h0: int, levels: int,
+                           small: int = BACKSUB_SMALL_PAIRS) -> int:
+    """Device launches of a back-substitution sweep of ``levels`` levels
+    from h0 pairs: one for each level of more than ``small`` pairs, one for
+    all the others together."""
+    big = sum((h0 >> lv) > small for lv in range(levels))
+    return big + (big < levels)
+
+
+def _array(ws, start, shape):
+    """The contiguous array ``shape`` at element ``start`` of ws (a view)."""
+    return ws.narrow(0, start, math.prod(shape)).view(shape)
+
+
 def _level_views(ws, start, arrays, rows_shape, h):
     """The ``arrays`` outputs (*rows_shape, h) of the level at ``start``."""
-    shape, strides = (arrays, *rows_shape, h), [1]
-    for d in reversed(shape[1:]):
-        strides.insert(0, strides[0] * d)
-    return ws.as_strided(shape, strides, start).unbind(0)
+    shape = (*rows_shape, h)
+    n = math.prod(shape)
+    return tuple(_array(ws, start + a * n, shape) for a in range(arrays))
+
+
+class SweepArrays(Sequence):
+    """Output ``index`` of every level of a sweep on a CUDA chain.
+
+    Level lv's array (*rows_shape, h0 >> lv) lies in the sweep's workspace
+    ``ws`` (:func:`sweep_layout`).  ``pointers()`` is arithmetic on the
+    workspace's address: the chain solve hands the levels from sweep to
+    sweep that way.  Indexing makes the level's view, for those who read the
+    levels (the tests, ``chip_smoke.py``).
+    """
+
+    def __init__(self, ws, arrays, rows_shape, h0, levels, index):
+        self.ws, self.arrays, self.rows_shape = ws, arrays, tuple(rows_shape)
+        self.h0, self.index = h0, index
+        rows = math.prod(rows_shape)
+        self.starts = sweep_layout(arrays, rows, h0, levels)[0]
+        # Element offset of this output at each level.
+        self.offsets = [start + index * rows * (h0 >> lv)
+                        for lv, start in enumerate(self.starts)]
+
+    def __len__(self):
+        return len(self.starts)
+
+    def __getitem__(self, lv):
+        lv = range(len(self))[lv]
+        return _level_views(self.ws, self.starts[lv], self.arrays,
+                            self.rows_shape, self.h0 >> lv)[self.index]
+
+    def shape(self, lv):
+        return (*self.rows_shape, self.h0 >> lv)
+
+    def pointers(self):
+        """Every level's device address."""
+        base, size = self.ws.data_ptr(), self.ws.element_size()
+        return [base + offset * size for offset in self.offsets]
+
+    def tail(self):
+        """The last level's array, which the chain solve reads."""
+        lv = len(self) - 1
+        return _array(self.ws, self.offsets[lv], self.shape(lv))
+
+
+class FactorLevels(Sequence):
+    """What :func:`cr_factor_sweep` returns for the levels of a CUDA chain.
+
+    Indexing makes level lv's :class:`LevelFactor` from the sweep's
+    workspace; ``L``, ``s_up``, ``s_lo``, ``d_new`` and ``e_new`` are
+    every level's arrays (:class:`SweepArrays`); ``Es`` is the chain's own
+    E, level 0's input couplings (level lv's are level lv - 1's e_new).
+    """
+
+    def __init__(self, ws, b, h0, levels, Es):
+        (self.d_new, self.e_new, self.s_up, self.s_lo, self.L) = (
+            SweepArrays(ws, 5, (b, b), h0, levels, a) for a in range(5))
+        self.Es = Es
+
+    def __len__(self):
+        return len(self.L)
+
+    def __getitem__(self, lv):
+        lv = range(len(self))[lv]
+        E = self.Es if lv == 0 else self.e_new[lv - 1]
+        return LevelFactor(self.L[lv], self.s_up[lv], self.s_lo[lv], E)
+
+    def E_pointers(self):
+        """Every level's input couplings' device address."""
+        return [self.Es.data_ptr()] + _pointers(self.e_new)[:-1]
+
+
+def factor_columns(facs):
+    """(s_up, s_lo) of every level of :func:`cr_factor_sweep`'s factors, as
+    :func:`cr_backsub_sweep` takes them: a CUDA sweep's :class:`SweepArrays`
+    (no view made), else lists of the factors' own tensors."""
+    if isinstance(facs, FactorLevels):
+        return facs.s_up, facs.s_lo
+    return [f.s_up for f in facs], [f.s_lo for f in facs]
+
+
+def _pointers(arrays):
+    """Every level's device address: computed for :class:`SweepArrays`,
+    each tensor's own for a list."""
+    if isinstance(arrays, SweepArrays):
+        return arrays.pointers()
+    return [a.data_ptr() for a in arrays]
 
 
 def _factor_levels(Ds, Es, levels):
-    """``levels`` levels of kernel #4 on a CUDA chain, one library call."""
+    """``levels`` levels of kernel #4 on a CUDA chain, one library call:
+    ((d_new, e_new) of the tail, :class:`FactorLevels`)."""
     b, m = Ds.shape[0], Ds.shape[-1]
     _build.check_operands([("Ds", Ds, (b, b, m)), ("Es", Es, (b, b, m))])
     b, h0 = _level_shape(Ds, 0)
-    starts, total = sweep_layout(5, b * b, h0, levels)
-    ws = Ds.new_empty(total)
+    ws = Ds.new_empty(sweep_layout(5, b * b, h0, levels)[1])
     _launch("cr_factor_sweep", Ds.dtype, Ds.device, Ds.data_ptr(),
             Es.data_ptr(), ws.data_ptr(), b, h0, levels)
     cr_level_factor.launches += levels
-    facs = []
-    for lv, start in enumerate(starts):
-        dn, en, su, sl, lo = _level_views(ws, start, 5, (b, b), h0 >> lv)
-        facs.append(LevelFactor(lo, su, sl, Es))
-        Es = en
-    return (dn, en), facs
+    facs = FactorLevels(ws, b, h0, levels, Es)
+    return (facs.d_new.tail(), facs.e_new.tail()), facs
 
 
 def _apply_levels(facs, Gs):
     """Kernel #5 through every level's factor on CUDA tensors, one library
-    call."""
+    call: (g_new of the tail, s_g of every level as :class:`SweepArrays`).
+    ``facs`` is a :class:`FactorLevels` or a list of :class:`LevelFactor`."""
     b, r, m = Gs.shape
     levels = len(facs)
     operands = [("Gs", Gs, (b, r, m))]
-    for lv, fac in enumerate(facs):
-        operands += [("L", fac.L, (b, b, m >> (lv + 1))),
-                     ("E", fac.E, (b, b, m >> lv))]
+    if isinstance(facs, FactorLevels):
+        operands.append(("Es", facs.Es, (b, b, m)))
+        lo, E = _pointers(facs.L), facs.E_pointers()
+    else:
+        for lv, fac in enumerate(facs):
+            operands += [("L", fac.L, (b, b, m >> (lv + 1))),
+                         ("E", fac.E, (b, b, m >> lv))]
+        lo, E = [f.L.data_ptr() for f in facs], [f.E.data_ptr() for f in facs]
     _build.check_operands(operands)
     if m % (1 << levels):
         raise ValueError(f"a CR level needs an even chain length: {m} blocks "
                          f"do not halve {levels} times")
-    b, h0 = _level_shape(facs[0].E, r)
-    starts, total = sweep_layout(2, b * r, h0, levels)
-    ws = Gs.new_empty(total)
+    b, h0 = _level_shape(Gs, r)
+    ws = Gs.new_empty(sweep_layout(2, b * r, h0, levels)[1])
     pointers = ctypes.c_void_p * levels
-    _launch("cr_apply_sweep", Gs.dtype, Gs.device,
-            pointers(*(fac.L.data_ptr() for fac in facs)),
-            pointers(*(fac.E.data_ptr() for fac in facs)), Gs.data_ptr(),
-            ws.data_ptr(), b, r, h0, levels)
+    _launch("cr_apply_sweep", Gs.dtype, Gs.device, pointers(*lo),
+            pointers(*E), Gs.data_ptr(), ws.data_ptr(), b, r, h0, levels)
     cr_level_apply.launches += levels
-    s_gs = []
-    for lv, start in enumerate(starts):
-        gn, sg = _level_views(ws, start, 2, (b, r), h0 >> lv)
-        s_gs.append(sg)
-    return gn, s_gs
+    g_new, s_g = (SweepArrays(ws, 2, (b, r), h0, levels, a) for a in range(2))
+    return g_new.tail(), s_g
+
+
+def _backsub_levels(X, s_up, s_lo, s_g, small=BACKSUB_SMALL_PAIRS):
+    """Kernel #6 through every level on CUDA tensors, one library call: the
+    tail's X (b, r, h) -> (b, r, 2 h0), h0 = h << (levels - 1)."""
+    b, r, m = X.shape
+    levels = len(s_g)
+    h0 = m << (levels - 1)
+    operands = [("X", X, (b, r, m))]
+    for name, arrays, rows in (("s_up", s_up, (b, b)), ("s_lo", s_lo, (b, b)),
+                               ("s_g", s_g, (b, r))):
+        if len(arrays) != levels:
+            raise ValueError(f"{name} has {len(arrays)} levels, s_g {levels}")
+        if isinstance(arrays, SweepArrays):
+            if arrays.shape(0) != (*rows, h0):
+                raise ValueError(f"{name} has levels of {arrays.shape(0)}, "
+                                 f"expected {(*rows, h0)} at level 0")
+            operands.append((name, arrays.ws, arrays.ws.shape))
+        else:
+            operands += [(f"{name}[{lv}]", a, (*rows, h0 >> lv))
+                         for lv, a in enumerate(arrays)]
+    _build.check_operands(operands)
+    if not kernel_supports(b, r):
+        raise ValueError(f"the CR kernels are not built for b={b}, r={r}")
+    out = X.new_empty((b, r, 2 * h0))
+    ws = X.new_empty(backsub_layout(b * r, h0, levels)[1])
+    pointers = ctypes.c_void_p * levels
+    _launch("cr_backsub_sweep", X.dtype, X.device, X.data_ptr(),
+            *(pointers(*_pointers(a)) for a in (s_up, s_lo, s_g)),
+            out.data_ptr(), ws.data_ptr(), b, r, h0, levels, small)
+    cr_backsub.launches += levels
+    return out
 
 
 def cr_level_factor(Ds, Es):
@@ -331,13 +493,22 @@ def cr_level_apply(fac: LevelFactor, Gs):
     return gn, sg
 
 
+def cr_backsub(x_even, s_up, s_lo, s_g):
+    """Back-substitution of one level (kernel #6): (b, r, h) -> X (b, r, 2h)
+    with X[..., 0::2] = x_even and X[..., 1::2] = x_odd."""
+    if not _on_card(x_even):
+        return cr_backsub_ref(x_even, s_up, s_lo, s_g)
+    return _backsub_levels(x_even, [s_up], [s_lo], [s_g])
+
+
 def cr_factor_sweep(Ds, Es, tail: int):
     """Kernel #4 level after level while the chain has more than ``tail``
     blocks.  Returns ((Ds, Es) of the tail, [:class:`LevelFactor` per
     level]).  On a CUDA tensor the whole sweep is one call of the library
-    (a kernel launch per level) and every level's outputs are views of one
-    workspace; on a CPU tensor it walks the per-level plain version.  Adds
-    its levels to ``cr_level_factor.launches``."""
+    (a kernel launch per level) and the factors are a
+    :class:`FactorLevels` over its one workspace; on a CPU tensor it walks
+    the per-level plain version.  Adds its levels to
+    ``cr_level_factor.launches``."""
     if not _on_card(Ds):
         return _walk_factor(cr_level_factor_ref, Ds, Es, tail)
     levels = sweep_levels(Ds.shape[-1], tail)
@@ -347,11 +518,28 @@ def cr_factor_sweep(Ds, Es, tail: int):
 def cr_apply_sweep(facs, Gs):
     """Kernel #5 through the factors of :func:`cr_factor_sweep`.  Returns
     (Gs of the tail, [s_g per level]); one call of the library on a CUDA
-    tensor, the per-level plain version on a CPU tensor.  Adds its levels to
-    ``cr_level_apply.launches``."""
+    tensor (s_g then a :class:`SweepArrays`), the per-level plain version
+    on a CPU tensor.  Adds its levels to ``cr_level_apply.launches``."""
     if not _on_card(Gs):
         return _walk_apply(cr_level_apply_ref, facs, Gs)
     return _apply_levels(facs, Gs) if facs else (Gs, [])
+
+
+def cr_backsub_sweep(X, s_up, s_lo, s_g):
+    """Kernel #6 level after level from the tail up.
+
+    X (b, r, h) is the tail's solution; s_up, s_lo (b, b, h0 >> lv) and s_g
+    (b, r, h0 >> lv) are level lv's, lv = 0 .. levels - 1 (lists of
+    tensors, or the sweeps' :class:`SweepArrays`: :func:`factor_columns`
+    and :func:`cr_apply_sweep`).  Returns X (b, r, 2 h0).  On a CUDA tensor
+    one call of the library (one launch for the levels of at most
+    ``BACKSUB_SMALL_PAIRS`` pairs, one for each bigger level); on a CPU
+    tensor the per-level plain version.  Adds its levels to
+    ``cr_backsub.launches``.
+    """
+    if not _on_card(X):
+        return _walk_backsub(cr_backsub_ref, X, s_up, s_lo, s_g)
+    return _backsub_levels(X, s_up, s_lo, s_g) if len(s_g) else X
 
 
 def cr_level(Ds, Es, Gs):
@@ -373,24 +561,6 @@ def cr_level(Ds, Es, Gs):
             b, r, h)
     cr_level.launches += 1
     return (dn, en, gn), (su, sl, sg)
-
-
-def cr_backsub(x_even, s_up, s_lo, s_g):
-    """Back-substitution of one level (kernel #6): (b, r, h) -> X (b, r, 2h)
-    with X[..., 0::2] = x_even and X[..., 1::2] = x_odd."""
-    if not _on_card(x_even):
-        return cr_backsub_ref(x_even, s_up, s_lo, s_g)
-    b, r, h = x_even.shape
-    _build.check_operands([("x_even", x_even, (b, r, h)),
-                           ("s_up", s_up, (b, b, h)), ("s_lo", s_lo, (b, b, h)),
-                           ("s_g", s_g, (b, r, h))])
-    if not kernel_supports(b, r):
-        raise ValueError(f"the CR kernels are not built for b={b}, r={r}")
-    X = x_even.new_empty((b, r, 2 * h))
-    _launch("cr_backsub", x_even.dtype, x_even.device,
-            *(x.data_ptr() for x in (x_even, s_up, s_lo, s_g, X)), b, r, h)
-    cr_backsub.launches += 1
-    return X
 
 
 for _fn in (cr_level, cr_level_factor, cr_level_apply, cr_backsub):

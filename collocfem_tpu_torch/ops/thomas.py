@@ -82,7 +82,7 @@ def batched_thomas_solve(D, E, G):
                          f"(n_exp={n_exp}, K={k})")
     lib = _library()
     X = G.new_empty(G.shape)
-    lf = D.new_empty(D.shape)
+    lf = D.new_empty((n_exp, k, b, 2 * b))      # each lane's row and column
     fn = lib.thomas_f32 if D.dtype == torch.float32 else lib.thomas_f64
     with torch.cuda.device(D.device):
         rc = fn(*(x.data_ptr() for x in (D, E, G, X, lf)), b, r, n_exp, k,

@@ -7,17 +7,17 @@ the damped Gauss-Newton system keeps every Schur complement SPD.
     once and apply to any number of right-hand sides.  The chain is padded to
     a power of two with identity blocks; levels run while the chain has more
     than ``TAIL`` = 8 blocks, through the per-level CR kernels of
-    :mod:`collocfem_tpu_torch.ops.cr` on a CUDA device (#4 factor and #5
-    apply, each a whole sweep in one call of the library, and #6
-    back-substitution) and their plain versions on the CPU, and the last
-    8 blocks finish with a block Cholesky (Thomas) tail.  This is the TPU's
+    :mod:`collocfem_tpu_torch.ops.cr` on a CUDA device (#4 factor, #5
+    apply and #6 back-substitution, each a whole sweep in one call of the
+    library) and their plain versions on the CPU, and the last 8 blocks
+    finish with a block Cholesky (Thomas) tail.  This is the TPU's
     level schedule: Pallas levels while the chain has >= 16 and > 8 blocks.
     :func:`blocktri_cr_factor` is its block-major wrapper.
   * :func:`blocktri_cr_factor_plain`: the same schedule on the plain level
     math alone, on any device.  The plain versions of kernels #1 and #2 run
     it, so that they never launch a kernel.
   * :func:`blocktri_solve_cr`: one block-major solve, kernel #3 per level
-    and #6 on the way back (the covariance path's ``SOLVERS["cr"]``), and
+    and #6's sweep on the way back (the covariance path's ``SOLVERS["cr"]``), and
     :func:`blocktri_solve_cr_plain`, the same on the plain level math.
   * :func:`blocktri_solve_cr_unrolled`, :func:`blocktri_solve_scan`,
     :func:`blocktri_solve_dense`: the plain references (CR down to one
@@ -48,15 +48,15 @@ class _Levels(NamedTuple):
     factor_sweep: object
     apply_sweep: object
     level: object
-    backsub: object
+    backsub_sweep: object
 
 
 # On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it runs
 # its plain version.
 _KERNELS = _Levels(cr.cr_factor_sweep, cr.cr_apply_sweep, cr.cr_level,
-                   cr.cr_backsub)
+                   cr.cr_backsub_sweep)
 _PLAIN = _Levels(cr.factor_sweep_plain, cr.apply_sweep_plain, cr.level_plain,
-                 cr.backsub_plain)
+                 cr.backsub_sweep_plain)
 
 
 def _pad_pow2_soa(Ds, Es):
@@ -110,13 +110,12 @@ def _cr_factor(Ds, Es, levels: _Levels):
     kp = Ds.shape[-1]
     (Ds, Es), facs = levels.factor_sweep(Ds, Es, TAIL)
     l_tail = _tail_factor(Ds, Es)
+    s_up, s_lo = cr.factor_columns(facs)
 
     def apply(Gs):
         Gs, s_gs = levels.apply_sweep(facs, _pad_rhs(Gs, kp))
-        X = _tail_solve(l_tail, Gs)
-        for fac, s_g in zip(reversed(facs), reversed(s_gs)):
-            X = levels.backsub(X.contiguous(), fac.s_up, fac.s_lo, s_g)
-        return X[..., :k0]
+        X = _tail_solve(l_tail, Gs).contiguous()
+        return levels.backsub_sweep(X, s_up, s_lo, s_gs)[..., :k0]
 
     return apply
 
@@ -126,8 +125,8 @@ def blocktri_cr_factor_soa(Ds, Es):
 
     Ds, Es (b, b, K); ``apply`` maps Gs (b, r, K) to X (b, r, K) with
     A X = G.  On a CUDA device every level above the tail is kernel #4
-    (factor), #5 (apply) and #6 (back-substitution), #4 and #5 as one sweep
-    each; on the CPU their plain versions.
+    (factor), #5 (apply) and #6 (back-substitution), each one sweep; on the
+    CPU their plain versions.
     """
     return _cr_factor(Ds, Es, _KERNELS)
 
@@ -161,22 +160,21 @@ def _solve_cr(D, E, G, levels: _Levels):
     k0 = D.shape[0]
     Ds, Es = _pad_pow2_soa(D.permute(1, 2, 0), E.permute(1, 2, 0))
     Gs = _pad_rhs(G.permute(1, 2, 0), Ds.shape[-1])
-    stack = []
+    s_up, s_lo, s_g = [], [], []
     while Ds.shape[-1] > TAIL:
         (Ds, Es, Gs), sol = levels.level(Ds, Es, Gs)
-        stack.append(sol)
-    X = _tail_solve(_tail_factor(Ds, Es), Gs)
-    for s_up, s_lo, s_g in reversed(stack):
-        X = levels.backsub(X.contiguous(), s_up, s_lo, s_g)
-    X = X[..., :k0].permute(2, 0, 1)
+        for arrays, a in zip((s_up, s_lo, s_g), sol):
+            arrays.append(a)
+    X = _tail_solve(_tail_factor(Ds, Es), Gs).contiguous()
+    X = levels.backsub_sweep(X, s_up, s_lo, s_g)[..., :k0].permute(2, 0, 1)
     return X[..., 0] if squeeze else X
 
 
 def blocktri_solve_cr(D, E, G):
     """Cyclic-reduction solve of A X = G, block-major: D, E (K, b, b), G
     (K, b, r) or (K, b).  On a CUDA device each level above the tail is one
-    kernel #3 call on the way down and one kernel #6 call on the way back;
-    on the CPU their plain versions."""
+    kernel #3 call on the way down, and the way back is one kernel #6
+    sweep; on the CPU their plain versions."""
     return _solve_cr(D, E, G, _KERNELS)
 
 

@@ -1,4 +1,4 @@
-"""Times of the cyclic-reduction sweeps (kernels #3-#5) on one GPU.
+"""Times of the cyclic-reduction sweeps (kernels #3-#6) on one GPU.
 
 Usage (from the root of a checkout, on a machine with a CUDA card):
 
@@ -10,12 +10,16 @@ float32 and float64, by CUDA events: the factor sweep (kernel #4) and the
 apply sweep (kernel #5, r = 3), each as one library call, back to back (the
 inputs stay in L2) and with the L2 cache flushed before every sweep; the
 same levels through 12 per-level wrapper calls; kernel #3 (r = 2) through
-its 12 per-level calls.  By torch.profiler: each level's device time and the
-span of a sweep on the device from its first kernel's start to its last
-kernel's end (the launch gaps included).  On the host clock, never waiting
-for the device: what a factor sweep costs the host, and its pieces (the
-library call with its 12 launches, the workspace's tensor views, the
-operand checks).  With --solves it also profiles the
+its 12 per-level calls; the back-substitution sweep (kernel #6, r = 3) as
+one library call with every level of at most ``small`` pairs in one launch,
+for each ``small`` in BACKSUB_SMALLS (0: a launch per level), beside its 12
+per-level calls.  By torch.profiler: each launch's device time and the span
+of a sweep on the device from its first kernel's start to its last kernel's
+end (the launch gaps included).  On the host clock, never waiting for the
+device: what a factor, apply and back-substitution sweep cost the host, and
+the factor sweep's pieces (the library call with its 12 launches, the
+workspace's tensor views, the operand checks).  With --solves it also
+profiles the
 15-iteration fixed-work solve with method='cr' (chip_smoke.py phase 7) in
 float32 and float64: device time by kernel, kernels per iteration, three
 unprofiled walls and the device idle share of the best one.
@@ -41,6 +45,7 @@ from collocfem_tpu_torch.tools.spike_tiles import _cuda_ms, _device_us, _profile
 ELEMENTS = 20000
 LAM = 3e-6
 FLUSH_BYTES = 256 << 20    # five times the H100's 50 MB L2
+BACKSUB_SMALLS = (0, 16, 32, 64, 128, 256)
 
 
 def _headline(dtype, dev):
@@ -84,6 +89,16 @@ def _cold_ms(fn, flush, reps=10):
         end.synchronize()
         total += start.elapsed_time(end)
     return total / reps
+
+
+def _backsub_inputs(Ds, Es, Gs):
+    """What kernel #6's sweep takes on the main path: the tail's solution
+    and every level's s_up, s_lo (the factor sweep's workspace) and s_g
+    (the apply sweep's)."""
+    (dt, et), facs = cr.cr_factor_sweep(Ds, Es, bt.TAIL)
+    gt, s_g = cr.cr_apply_sweep(facs, Gs)
+    X = bt._tail_solve(bt._tail_factor(dt, et), gt).contiguous()
+    return X, *cr.factor_columns(facs), s_g
 
 
 def _per_level_us(fn, key, levels, reps=10):
@@ -161,6 +176,37 @@ def sweeps(dev, record):
                   f"{levels} per-level calls; on the device {sum(per):.1f} us "
                   f"of kernels in a span of {span:.1f} us; per level "
                   + " ".join(f"{v:.1f}" for v in per), flush=True)
+        backsub(Ds, Es, Gs, name, flush, record)
+
+
+def backsub(Ds, Es, Gs, name, flush, record):
+    """Kernel #6's sweep for each ``small`` in BACKSUB_SMALLS, and its 12
+    per-level calls."""
+    X, s_up, s_lo, s_g = _backsub_inputs(Ds, Es, Gs)
+    levels, h0 = len(s_g), Ds.shape[-1] // 2
+    views = [list(a) for a in (s_up, s_lo, s_g)]
+
+    def calls():
+        x = X
+        for lv in reversed(range(levels)):
+            x = cr.cr_backsub(x, *(a[lv] for a in views))
+
+    print(f"cr_backsub {name}: {_cuda_ms(calls) * 1e3:.1f} us through "
+          f"{levels} per-level calls", flush=True)
+    for small in BACKSUB_SMALLS:
+        sweep = lambda: cr._backsub_levels(X, s_up, s_lo, s_g, small)
+        n = cr.backsub_sweep_launches(h0, levels, small)
+        per, span = _per_level_us(sweep, "backsub", n)
+        row = dict(dtype=name, levels=levels, small_pairs=small, launches=n,
+                   sweep_ms=_cuda_ms(sweep),
+                   sweep_cold_ms=_cold_ms(sweep, flush), launch_us=per,
+                   span_us=span, per_level_calls_ms=_cuda_ms(calls))
+        record.setdefault("cr_backsub", []).append(row)
+        print(f"cr_backsub {name}, levels of <= {small} pairs in one launch: "
+              f"{n} launches; sweep {row['sweep_ms'] * 1e3:.1f} us back to "
+              f"back, {row['sweep_cold_ms'] * 1e3:.1f} us with L2 flushed; on "
+              f"the device {sum(per):.1f} us in a span of {span:.1f} us; per "
+              "launch " + " ".join(f"{v:.1f}" for v in per), flush=True)
 
 
 def _host_us(fn, reps=300):
@@ -177,12 +223,14 @@ def _host_us(fn, reps=300):
 
 
 def host_pieces(dev, record):
-    """Host cost of one float32 factor sweep and apply sweep, and of the
-    factor sweep's pieces."""
+    """Host cost of one float32 factor, apply and back-substitution sweep,
+    and of the factor sweep's pieces."""
     Ds, Es, Gs, _ = _chain(torch.float32, dev)
+    X, s_up, s_lo, s_g = _backsub_inputs(Ds, Es, Gs)
     b, h0 = Ds.shape[0], Ds.shape[-1] // 2
     levels = cr.sweep_levels(Ds.shape[-1], bt.TAIL)
     _, facs = cr.cr_factor_sweep(Ds, Es, bt.TAIL)
+    fac0 = facs[0]
     starts, total = cr.sweep_layout(5, b * b, h0, levels)
     ws = Ds.new_empty(total)
     pointers = (Ds.data_ptr(), Es.data_ptr(), ws.data_ptr())
@@ -200,8 +248,9 @@ def host_pieces(dev, record):
         "operand checks": lambda: (
             _build.check_operands([("Ds", Ds, Ds.shape), ("Es", Es, Es.shape)]),
             cr._level_shape(Ds, 0)),
+        "backsub sweep": lambda: cr.cr_backsub_sweep(X, s_up, s_lo, s_g),
         "one backsub call": lambda: cr.cr_backsub(
-            Gs[..., :h0].contiguous(), facs[0].s_up, facs[0].s_lo,
+            Gs[..., :h0].contiguous(), fac0.s_up, fac0.s_lo,
             Gs[..., :h0].contiguous()),
     }
     record["host_us"] = {name: _host_us(fn) for name, fn in pieces.items()}

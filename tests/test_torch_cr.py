@@ -135,21 +135,33 @@ def test_wrappers_dispatch_on_the_device():
     _, fac = cr.cr_level_factor(Ds, Es)
     cr.cr_level_apply(fac, Gs)
     cr.cr_backsub(g, *sol)
+    # A back-substitution sweep of two levels: two plain calls.
+    X = cr.cr_backsub_sweep(g[..., :4].contiguous(), *([a, a[..., ::2]]
+                                                       for a in sol))
+    assert X.shape == (8, 3, 16)
     assert [f.launches for f in (cr.cr_level, cr.cr_level_factor,
                                  cr.cr_level_apply, cr.cr_backsub)] == kernels
     assert [f.launches for f in (cr.cr_level_ref, cr.cr_level_factor_ref,
                                  cr.cr_level_apply_ref,
-                                 cr.cr_backsub_ref)] == [n + 1 for n in refs]
+                                 cr.cr_backsub_ref)] == [n + 1 for n in
+                                                         refs[:3]] + [
+        refs[3] + 3]
     meta = [a.to("meta") for a in (Ds, Es, Gs)]
     with pytest.raises(ValueError, match="no kernel"):
         cr.cr_level(*meta)
     with pytest.raises(ValueError, match="no kernel"):
         cr.cr_level_factor(*meta[:2])
-    # The plain chain solve calls none of the wrappers or plain versions.
+    with pytest.raises(ValueError, match="no kernel"):
+        cr.cr_backsub_sweep(meta[2][..., :8], [meta[0][..., :8]],
+                            [meta[1][..., :8]], [meta[2][..., :8]])
+    # The plain chain solves call none of the wrappers or plain versions.
+    counts = [f.launches for f in (cr.cr_level_ref, cr.cr_level_factor_ref,
+                                   cr.cr_level_apply_ref, cr.cr_backsub_ref)]
     bt.blocktri_cr_factor_plain(Ds, Es)(Gs)
+    bt.blocktri_solve_cr_plain(*(a.permute(2, 0, 1) for a in (Ds, Es, Gs)))
     assert [f.launches for f in (cr.cr_level_ref, cr.cr_level_factor_ref,
                                  cr.cr_level_apply_ref,
-                                 cr.cr_backsub_ref)] == [n + 1 for n in refs]
+                                 cr.cr_backsub_ref)] == counts
 
 
 @pytest.mark.parametrize("k", [1, 2, 9, 130, 300])
@@ -218,3 +230,125 @@ def test_sweeps_refuse_an_odd_level():
                            bt.TAIL)
     (Dt, Et), facs = cr.cr_factor_sweep(D[..., :8], E[..., :8], bt.TAIL)
     assert facs == [] and Dt.shape[-1] == 8
+
+
+def _level_walk(k, r):
+    """The levels of a seeded chain of k blocks padded to a power of two, by
+    the plain walk in float64: ([s_up], [s_lo], [s_g]) per level and the
+    tail's solution."""
+    D, E, G = random_chain(k, 8, r, seed=k + r)
+    Ds, Es = bt._pad_pow2_soa(D, E)
+    (dt, et), facs = cr.factor_sweep_plain(Ds, Es, bt.TAIL)
+    gt, s_g = cr.apply_sweep_plain(facs, bt._pad_rhs(G, Ds.shape[-1]))
+    X = bt._tail_solve(bt._tail_factor(dt, et), gt).contiguous()
+    return (*cr.factor_columns(facs), s_g), X
+
+
+@pytest.mark.parametrize("r", [1, 2, 3])
+@pytest.mark.parametrize("k", [9, 16, 17, 130, 300])
+def test_backsub_sweep_matches_the_walk_and_pallas(k, r):
+    """backsub_sweep_plain gives exactly the per-level backsub_plain walk
+    and, level by level on the same x_even, what the Pallas cr_backsub
+    gives in interpret mode (float64, within 1e-12 relative); on CPU
+    tensors cr_backsub_sweep runs the counted plain version once per level
+    and launches nothing."""
+    (s_up, s_lo, s_g), X = _level_walk(k, r)
+    levels = len(s_g)
+    assert levels == _cr_level_count(k)
+    xs = [X]
+    for lv in reversed(range(levels)):
+        xs.append(cr.backsub_plain(xs[-1], s_up[lv], s_lo[lv], s_g[lv]))
+    assert torch.equal(cr.backsub_sweep_plain(X, s_up, s_lo, s_g), xs[-1])
+    for lv, x_even, want in zip(reversed(range(levels)), xs, xs[1:]):
+        got = cr_pallas.cr_backsub(
+            *(jnp.asarray(a.numpy()) for a in (x_even, s_up[lv], s_lo[lv],
+                                               s_g[lv])), interpret=True)
+        _close([want], [got], 1e-12)
+    before = (cr.cr_backsub.launches, cr.cr_backsub_ref.launches)
+    assert torch.equal(cr.cr_backsub_sweep(X, s_up, s_lo, s_g), xs[-1])
+    assert (cr.cr_backsub.launches - before[0],
+            cr.cr_backsub_ref.launches - before[1]) == (0, levels)
+
+
+def _cuda_function(name):
+    """The expression a one-line ``inline long long name(...)`` of
+    csrc/cr_kernels.cuh returns, as Python."""
+    import re
+    from pathlib import Path
+
+    src = (Path(cr.__file__).parent.parent / "csrc" /
+           "cr_kernels.cuh").read_text()
+    body = re.search(rf"inline long long {name}\([^)]*\) {{\s*return "
+                     r"([^;]*);", src).group(1)
+    return re.sub(r"\(long long\)|(?<=\d)LL", "", body)
+
+
+@pytest.mark.parametrize("rows", [24, 16, 8])
+@pytest.mark.parametrize("k", [9, 16, 17, 130, 20001])
+def test_backsub_workspace_layout(k, rows):
+    """A back-substitution sweep's intermediate X (rows, 2h), levels 1 ..
+    levels - 1, follow each other without gap or overlap and fill the
+    allocation, and backsub_layout computes what cr::backsub_offset of the
+    CUDA source computes."""
+    kp = 1 << (k - 1).bit_length()
+    levels = cr.sweep_levels(kp, bt.TAIL)
+    h0 = kp // 2
+    starts, total = cr.backsub_layout(rows, h0, levels)
+    assert len(starts) == levels - 1
+    ws = torch.zeros(total, dtype=torch.int32)
+    for lv, start in enumerate(starts, 1):
+        ws[start:start + rows * 2 * (h0 >> lv)] += 1
+    assert bool((ws == 1).all())
+    expr = _cuda_function("backsub_offset")
+    for lv, start in enumerate(starts, 1):
+        assert eval(expr, {"rows": rows, "h0": h0, "h": h0 >> lv}) == start
+
+
+@pytest.mark.parametrize("arrays,rows", [(5, 64), (2, 24)])
+def test_sweep_layout_matches_the_cuda_source(arrays, rows):
+    """sweep_layout computes what cr::sweep_offset computes."""
+    expr = _cuda_function("sweep_offset")
+    starts, _ = cr.sweep_layout(arrays, rows, 16384, 12)
+    assert starts == [eval(expr, {"arrays": arrays, "rows": rows,
+                                  "h0": 16384, "h": 16384 >> lv})
+                      for lv in range(12)]
+
+
+@pytest.mark.parametrize("k", [16, 130, 20001])
+def test_sweep_views_on_demand(k):
+    """FactorLevels and SweepArrays over a sweep's workspace give, level by
+    level, the views the sweeps made eagerly before (each level's arrays at
+    sweep_layout's start, E of level lv > 0 the e_new of level lv - 1),
+    their pointers() are the views' addresses, and the tails are the last
+    level's arrays; the backsub sweep's pointers take no view."""
+    kp = 1 << (k - 1).bit_length()
+    levels, h0, b, r = cr.sweep_levels(kp, bt.TAIL), kp // 2, 8, 3
+    Es = torch.randn(b, b, kp, dtype=torch.float64)
+    starts, total = cr.sweep_layout(5, b * b, h0, levels)
+    ws = torch.randn(total, dtype=torch.float64)
+    facs = cr.FactorLevels(ws, b, h0, levels, Es)
+    assert len(facs) == levels
+    E = Es
+    for lv, start in enumerate(starts):
+        h = h0 >> lv
+        dn, en, su, sl, lo = ws.as_strided(
+            (5, b, b, h), (b * b * h, b * h, h, 1), start).unbind(0)
+        want = cr.LevelFactor(lo, su, sl, E)
+        got = facs[lv]
+        for g, w in zip(got, want):
+            assert torch.equal(g, w) and g.data_ptr() == w.data_ptr()
+        assert facs.s_up.pointers()[lv] == su.data_ptr()
+        assert facs.E_pointers()[lv] == E.data_ptr()
+        E = en
+    assert torch.equal(facs.d_new.tail(), dn) and torch.equal(
+        facs.e_new.tail(), en)
+    assert facs[-1].L.data_ptr() == lo.data_ptr()
+    s_up, s_lo = cr.factor_columns(facs)
+    assert s_up is facs.s_up and s_lo is facs.s_lo
+    starts, total = cr.sweep_layout(2, b * r, h0, levels)
+    ws2 = torch.randn(total, dtype=torch.float64)
+    s_g = cr.SweepArrays(ws2, 2, (b, r), h0, levels, 1)
+    assert [tuple(a.shape) for a in s_g] == [(b, r, h0 >> lv)
+                                             for lv in range(levels)]
+    assert cr._pointers(s_g) == [a.data_ptr() for a in s_g]
+    assert cr._pointers(list(s_g)) == cr._pointers(s_g)

@@ -126,10 +126,12 @@ def test_chain_kernel_matches_plain(cuda_device, k, r):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 2, 11])
-@pytest.mark.parametrize("n_exp", [1, 5, 1000])
+@pytest.mark.parametrize("k", [1, 2, 11, 64])
+@pytest.mark.parametrize("n_exp", [1, 3, 4, 5, 1000, 1023, 1024])
 def test_thomas_kernel_matches_plain(cuda_device, n_exp, k):
-    """Kernel #7 with the same bars as kernel #2."""
+    """Kernel #7 with the same bars as kernel #2, on batches that fill the
+    four chains of a warp and the eight of a block, and that leave a ragged
+    last warp (n_exp not a multiple of 4)."""
     for dtype in (torch.float64, torch.float32):
         D, E, G = random_chain_batch(n_exp, k, 8, 3, seed=n_exp + k,
                                      dtype=dtype, device=cuda_device)
@@ -267,6 +269,93 @@ def test_cr_sweeps_equal_the_per_level_calls(cuda_device, k):
                 assert torch.equal(a, b) and torch.equal(b, c)
         for a, b, c in zip((d, e, g), (dt, et, gt), (dt2, et2, gt2)):
             assert torch.equal(a, b) and torch.equal(b, c)
+
+
+def _hold_backsub_sweep(Ds, Es, Gs, tail):
+    """Kernel #6's sweep through the kernel factor and apply sweeps of a
+    chain down to ``tail`` blocks: one library call with the device
+    launches the design says, bit for bit the per-level kernel calls, and
+    within ``testing.level_bar`` of the plain walk (float64 exact: the walk
+    on the same levels in float64)."""
+    (dt, et), facs = cr.cr_factor_sweep(Ds, Es, tail)
+    gt, s_g = cr.cr_apply_sweep(facs, Gs)
+    X = bt._tail_solve(bt._tail_factor(dt, et), gt).contiguous()
+    s_up, s_lo = cr.factor_columns(facs)
+    levels, h0 = len(facs), Ds.shape[-1] // 2
+    before, n0 = cr.cr_backsub.launches, cr.device_launches()
+    got = cr.cr_backsub_sweep(X, s_up, s_lo, s_g)
+    assert cr.device_launches() - n0 == cr.backsub_sweep_launches(h0, levels)
+    assert cr.cr_backsub.launches - before == levels
+    per_level = X
+    for lv in reversed(range(levels)):
+        per_level = cr.cr_backsub(per_level, s_up[lv], s_lo[lv], s_g[lv])
+    torch.cuda.synchronize()
+    assert torch.equal(got, per_level)
+    views = [list(a) for a in (s_up, s_lo, s_g)]
+    want = cr.backsub_sweep_plain(X, *views)
+    exact = cr.backsub_sweep_plain(X.double(), *([v.double() for v in a]
+                                                 for a in views))
+    ok, worst = level_bar([got], [want], [exact])
+    assert ok, (Ds.dtype, levels, worst)
+    return levels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [1, 2, 3])
+@pytest.mark.parametrize("k", [16, 17, 130, 1000, 20001])
+def test_cr_backsub_sweep_equals_the_per_level_calls(cuda_device, k, r):
+    """Kernel #6's sweep (one library call: one launch for the levels of at
+    most BACKSUB_SMALL_PAIRS pairs, one per bigger level) on chains down to
+    the tail's 8 blocks, and down to tails that leave exactly one small
+    level (BACKSUB_SMALL_PAIRS pairs) and none: bit for bit the per-level
+    calls, within the bar of the plain walk."""
+    small = cr.BACKSUB_SMALL_PAIRS
+    for dtype in (torch.float64, torch.float32):
+        D, E, G = random_chain(k, 8, r, seed=k + r, dtype=dtype,
+                               device=cuda_device)
+        Ds, Es = bt._pad_pow2_soa(D, E)
+        Gs = bt._pad_rhs(G, Ds.shape[-1])
+        for tail in (bt.TAIL, small, 2 * small):
+            if Ds.shape[-1] > tail:
+                _hold_backsub_sweep(Ds, Es, Gs, tail)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [1, 2, 3])
+@pytest.mark.parametrize("levels", range(1, 13))
+def test_cr_backsub_sweep_at_every_level_count(cuda_device, levels, r):
+    """Kernel #6's sweep on chains of 8 << levels blocks, 1 to 12 levels
+    down to the tail, as _hold_backsub_sweep holds it."""
+    for dtype in (torch.float64, torch.float32):
+        Ds, Es, Gs = random_chain(bt.TAIL << levels, 8, r, seed=levels + r,
+                                  dtype=dtype, device=cuda_device)
+        assert _hold_backsub_sweep(Ds, Es, Gs, bt.TAIL) == levels
+
+
+@pytest.mark.cuda
+def test_cr_solve_makes_no_level_view(cuda_device, monkeypatch):
+    """A CR solve on the card hands the sweeps' workspaces on by address:
+    no per-level view is made, and the back-substitution is one library
+    call."""
+    made = []
+    views = cr._level_views
+    monkeypatch.setattr(cr, "_level_views",
+                        lambda *a: made.append(a) or views(*a))
+    D, E, G = random_chain(20001, 8, 3, seed=5, device=cuda_device)
+    levels = cr.sweep_levels(32768, bt.TAIL)
+    n0 = cr.device_launches()
+    solve = bt.blocktri_cr_factor_soa(D, E)
+    n1 = cr.device_launches()
+    x = solve(G)
+    aos = [a.permute(2, 0, 1) for a in (D, E, G)]
+    x2 = bt.blocktri_solve_cr(*aos)
+    torch.cuda.synchronize()
+    assert made == []
+    assert n1 - n0 == levels
+    assert cr.device_launches() - n1 == (
+        2 * levels + 2 * cr.backsub_sweep_launches(16384, levels))
+    assert rel_err(x, bt.blocktri_cr_factor_plain(D, E)(G)) <= 1e-9
+    assert rel_err(x2, bt.blocktri_solve_cr_plain(*aos)) <= 1e-9
 
 
 @pytest.mark.cuda

@@ -15,10 +15,13 @@ from collocfem_tpu_torch.testing import batch_residual, random_chain_batch
 
 
 # The shapes of tests/test_blocktri_pallas.py:26 and :41 (tile_e pads the
-# batch there), plus single-block chains.
+# batch there), plus single-block chains and, at config 5's b and r, the
+# ragged batches the CUDA kernel's groups of four chains a warp meet.
 @pytest.mark.parametrize("shape,tile_e", [((4, 5, 3, 2), 2),
                                           ((5, 9, 4, 2), 8),
-                                          ((3, 1, 8, 3), 2)])
+                                          ((3, 1, 8, 3), 2),
+                                          ((5, 2, 8, 3), 4),
+                                          ((3, 4, 8, 3), 2)])
 def test_plain_matches_pallas_interpret(shape, tile_e):
     """rtol 1e-9 (the JAX package's own bar for this kernel)."""
     args = random_chain_batch(*shape, seed=sum(shape))
