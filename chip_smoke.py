@@ -41,6 +41,16 @@ Phases, each printing its own line; any failure raises and exits non-zero:
          through blocktri_cr_factor_soa and blocktri_solve_cr are held
          against the plain chain solve (the float32 bar is the chain
          residual).
+     At the shapes of configs 2 and 4 (_phase2_configs): kernel #1 at
+     nq = 3 and 5 on each config's damped system at its initial guess (K =
+     1,001 and 201) and on seeded chains, K in EDGES + {201, 1001}, timed
+     beside its plain version, its device time by phase (torch.profiler),
+     the dense library solve (torch.linalg.solve on the damped bordered KKT
+     matrix, 8,011^2 and 1,611^2) and its bound; kernels #3-#6 at r = 4
+     and 6 on each config's equilibrated chain (G = [gx | B], also the
+     fused level's right-hand side), every level, the sweeps and whole
+     solves, timed, and on seeded chains, K in {16, 17, 130, 1000}, with
+     the bars above.
      Times each kernel and its plain version (CUDA events; kernels #3-#6:
      the sum over the 12 levels of one headline solve at N = 20,000, #4,
      #5 and #6 through their sweeps, with the per-level calls' time
@@ -73,11 +83,28 @@ Phases, each printing its own line; any failure raises and exits non-zero:
      ||p - [1, 1]||_inf < 1e-4, and in float64, p within 1e-6 of the JAX
      package's float64 ladder; parameter_std at the float64 solution
      (kernels #3 and #6, 12 launches each) against the plain CR solve of
-     the same schedule, <= 1e-9; state_std at the coarse level, its wall.
+     the same schedule, <= 1e-9; state_std at the coarse level, its wall;
+  8. config 2 at full size (Duffing joint MAP, N = 1,000, b = 8, nq = 3;
+     collocfem_tpu_torch.configs): (a) float32 fixed work, 40 LM
+     iterations on 'auto' (kernel #1 launches exactly 40 times, no plain
+     call), the cost falls and ||p / p_true - 1||_inf <= 0.15, its best-of-3
+     wall and a torch.profiler breakdown; (b) the same in float64, p within
+     1e-6 of the JAX package's; (c) (b) with method='cr' (kernels #4-#6
+     launch 40 x 7 times); (d) the example's converged float64 run
+     (converged, p within 1e-6 of the JAX package's); (e) IRLS in float64
+     (irls_delta 2, 4 rounds; kernel #1 launches exactly once per LM
+     iteration of the five inner solves), p within 1e-6 of the JAX
+     package's;
+  9. config 4 at full size (aircraft output error, N = 200, nq = 5), as
+     phase 8 with r = 6 (5 CR levels), float32 gated on the cost falling
+     and p finite, and (e) the exact-Newton run (hessian='newton') from the
+     config's z0, converged, p within 1e-6 of the JAX package's.
 
 The second-to-last lines are the card's name and power limit and a JSON
-object describing every kernel of the path; the last line is
-{"ok": true, "device": {...}}.  With --out DIR the same records are also
+object describing every kernel of the path (its numbers at the headline's
+shape; ``shapes``: its main-path launches at each shape, as its wrapper
+counted them; ``at_configs``: phase 2's numbers at configs 2 and 4); the
+last line is {"ok": true, "device": {...}}.  With --out DIR the same records are also
 written to DIR/chip_smoke.json.
 """
 
@@ -111,6 +138,12 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                              "collocfem_tpu/ops/blocktri_pallas.py:78"),
 }
 CR_NAMES = ("cr_level", "cr_level_factor", "cr_level_apply", "cr_backsub")
+# Launches at each shape ((b, nq) for kernel #1, (b,) for #4, (b, r) for
+# the others) over the main path's counted runs, as the wrappers recorded
+# them: LAST_SHAPES is taken with the counts (_counts), MAIN_SHAPES adds
+# up the runs whose launches join the kernels line (_keep_shapes).
+LAST_SHAPES: dict = {}
+MAIN_SHAPES: dict = {}
 # Chain lengths at the edges of kernel #1's and #2's tile plan (one tile,
 # L = 3, a last tile mostly padding, a tile count not a multiple of four).
 EDGES = (1, 2, 3, 4, 5, 9, 13, 97)
@@ -217,6 +250,73 @@ P_ERR_JAX_LADDER_F32 = 2.2470951080322266e-05
 CR_FIXED_JAX_F64_P = (2.855885277895221, -0.5179073605763589)
 CR_FIXED_JAX_F32_RATIO = 36.434286928965115
 
+# The JAX package's float64 p on configs 2 and 4 on the CPU (on the CPU
+# 'auto' is its XLA cyclic reduction): the fixed work of
+# benchmarks/configs_bench.py, the examples' converged runs
+# (examples/duffing_joint.py, examples/aircraft_oe.py), config 2's IRLS
+# (irls_delta 2.0, 4 rounds of the converged options) and config 4's exact
+# Newton run (the converged options, hessian='newton', from the config's z0:
+# converged in 49 iterations), produced from the root of the repo by
+#   JAX_PLATFORMS=cpu python - 2 <<'EOF'   # then with 4 for config 4
+#   import sys; sys.path[:0] = [".", "examples"]
+#   import jax; jax.config.update("jax_enable_x64", True)
+#   import numpy as np
+#   from collocfem_tpu.models import AircraftLongitudinal, Duffing
+#   from collocfem_tpu.ops.mesh import uniform_mesh
+#   from collocfem_tpu.problem import EstimationProblem
+#   from collocfem_tpu.solve import SolverOptions as O
+#   from collocfem_tpu.solve.newton import make_gn_solver, make_irls_solver
+#   from collocfem_tpu.utils.io import load_measurements
+#   if sys.argv[1] == "2":
+#       from duffing_joint import (GAMMA, MEAS_NOISE, OMEGA, PROC_NOISE, TF,
+#                                  simulate_sde)
+#       rng = np.random.default_rng(7)
+#       ts, xs = simulate_sde(rng, TF)
+#       t = np.linspace(0.05, TF - 0.05, 2000)
+#       y = np.interp(t, ts, xs[:, 0])[:, None]
+#       y += MEAS_NOISE * rng.standard_normal(y.shape)
+#       prob = EstimationProblem.build(Duffing(gamma=GAMMA, omega=OMEGA),
+#           uniform_mesh(0.0, TF, 1000, 4), t, defect_weight=1 / PROC_NOISE)
+#       data = prob.pack_data(y, t, meas_weight=1 / MEAS_NOISE,
+#                             p_prior=[0.0, 0.0, 0.0], p_weight=1e-3)
+#       z0 = prob.initial_guess_from_data(t, y, p0=[0.5, 1.0, 0.5])
+#       fixed = O(maxiter=40, gtol=0.0, lam0=1e-6)
+#       conv = dict(maxiter=80, gtol=1e-6, xtol=1e-10)
+#   else:
+#       t, vals = load_measurements("examples/data/aircraft_doublet.csv")
+#       y, u = vals[:, :3], vals[:, 3]
+#       mesh = uniform_mesh(0.0, 8.0, 200, 4)
+#       prob = EstimationProblem.build(AircraftLongitudinal(V=60.0, g0=9.81),
+#                                      mesh, t, defect_weight=1e4)
+#       data = prob.pack_data(y, t, u_nodes=np.interp(
+#           mesh.elem_times, t, u)[..., None], meas_weight=1.0 / np.array(
+#           [0.002, 0.005, 0.05]))
+#       z0 = prob.initial_guess_from_data(t, y[:, :2],
+#                                         p0=[-1.0, -5.0, -1.0, -0.1, -5.0])
+#       fixed = O(maxiter=40, gtol=0.0, lam0=1e-6, lam_max=1e30)
+#       conv = dict(maxiter=60, gtol=1e-6, xtol=1e-12)
+#   runs = {"fixed": make_gn_solver(prob, fixed),
+#           "converged": make_gn_solver(prob, O(**conv))}
+#   if sys.argv[1] == "2":
+#       runs["irls"] = make_irls_solver(prob, O(**conv, irls_delta=2.0), 4)
+#   else:
+#       runs["newton"] = make_gn_solver(prob, O(**conv, hessian="newton"))
+#   for name, solve in runs.items():
+#       z, st = solve(z0, data)[:2]
+#       print(name, repr(np.asarray(z.p).tolist()), int(st.iterations))
+#   EOF
+C2_JAX_F64 = dict(
+    fixed=(1.0042641985284104, 4.987648776798632, 0.18035889984194617),
+    converged=(1.0042641985143999, 4.98764877681048, 0.18035889983543302),
+    irls=(1.0052233327411957, 4.986979150612183, 0.1803701597779979))
+C4_JAX_F64 = dict(
+    fixed=(-1.2097362110617522, -8.228952931501478, -2.557399394867827,
+           -0.14454344529385657, -12.355985957602279),
+    converged=(-1.2097362110220928, -8.228952931861986, -2.557399395621171,
+               -0.14454344521344795, -12.35598595983164),
+    newton=(-1.2097362110140655, -8.228952931926878, -2.557399395758849,
+            -0.14454344519782347, -12.355985960247033))
+
 
 def _card() -> str:
     out = subprocess.run(
@@ -261,22 +361,6 @@ def _device_us(fn, key, reps=10):
                 getattr(evt, "device_time_total", 0),
                 getattr(evt, "cuda_time_total", 0)) if v), 0.0)
     return total / reps
-
-
-def _kkt_residual(sys_, dx, dp, lam, dmax):
-    """Relative x-block residual ||(A + lam_abs I) dx + B dp + gx||_inf /
-    ||gx||_inf of the damped system, in float64."""
-    import torch
-
-    D, E, B, _, gx, _ = (a.double() for a in sys_)
-    dx, dp = dx.double(), dp.double()
-    lam_abs = float(lam) * float(dmax)
-    E = E[..., :-1]                            # E[..., K-1] is unused
-    y = torch.einsum("ijk,jk->ik", D, dx) + lam_abs * dx
-    y[:, :-1] += torch.einsum("ijk,jk->ik", E, dx[:, 1:])
-    y[:, 1:] += torch.einsum("jik,jk->ik", E, dx[:, :-1])
-    y += torch.einsum("iqk,q->ik", B, dp) + gx
-    return float(y.abs().max() / gx.abs().max())
 
 
 def _ptxas_summary(log: str) -> list[str]:
@@ -344,16 +428,29 @@ def _wrappers():
 
 
 def _reset_counts():
-    for fns in _wrappers().values():
-        for fn in fns:
-            fn.launches = 0
+    for kernel, plain in _wrappers().values():
+        kernel.launches = plain.launches = 0
+        kernel.shapes = {}
 
 
 def _counts():
-    """({kernel name: launches}, calls of all plain versions together)."""
+    """({kernel name: launches}, calls of all plain versions together).
+    Also takes each kernel's launches by shape into LAST_SHAPES."""
     w = _wrappers()
+    LAST_SHAPES.clear()
+    LAST_SHAPES.update({name: dict(k.shapes) for name, (k, _) in w.items()})
     return ({name: k.launches for name, (k, _) in w.items()},
             sum(p.launches for _, p in w.values()))
+
+
+def _keep_shapes(names):
+    """Add the launches by shape of kernels ``names`` that the last
+    _counts() read to MAIN_SHAPES: call it where their launches join the
+    main path's."""
+    for name in names:
+        kept = MAIN_SHAPES.setdefault(name, {})
+        for shape, n in LAST_SHAPES[name].items():
+            kept[shape] = kept.get(shape, 0) + n
 
 
 def _expect_only(counts, plain_calls, want, label):
@@ -391,7 +488,7 @@ def _compare(sys_, lam, damp_scale, label):
     import torch
 
     from collocfem_tpu_torch.ops import spike
-    from collocfem_tpu_torch.testing import rel_err
+    from collocfem_tpu_torch.testing import kkt_residual, rel_err
 
     args = (sys_.D, sys_.E, sys_.B, sys_.gx, sys_.C, sys_.gp, lam, damp_scale)
     got = spike.kkt_solve_spike_fused(*args)
@@ -407,8 +504,8 @@ def _compare(sys_, lam, damp_scale, label):
         print(f"  {label}: rel diff dx {rel[0]:.3e} dp {rel[1]:.3e} "
               f"(<= 1e-9) {'ok' if ok else 'FAIL'}")
     else:
-        res_k = _kkt_residual(sys_, got[0], got[1], lam, got[2])
-        res_p = _kkt_residual(sys_, want[0], want[1], lam, want[2])
+        res_k = kkt_residual(sys_, got[0], got[1], lam, got[2])
+        res_p = kkt_residual(sys_, want[0], want[1], lam, want[2])
         ok = res_k <= 10.0 * res_p
         print(f"  {label}: KKT residual kernel {res_k:.3e} plain {res_p:.3e} "
               f"(<= 10x) {'ok' if ok else 'FAIL'}")
@@ -432,23 +529,31 @@ def _headline(dtype, device, elements=ELEMENTS):
     return prob, data, z0
 
 
-def _cr_headline_chain(dtype, device, lam):
-    """The headline's equilibrated, damped chain at N = ELEMENTS_CR and
-    the initial guess, padded to a power of two: (Ds, Es (b, b, Kp), G3 =
-    [gx | B] (b, 3, Kp), B (b, 2, Kp)), and the unpadded (D, E, G3, B)."""
+def _cr_chain(prob, data, z0, lam, covariance_rhs=True):
+    """The equilibrated, damped chain of ``prob`` at z0, padded to a power
+    of two: (Ds, Es (b, b, Kp), G = [gx | B] (b, 1 + nq, Kp), Bs (b, r,
+    Kp)), and the unpadded (D, E, G, Bs).  Bs is B (covariance's shape)
+    with ``covariance_rhs``, else G again."""
     import torch
 
     from collocfem_tpu_torch.ops.assemble import assemble_gn_soa
     from collocfem_tpu_torch.solve import blocktri as bt
     from collocfem_tpu_torch.solve.kkt import _equilibrate_soa
 
-    prob, data, z0 = _headline(dtype, device, ELEMENTS_CR)
     s, _, _, _ = _equilibrate_soa(assemble_gn_soa(prob, z0, data), lam)
-    G3 = torch.cat([s.gx[:, None, :], s.B], dim=1).contiguous()
+    G = torch.cat([s.gx[:, None, :], s.B], dim=1).contiguous()
+    B = s.B.contiguous() if covariance_rhs else G
     Ds, Es = bt._pad_pow2_soa(s.D, s.E)
     kp = Ds.shape[-1]
-    return ((Ds, Es, bt._pad_rhs(G3, kp), bt._pad_rhs(s.B, kp)),
-            (s.D, s.E, G3, s.B.contiguous()))
+    return ((Ds, Es, bt._pad_rhs(G, kp), bt._pad_rhs(B, kp)),
+            (s.D, s.E, G, B))
+
+
+def _cr_headline_chain(dtype, device, lam):
+    """The headline's chain at N = ELEMENTS_CR and the initial guess
+    (:func:`_cr_chain`, G = [gx | B] with r = 3, B with r = 2)."""
+    prob, data, z0 = _headline(dtype, device, ELEMENTS_CR)
+    return _cr_chain(prob, data, z0, lam)
 
 
 def _hold_cr(label, dtype, Ds, Es, Gs, Gs_level=None):
@@ -663,27 +768,26 @@ def _thomas_flops(b, r, blocks):
     return blocks * (b ** 3 / 3 + 4 * b ** 3 + 6 * b * b * r)
 
 
-def _bounds(K1, K2, n_exp, k7, levels):
-    """{kernel: (bound ms, binding)} of each kernel's float32 call at the
-    shapes timed in phase 2.  Bytes: each input read once and each output
-    written once (#1: D, E, G = [gx | B], inv in, dx out; #2, #7: D, E, G
-    in, X out; #3-#6: the level's inputs and outputs, summed over the
-    levels of one solve).  Operations: block Thomas for #1, #2, #7; for a
-    CR pair of blocks, the odd block's Cholesky and four b x b products
-    and solves (#4), 6 b^2 r for the right-hand sides (#5, #3) and 4 b^2 r
-    for the back-substitution (#6)."""
+def _kkt_bound(K, nq):
+    """(bound ms, binding) of kernel #1's float32 call on a chain of K
+    blocks of b = 8 with nq parameters: D, E, G = [gx | B], inv in, dx out;
+    block Thomas with r = 1 + nq, and the Schur sums B^T X (2 b nq r a
+    block)."""
+    b, r, f = 8, 1 + nq, 4
+    return _bound(f * K * (2 * b * b + r * b + b + b),
+                  _thomas_flops(b, r, K) + K * 2 * b * nq * r)
+
+
+def _cr_bounds(levels, r, r_cov):
+    """{kernel #3-#6: (bound ms, binding)} of the float32 calls over the
+    CR ``levels`` of one solve (the apply and back-substitution with r
+    right-hand sides, the fused level #3 with r_cov).  Bytes: the level's
+    inputs and outputs; operations: for a pair of blocks the odd block's
+    Cholesky and four b x b products and solves (#4), 6 b^2 r for the
+    right-hand sides (#5, #3) and 4 b^2 r for the back-substitution
+    (#6)."""
     b, f = 8, 4
-    out = {
-        "kkt_solve_spike_fused": _bound(
-            f * K1 * (2 * b * b + 3 * b + b + b),
-            _thomas_flops(b, 3, K1) + K1 * 2 * b * 2 * 3),
-        "blocktri_solve_spike_fused": _bound(
-            f * K2 * (2 * b * b + 2 * 3 * b), _thomas_flops(b, 3, K2)),
-        "batched_thomas_solve": _bound(
-            f * n_exp * k7 * (2 * b * b + 2 * 3 * b),
-            _thomas_flops(b, 3, n_exp * k7)),
-    }
-    bb, r, r_cov = b * b, 3, 2   # #3 is timed with covariance's r = 2
+    bb = b * b
     per_pair = {   # (elements moved, operations) per pair of blocks
         "cr_level_factor": (9 * bb, bb * b / 3 + 5 * 2 * bb * b),
         "cr_level_apply": (3 * bb + 4 * b * r, 6 * bb * r),
@@ -692,9 +796,28 @@ def _bounds(K1, K2, n_exp, k7, levels):
         "cr_backsub": (2 * bb + 4 * b * r, 4 * bb * r),
     }
     pairs = sum(lv[0].shape[-1] // 2 for lv in levels)
-    for name, (elems, ops) in per_pair.items():
-        out[name] = _bound(f * elems * pairs, ops * pairs)
-    return out
+    return {name: _bound(f * elems * pairs, ops * pairs)
+            for name, (elems, ops) in per_pair.items()}
+
+
+def _bounds(K1, K2, n_exp, k7, levels):
+    """{kernel: (bound ms, binding)} of each kernel's float32 call at the
+    shapes timed in phase 2.  Bytes: each input read once and each output
+    written once (#1: D, E, G = [gx | B], inv in, dx out; #2, #7: D, E, G
+    in, X out; #3-#6: the level's inputs and outputs, summed over the
+    levels of one solve).  Operations: block Thomas for #1, #2, #7; the CR
+    pair counts of :func:`_cr_bounds` for #3-#6 (r = 3, #3 timed with
+    covariance's r = 2)."""
+    b, f = 8, 4
+    return {
+        "kkt_solve_spike_fused": _kkt_bound(K1, 2),
+        "blocktri_solve_spike_fused": _bound(
+            f * K2 * (2 * b * b + 2 * 3 * b), _thomas_flops(b, 3, K2)),
+        "batched_thomas_solve": _bound(
+            f * n_exp * k7 * (2 * b * b + 2 * 3 * b),
+            _thomas_flops(b, 3, n_exp * k7)),
+        **_cr_bounds(levels, 3, 2),
+    }
 
 
 def _dense_batch(D, E, G):
@@ -712,6 +835,12 @@ def _dense_batch(D, E, G):
             A[:, s, t] = E[:, k]
             A[:, t, s] = E[:, k].transpose(1, 2)
     return A, G.reshape(n, K * b, G.shape[-1])
+
+
+def _p_dev(p, ref):
+    """max |p - ref| / max |ref|."""
+    return (max(abs(a - b) for a, b in zip(p, ref))
+            / max(abs(b) for b in ref))
 
 
 def _timed(fn):
@@ -820,9 +949,9 @@ def _phase7(dev, card, record):
                   f"cliff; the JAX package's CPU float32 run: "
                   f"{CR_FIXED_JAX_F32_RATIO:.2f}x)")
             launches.update({k: counts[k] for k in CR_NAMES[1:]})
+            _keep_shapes(CR_NAMES[1:])
         else:
-            p_dev = (max(abs(a - b) for a, b in zip(p, CR_FIXED_JAX_F64_P))
-                     / max(abs(b) for b in CR_FIXED_JAX_F64_P))
+            p_dev = _p_dev(p, CR_FIXED_JAX_F64_P)
             record["cr_fixed_work_float64"]["p_vs_jax"] = p_dev
             print(f"  float64: |p - p_jax|/|p_jax| {p_dev:.3e} (<= 1e-6), "
                   f"cost falls more than 10x")
@@ -846,8 +975,7 @@ def _phase7(dev, card, record):
     ladder = ConvergedLadder(ELEMENTS_CR, device=dev, dtype=torch.float64)
     zs, _, per_level, wall = _run_ladder(ladder, "ladder float64", card)
     p = per_level[-1]["p"]
-    p_dev = (max(abs(a - b) for a, b in zip(p, P_JAX_LADDER_F64))
-             / max(abs(b) for b in P_JAX_LADDER_F64))
+    p_dev = _p_dev(p, P_JAX_LADDER_F64)
     record["ladder_f64"] = dict(wall_s=wall, levels=per_level, p_vs_jax=p_dev)
     print(f"  ladder float64: p={p}, |p - p_jax|/|p_jax| {p_dev:.3e} "
           f"(<= 1e-6)")
@@ -865,6 +993,7 @@ def _phase7(dev, card, record):
                  {"cr_level": n_levels, "cr_backsub": n_levels},
                  "phase 7 parameter_std")
     launches["cr_level"] = counts["cr_level"]
+    _keep_shapes(["cr_level"])
     sys_ = assemble_gn(fine.problem, zs[-1], fine.data)
     a_b = bt.blocktri_solve_cr_plain(sys_.D, sys_.E, sys_.B)
     schur = sys_.C - torch.einsum("kbq,kbr->qr", sys_.B, a_b)
@@ -888,6 +1017,332 @@ def _phase7(dev, card, record):
           f"inverse is a sequential recursion, no kernel)")
     if not ok or tuple(sstd.shape) != (coarse.problem.num_nodes, 2):
         raise RuntimeError("state_std returned no usable band")
+    return launches
+
+
+def _dense_kkt(sys_, lam_abs):
+    """The damped bordered KKT matrix [[A + lam_abs I, B], [B^T, C +
+    lam_abs I]] of an SoA system, dense ((K b + nq)^2, block-major order),
+    and its right-hand side -[gx; gp] (K b + nq, 1)."""
+    import torch
+
+    D, E, B, C, gx, gp = sys_
+    b, _, K = D.shape
+    n, nq = K * b, C.shape[0]
+    M = D.new_zeros((n + nq, n + nq))
+    blocks = M[:n, :n].unflatten(0, (K, b)).unflatten(2, (K, b))
+    k = torch.arange(K, device=D.device)
+    blocks[k, :, k, :] = D.permute(2, 0, 1)
+    blocks[k[:-1], :, k[:-1] + 1, :] = E[..., :-1].permute(2, 0, 1)
+    blocks[k[:-1] + 1, :, k[:-1], :] = E[..., :-1].permute(2, 1, 0)
+    M[:n, n:] = B.permute(2, 0, 1).reshape(n, nq)
+    M[n:, :n] = M[:n, n:].T
+    M[n:, n:] = C
+    M.diagonal().add_(lam_abs)
+    return M, -torch.cat([gx.T.reshape(n), gp])[:, None]
+
+
+def _phase2_configs(dev, card):
+    """Phase 2 at the shapes of configs 2 and 4: kernel #1 at nq = 3 and 5
+    on each config's damped system at its initial guess (timed beside its
+    plain version, its device time by phase and the dense library solve)
+    and on seeded chains; kernels #3-#6 at r = 4 and 6 on each config's
+    equilibrated chain, level by level, its sweeps and whole solves (timed)
+    and on seeded chains.  Returns the per-shape records."""
+    import torch
+
+    from collocfem_tpu_torch.ops import spike
+    from collocfem_tpu_torch.ops.assemble import assemble_gn_soa
+    from collocfem_tpu_torch.solve import blocktri as bt
+    from collocfem_tpu_torch.solve.kkt import damping_scales
+    from collocfem_tpu_torch.testing import (random_chain, random_kkt_system,
+                                             rel_err)
+    from collocfem_tpu_torch.tools.spike_tiles import _split
+
+    from collocfem_tpu_torch import configs
+
+    out = {"kkt": {}, "cr": {}}
+    for cname, build, lam in (
+            ("config 2", configs.build_config2_problem,
+             configs.C2_FIXED["lam0"]),
+            ("config 4", configs.build_config4_problem,
+             configs.C4_FIXED["lam0"])):
+        for dtype in (torch.float32, torch.float64):
+            name = str(dtype).split(".")[1]
+            prob, z0, data = build(dtype=dtype, device=dev)
+            sys_ = assemble_gn_soa(prob, z0, data)
+            K, nq = sys_.num_blocks, sys_.C.shape[0]
+            label = f"kernel #1 {cname} {name} K={K} nq={nq}"
+            err = _compare(sys_, lam, None, label)
+            call = (sys_.D, sys_.E, sys_.B, sys_.gx, sys_.C, sys_.gp, lam)
+            k_ms = _cuda_ms(lambda: spike.kkt_solve_spike_fused(*call), 20)
+            p_ms = _cuda_ms(lambda: spike.kkt_solve_spike_fused_ref(*call), 3)
+            split = _split(lambda: spike.kkt_solve_spike_fused(*call))
+            M, rhs = _dense_kkt(sys_, damping_scales(sys_.D, sys_.C, lam)[0])
+            lib_ms = _cuda_ms(lambda: torch.linalg.solve(M, rhs), 5)
+            dx, dp, _ = spike.kkt_solve_spike_fused(*call)
+            lib_rel = rel_err(torch.linalg.solve(M, rhs)[:, 0],
+                              torch.cat([dx.T.reshape(-1), dp]))
+            bound = _kkt_bound(K, nq)
+            out["kkt"][f"{cname} {name}"] = dict(
+                K=K, nq=nq, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                device_us=split, device_us_total=sum(split.values()),
+                library_ms=lib_ms, library_rel_diff=lib_rel,
+                bound_ms=bound[0], bound_by=bound[1])
+            print(f"  {label}: kernel {k_ms:.3f} ms/call ("
+                  f"{sum(split.values()):.1f} us on the device: "
+                  + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+                  + f"), plain {p_ms:.3f} ms/call; torch.linalg.solve on the "
+                  f"dense damped KKT matrix {tuple(M.shape)} {lib_ms:.3f} "
+                  f"ms/call (rel diff to the kernel {lib_rel:.2e}); float32 "
+                  f"bound {bound[0] * 1e3:.3f} us ({bound[1]}) on {card}")
+            del M, rhs
+
+            padded, unpadded = _cr_chain(prob, data, z0, lam,
+                                         covariance_rhs=False)
+            r = padded[2].shape[1]
+            clabel = f"CR {cname} {name} K={K} r={r}"
+            levels, tail = _cr_levels(*padded)
+            errs = {}
+            for i, (D, E, G, B, *_) in enumerate(levels):
+                for k, v in _hold_cr(f"{clabel} level {i}", dtype, D, E, G,
+                                     B).items():
+                    errs[k] = max(errs.get(k, 0.0), v)
+            facs, s_gs, x_tail = _hold_cr_sweeps(
+                clabel, levels, tail, *_cr_levels(*(a.double()
+                                                    for a in padded)))
+            errs["cr_backsub"] = max(errs["cr_backsub"], _hold_backsub_sweep(
+                clabel, facs, s_gs, x_tail))
+            _hold_cr_solves(clabel, dtype, *unpadded)
+            ms, per_level = _cr_times(levels, facs, s_gs, x_tail)
+            bounds = _cr_bounds(levels, r, r)
+            out["cr"][f"{cname} {name}"] = dict(
+                K=K, r=r, levels=len(levels), max_abs_err=errs,
+                ms={k: v[0] for k, v in ms.items()},
+                plain_ms={k: v[1] for k, v in ms.items()},
+                per_level_calls_ms=per_level,
+                bound_ms={k: v[0] for k, v in bounds.items()},
+                bound_by={k: v[1] for k, v in bounds.items()})
+            for k, (k_ms, p_ms) in ms.items():
+                print(f"  {clabel} {k}: kernel {k_ms:.3f} ms, plain "
+                      f"{p_ms:.3f} ms per solve ({len(levels)} levels"
+                      + (f"; one sweep call, {per_level[k]:.3f} ms through "
+                         "per-level calls" if k in per_level else "")
+                      + f"); float32 bound {bounds[k][0] * 1e3:.3f} us")
+            del prob, z0, data, sys_, padded, unpadded, levels, facs
+
+        for k in (*EDGES, 201, 1001):
+            for dtype in (torch.float32, torch.float64):
+                rs = random_kkt_system(k, 8, nq, seed=k + nq, dtype=dtype,
+                                       device=dev)
+                _compare(rs, 1e-3, None, f"kernel #1 random "
+                         f"{str(dtype).split('.')[1]} K={k} nq={nq}")
+
+    for r in (4, 6):
+        for dtype in (torch.float32, torch.float64):
+            name = str(dtype).split(".")[1]
+            for k in (16, 17, 130, 1000):
+                D, E, G = random_chain(k, 8, r, seed=k + r, dtype=dtype,
+                                       device=dev)
+                Dp, Ep = bt._pad_pow2_soa(D, E)
+                Gp = bt._pad_rhs(G, Dp.shape[-1])
+                label = f"CR random {name} K={k} r={r}"
+                levels, tail = _cr_levels(Dp, Ep, Gp, Gp)
+                for i, (Dl, El, Gl, Bl, *_) in enumerate(levels):
+                    _hold_cr(f"{label} level {i}", dtype, Dl, El, Gl, Bl)
+                facs, s_gs, x_tail = _hold_cr_sweeps(
+                    label, levels, tail, *_cr_levels(
+                        *(a.double() for a in (Dp, Ep, Gp, Gp))))
+                _hold_backsub_sweep(label, facs, s_gs, x_tail)
+                _hold_cr_solves(label, dtype, D, E, G, G)
+        print(f"  kernels #3-#6 r={r}: seeded chains K in (16, 17, 130, "
+              "1000), every level, the sweeps and whole solves ok")
+    return out
+
+
+def _main_shapes(name, launches):
+    """The kernels line's ``shapes`` of kernel ``name``: its main-path
+    launches at each shape, as its wrapper recorded them.  Raises unless
+    they add up to ``launches``."""
+    key = ("b", "nq") if name == "kkt_solve_spike_fused" else ("b", "r")
+    out = [{**dict(zip(key, shape)), "launches": n}
+           for shape, n in sorted(MAIN_SHAPES.get(name, {}).items())]
+    if sum(e["launches"] for e in out) != launches:
+        raise RuntimeError(f"{name}: launches by shape {out} do not add up "
+                           f"to its {launches} main-path launches")
+    return out
+
+
+def _at_configs(name, measured):
+    """The kernels line's ``at_configs`` of kernel ``name``: what phase 2
+    measured at the shapes of configs 2 and 4 (``measured``, from
+    _phase2_configs): float32 times and bound, the float64 max abs error,
+    and for kernel #1 the dense torch.linalg.solve."""
+    out = []
+    for cname in ("config 2", "config 4"):
+        if name == "kkt_solve_spike_fused":
+            f32, f64 = (measured["kkt"][f"{cname} {d}"]
+                        for d in ("float32", "float64"))
+            out.append(dict(
+                config=cname, K=f32["K"], b=8, nq=f32["nq"],
+                max_abs_err=f64["max_abs_err"], ms=f32["ms"],
+                plain_ms=f32["plain_ms"], bound_ms=f32["bound_ms"],
+                bound_by=f32["bound_by"], library_ms=f32["library_ms"]))
+        elif name in CR_NAMES:
+            f32, f64 = (measured["cr"][f"{cname} {d}"]
+                        for d in ("float32", "float64"))
+            out.append(dict(
+                config=cname, K=f32["K"], b=8, r=f32["r"],
+                max_abs_err=f64["max_abs_err"][name], ms=f32["ms"][name],
+                plain_ms=f32["plain_ms"][name],
+                bound_ms=f32["bound_ms"][name],
+                bound_by=f32["bound_by"][name], library_ms=None))
+    return out
+
+
+def _counted(label, fn, want):
+    """Run fn() with every count set to 0 just before and read just after,
+    and raise unless the kernels launched as ``want`` says and no plain
+    version ran.  ``want``: {kernel: launches}, a function of fn()'s result
+    that gives them, or a set of kernels that must each launch at least
+    once.  Returns (result, wall, counts)."""
+    _reset_counts()
+    out, wall = _timed(fn)
+    counts, plain = _counts()
+    if isinstance(want, set):
+        if not all(counts[k] for k in want):
+            raise RuntimeError(f"{label}: {sorted(want)} did not launch")
+        want = {k: counts[k] for k in want}
+    elif callable(want):
+        want = want(out)
+    _expect_only(counts, plain, want, label)
+    return out, wall, counts
+
+
+def _config_phase(num, cname, build, fixed, converged, truth, jax_p,
+                  robust, dev, card, record, f32_bar=None):
+    """Phase 8 (config 2) or 9 (config 4) at full size:
+      (a) float32 fixed work on 'auto' (kernel #1 once per LM iteration, no
+          plain call), the cost falls and p is finite (and, with
+          ``f32_bar``, max |p / truth - 1| <= f32_bar); its best-of-3 wall
+          and a torch.profiler breakdown;
+      (b) float64 fixed work on 'auto', p within 1e-6 of the JAX package's;
+      (c) (b) with method='cr' (kernels #4-#6 once per level and
+          iteration);
+      (d) the example's converged run in float64: converged, p within 1e-6
+          of the JAX package's;
+      (e) ``robust``: 'irls' (irls_delta 2, 4 rounds of the converged
+          options) or 'newton' (the converged options with
+          hessian='newton'), float64, from z0: p within 1e-6 of the JAX
+          package's.
+    Returns the launches of kernels #1 and #4-#6 over (a)-(e)."""
+    import torch
+
+    from collocfem_tpu_torch.solve.newton import (SolverOptions,
+                                                  make_gn_solver,
+                                                  make_irls_solver)
+    from collocfem_tpu_torch.tools.spike_tiles import _profile
+
+    launches = {}
+    rec = record.setdefault(cname.replace(" ", ""), {})
+    tag = f"phase {num}: {cname}"
+    maxiter = fixed["maxiter"]
+    kkt = "kkt_solve_spike_fused"
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        _keep_shapes(counts)
+
+    def only_kkt(out):   # once per LM iteration of an early-exit run
+        return {kkt: int(out[1].iterations)}
+
+    # (a) float32 fixed work.
+    prob, z0, data = build(dtype=torch.float32, device=dev)
+    solve = make_gn_solver(prob, SolverOptions(**fixed))
+    (z, st), _, counts = _counted(f"{tag} (a)", lambda: solve(z0, data),
+                                  {kkt: maxiter})
+    add(counts)
+    walls = [_timed(lambda: solve(z0, data))[1] for _ in range(3)]
+    c0, c_end, p = float(prob.cost(z0, data)), float(st.cost), z.p.tolist()
+    p_err = max(abs(a / b - 1.0) for a, b in zip(p, truth))
+    rec["fixed_float32"] = dict(wall_s=min(walls), walls_s=walls,
+                                cost=[c0, c_end], p=p, p_rel_err=p_err,
+                                iterations=int(st.iterations),
+                                launches=counts[kkt])
+    print(f"{tag} (a) K={prob.mesh.num_blocks} nq={prob.model.nq} float32, "
+          f"{maxiter} LM iterations ({int(st.iterations)} counted): cost "
+          f"{c0:.6e} -> {c_end:.6e}, p={p}, max|p/p_true - 1| {p_err:.4f}"
+          + (f" (<= {f32_bar}; the JAX benchmark: ~0.098)" if f32_bar else "")
+          + f", kernel #1 launches {counts[kkt]}, no plain call; best of 3 "
+          f"wall {min(walls):.4f} s on {card}")
+    if not (c_end < c0 and all(math.isfinite(v) for v in p)):
+        raise RuntimeError(f"{tag} (a): the float32 solve did no useful work")
+    if f32_bar is not None and not p_err <= f32_bar:
+        raise RuntimeError(f"{tag} (a): p is {p_err:.4f} from the truth")
+    _profile(f"{cname} fixed work float32", lambda: solve(z0, data), rec)
+    del prob, z0, data, solve
+
+    # (b), (c) float64 fixed work on 'auto' and 'cr'; (d) converged.
+    prob, z0, data = build(dtype=torch.float64, device=dev)
+    n_levels = _cr_level_count(prob.mesh.num_blocks)
+    c0 = float(prob.cost(z0, data))
+    for part, opts, want, ref in (
+            ("(b)", dict(fixed), {kkt: maxiter}, jax_p["fixed"]),
+            ("(c)", dict(fixed, method="cr"),
+             {k: maxiter * n_levels for k in CR_NAMES[1:]}, jax_p["fixed"]),
+            ("(d)", dict(converged), only_kkt, jax_p["converged"])):
+        solve = make_gn_solver(prob, SolverOptions(**opts))
+        (z, st), wall, counts = _counted(f"{tag} {part}",
+                                         lambda: solve(z0, data), want)
+        add(counts)
+        p, dev_p = z.p.tolist(), _p_dev(z.p.tolist(), ref)
+        rec[f"float64 {part} {opts.get('method', 'auto')}"] = dict(
+            wall_s=wall, cost=[c0, float(st.cost)], p=p, p_vs_jax=dev_p,
+            iterations=int(st.iterations), converged=bool(st.converged),
+            launches={k: v for k, v in counts.items() if v})
+        print(f"{tag} {part} float64 {opts}: {int(st.iterations)} "
+              f"iterations, converged {bool(st.converged)}, cost {c0:.6e} -> "
+              f"{float(st.cost):.6e}, p={p}, |p - p_jax|/|p_jax| {dev_p:.3e} "
+              f"(<= 1e-6), launches "
+              f"{ {k: v for k, v in counts.items() if v} }, no plain call; "
+              f"wall {wall:.4f} s on {card}")
+        if not (float(st.cost) < c0 and dev_p <= 1e-6):
+            raise RuntimeError(f"{tag} {part}: p disagrees with the JAX "
+                               "package's")
+        if part == "(d)" and not bool(st.converged):
+            raise RuntimeError(f"{tag} (d): the converged run did not "
+                               "converge")
+
+    # (e) IRLS or exact Newton, float64.
+    if robust == "irls":
+        opts = SolverOptions(**converged, irls_delta=2.0)
+        solve = make_irls_solver(prob, opts, n_rounds=4)
+        (z, rounds, _), wall, counts = _counted(
+            f"{tag} (e)", lambda: solve(z0, data),
+            lambda out: {kkt: sum(int(r.iterations) for r in out[1])})
+        st = rounds[-1]
+    else:
+        solve = make_gn_solver(prob, SolverOptions(**converged,
+                                                   hessian="newton"))
+        (z, st), wall, counts = _counted(f"{tag} (e)",
+                                         lambda: solve(z0, data), only_kkt)
+        rounds = (st,)
+        if not bool(st.converged):
+            raise RuntimeError(f"{tag} (e): the Newton run did not converge")
+    add(counts)
+    p, dev_p = z.p.tolist(), _p_dev(z.p.tolist(), jax_p[robust])
+    its = [int(r.iterations) for r in rounds]
+    rec[f"float64 (e) {robust}"] = dict(
+        wall_s=wall, p=p, p_vs_jax=dev_p, iterations=its,
+        converged=bool(st.converged), launches=counts[kkt])
+    print(f"{tag} (e) float64 {robust}: LM iterations {its} (one entry per "
+          f"solve), last solve converged {bool(st.converged)}, p={p}, "
+          f"|p - p_jax|/|p_jax| {dev_p:.3e} (<= 1e-6), kernel #1 launches "
+          f"{counts[kkt]} (one per iteration), no plain call; wall "
+          f"{wall:.4f} s on {card}")
+    if not dev_p <= 1e-6:
+        raise RuntimeError(f"{tag} (e): p disagrees with the JAX package's")
     return launches
 
 
@@ -1080,6 +1535,7 @@ def main() -> int:
         print(f"  kernels #3-#6 {name}: seeded chains K in (16, 17, 130, "
               "1000), r in (1, 2, 3) ok")
     record["cr_ms"] = cr_ms
+    record["config_shapes"] = _phase2_configs(dev, card)
 
     # ---- phase 3: headline fixed work, float32 -----------------------------
     prob, data, z0 = _headline(torch.float32, dev)
@@ -1090,6 +1546,7 @@ def main() -> int:
     z, stats = solve(z0, data)
     torch.cuda.synchronize()
     counts, plain_calls = _counts()
+    _keep_shapes(["kkt_solve_spike_fused"])
     launches = counts["kkt_solve_spike_fused"]
     c0, c_end = float(prob.cost(z0, data)), float(stats.cost)
     walls = []
@@ -1143,6 +1600,7 @@ def main() -> int:
         z, stats = solve(z0, data, p_prior, p_w)
         torch.cuda.synchronize()
         counts, plain_calls = _counts()
+        _keep_shapes([kname])
         main_launches[kname] = counts[kname]
         walls = []
         for _ in range(3):
@@ -1176,8 +1634,7 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     p = z.p.tolist()
-    p_dev = (max(abs(a - b) for a, b in zip(p, P_JAX_F64))
-             / max(abs(b) for b in P_JAX_F64))
+    p_dev = _p_dev(p, P_JAX_F64)
     its = int(stats.iterations)
     record.update(config5_f64_wall_s=wall, config5_f64_iterations=its,
                   config5_f64_p=p, config5_f64_p_vs_jax=p_dev)
@@ -1189,6 +1646,21 @@ def main() -> int:
                            "package's")
 
     main_launches.update(_phase7(dev, card, record))
+
+    # ---- phases 8, 9: configs 2 and 4 at full size -------------------------
+    from collocfem_tpu_torch import configs
+
+    for num, cname, build, fixed, converged, truth, jax_p, robust, bar in (
+            (8, "config 2", configs.build_config2_problem, configs.C2_FIXED,
+             configs.C2_CONVERGED, configs.P2_TRUE, C2_JAX_F64, "irls",
+             0.15),
+            (9, "config 4", configs.build_config4_problem, configs.C4_FIXED,
+             configs.C4_CONVERGED, configs.P4_TRUE, C4_JAX_F64, "newton",
+             None)):
+        for k, v in _config_phase(num, cname, build, fixed, converged, truth,
+                                  jax_p, robust, dev, card, record,
+                                  bar).items():
+            main_launches[k] = main_launches.get(k, 0) + v
 
     ms = {"kkt_solve_spike_fused": times["float32"],
           "blocktri_solve_spike_fused": c5_ms["float32"]["chain"],
@@ -1204,6 +1676,8 @@ def main() -> int:
         "ms": ms[name][0], "plain_ms": ms[name][1],
         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
         "library_ms": lib_ms if name == "batched_thomas_solve" else None,
+        "shapes": _main_shapes(name, main_launches[name]),
+        "at_configs": _at_configs(name, record["config_shapes"]),
     } for name, (source, replaces) in KERNELS.items()]}
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

@@ -12,7 +12,10 @@ Main paths:
     ``solve.newton.make_gn_solver(problem, options)(z0, data)``;
   * a batch sharing p (config 5): ``batched.build_config5_problem`` ->
     ``parallel.batch.make_multi_experiment_solver(problem, options,
-    layout=...)(z0, data_batch, p_prior, p_w)``.
+    layout=...)(z0, data_batch, p_prior, p_w)``;
+  * configs 2 and 4: ``configs.build_config2_problem`` /
+    ``build_config4_problem`` -> ``make_gn_solver`` (``hessian='newton'``
+    for exact Newton) or ``solve.newton.make_irls_solver``.
 
 Importing the package turns TF32 off for float32 matmuls
 (:mod:`collocfem_tpu_torch.precision`).

@@ -65,11 +65,12 @@
 
 #include "cr_kernels.cuh"
 
-// The (block size, right-hand sides) the library is compiled for: Van der
-// Pol at degree 4 (b = 8) with r = 3 (the KKT right-hand side [gx | B]),
-// r = 2 (covariance's B) and r = 1 (refinement passes, nq = 0).  The factor
-// kernel needs only b.
-#define CR_SHAPES(X) X(8, 1) X(8, 2) X(8, 3)
+// The (block size, right-hand sides) the library is compiled for: the
+// models at degree 4 (b = 8) with r = 1 + nq for the KKT right-hand side
+// [gx | B] (Van der Pol r = 3, Duffing r = 4, the aircraft model r = 6),
+// r = 2 (Van der Pol covariance's B) and r = 1 (refinement passes, nq = 0).
+// The factor kernel needs only b.
+#define CR_SHAPES(X) X(8, 1) X(8, 2) X(8, 3) X(8, 4) X(8, 6)
 #define CR_BLOCKS(X) X(8)
 
 namespace {

@@ -337,9 +337,10 @@ __device__ __forceinline__ void store_factor(const F l[B][B], long long h,
 // ---- kernels ---------------------------------------------------------------
 
 // Warps of an apply block: one per right-hand-side column, and at least
-// four to stage the inputs.
+// four to stage the inputs; a power of two, so that a block stages whole
+// rows of every tile in each pass.
 template <int R>
-constexpr int kApplyWarps = R < 4 ? 4 : R;
+constexpr int kApplyWarps = R <= 4 ? 4 : 8;
 
 // Elements of dynamic shared memory a block of each pair pass stages: the
 // level's D and E (b b rows each) and G (b r rows) at 2 * kLanes slots, the

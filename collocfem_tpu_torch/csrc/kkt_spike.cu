@@ -41,10 +41,12 @@
 #include "kkt_spike_kernels.cuh"
 
 // The shapes the library is compiled for.  The headline Van der Pol
-// estimation (nx = 2, degree 4, two parameters) is b = 8, nq = 2; its chain
-// solves (config 5's concatenated chain, KKT refinement, nq = 0) take
-// r = 1 + nq = 3 or a single right-hand side.
-#define KKT_SHAPES(X) X(8, 2)             /* (b, nq) of the fused KKT solve */
+// estimation (nx = 2, degree 4, two parameters) is b = 8, nq = 2; Duffing
+// (config 2, three parameters) b = 8, nq = 3; the aircraft model (config 4,
+// five parameters) b = 8, nq = 5.  The chain solves (config 5's concatenated
+// chain, KKT refinement, nq = 0) take r = 1 + nq = 3 or a single
+// right-hand side.
+#define KKT_SHAPES(X) X(8, 2) X(8, 3) X(8, 5) /* (b, nq) of the KKT solve */
 #define CHAIN_SHAPES(X) X(8, 1) X(8, 3)   /* (b, r) of the plain chain solve */
 
 namespace {

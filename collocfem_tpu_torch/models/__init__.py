@@ -1,5 +1,7 @@
 """Model families ported so far."""
 
+from collocfem_tpu_torch.models.aircraft import AircraftLongitudinal
+from collocfem_tpu_torch.models.duffing import Duffing
 from collocfem_tpu_torch.models.vdp import VanDerPol
 
-__all__ = ["VanDerPol"]
+__all__ = ["AircraftLongitudinal", "Duffing", "VanDerPol"]

@@ -31,6 +31,14 @@ NVCC_FLAGS = (
 )
 
 
+def count_launches(fn, shape, n: int = 1) -> None:
+    """Add ``n`` launches of the kernel behind wrapper ``fn`` to its count
+    (``fn.launches``) and to its count at ``shape`` (``fn.shapes``: (b, r),
+    or (b,) for a kernel that takes no right-hand side -> launches)."""
+    fn.launches += n
+    fn.shapes[shape] = fn.shapes.get(shape, 0) + n
+
+
 @dataclasses.dataclass(frozen=True)
 class Built:
     lib: ctypes.CDLL

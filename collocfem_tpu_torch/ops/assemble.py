@@ -26,7 +26,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-from torch.func import jacfwd, vmap
+from torch.func import grad, jacfwd, vmap
 
 
 class BlockTriSystemSoA(NamedTuple):
@@ -54,59 +54,30 @@ class BlockTriSystemSoA(NamedTuple):
         return self.D.shape[0]
 
 
-def assemble_gn_soa(problem, z, data, with_cost: bool = False):
-    """Assemble the Gauss-Newton system at iterate ``z``.
-
-    Residuals and Jacobians come from ``vmap(jacfwd(elem_residual))`` over
-    the elements; the normal-equation contractions emit the element axis
-    last, and the chain scatter is two static lane slices (element e ->
-    chain slots e and e+1).  With ``with_cost`` it also returns the float64
-    cost 0.5 * ||r||^2 at ``z``, read off the same residuals (this replaces
-    the double-word cost of the JAX package: the GPU has native float64).
-    """
-    mesh, model = problem.mesh, problem.model
-    n, d, nv, nq = mesh.num_elements, mesh.degree, problem.nv, model.nq
-    k, bd = n + 1, d * nv
-    nx = model.nx
-
-    xe = problem.gather_elements(z.V)
-    ed = problem._elem_data(data)
-
-    def res_aux(xe_flat, p, edata):
-        r = problem.elem_residual(xe_flat, p, edata)
-        return r, r
-
-    def per_elem(xe_flat, edata):
-        (jx, jp), r = jacfwd(res_aux, argnums=(0, 1), has_aux=True)(
-            xe_flat, z.p, edata)
-        return r, jx, jp
-
-    r, jx, jp = vmap(per_elem)(xe, ed)          # (N, m), (N, m, s), (N, m, nq)
-
-    jx1, jx2 = jx[:, :, :bd], jx[:, :, bd:]
-    h11 = torch.einsum("emi,emj->ije", jx1, jx1).reshape(bd * bd, n)
-    h22 = torch.einsum("emi,emj->ije", jx2, jx2)       # (nv, nv, N)
-    h12 = torch.einsum("emi,emj->ije", jx1, jx2)       # (bd, nv, N)
-    b1 = torch.einsum("emi,emq->iqe", jx1, jp).reshape(bd * nq, n)
-    b2 = torch.einsum("emi,emq->iqe", jx2, jp).reshape(nv * nq, n)
-    g1 = torch.einsum("emi,em->ie", jx1, r)            # (bd, N)
-    g2 = torch.einsum("emi,em->ie", jx2, r)            # (nv, N)
-    hpp = torch.einsum("emq,emr->qr", jp, jp)
-    gpe = torch.einsum("emq,em->q", jp, r)
-
+def _scatter_soa(problem, z, data, *, h11, h22, h12, b1, b2, g1, g2, hpp,
+                 gpe):
+    """Scatter per-element blocks, element axis LAST, into the SoA system
+    and add the priors.  Element e's local variables are block e (``bd``)
+    then the leading ``nv`` of block e+1: h11 (bd, bd, N), h22 (nv, nv, N),
+    h12 (bd, nv, N), b1 (bd, nq, N), b2 (nv, nq, N), g1 (bd, N), g2 (nv, N);
+    hpp (nq, nq) and gpe (nq,) are summed over the elements.  The chain
+    scatter is two static lane slices (element e -> chain slots e and
+    e+1)."""
+    n, nv, nx = problem.mesh.num_elements, problem.nv, problem.model.nx
+    k, bd, nq = n + 1, h11.shape[0], hpp.shape[0]
     dtype, device = z.V.dtype, z.V.device
     zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
     # Block e+1's top-left (nv, nv) overlap: rows i*bd + j for i, j < nv are
     # the leading nv*bd rows once the column space is padded nv -> bd.
     pad_cols = (0, 0, 0, bd - nv)
     D2 = zeros(bd * bd, k)
-    D2[:, :n] += h11
+    D2[:, :n] += h11.reshape(bd * bd, n)
     D2[:nv * bd, 1:] += torch.nn.functional.pad(h22, pad_cols).reshape(nv * bd, n)
     E2 = zeros(bd * bd, k)
     E2[:, :n] = torch.nn.functional.pad(h12, pad_cols).reshape(bd * bd, n)
     B2 = zeros(bd * nq, k)
-    B2[:, :n] += b1
-    B2[:nv * nq, 1:] += b2
+    B2[:, :n] += b1.reshape(bd * nq, n)
+    B2[:nv * nq, 1:] += b2.reshape(nv * nq, n)
     gx = zeros(bd, k)
     gx[:, :n] += g1
     gx[:nv, 1:] += g2
@@ -123,11 +94,49 @@ def assemble_gn_soa(problem, z, data, with_cost: bool = False):
     diag_add[:nx, 0] += x0w2
     gx[:nx, 0] += x0w2 * dx0
     D2[::bd + 1] += diag_add
-
-    out = BlockTriSystemSoA(
+    return BlockTriSystemSoA(
         D=D2.reshape(bd, bd, k), E=E2.reshape(bd, bd, k),
         B=B2.reshape(bd, nq, k), C=C, gx=gx, gp=gp,
     )
+
+
+def assemble_gn_soa(problem, z, data, with_cost: bool = False):
+    """Assemble the Gauss-Newton system at iterate ``z``.
+
+    Residuals and Jacobians come from ``vmap(jacfwd(elem_residual))`` over
+    the elements; the normal-equation contractions emit the element axis
+    last, and the chain scatter is two static lane slices (element e ->
+    chain slots e and e+1).  With ``with_cost`` it also returns the float64
+    cost 0.5 * ||r||^2 at ``z``, read off the same residuals (this replaces
+    the double-word cost of the JAX package: the GPU has native float64).
+    """
+    bd = problem.mesh.degree * problem.nv
+    xe = problem.gather_elements(z.V)
+    ed = problem._elem_data(data)
+
+    def res_aux(xe_flat, p, edata):
+        r = problem.elem_residual(xe_flat, p, edata)
+        return r, r
+
+    def per_elem(xe_flat, edata):
+        (jx, jp), r = jacfwd(res_aux, argnums=(0, 1), has_aux=True)(
+            xe_flat, z.p, edata)
+        return r, jx, jp
+
+    r, jx, jp = vmap(per_elem)(xe, ed)          # (N, m), (N, m, s), (N, m, nq)
+
+    jx1, jx2 = jx[:, :, :bd], jx[:, :, bd:]
+    out = _scatter_soa(
+        problem, z, data,
+        h11=torch.einsum("emi,emj->ije", jx1, jx1),
+        h22=torch.einsum("emi,emj->ije", jx2, jx2),
+        h12=torch.einsum("emi,emj->ije", jx1, jx2),
+        b1=torch.einsum("emi,emq->iqe", jx1, jp),
+        b2=torch.einsum("emi,emq->iqe", jx2, jp),
+        g1=torch.einsum("emi,em->ie", jx1, r),
+        g2=torch.einsum("emi,em->ie", jx2, r),
+        hpp=torch.einsum("emq,emr->qr", jp, jp),
+        gpe=torch.einsum("emq,em->q", jp, r))
     if with_cost:
         r64 = torch.cat([r.reshape(-1), problem.prior_residuals(z, data)])
         r64 = r64.double()
@@ -344,6 +353,50 @@ def assemble_gn_soa_batched(problem, Vb, p, data_batch,
     if with_cost:
         return out, cost64_from_residuals(problem, r, Vb, p, data_batch)
     return out
+
+
+def assemble_newton(problem, z, data):
+    """Assemble the EXACT Newton system at iterate ``z`` (SoA layout).
+
+    Counterpart of the JAX package's ``ops.assemble.assemble_newton`` (which
+    builds the block-major system; its ``soa_from_blocks`` of that is this
+    function's result): the Gauss-Newton system drops the curvature term
+    sum_i r_i hess(r_i); this keeps it.  Per element, the gradient and the
+    full Hessian of 0.5 ||r_e||^2 over (local nodes, parameters) come from
+    forward-over-reverse AD (``jacfwd`` of ``grad``) under ``vmap``, and
+    scatter into the same block-tridiagonal + arrowhead structure: an
+    element's residuals touch only its own variables, so second derivatives
+    add no new sparsity.  The priors are exactly quadratic, so their
+    Gauss-Newton and exact-Newton contributions coincide.
+
+    The exact Hessian can be indefinite far from a minimum.  The KKT solve
+    factors without pivoting, so such a step gives a non-finite trial cost;
+    the LM loop rejects it and raises lam until H + lam dmax I is positive
+    definite.
+    """
+    bd = problem.mesh.degree * problem.nv
+
+    def cost_e(xe_flat, p, edata):
+        r = problem.elem_residual(xe_flat, p, edata)
+        return 0.5 * torch.sum(r * r)
+
+    grad_e = grad(cost_e, argnums=(0, 1))
+
+    def per_elem(xe_flat, edata):
+        gx_e, gp_e = grad_e(xe_flat, z.p, edata)
+        (hxx, hxp), (_, hpp) = jacfwd(grad_e, argnums=(0, 1))(
+            xe_flat, z.p, edata)
+        return gx_e, gp_e, hxx, hxp, hpp
+
+    gxe, gpe, hxx, hxp, hpp = vmap(per_elem)(
+        problem.gather_elements(z.V), problem._elem_data(data))
+    last = lambda a: a.movedim(0, -1)             # element axis last
+    return _scatter_soa(
+        problem, z, data,
+        h11=last(hxx[:, :bd, :bd]), h22=last(hxx[:, bd:, bd:]),
+        h12=last(hxx[:, :bd, bd:]), b1=last(hxp[:, :bd]),
+        b2=last(hxp[:, bd:]), g1=last(gxe[:, :bd]), g2=last(gxe[:, bd:]),
+        hpp=hpp.sum(0), gpe=gpe.sum(0))
 
 
 def blocks_to_nodes(dx_blocks, num_nodes: int, nv: int):

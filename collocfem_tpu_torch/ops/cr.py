@@ -24,7 +24,9 @@ plain chain solves of ``solve.blocktri`` that kernels #1 and #2 are held
 against.  On a CPU tensor each wrapper calls its plain version; on a CUDA
 tensor it launches the kernel of ``csrc/cr.cu`` or raises.  Each function
 counts its calls in a plain integer attribute (``.launches``); a sweep adds
-its number of levels to the count of its per-level wrapper.
+its number of levels to the count of its per-level wrapper.  A kernel
+wrapper also counts its launches at each (b, r) in ``.shapes`` ((b,) for
+kernel #4, which takes no right-hand side).
 """
 
 from __future__ import annotations
@@ -406,7 +408,7 @@ def _factor_levels(Ds, Es, levels):
     ws = Ds.new_empty(sweep_layout(5, b * b, h0, levels)[1])
     _launch("cr_factor_sweep", Ds.dtype, Ds.device, Ds.data_ptr(),
             Es.data_ptr(), ws.data_ptr(), b, h0, levels)
-    cr_level_factor.launches += levels
+    _build.count_launches(cr_level_factor, (b,), levels)
     facs = FactorLevels(ws, b, h0, levels, Es)
     return (facs.d_new.tail(), facs.e_new.tail()), facs
 
@@ -435,7 +437,7 @@ def _apply_levels(facs, Gs):
     pointers = ctypes.c_void_p * levels
     _launch("cr_apply_sweep", Gs.dtype, Gs.device, pointers(*lo),
             pointers(*E), Gs.data_ptr(), ws.data_ptr(), b, r, h0, levels)
-    cr_level_apply.launches += levels
+    _build.count_launches(cr_level_apply, (b, r), levels)
     g_new, s_g = (SweepArrays(ws, 2, (b, r), h0, levels, a) for a in range(2))
     return g_new.tail(), s_g
 
@@ -468,7 +470,7 @@ def _backsub_levels(X, s_up, s_lo, s_g, small=BACKSUB_SMALL_PAIRS):
     _launch("cr_backsub_sweep", X.dtype, X.device, X.data_ptr(),
             *(pointers(*_pointers(a)) for a in (s_up, s_lo, s_g)),
             out.data_ptr(), ws.data_ptr(), b, r, h0, levels, small)
-    cr_backsub.launches += levels
+    _build.count_launches(cr_backsub, (b, r), levels)
     return out
 
 
@@ -559,10 +561,11 @@ def cr_level(Ds, Es, Gs):
     _launch("cr_level", Ds.dtype, Ds.device,
             *(x.data_ptr() for x in (Ds, Es, Gs, dn, en, gn, su, sl, sg)),
             b, r, h)
-    cr_level.launches += 1
+    _build.count_launches(cr_level, (b, r))
     return (dn, en, gn), (su, sl, sg)
 
 
 for _fn in (cr_level, cr_level_factor, cr_level_apply, cr_backsub):
     _fn.launches = 0
+    _fn.shapes = {}
 del _fn

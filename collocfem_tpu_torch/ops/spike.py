@@ -15,7 +15,8 @@ On a CPU tensor each wrapper calls its plain version
 (:func:`kkt_solve_spike_fused_ref`, :func:`blocktri_solve_spike_fused_ref`);
 on a CUDA tensor it launches the kernel or raises.  Each function counts its
 calls in a plain integer attribute (``.launches``) so that a run can show
-which path it took.
+which path it took; a kernel wrapper also counts its launches at each (b,
+nq or r) in ``.shapes``.
 """
 
 from __future__ import annotations
@@ -142,11 +143,12 @@ def kkt_solve_spike_fused(D, E, B, gx, C, gp, lam, damp_scale=None):
     if rc != 0:
         raise RuntimeError("kkt_spike launch failed: "
                            + lib.kkt_spike_error_string(rc).decode())
-    kkt_solve_spike_fused.launches += 1
+    _build.count_launches(kkt_solve_spike_fused, (b, nq))
     return dx, -t * inv_sp, dmax
 
 
 kkt_solve_spike_fused.launches = 0
+kkt_solve_spike_fused.shapes = {}
 
 
 # ---- kernel #2: the plain SPIKE chain solve -----------------------------------
@@ -194,8 +196,9 @@ def blocktri_solve_spike_fused(Ds, Es, Gs):
     if rc != 0:
         raise RuntimeError("spike_chain launch failed: "
                            + lib.kkt_spike_error_string(rc).decode())
-    blocktri_solve_spike_fused.launches += 1
+    _build.count_launches(blocktri_solve_spike_fused, (b, r))
     return X
 
 
 blocktri_solve_spike_fused.launches = 0
+blocktri_solve_spike_fused.shapes = {}

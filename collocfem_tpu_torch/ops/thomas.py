@@ -8,7 +8,8 @@ block-Cholesky forward sweep and back-substitution.
 :func:`batched_thomas_solve` launches the hand-written CUDA kernel
 ``csrc/thomas.cu`` on a CUDA tensor (or raises) and calls
 :func:`batched_thomas_solve_ref`, the plain version, on a CPU tensor.  Each
-counts its calls in a plain integer attribute (``.launches``).
+counts its calls in a plain integer attribute (``.launches``); the kernel
+wrapper also counts its launches at each (b, r) in ``.shapes``.
 """
 
 from __future__ import annotations
@@ -90,8 +91,9 @@ def batched_thomas_solve(D, E, G):
     if rc != 0:
         raise RuntimeError("thomas launch failed: "
                            + lib.thomas_error_string(rc).decode())
-    batched_thomas_solve.launches += 1
+    _build.count_launches(batched_thomas_solve, (b, r))
     return X
 
 
 batched_thomas_solve.launches = 0
+batched_thomas_solve.shapes = {}

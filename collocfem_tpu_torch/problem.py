@@ -42,7 +42,8 @@ class ProblemData(NamedTuple):
     Attributes:
       y:        (N, S, ny) measurement values grouped by element (padded).
       u:        (N, d+1, nu) exogenous input at the collocation nodes.
-      meas_w:   (ny,) sqrt measurement weights (1/sigma).
+      meas_w:   (ny,) sqrt measurement weights (1/sigma), or (N, S, ny)
+                per sample (the IRLS solver's reweighted data).
       p_prior:  (nq,) parameter prior mean.
       p_w:      (nq,) sqrt prior weights (0 = no prior on that parameter).
       x0_prior: (nx,) initial-state prior mean.
@@ -221,6 +222,7 @@ class EstimationProblem(nn.Module):
         return self.mesh.num_nodes
 
     def _elem_data(self, data: ProblemData) -> ElemData:
+        # meas_w may be (ny,) shared or (N, S, ny) per sample (IRLS).
         n, s = self.mmask.shape
         return ElemData(
             width=self.widths,
@@ -308,6 +310,21 @@ class EstimationProblem(nn.Module):
         """0.5 * ||r||^2, accumulated in float64 (a float64 scalar)."""
         r = self.residual_vector(z, data).double()
         return 0.5 * torch.sum(r * r)
+
+    def measurement_residuals(self, z: Decision, data: ProblemData):
+        """Weighted per-sample measurement residuals (N, S, ny), zero on
+        padding: what the IRLS solver reweights."""
+        d, nx = self.mesh.degree, self.model.nx
+
+        def per_elem(xe_flat, e):
+            x_nodes = xe_flat.reshape(d + 1, self.nv)[:, :nx]
+            u_meas = res_ops.interpolate_states(e.rows, e.u)
+            return res_ops.measurement_residual(
+                self.model, e.rows, x_nodes, u_meas, z.p, e.mtimes, e.y,
+                e.meas_w, e.mask,
+            )
+
+        return vmap(per_elem)(self.gather_elements(z.V), self._elem_data(data))
 
     def initial_guess_from_data(self, meas_times, y_values, p0,
                                 state_guess=None) -> Decision:

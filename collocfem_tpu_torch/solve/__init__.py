@@ -21,6 +21,7 @@ from collocfem_tpu_torch.solve.newton import (
     SolverOptions,
     SolveStats,
     make_gn_solver,
+    make_irls_solver,
 )
 
 __all__ = [
@@ -39,4 +40,5 @@ __all__ = [
     "SolverOptions",
     "SolveStats",
     "make_gn_solver",
+    "make_irls_solver",
 ]

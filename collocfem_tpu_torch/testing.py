@@ -72,6 +72,20 @@ def chain_residual(D, E, G, X) -> float:
     return float((AX - G).abs().max() / G.abs().max())
 
 
+def kkt_residual(sys_, dx, dp, lam, dmax) -> float:
+    """Relative x-block residual ||(A + lam_abs I) dx + B dp + gx||_inf /
+    ||gx||_inf of the damped system (lam_abs = lam dmax), in float64."""
+    D, E, B, _, gx, _ = (a.double() for a in sys_)
+    dx, dp = dx.double(), dp.double()
+    lam_abs = float(lam) * float(dmax)
+    E = E[..., :-1]                            # E[..., K-1] is unused
+    y = torch.einsum("ijk,jk->ik", D, dx) + lam_abs * dx
+    y[:, :-1] += torch.einsum("ijk,jk->ik", E, dx[:, 1:])
+    y[:, 1:] += torch.einsum("jik,jk->ik", E, dx[:, :-1])
+    y += torch.einsum("iqk,q->ik", B, dp) + gx
+    return float(y.abs().max() / gx.abs().max())
+
+
 def rel_err(x, want) -> float:
     """max|x - want| / max|want|, in float64."""
     x, want = x.double(), want.double()

@@ -9,6 +9,8 @@ it also runs on a machine without it:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import itertools
+
 import pytest
 import torch
 
@@ -18,6 +20,7 @@ from collocfem_tpu_torch.testing import (
     batch_residual,
     chain_residual,
     cr_level_comparison,
+    kkt_residual,
     level_bar,
     random_chain,
     random_chain_batch,
@@ -78,6 +81,26 @@ def test_kernel_matches_plain_float32(cuda_device, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", EDGES + [201, 1001])
+@pytest.mark.parametrize("nq", [3, 5])
+def test_kernel_matches_plain_at_the_config_shapes(cuda_device, nq, k):
+    """Kernel #1 at nq = 3 (Duffing, config 2) and nq = 5 (the aircraft
+    model, config 4) on seeded chains, K at the tile plan's edges and the
+    configs' own 201 and 1,001 blocks.  float64: relative difference <=
+    1e-9; float32: the KKT residual at most 10x the plain version's."""
+    for dtype in (torch.float64, torch.float32):
+        sys_ = random_kkt_system(k, 8, nq, seed=k + nq, dtype=dtype,
+                                 device=cuda_device)
+        got, want = _solve_both(sys_, 1e-3, None)
+        if dtype == torch.float64:
+            for g, w in zip(got[:2], want[:2]):
+                assert rel_err(g, w) <= 1e-9
+        else:
+            assert kkt_residual(sys_, got[0], got[1], 1e-3, got[2]) <= \
+                10 * kkt_residual(sys_, want[0], want[1], 1e-3, want[2])
+
+
+@pytest.mark.cuda
 def test_kernel_is_deterministic(cuda_device):
     """Two runs of kernel #1 on the same input give bit-identical dx and dp
     (the Schur partial sums are reduced in tile order, no atomics)."""
@@ -97,9 +120,9 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         spike.kkt_solve_spike_fused(sys_.D.transpose(0, 1), sys_.E, *args)
     with pytest.raises(ValueError, match="not built"):
-        small = random_kkt_system(9, 3, 1, seed=0, device=cuda_device)
-        spike.kkt_solve_spike_fused(*small[:2], small.B, small.gx, small.C,
-                                    small.gp, 1e-3)
+        other = random_kkt_system(9, 8, 4, seed=0, device=cuda_device)
+        spike.kkt_solve_spike_fused(*other[:2], other.B, other.gx, other.C,
+                                    other.gp, 1e-3)
 
 
 @pytest.mark.cuda
@@ -188,7 +211,7 @@ def _launches(fns):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("r", [1, 2, 3])
+@pytest.mark.parametrize("r", [1, 2, 3, 4, 6])
 @pytest.mark.parametrize("k", [16, 17, 130, 1000])
 def test_cr_kernels_match_plain(cuda_device, k, r):
     """Kernels #3-#6 on the first level of a seeded chain padded to a power
@@ -223,7 +246,7 @@ def test_cr_kernels_match_plain(cuda_device, k, r):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("r", [1, 2, 3])
+@pytest.mark.parametrize("r", [1, 2, 3, 4, 6])
 @pytest.mark.parametrize("m", [2, 4, 62, 64, 66, 126, 1000])
 def test_cr_pair_passes_at_the_block_edges(cuda_device, m, r):
     """Kernels #3-#6 on one level of m blocks, m / 2 pairs on both sides of
@@ -244,9 +267,11 @@ def test_cr_pair_passes_at_the_block_edges(cuda_device, m, r):
 def test_cr_sweeps_equal_the_per_level_calls(cuda_device, k):
     """cr_factor_sweep and cr_apply_sweep (one library call each, a device
     launch per level) give bit for bit what the per-level kernel calls give,
-    count their levels, and two runs are bit-identical."""
-    for dtype in (torch.float64, torch.float32):
-        D, E, G = random_chain(k, 8, 3, seed=k, dtype=dtype,
+    count their levels, and two runs are bit-identical; the apply sweep at
+    r = 3 (Van der Pol), 4 (Duffing) and 6 (the aircraft model)."""
+    for dtype, r in itertools.product((torch.float64, torch.float32),
+                                      (3, 4, 6)):
+        D, E, G = random_chain(k, 8, r, seed=k, dtype=dtype,
                                device=cuda_device)
         Ds, Es = bt._pad_pow2_soa(D, E)
         Gs = bt._pad_rhs(G, Ds.shape[-1])
@@ -301,7 +326,7 @@ def _hold_backsub_sweep(Ds, Es, Gs, tail):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("r", [1, 2, 3])
+@pytest.mark.parametrize("r", [1, 2, 3, 4, 6])
 @pytest.mark.parametrize("k", [16, 17, 130, 1000, 20001])
 def test_cr_backsub_sweep_equals_the_per_level_calls(cuda_device, k, r):
     """Kernel #6's sweep (one library call: one launch for the levels of at
@@ -321,7 +346,7 @@ def test_cr_backsub_sweep_equals_the_per_level_calls(cuda_device, k, r):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("r", [1, 2, 3])
+@pytest.mark.parametrize("r", [1, 2, 3, 4, 6])
 @pytest.mark.parametrize("levels", range(1, 13))
 def test_cr_backsub_sweep_at_every_level_count(cuda_device, levels, r):
     """Kernel #6's sweep on chains of 8 << levels blocks, 1 to 12 levels
@@ -376,7 +401,7 @@ def test_cr_sweep_on_a_tail_launches_nothing(cuda_device):
 
 @pytest.mark.cuda
 def test_cr_kernels_reject_what_they_do_not_take(cuda_device):
-    D, E, G = random_chain(16, 8, 4, seed=0, device=cuda_device)
+    D, E, G = random_chain(16, 8, 5, seed=0, device=cuda_device)
     with pytest.raises(ValueError, match="not built"):
         cr.cr_level(D, E, G)
     (_, _), fac = cr.cr_level_factor(D, E)
@@ -426,6 +451,91 @@ def test_method_cr_runs_only_the_cr_kernels(cuda_device):
             assert ran == [0, 12, 12, 12, 0, 0, 0]
             assert _launches(plain) == before_plain
         ps.append(z.p.cpu())
+    assert rel_err(ps[0], ps[1]) <= 1e-9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["config2", "config4"])
+def test_auto_resolves_to_spike_for_the_configs(cuda_device, which):
+    """'auto' runs kernel #1 on the card for configs 2 (nq = 3) and 4
+    (nq = 5), and the CR kernels are built for their r = 1 + nq."""
+    from collocfem_tpu_torch import configs
+    from collocfem_tpu_torch.solve.kkt import (require_cr_shapes,
+                                               resolve_auto_method)
+
+    build = getattr(configs, f"build_{which}_problem")
+    prob, _, _ = build(dtype=torch.float64, device=cuda_device)
+    b, nq = prob.mesh.degree * prob.nv, prob.model.nq
+    assert (b, nq) == ((8, 3) if which == "config2" else (8, 5))
+    assert resolve_auto_method(b, nq, cuda_device) == "spike"
+    require_cr_shapes(b, nq, cuda_device)
+
+
+def _config4_small(device, elements=50):
+    """Config 4's model, flight record, weights and initial guess on
+    ``elements`` elements (``configs.build_config4_problem`` builds the
+    full 200)."""
+    import numpy as np
+
+    from collocfem_tpu_torch import configs
+    from collocfem_tpu_torch.models import AircraftLongitudinal
+    from collocfem_tpu_torch.ops.mesh import uniform_mesh
+    from collocfem_tpu_torch.problem import EstimationProblem
+    from collocfem_tpu_torch.utils.io import load_measurements
+
+    t, vals = load_measurements(str(configs.AIRCRAFT_RECORD))
+    y, u_rec = vals[:, :3], vals[:, 3]
+    mesh = uniform_mesh(0.0, configs.TF4, elements, configs.DEGREE)
+    prob = EstimationProblem.build(
+        AircraftLongitudinal(V=configs.V_AIR, g0=configs.G0), mesh, t,
+        defect_weight=1e4, device=device, dtype=torch.float64)
+    u_nodes = np.interp(mesh.elem_times, t, u_rec)[..., None]
+    data = prob.pack_data(y, t, u_nodes=u_nodes,
+                          meas_weight=1.0 / np.array(configs.NOISE4))
+    z0 = prob.initial_guess_from_data(t, y[:, :2], p0=configs.P4_0)
+    return prob, z0, data
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robust", ["newton", "irls"])
+def test_newton_and_irls_run_only_kernel_1(cuda_device, robust):
+    """An exact-Newton solve and an IRLS solve (two reweighting rounds) of
+    config 4's model on 50 elements (b = 8, nq = 5), 8 fixed-work LM
+    iterations a solve, launch kernel #1 once per LM iteration and no other
+    kernel or plain version, return a stats entry per solve (IRLS), and
+    land on the CPU run's p (float64, relative difference <= 1e-9)."""
+    from collocfem_tpu_torch.solve.newton import (SolverOptions,
+                                                  make_gn_solver,
+                                                  make_irls_solver)
+
+    plain = (spike.kkt_solve_spike_fused_ref,
+             spike.blocktri_solve_spike_fused_ref,
+             thomas.batched_thomas_solve_ref, cr.cr_level_ref,
+             cr.cr_level_factor_ref, cr.cr_level_apply_ref, cr.cr_backsub_ref)
+    ps = []
+    for device in (cuda_device, "cpu"):
+        prob, z0, data = _config4_small(device)
+        opts = dict(maxiter=8, gtol=0.0)
+        if robust == "newton":
+            solve = make_gn_solver(prob, SolverOptions(**opts,
+                                                       hessian="newton"))
+            rounds = 1
+        else:
+            solve = make_irls_solver(prob, SolverOptions(**opts,
+                                                         irls_delta=2.0),
+                                     n_rounds=2)
+            rounds = 3
+        before, before_plain = _launches(KERNELS), _launches(plain)
+        z, stats = solve(z0, data)[:2]
+        if robust == "irls":
+            assert len(stats) == rounds
+        if device != "cpu":
+            torch.cuda.synchronize()
+            ran = [a - b for a, b in zip(_launches(KERNELS), before)]
+            assert ran == [0, 0, 0, 0, 8 * rounds, 0, 0]
+            assert _launches(plain) == before_plain
+        ps.append(z.p.cpu())
+    assert bool(torch.isfinite(ps[0]).all())
     assert rel_err(ps[0], ps[1]) <= 1e-9
 
 

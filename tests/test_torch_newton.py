@@ -1,6 +1,8 @@
-"""Port parity, the whole slice: ``make_gn_solver`` of ``collocfem_tpu_torch``
-against ``collocfem_tpu``'s on the CPU (where both resolve 'auto' to the
-plain cyclic reduction), plus the guard that the port never imports JAX."""
+"""Port parity, the whole slice: ``make_gn_solver`` (Gauss-Newton and exact
+Newton), ``assemble_newton`` and ``make_irls_solver`` of
+``collocfem_tpu_torch`` against ``collocfem_tpu``'s on the CPU (where both
+resolve 'auto' to the plain cyclic reduction), plus the guard that the port
+never imports JAX."""
 
 import os
 import subprocess
@@ -12,19 +14,27 @@ import pytest
 import torch
 from scipy.integrate import solve_ivp
 
+from test_assemble import small_problem
+
 from collocfem_tpu.model import Model as JaxModel
 from collocfem_tpu.models import VanDerPol as JaxVanDerPol
+from collocfem_tpu.ops.assemble import assemble_newton as jax_assemble_newton
+from collocfem_tpu.ops.assemble import soa_from_blocks as jax_soa_from_blocks
 from collocfem_tpu.ops.mesh import uniform_mesh as jax_uniform_mesh
 from collocfem_tpu.problem import EstimationProblem as JaxProblem
 from collocfem_tpu.solve import SolverOptions as JaxSolverOptions
 from collocfem_tpu.solve.newton import make_gn_solver as jax_make_gn_solver
+from collocfem_tpu.solve.newton import make_irls_solver as jax_make_irls_solver
+from collocfem_tpu.utils import rk4_trajectory
 from collocfem_tpu_torch.convert import data_from_numpy, decision_from_numpy
 from collocfem_tpu_torch.model import Model
 from collocfem_tpu_torch.models import VanDerPol
+from collocfem_tpu_torch.ops.assemble import assemble_newton
 from collocfem_tpu_torch.ops.mesh import uniform_mesh
 from collocfem_tpu_torch.problem import EstimationProblem
 from collocfem_tpu_torch.solve.lm_core import lm_loop
-from collocfem_tpu_torch.solve.newton import SolverOptions, make_gn_solver
+from collocfem_tpu_torch.solve.newton import (SolverOptions, make_gn_solver,
+                                              make_irls_solver)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MU_TRUE, B_TRUE = 1.0, 0.7
@@ -155,14 +165,17 @@ def test_gn_solver_without_parameters_matches_jax():
 
 def test_port_never_imports_jax():
     """A fresh interpreter builds a small headline problem and runs one LM
-    iteration of the port with JAX nowhere in sys.modules."""
+    iteration of the port, builds configs 2 and 4 (reading the flight
+    record) and runs one exact-Newton and one IRLS round on config 4, with
+    JAX nowhere in sys.modules."""
     code = (
         "import sys\n"
         "import collocfem_tpu_torch as ct\n"
+        "from collocfem_tpu_torch import configs\n"
         "from collocfem_tpu_torch.headline import build_headline_problem\n"
         "from collocfem_tpu_torch.models import VanDerPol\n"
         "from collocfem_tpu_torch.solve.newton import SolverOptions, "
-        "make_gn_solver\n"
+        "make_gn_solver, make_irls_solver\n"
         "import torch\n"
         "mesh, t, y, u = build_headline_problem(100)\n"
         "prob = ct.EstimationProblem.build(VanDerPol(), mesh, t, "
@@ -172,6 +185,13 @@ def test_port_never_imports_jax():
         "z, st = make_gn_solver(prob, SolverOptions(maxiter=1, gtol=0.0))"
         "(z0, data)\n"
         "assert int(st.iterations) == 1 and bool(torch.isfinite(z.p).all())\n"
+        "configs.build_config2_problem(dtype=torch.float64, device='cpu')\n"
+        "prob, z0, data = configs.build_config4_problem("
+        "dtype=torch.float64, device='cpu')\n"
+        "opts = SolverOptions(maxiter=1, gtol=0.0, irls_delta=2.0)\n"
+        "make_gn_solver(prob, SolverOptions(maxiter=1, gtol=0.0, "
+        "hessian='newton'))(z0, data)\n"
+        "make_irls_solver(prob, opts, n_rounds=1)(z0, data)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'collocfem_tpu', 'baseline_cpu')]\n"
         "assert not bad, bad\n"
@@ -183,8 +203,7 @@ def test_port_never_imports_jax():
     assert proc.returncode == 0, proc.stderr[-2000:]
 
 
-@pytest.mark.parametrize("change", [dict(hessian="newton"),
-                                    dict(state_dw=True),
+@pytest.mark.parametrize("change", [dict(state_dw=True),
                                     dict(method="cr_dw")])
 def test_unported_solver_paths_raise(change):
     tprob = EstimationProblem.build(VanDerPol(), uniform_mesh(0.0, 1.0, 4, 4),
@@ -199,3 +218,122 @@ def test_decrease_accept_mode_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         lm_loop((), (), zero, None, maxiter=1, lam0=1.0, dtype=torch.float64,
                 accept_mode="decrease")
+
+
+def _carry(jdata, jz):
+    """The JAX package's data and iterate as the port's float64 tensors."""
+    return (data_from_numpy(*map(np.asarray, jdata), device="cpu",
+                            dtype=torch.float64),
+            decision_from_numpy(jz.V, jz.p, "cpu", torch.float64))
+
+
+@pytest.mark.parametrize("seed", [0, 2])
+def test_assemble_newton_matches_jax(seed):
+    """assemble_newton against the JAX package's soa_from_blocks of its
+    assemble_newton on tests/test_assemble.py's small problem (VdP, 4
+    elements of degree 3, 17 samples, priors on p and x0) at a seeded
+    iterate: every leaf within 1e-10."""
+    jprob, jz, jdata = small_problem(seed)
+    tprob = EstimationProblem.build(
+        VanDerPol(), uniform_mesh(0.0, 3.0, 4, 3), np.linspace(0.05, 2.95, 17),
+        defect_weight=2.0, device="cpu", dtype=torch.float64)
+    tdata, tz = _carry(jdata, jz)
+    want = jax_soa_from_blocks(jax_assemble_newton(jprob, jz, jdata))
+    got = assemble_newton(tprob, tz, tdata)
+    for name in ("D", "E", "B", "C", "gx", "gp"):
+        g, w = getattr(got, name), np.asarray(getattr(want, name))
+        assert g.is_contiguous()
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-10,
+                                   atol=1e-10 * float(np.abs(w).max()))
+
+
+def test_newton_solver_matches_jax():
+    """make_gn_solver(hessian='newton') against JAX's on the N = 40 VdP
+    problem, float64, 12 fixed-work iterations from the same iterate (the
+    first steps are indefinite and rejected until lam grows): identical
+    accept column, V and p within 1e-9."""
+    tf, t_meas, y, u_fn = _vdp_data(seed=2)
+    jprob = JaxProblem.build(JaxVanDerPol(), jax_uniform_mesh(0.0, tf, 40, 4),
+                             t_meas, defect_weight=30.0)
+    tprob = EstimationProblem.build(VanDerPol(), uniform_mesh(0.0, tf, 40, 4),
+                                    t_meas, defect_weight=30.0, device="cpu",
+                                    dtype=torch.float64)
+    jdata = jprob.pack_data(y, t_meas,
+                            u_nodes=u_fn(jprob.mesh.elem_times)[..., None],
+                            p_prior=[1.0, 1.0], p_weight=1e-3)
+    jz0 = jprob.initial_guess_from_data(t_meas, y, p0=[2.0, 0.3])
+    tdata, tz0 = _carry(jdata, jz0)
+    opts = dict(maxiter=12, gtol=0.0, hessian="newton")
+    jz, jst = jax_make_gn_solver(jprob, JaxSolverOptions(**opts))(jz0, jdata)
+    tz, tst = make_gn_solver(tprob, SolverOptions(**opts))(tz0, tdata)
+    np.testing.assert_array_equal(tst.history.numpy()[:, 4],
+                                  np.asarray(jst.history)[:, 4])
+    assert float(tst.cost) < float(tprob.cost(tz0, tdata))
+    np.testing.assert_allclose(tz.V.numpy(), np.asarray(jz.V), rtol=1e-9,
+                               atol=1e-9 * float(jnp.abs(jz.V).max()))
+    np.testing.assert_allclose(tz.p.numpy(), np.asarray(jz.p), rtol=1e-9)
+
+
+def _outlier_problem():
+    """tests/test_irls_utils.py's outlier fixture: VdP on 48 elements of
+    degree 2, 120 samples with noise 0.01 and 8 gross outliers of +-2."""
+    tf = 8.0
+    mesh = jax_uniform_mesh(0.0, tf, 48, 2)
+    t_meas = np.linspace(0.05, tf - 0.05, 120)
+    model = JaxVanDerPol()
+    ts_fine = np.linspace(0.0, tf, 8001)
+    xs = rk4_trajectory(model.f, jnp.asarray([1.0, 0.0]), ts_fine,
+                        u_fn=lambda t: jnp.stack([jnp.sin(0.9 * t)]),
+                        p=jnp.asarray([1.0, 1.0]))
+    y = np.interp(t_meas, ts_fine, np.asarray(xs[:, 0]))[:, None]
+    rng = np.random.default_rng(5)
+    y += 0.01 * rng.standard_normal(y.shape)
+    idx = rng.choice(t_meas.size, 8, replace=False)
+    y[idx] += rng.choice([-1, 1], 8)[:, None] * 2.0
+    jprob = JaxProblem.build(model, mesh, t_meas, defect_weight=300.0)
+    tprob = EstimationProblem.build(VanDerPol(), uniform_mesh(0.0, tf, 48, 2),
+                                    t_meas, defect_weight=300.0, device="cpu",
+                                    dtype=torch.float64)
+    jdata = jprob.pack_data(y, t_meas,
+                            u_nodes=np.sin(0.9 * mesh.elem_times)[..., None],
+                            meas_weight=100.0)
+    return jprob, tprob, jdata, jprob.initial_guess_from_data(
+        t_meas, y, p0=[0.5, 0.5])
+
+
+def test_irls_solver_matches_jax():
+    """measurement_residuals at the initial guess (within 1e-12), then
+    make_irls_solver (irls_delta 2, 4 rounds, maxiter 40, gtol 1e-8, xtol
+    1e-10) on the outlier fixture: p within 1e-9 of the JAX package's, the
+    final per-sample weights within 1e-9, outliers down-weighted, a stats
+    entry per solve, the last one's cost within 1e-9 of the JAX package's
+    (the iteration counts differ: near the optimum a step's decrease falls
+    below the float64 cost's resolution, which the JAX package's
+    double-word cost still resolves)."""
+    jprob, tprob, jdata, jz0 = _outlier_problem()
+    tdata, tz0 = _carry(jdata, jz0)
+    want = np.asarray(jprob.measurement_residuals(jz0, jdata))
+    got = tprob.measurement_residuals(tz0, tdata)
+    assert tuple(got.shape) == want.shape == (48, 3, 1)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12,
+                               atol=1e-12 * float(np.abs(want).max()))
+    opts = dict(maxiter=40, gtol=1e-8, xtol=1e-10, irls_delta=2.0)
+    jz, jst, jw = jax_make_irls_solver(jprob, JaxSolverOptions(**opts),
+                                       n_rounds=4)(jz0, jdata)
+    tz, trounds, tw = make_irls_solver(tprob, SolverOptions(**opts),
+                                       n_rounds=4)(tz0, tdata)
+    assert len(trounds) == 5
+    np.testing.assert_allclose(float(trounds[-1].cost), float(jst.cost),
+                               rtol=1e-9)
+    np.testing.assert_allclose(tz.p.numpy(), np.asarray(jz.p), rtol=1e-9)
+    np.testing.assert_allclose(tw.meas_w.numpy(), np.asarray(jw.meas_w),
+                               rtol=1e-9)
+    assert float(tw.meas_w.min()) < 0.1 * float(tw.meas_w.max())
+
+
+def test_irls_needs_a_threshold():
+    tprob = EstimationProblem.build(VanDerPol(), uniform_mesh(0.0, 1.0, 4, 4),
+                                    np.linspace(0.1, 0.9, 5), device="cpu",
+                                    dtype=torch.float64)
+    with pytest.raises(ValueError, match="irls_delta"):
+        make_irls_solver(tprob, SolverOptions())
