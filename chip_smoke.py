@@ -41,6 +41,14 @@ Phases, each printing its own line; any failure raises and exits non-zero:
          through blocktri_cr_factor_soa and blocktri_solve_cr are held
          against the plain chain solve (the float32 bar is the chain
          residual).
+     At the optimal-control block size b = 12 (_phase2_ocp): kernel #2 at
+     r = 1 on config 3's equilibrated, damped chain at the initial guess
+     (N = 25 and 500: K = 26 and 501) and on seeded chains, K in EDGES +
+     {26, 501}; kernel #1 at nq = 1 on the free-time OCP's system at its
+     initial guess (K = 17) and on seeded systems, K in EDGES + {17, 501};
+     at each problem's shape the kernel and plain times, the device time
+     by phase, two runs bit-identical, the float32 bound and
+     torch.linalg.solve on the dense damped matrix (312^2, 6,012^2; 205^2).
      At the shapes of configs 2 and 4 (_phase2_configs): kernel #1 at
      nq = 3 and 5 on each config's damped system at its initial guess (K =
      1,001 and 201) and on seeded chains, K in EDGES + {201, 1001}, timed
@@ -98,12 +106,36 @@ Phases, each printing its own line; any failure raises and exits non-zero:
   9. config 4 at full size (aircraft output error, N = 200, nq = 5), as
      phase 8 with r = 6 (5 CR levels), float32 gated on the cost falling
      and p finite, and (e) the exact-Newton run (hessian='newton') from the
-     config's z0, converged, p within 1e-6 of the JAX package's.
+     config's z0, converged, p within 1e-6 of the JAX package's;
+ 10. config 3, the pendulum swing-up (b = 12, nq = 0), through
+     make_ocp_solver(prob, ALBarrierOptions()) on 'auto': (a) N = 25 in
+     float64: cviol < 1e-8, x(0) and x(tf) within 1e-8 of [0, 0] and
+     [pi, 0], u_max - 1e-2 < max|u| <= u_max + 1e-6, the objective and u at
+     11 evenly spaced nodes within 1e-6 of the JAX package's float64 run
+     (relative, inf-norm, as p is held in phases 6, 8 and 9);
+     (b) N = 25 in float32: g < 0 everywhere, cviol <= 1e-3, the objective
+     within 1% of (a)'s; (c) N = 500 in float64 and float32 with the same
+     gates, started from (a)'s / (b)'s N = 25 solution (the nested
+     protocol of docs/guide.md: a cold start at N = 500 lands in an
+     infeasible basin, the JAX package's too).  Each run launches kernel #2
+     at (12, 1) exactly once per inner LM iteration and no plain version;
+     best-of-3 walls, and for float32 a torch.profiler breakdown with the
+     device idle share;
+ 11. the free-time OCP of examples/min_time_ocp.py (N = 16, n_outer 16,
+     b = 12, nq = 1: kernel #1 once per inner iteration), float64: tf
+     within 1e-6 of the JAX package's, 2 sqrt(d) - 1e-3 < tf < 1.06 x 2
+     sqrt(d), g <= 1e-10;
+ 12. estimation under constraints, float64: (a) the aircraft problem with
+     examples/constrained_estimation.py's damping spec (kernel #1 at (8,
+     5)): p within 1e-6 of the JAX package's, g_param(p) <= 0; (b)
+     tests/test_bounds.py's active parameter bound on Van der Pol at degree
+     4 (kernel #1 at (8, 2)): p within 1e-6 of the JAX package's.
 
 The second-to-last lines are the card's name and power limit and a JSON
 object describing every kernel of the path (its numbers at the headline's
 shape; ``shapes``: its main-path launches at each shape, as its wrapper
-counted them; ``at_configs``: phase 2's numbers at configs 2 and 4); the
+counted them; ``at_configs``: phase 2's numbers at configs 2, 3 and 4 and
+the free-time OCP); the
 last line is {"ok": true, "device": {...}}.  With --out DIR the same records are also
 written to DIR/chip_smoke.json.
 """
@@ -316,6 +348,109 @@ C4_JAX_F64 = dict(
                -0.14454344521344795, -12.35598595983164),
     newton=(-1.2097362110140655, -8.228952931926878, -2.557399395758849,
             -0.14454344519782347, -12.355985960247033))
+
+# The JAX package's float64 runs of config 3, the free-time OCP and the two
+# constrained estimations on the CPU ('auto' is its cyclic reduction
+# there): config 3's objective and u at 11 evenly spaced nodes (node
+# indices linspace(0, 4 N, 11); N = 500 from the N = 25 solution, the
+# nested protocol of docs/guide.md), the free-time horizon, and p,
+# produced from the root of the repo by
+#   JAX_PLATFORMS=cpu python - 25 <<'EOF'  # then 500, min_time, aircraft, vdp
+#   import sys; sys.path[:0] = [".", "examples"]
+#   import jax; jax.config.update("jax_enable_x64", True)
+#   import jax.numpy as jnp, numpy as np
+#   from scipy.integrate import solve_ivp
+#   from collocfem_tpu import free_time_ocp
+#   from collocfem_tpu.model import Model
+#   from collocfem_tpu.models import AircraftLongitudinal, Pendulum, VanDerPol
+#   from collocfem_tpu.ocp import OptimalControlProblem
+#   from collocfem_tpu.ops.mesh import uniform_mesh
+#   from collocfem_tpu.problem import EstimationProblem
+#   from collocfem_tpu.solve import (BoundedOptions, ConstrainedOptions,
+#       bounded_gauss_newton, constrained_gauss_newton, make_bounds)
+#   from collocfem_tpu.solve.auglag import ALBarrierOptions, make_ocp_solver
+#   from collocfem_tpu.utils.io import load_measurements
+#   w = sys.argv[1]
+#   if w in ("25", "500"):
+#       from collocfem_tpu.ops.mesh import interpolate_trajectory
+#       from collocfem_tpu.problem import Decision
+#       build = lambda n: OptimalControlProblem.build(Pendulum(m=1.0, l=0.5,
+#           grav=9.81, u_max=2.0), uniform_mesh(0.0, 2.5, n, 4),
+#           x0=[0.0, 0.0], xf=[np.pi, 0.0])
+#       prob = build(25)
+#       z, st = make_ocp_solver(prob, ALBarrierOptions())(prob.initial_guess())
+#       if w == "500":
+#           fine = build(500)
+#           V = np.array(interpolate_trajectory(prob.mesh, z.V,
+#                                               fine.mesh.node_times))
+#           V[:, 2] = np.clip(V[:, 2], -(2.0 - 1e-3), 2.0 - 1e-3)
+#           prob = fine
+#           z, st = make_ocp_solver(prob, ALBarrierOptions())(
+#               Decision(V=jnp.asarray(V), p=z.p))
+#       n = prob.mesh.num_elements
+#       print(repr(float(st.objective)), repr(np.asarray(z.V[:, 2])[
+#           np.linspace(0, 4 * n, 11).astype(int)].tolist()))
+#   elif w == "min_time":
+#       class DoubleIntegrator(Model):
+#           nx, nu, nq, ng = 2, 1, 0, 2
+#           def f(self, x, u, p, t): return jnp.stack([x[1], u[0]])
+#           def g(self, x, u, p, t):
+#               return jnp.stack([u[0] - 1.0, -u[0] - 1.0])
+#       prob, ftm = free_time_ocp(DoubleIntegrator(), num_elements=16,
+#           degree=4, x0=[0.0, 0.0], xf=[1.0, 0.0], tf_ref=3.0,
+#           time_weight=1.0)
+#       z, st = make_ocp_solver(prob, ALBarrierOptions(n_outer=16))(
+#           prob.initial_guess())
+#       print(repr(float(ftm.final_time(z.p))))
+#   elif w == "aircraft":
+#       t, vals = load_measurements("examples/data/aircraft_doublet.csv")
+#       y, u = vals[:, :3], vals[:, 3]
+#       mesh = uniform_mesh(0.0, 8.0, 200, 4)
+#       prob = EstimationProblem.build(AircraftLongitudinal(V=60.0, g0=9.81),
+#                                      mesh, t, defect_weight=1e4)
+#       data = prob.pack_data(y, t, u_nodes=np.interp(mesh.elem_times, t,
+#           u)[..., None], meas_weight=1.0 / np.array([0.002, 0.005, 0.05]))
+#       z0 = prob.initial_guess_from_data(t, y[:, :2],
+#                                         p0=[-1.0, -4.0, -4.0, -0.1, -5.0])
+#       g = lambda p: jnp.atleast_1d(0.6 + (p[0] + p[2]) / (2.0 * jnp.sqrt(
+#           p[0] * p[2] - p[1])))
+#       z, st = constrained_gauss_newton(prob, z0, data, ConstrainedOptions(
+#           n_outer=12, inner_maxiter=40, mu_min=1e-12), g_param=g)
+#       print(repr(np.asarray(z.p).tolist()))
+#   else:   # tests/test_bounds.py's active bound, on degree 4
+#       u_fn = lambda t: 0.5 * np.sin(1.1 * t)
+#       sol = solve_ivp(lambda t, x: [x[1], (1 - x[0] ** 2) * x[1] - x[0]
+#           + 0.7 * u_fn(t)], (0.0, 8.0), (2.0, 0.0), rtol=1e-11, atol=1e-12,
+#           dense_output=True)
+#       mesh = uniform_mesh(0.0, 8.0, 60, 4)
+#       t = np.linspace(0.025, 7.975, 160)
+#       y = sol.sol(t)[0][:, None]
+#       prob = EstimationProblem.build(VanDerPol(), mesh, t,
+#                                      defect_weight=30.0)
+#       data = prob.pack_data(y, t, u_nodes=u_fn(mesh.elem_times)[..., None])
+#       z0 = prob.initial_guess_from_data(t, y, p0=[0.6, 0.4])
+#       z, st = bounded_gauss_newton(prob, z0, data, make_bounds(prob,
+#           p_lo=[0.0, None], p_hi=[0.8, None]), BoundedOptions(n_outer=12,
+#           inner_maxiter=40, mu_min=1e-12))
+#       print(repr(np.asarray(z.p).tolist()))
+#   EOF
+C3_JAX_F64 = {
+    25: (2.587528839181777,
+         (1.9999982630170214, 1.6161560699517052, -0.5197832446952959,
+          -1.999995181620154, -1.4917095981462327, 0.47419801455858834,
+          1.9999998784953348, 1.9676284160230422, 0.6078861690924288,
+          -0.41727647783974897, -1.999977264516299)),
+    500: (2.593346360092889,
+          (1.9999841718388172, 1.5103673601488186, -0.7822400255559148,
+           -1.9999945712114775, -1.379454638551206, 0.7011630140962711,
+           1.9999960425761945, 1.8963428804803322, 0.5699458088636589,
+           -0.37473670397527037, -1.822215767678795)),
+}
+MIN_TIME_JAX_TF = 2.0020638944797273
+CONSTRAINED4_JAX_F64 = (-1.1993546178196046, -8.163503615725432,
+                        -2.893695888103136, -0.1423811994384079,
+                        -13.231877739359728)
+BOUNDED_VDP_JAX_F64 = (0.7999999998603717, 0.7843172245985526)
 
 
 def _card() -> str:
@@ -768,14 +903,21 @@ def _thomas_flops(b, r, blocks):
     return blocks * (b ** 3 / 3 + 4 * b ** 3 + 6 * b * b * r)
 
 
-def _kkt_bound(K, nq):
+def _kkt_bound(K, nq, b=8):
     """(bound ms, binding) of kernel #1's float32 call on a chain of K
-    blocks of b = 8 with nq parameters: D, E, G = [gx | B], inv in, dx out;
+    blocks of b with nq parameters: D, E, G = [gx | B], inv in, dx out;
     block Thomas with r = 1 + nq, and the Schur sums B^T X (2 b nq r a
     block)."""
-    b, r, f = 8, 1 + nq, 4
+    r, f = 1 + nq, 4
     return _bound(f * K * (2 * b * b + r * b + b + b),
                   _thomas_flops(b, r, K) + K * 2 * b * nq * r)
+
+
+def _chain_bound(K, r, b=8):
+    """(bound ms, binding) of kernel #2's float32 call on a chain of K
+    blocks of b with r right-hand sides: D, E, G in, X out; block
+    Thomas."""
+    return _bound(4 * K * (2 * b * b + 2 * r * b), _thomas_flops(b, r, K))
 
 
 def _cr_bounds(levels, r, r_cov):
@@ -811,8 +953,7 @@ def _bounds(K1, K2, n_exp, k7, levels):
     b, f = 8, 4
     return {
         "kkt_solve_spike_fused": _kkt_bound(K1, 2),
-        "blocktri_solve_spike_fused": _bound(
-            f * K2 * (2 * b * b + 2 * 3 * b), _thomas_flops(b, 3, K2)),
+        "blocktri_solve_spike_fused": _chain_bound(K2, 3),
         "batched_thomas_solve": _bound(
             f * n_exp * k7 * (2 * b * b + 2 * 3 * b),
             _thomas_flops(b, 3, n_exp * k7)),
@@ -1055,8 +1196,7 @@ def _phase2_configs(dev, card):
     from collocfem_tpu_torch.ops.assemble import assemble_gn_soa
     from collocfem_tpu_torch.solve import blocktri as bt
     from collocfem_tpu_torch.solve.kkt import damping_scales
-    from collocfem_tpu_torch.testing import (random_chain, random_kkt_system,
-                                             rel_err)
+    from collocfem_tpu_torch.testing import random_chain, random_kkt_system
     from collocfem_tpu_torch.tools.spike_tiles import _split
 
     from collocfem_tpu_torch import configs
@@ -1078,11 +1218,10 @@ def _phase2_configs(dev, card):
             k_ms = _cuda_ms(lambda: spike.kkt_solve_spike_fused(*call), 20)
             p_ms = _cuda_ms(lambda: spike.kkt_solve_spike_fused_ref(*call), 3)
             split = _split(lambda: spike.kkt_solve_spike_fused(*call))
-            M, rhs = _dense_kkt(sys_, damping_scales(sys_.D, sys_.C, lam)[0])
-            lib_ms = _cuda_ms(lambda: torch.linalg.solve(M, rhs), 5)
             dx, dp, _ = spike.kkt_solve_spike_fused(*call)
-            lib_rel = rel_err(torch.linalg.solve(M, rhs)[:, 0],
-                              torch.cat([dx.T.reshape(-1), dp]))
+            lib_ms, shape, lib_rel = _dense_solve(
+                sys_, damping_scales(sys_.D, sys_.C, lam)[0],
+                torch.cat([dx.T.reshape(-1), dp]))
             bound = _kkt_bound(K, nq)
             out["kkt"][f"{cname} {name}"] = dict(
                 K=K, nq=nq, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
@@ -1093,10 +1232,9 @@ def _phase2_configs(dev, card):
                   f"{sum(split.values()):.1f} us on the device: "
                   + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
                   + f"), plain {p_ms:.3f} ms/call; torch.linalg.solve on the "
-                  f"dense damped KKT matrix {tuple(M.shape)} {lib_ms:.3f} "
+                  f"dense damped KKT matrix {shape} {lib_ms:.3f} "
                   f"ms/call (rel diff to the kernel {lib_rel:.2e}); float32 "
                   f"bound {bound[0] * 1e3:.3f} us ({bound[1]}) on {card}")
-            del M, rhs
 
             padded, unpadded = _cr_chain(prob, data, z0, lam,
                                          covariance_rhs=False)
@@ -1173,12 +1311,27 @@ def _main_shapes(name, launches):
     return out
 
 
-def _at_configs(name, measured):
+def _at_configs(name, measured, ocp):
     """The kernels line's ``at_configs`` of kernel ``name``: what phase 2
     measured at the shapes of configs 2 and 4 (``measured``, from
-    _phase2_configs): float32 times and bound, the float64 max abs error,
-    and for kernel #1 the dense torch.linalg.solve."""
+    _phase2_configs) and of config 3 and the free-time OCP (``ocp``, from
+    _phase2_ocp): float32 times and bound, the float64 max abs error, and
+    for kernels #1 and #2 the dense torch.linalg.solve."""
     out = []
+    keys = {"kkt_solve_spike_fused": ("kkt", ["free-time"], "nq"),
+            "blocktri_solve_spike_fused": (
+                "chain", ["config 3 N=25", "config 3 N=500"], "r")}
+    if name in keys:
+        kind, cnames, width = keys[name]
+        for cname in cnames:
+            f32, f64 = (ocp[kind][f"{cname} {d}"]
+                        for d in ("float32", "float64"))
+            out.append(dict(
+                config=cname if cname != "free-time" else "free-time OCP",
+                K=f32["K"], b=12, **{width: f32[width]},
+                max_abs_err=f64["max_abs_err"], ms=f32["ms"],
+                plain_ms=f32["plain_ms"], bound_ms=f32["bound_ms"],
+                bound_by=f32["bound_by"], library_ms=f32["library_ms"]))
     for cname in ("config 2", "config 4"):
         if name == "kkt_solve_spike_fused":
             f32, f64 = (measured["kkt"][f"{cname} {d}"]
@@ -1346,6 +1499,338 @@ def _config_phase(num, cname, build, fixed, converged, truth, jax_p,
     return launches
 
 
+def _dense_solve(sys_, lam_abs, x):
+    """torch.linalg.solve of the dense damped bordered matrix of ``sys_``
+    (:func:`_dense_kkt`): (ms a call by CUDA events, its size, its result's
+    relative difference to ``x`` = the kernel's [dx; dp] flattened)."""
+    import torch
+
+    from collocfem_tpu_torch.testing import rel_err
+
+    M, rhs = _dense_kkt(sys_, lam_abs)
+    ms = _cuda_ms(lambda: torch.linalg.solve(M, rhs), 5)
+    rel = rel_err(torch.linalg.solve(M, rhs)[:, 0], x)
+    return ms, tuple(M.shape), rel
+
+
+def _phase2_ocp(dev, card):
+    """Phase 2 at the optimal-control shapes (b = 12): kernel #2 at r = 1 on
+    config 3's equilibrated, damped chain at the initial guess (N = 25 and
+    500: K = 26 and 501) and on seeded chains, K in EDGES + {26, 501};
+    kernel #1 at nq = 1 on the free-time OCP's system at its initial guess
+    (K = 17) and on seeded systems, K in EDGES + {17, 501}.  At each
+    problem's shape: the kernel and its plain version by CUDA events, the
+    kernel's device time by phase (torch.profiler), its float32 bound, two
+    runs bit-identical, and torch.linalg.solve on the dense damped matrix.
+    Returns the per-shape records."""
+    import torch
+
+    from collocfem_tpu_torch import configs
+    from collocfem_tpu_torch.ops import spike
+    from collocfem_tpu_torch.solve.auglag import (ALBarrierOptions,
+                                                  make_ocp_solver)
+    from collocfem_tpu_torch.solve.kkt import _equilibrate_soa, damping_scales
+    from collocfem_tpu_torch.testing import (chain_residual, random_chain,
+                                             random_kkt_system)
+    from collocfem_tpu_torch.tools.spike_tiles import _split
+
+    out = {"chain": {}, "kkt": {}}
+    opts = ALBarrierOptions()
+    lam = opts.lam0
+
+    def timed(key, label, kernel, plain, bound, dense, err):
+        k_ms, p_ms = _cuda_ms(kernel, 20), _cuda_ms(plain, 3)
+        split = _split(kernel)
+        first, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        first, again = ((first,), (again,)) if torch.is_tensor(first) else \
+            (first[:2], again[:2])
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            raise RuntimeError(f"{label}: two runs of the kernel differ")
+        lib_ms, shape, lib_rel = dense
+        out[key[0]][key[1]] = dict(
+            max_abs_err=err, ms=k_ms, plain_ms=p_ms, device_us=split,
+            device_us_total=sum(split.values()), library_ms=lib_ms,
+            library_shape=shape, library_rel_diff=lib_rel,
+            bound_ms=bound[0], bound_by=bound[1])
+        print(f"  {label}: kernel {k_ms:.3f} ms/call ("
+              f"{sum(split.values()):.1f} us on the device: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+              + f"), plain {p_ms:.3f} ms/call, two runs bit-identical; "
+              f"torch.linalg.solve on the dense damped matrix {shape} "
+              f"{lib_ms:.3f} ms/call (rel diff to the kernel {lib_rel:.2e});"
+              f" float32 bound {bound[0] * 1e3:.3f} us ({bound[1]}) on "
+              f"{card}")
+
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[1]
+        for n in (configs.ELEMENTS3, configs.ELEMENTS3_LARGE):
+            prob, z0 = configs.build_config3_problem(n, dtype=dtype,
+                                                     device=dev)
+            s = _equilibrate_soa(
+                make_ocp_solver(prob, opts).first_system(z0), lam)[0]
+            D, E, G = s.D, s.E, s.gx[:, None, :].contiguous()
+            K = D.shape[-1]
+            label = f"kernel #2 config 3 N={n} {name} K={K} b=12 r=1"
+            X = spike.blocktri_solve_spike_fused(D, E, G)
+            err = _hold(label, dtype, X,
+                        spike.blocktri_solve_spike_fused_ref(D, E, G),
+                        lambda X: chain_residual(D, E, G, X))
+            timed(("chain", f"config 3 N={n} {name}"), label,
+                  lambda: spike.blocktri_solve_spike_fused(D, E, G),
+                  lambda: spike.blocktri_solve_spike_fused_ref(D, E, G),
+                  _chain_bound(K, 1, 12),
+                  _dense_solve(s, 0.0, -X[:, 0, :].T.reshape(-1)), err)
+            out["chain"][f"config 3 N={n} {name}"].update(K=K, b=12, r=1)
+        for k in (*EDGES, 26, 501):
+            D, E, G = random_chain(k, 12, 1, seed=k + 1, dtype=dtype,
+                                   device=dev)
+            _hold(f"kernel #2 random {name} K={k} b=12 r=1", dtype,
+                  spike.blocktri_solve_spike_fused(D, E, G),
+                  spike.blocktri_solve_spike_fused_ref(D, E, G),
+                  lambda X: chain_residual(D, E, G, X))
+
+        prob, _, z0 = configs.build_min_time_problem(dtype=dtype, device=dev)
+        sys_ = make_ocp_solver(
+            prob, ALBarrierOptions(**configs.MIN_TIME_OPTIONS)).first_system(
+                z0)
+        K = sys_.num_blocks
+        label = f"kernel #1 free-time OCP {name} K={K} b=12 nq=1"
+        err = _compare(sys_, lam, None, label)
+        call = (sys_.D, sys_.E, sys_.B, sys_.gx, sys_.C, sys_.gp, lam)
+        dx, dp, _ = spike.kkt_solve_spike_fused(*call)
+        timed(("kkt", f"free-time {name}"), label,
+              lambda: spike.kkt_solve_spike_fused(*call),
+              lambda: spike.kkt_solve_spike_fused_ref(*call),
+              _kkt_bound(K, 1, 12),
+              _dense_solve(sys_, damping_scales(sys_.D, sys_.C, lam)[0],
+                           torch.cat([dx.T.reshape(-1), dp])), err)
+        out["kkt"][f"free-time {name}"].update(K=K, b=12, nq=1)
+        for k in (*EDGES, 17, 501):
+            rs = random_kkt_system(k, 12, 1, seed=k + 1, dtype=dtype,
+                                   device=dev)
+            _compare(rs, 1e-3, None, f"kernel #1 random {name} K={k} b=12 "
+                     "nq=1")
+    print("  kernels #1 and #2 at b=12: seeded systems, K in "
+          f"{(*EDGES, 17, 26, 501)}, ok")
+    return out
+
+
+def _profile_run(label, run, best_wall):
+    """One run of run() under torch.profiler: device time by kernel, the
+    kernel count, and the device idle share of ``best_wall``.  Device
+    activity only: a solve of ~10^5 launches makes millions of host events,
+    whose post-processing takes minutes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from collocfem_tpu_torch.tools.spike_tiles import _device_us
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    by_name, n_kernels = {}, 0
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if us and evt.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[evt.key] = us
+            n_kernels += evt.count
+    total = sum(by_name.values())
+    idle = 1 - total / 1e6 / best_wall
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    print(f"  {label}: device time {total / 1e3:.3f} ms over {n_kernels} "
+          f"kernels; idle share of the best wall {idle:.3f}")
+    for name, us in top:
+        print(f"    {us / 1e3:8.3f} ms {100 * us / total:5.1f} %  {name[:80]}")
+    return dict(device_ms=total / 1e3, device_kernels=n_kernels,
+                idle_share=idle, top_us=top)
+
+
+def _ocp_solves(dev, card, record):
+    """Phase 10, config 3 (the pendulum swing-up) through
+    make_ocp_solver(prob, ALBarrierOptions()) on 'auto', and phase 11, the
+    free-time OCP of examples/min_time_ocp.py (N = 16, n_outer 16), float64.
+    Every run launches its SPIKE kernel (#2 at (12, 1) for config 3, #1 at
+    (12, 1) for the free-time OCP) exactly once per inner LM iteration (the
+    sum of the history's inner_iters) and no plain version.  Returns the
+    launches."""
+    import torch
+
+    from collocfem_tpu_torch import configs
+    from collocfem_tpu_torch.solve.auglag import (ALBarrierOptions,
+                                                  make_ocp_solver)
+
+    launches = {}
+
+    def counted(label, run, kernel):
+        """run() -> (z, stats of every solve): once per inner iteration of
+        every solve."""
+        (z, stats), wall, counts = _counted(
+            label, run, lambda out: {kernel: sum(
+                int(st.history[:, 4].sum()) for st in out[1])})
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        _keep_shapes(counts)
+        if LAST_SHAPES[kernel] != {(12, 1): counts[kernel]}:
+            raise RuntimeError(f"{label}: launches by shape "
+                               f"{LAST_SHAPES[kernel]}, expected (12, 1)")
+        return z, stats[-1], wall, counts[kernel]
+
+    rec = record.setdefault("config3", {})
+    chain = "blocktri_solve_spike_fused"
+    f64_obj, coarse = {}, {}
+    for part, n, dtype in (("(a)", configs.ELEMENTS3, torch.float64),
+                           ("(b)", configs.ELEMENTS3, torch.float32),
+                           ("(c)", configs.ELEMENTS3_LARGE, torch.float64),
+                           ("(c)", configs.ELEMENTS3_LARGE, torch.float32)):
+        name = str(dtype).split(".")[1]
+        tag = f"phase 10 {part}: config 3 N={n} {name}"
+        prob, z0 = configs.build_config3_problem(n, dtype=dtype, device=dev)
+        if n != configs.ELEMENTS3:
+            # The nested protocol: from the N = 25 solution of (a) / (b).
+            z0 = configs.config3_warm_start(*coarse[dtype], prob)
+        solve = make_ocp_solver(prob, ALBarrierOptions())
+
+        def run():
+            z, st = solve(z0)
+            return z, (st,)
+        z, st, wall, n_launch = counted(tag, run, chain)
+        if n == configs.ELEMENTS3:
+            coarse[dtype] = (prob, z)
+        walls = [wall] + [_timed(run)[1] for _ in range(2)]
+        x, u = z.V[:, :2].double(), z.V[:, 2].double()
+        obj, cviol, gviol = (float(st.objective), float(st.cviol),
+                             float(st.gviol))
+        umax = float(u.abs().max())
+        r = dict(objective=obj, cviol=cviol, gviol=gviol, max_abs_u=umax,
+                 inner_iters=n_launch, launches=n_launch, walls_s=walls,
+                 wall_s=min(walls))
+        print(f"{tag}: objective {obj:.10f}, cviol {cviol:.3e}, gviol "
+              f"{gviol:.3e}, max|u| {umax:.8f}, {n_launch} inner LM "
+              f"iterations = kernel #2 launches at (12, 1), no plain call; "
+              f"best of 3 wall {min(walls):.4f} s (the counted run and two "
+              f"more: {', '.join(f'{w:.4f}' for w in walls)}) on {card}")
+        if dtype == torch.float64:
+            ref_obj, ref_u = C3_JAX_F64[n]
+            nodes = torch.linspace(0, 4 * n, 11).long()
+            u11 = u[nodes].tolist()
+            d_obj = _p_dev([obj], [ref_obj])
+            d_u = _p_dev(u11, ref_u)
+            bc = max(float(x[0].abs().max()),
+                     float((x[-1] - torch.tensor([math.pi, 0.0],
+                                                 dtype=x.dtype,
+                                                 device=x.device))
+                           .abs().max()))
+            r.update(u11=u11, obj_vs_jax=d_obj, u11_vs_jax=d_u,
+                     boundary_err=bc)
+            print(f"  |objective - JAX| / |JAX| {d_obj:.3e} (<= 1e-6), max |u - "
+                  f"u_JAX| / max |u_JAX| at 11 nodes {d_u:.3e} (<= 1e-6), "
+                  f"boundary error {bc:.3e} (<= 1e-8)")
+            ok = (cviol < 1e-8 and bc <= 1e-8 and d_obj <= 1e-6
+                  and d_u <= 1e-6
+                  and configs.U_MAX3 - 1e-2 < umax <= configs.U_MAX3 + 1e-6)
+            f64_obj[n] = obj
+        else:
+            rel = abs(obj / f64_obj[n] - 1.0)
+            r.update(obj_vs_float64=rel)
+            print(f"  |objective / float64's - 1| {rel:.3e} (<= 0.01)")
+            ok = gviol < 0 and cviol <= 1e-3 and rel <= 0.01
+        rec[f"N={n} {name}"] = r
+        if not ok:
+            raise RuntimeError(f"{tag}: a gate failed")
+        if dtype == torch.float32:
+            r["profile"] = _profile_run(f"config 3 N={n} float32", run,
+                                        min(walls))
+        del prob, z0, solve, z, st
+
+    prob, ftm, z0 = configs.build_min_time_problem(dtype=torch.float64,
+                                                   device=dev)
+    solve = make_ocp_solver(prob, ALBarrierOptions(**configs.MIN_TIME_OPTIONS))
+    tag = "phase 11: free-time OCP float64"
+
+    def run():
+        z, st = solve(z0)
+        return z, (st,)
+    z, st, wall, n_launch = counted(tag, run, "kkt_solve_spike_fused")
+    tf = float(ftm.final_time(z.p))
+    t_star = 2.0 * math.sqrt(configs.DIST / configs.U_MAX_MT)
+    d_tf = abs(tf - MIN_TIME_JAX_TF)
+    gviol = float(st.gviol)
+    record["free_time"] = dict(tf=tf, tf_vs_jax=d_tf, gviol=gviol,
+                               cviol=float(st.cviol), launches=n_launch,
+                               wall_s=wall)
+    print(f"{tag} (N={configs.ELEMENTS_MT}, b=12, nq=1): tf {tf:.10f} "
+          f"(bang-bang {t_star}), |tf - tf_JAX| {d_tf:.3e} (<= 1e-6), gviol "
+          f"{gviol:.3e} (<= 1e-10), {n_launch} inner LM iterations = kernel "
+          f"#1 launches at (12, 1), no plain call; wall {wall:.4f} s on "
+          f"{card}")
+    if not (d_tf <= 1e-6 and t_star - 1e-3 < tf < 1.06 * t_star
+            and gviol <= 1e-10):
+        raise RuntimeError(f"{tag}: a gate failed")
+    return launches
+
+
+def _constrained_estimation(dev, card, record):
+    """Phase 12, float64 on 'auto': (a) the aircraft output-error problem
+    with examples/constrained_estimation.py's damping spec g_param (kernel
+    #1 at (8, 5)): p within 1e-6 of the JAX package's and g_param(p) <= 0;
+    (b) tests/test_bounds.py's active parameter bound on Van der Pol, on 60
+    elements of degree 4 (kernel #1 at (8, 2)): p within 1e-6 of the JAX
+    package's.  Kernel #1 launches once per inner LM iteration, no plain
+    version.  Returns the launches."""
+    import torch
+
+    from collocfem_tpu_torch import configs
+    from collocfem_tpu_torch.solve import (BoundedOptions,
+                                           ConstrainedOptions,
+                                           make_bounded_solver, make_bounds,
+                                           make_constrained_solver,
+                                           project_interior)
+
+    kkt = "kkt_solve_spike_fused"
+    launches = {}
+    prob, z0, data = configs.build_constrained_aircraft_problem(
+        dtype=torch.float64, device=dev)
+    solve_a = make_constrained_solver(
+        prob, ConstrainedOptions(**configs.CONSTRAINED4_OPTIONS),
+        g_param=configs.zeta_constraint)
+    vdp, v0, vdata = configs.build_bounded_vdp_problem(dtype=torch.float64,
+                                                       device=dev)
+    bounds = make_bounds(vdp, p_lo=[0.0, None], p_hi=[configs.MU_CAP, None])
+    solve_b = make_bounded_solver(vdp, bounds,
+                                  BoundedOptions(**configs.BOUNDED_VDP_OPTIONS))
+    for part, solve, args, shape, ref in (
+            ("(a) aircraft, zeta >= 0.6", solve_a, (z0, data), (8, 5),
+             CONSTRAINED4_JAX_F64),
+            ("(b) Van der Pol, mu <= 0.8", solve_b,
+             (project_interior(v0, bounds), vdata), (8, 2),
+             BOUNDED_VDP_JAX_F64)):
+        tag = f"phase 12 {part}"
+        (z, st), wall, counts = _counted(
+            tag, lambda: solve(*args),
+            lambda out: {kkt: int(out[1].history[:, 3].sum())})
+        if LAST_SHAPES[kkt] != {shape: counts[kkt]}:
+            raise RuntimeError(f"{tag}: launches by shape {LAST_SHAPES[kkt]}")
+        launches[kkt] = launches.get(kkt, 0) + counts[kkt]
+        _keep_shapes(counts)
+        p = z.p.tolist()
+        d_p = _p_dev(p, ref)
+        extra = ""
+        ok = d_p <= 1e-6
+        if part.startswith("(a)"):
+            g = float(configs.zeta_constraint(z.p)[0])
+            extra = f", g_param(p) {g:.3e} (<= 0)"
+            ok = ok and g <= 0
+        record[f"phase12 {part}"] = dict(p=p, p_vs_jax=d_p, wall_s=wall,
+                                         launches=counts[kkt])
+        print(f"{tag}: p={p}, |p - p_JAX|/|p_JAX| {d_p:.3e} (<= 1e-6){extra},"
+              f" {counts[kkt]} inner LM iterations = kernel #1 launches at "
+              f"{shape}, no plain call; wall {wall:.4f} s on {card}")
+        if not ok:
+            raise RuntimeError(f"{tag}: a gate failed")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the records to DIR/chip_smoke.json")
@@ -1369,6 +1854,9 @@ def main() -> int:
                                              random_kkt_system, rel_err)
 
     dev = torch.device("cuda", 0)
+    start = time.perf_counter()
+    elapsed = lambda: print(f"  (elapsed {time.perf_counter() - start:.1f} s)",
+                            flush=True)
     card = _card()
     record = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda}
@@ -1536,6 +2024,8 @@ def main() -> int:
               "1000), r in (1, 2, 3) ok")
     record["cr_ms"] = cr_ms
     record["config_shapes"] = _phase2_configs(dev, card)
+    record["ocp_shapes"] = _phase2_ocp(dev, card)
+    elapsed()
 
     # ---- phase 3: headline fixed work, float32 -----------------------------
     prob, data, z0 = _headline(torch.float32, dev)
@@ -1645,7 +2135,9 @@ def main() -> int:
         raise RuntimeError("config 5 float64 p disagrees with the JAX "
                            "package's")
 
+    elapsed()
     main_launches.update(_phase7(dev, card, record))
+    elapsed()
 
     # ---- phases 8, 9: configs 2 and 4 at full size -------------------------
     from collocfem_tpu_torch import configs
@@ -1662,6 +2154,13 @@ def main() -> int:
                                   bar).items():
             main_launches[k] = main_launches.get(k, 0) + v
 
+    # ---- phases 10-12: config 3, the free-time OCP, constrained estimation -
+    elapsed()
+    for phase in (_ocp_solves, _constrained_estimation):
+        for k, v in phase(dev, card, record).items():
+            main_launches[k] = main_launches.get(k, 0) + v
+        elapsed()
+
     ms = {"kkt_solve_spike_fused": times["float32"],
           "blocktri_solve_spike_fused": c5_ms["float32"]["chain"],
           "batched_thomas_solve": c5_ms["float32"]["thomas"],
@@ -1677,7 +2176,8 @@ def main() -> int:
         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
         "library_ms": lib_ms if name == "batched_thomas_solve" else None,
         "shapes": _main_shapes(name, main_launches[name]),
-        "at_configs": _at_configs(name, record["config_shapes"]),
+        "at_configs": _at_configs(name, record["config_shapes"],
+                                  record["ocp_shapes"]),
     } for name, (source, replaces) in KERNELS.items()]}
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

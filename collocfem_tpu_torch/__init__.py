@@ -15,7 +15,13 @@ Main paths:
     layout=...)(z0, data_batch, p_prior, p_w)``;
   * configs 2 and 4: ``configs.build_config2_problem`` /
     ``build_config4_problem`` -> ``make_gn_solver`` (``hessian='newton'``
-    for exact Newton) or ``solve.newton.make_irls_solver``.
+    for exact Newton) or ``solve.newton.make_irls_solver``;
+  * trajectory optimization (config 3): ``OptimalControlProblem.build``
+    (or ``configs.build_config3_problem``; ``free_time_ocp`` for a free
+    horizon) -> ``solve.auglag.make_ocp_solver(problem, options)(z0)``;
+  * estimation under bounds or inequality constraints:
+    ``solve.bounds.make_bounded_solver`` and
+    ``solve.constrained.make_constrained_solver``.
 
 Importing the package turns TF32 off for float32 matmuls
 (:mod:`collocfem_tpu_torch.precision`).
@@ -26,6 +32,14 @@ from collocfem_tpu_torch import precision
 precision.apply()
 
 from collocfem_tpu_torch.model import Model  # noqa: E402
+from collocfem_tpu_torch.ocp import (  # noqa: E402
+    Multipliers,
+    OptimalControlProblem,
+)
+from collocfem_tpu_torch.ocp_time import (  # noqa: E402
+    FreeTimeModel,
+    free_time_ocp,
+)
 from collocfem_tpu_torch.ops.basis import LGLBasis, make_basis  # noqa: E402
 from collocfem_tpu_torch.ops.mesh import Mesh, uniform_mesh  # noqa: E402
 from collocfem_tpu_torch.problem import (  # noqa: E402
@@ -43,4 +57,8 @@ __all__ = [
     "EstimationProblem",
     "ProblemData",
     "Decision",
+    "Multipliers",
+    "OptimalControlProblem",
+    "FreeTimeModel",
+    "free_time_ocp",
 ]

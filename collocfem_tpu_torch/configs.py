@@ -1,10 +1,14 @@
-"""Configs 2 and 4: the Duffing joint MAP estimation and the aircraft
-output-error estimation.
+"""Configs 2, 3 and 4 and the constrained set-ups: the Duffing joint MAP
+estimation, the pendulum swing-up, the aircraft output-error estimation,
+the free-time OCP and estimation under bounds and inequality constraints.
 
 Counterparts of the set-ups in ``benchmarks/configs_bench.py``
-(``config2_duffing``, ``config4_aircraft``) and of the constants and the
-Euler-Maruyama generator of ``examples/duffing_joint.py``, in numpy and
-torch only: the same data, bit for bit, and the same initial guesses.
+(``config2_duffing``, ``config3_pendulum``, ``config3_large``,
+``config4_aircraft``), of the constants and the Euler-Maruyama generator of
+``examples/duffing_joint.py``, and of the set-ups of
+``examples/min_time_ocp.py``, ``examples/constrained_estimation.py`` and
+``tests/test_bounds.py``, in numpy, scipy and torch only: the same data and
+the same initial guesses.
 
   * Config 2: Duffing (nx 2, nu 0, nq 3: b = 8, r = 4) on N = 1,000
     elements of degree 4 over [0, 20], 2,000 samples of x1 from a seeded
@@ -13,6 +17,14 @@ torch only: the same data, bit for bit, and the same initial guesses.
     b = 8, r = 6) on N = 200 elements of degree 4 over [0, 8], the 400
     samples of ``examples/data/aircraft_doublet.csv`` (alpha, q, az and the
     recorded elevator, which becomes the input at the collocation nodes).
+
+  * Config 3: the pendulum swing-up (nx 2, nu 1, nq 0, ng 2: b = 12, the
+    chain solve at r = 1) on N = 25 elements of degree 4 over [0, 2.5]
+    (``config3_large``: N = 500), from rest at 0 to rest at pi, |u| <= 2.
+    At N = 500 a cold start lands in an infeasible basin (the JAX package's
+    float64 run on the CPU: cviol 0.68; its BASELINE.md row 3L), so N =
+    500 starts from the N = 25 solution (:func:`config3_warm_start`, the
+    nested protocol of docs/guide.md).
 
 ``C2_*`` and ``C4_*`` are the ``SolverOptions`` of each config's fixed-work
 benchmark run and of its example's converged run.
@@ -23,10 +35,15 @@ from __future__ import annotations
 from pathlib import Path
 
 import numpy as np
+import torch
 
-from collocfem_tpu_torch.models import AircraftLongitudinal, Duffing
-from collocfem_tpu_torch.ops.mesh import uniform_mesh
-from collocfem_tpu_torch.problem import EstimationProblem
+from collocfem_tpu_torch.model import Model
+from collocfem_tpu_torch.models import (AircraftLongitudinal, Duffing,
+                                        Pendulum, VanDerPol)
+from collocfem_tpu_torch.ocp import OptimalControlProblem
+from collocfem_tpu_torch.ocp_time import free_time_ocp
+from collocfem_tpu_torch.ops.mesh import interpolate_trajectory, uniform_mesh
+from collocfem_tpu_torch.problem import Decision, EstimationProblem
 from collocfem_tpu_torch.utils.io import load_measurements
 
 DEGREE = 4
@@ -52,6 +69,24 @@ AIRCRAFT_RECORD = (Path(__file__).resolve().parent.parent / "examples"
                    / "data" / "aircraft_doublet.csv")
 C4_FIXED = dict(maxiter=40, gtol=0.0, lam0=1e-6, lam_max=1e30)
 C4_CONVERGED = dict(maxiter=60, gtol=1e-6, xtol=1e-12)
+
+# ---- config 3: pendulum swing-up --------------------------------------------
+TF3, ELEMENTS3, ELEMENTS3_LARGE = 2.5, 25, 500
+U_MAX3 = 2.0
+
+# ---- examples/min_time_ocp.py: minimum-time double integrator ---------------
+DIST, U_MAX_MT, ELEMENTS_MT, TF_REF_MT = 1.0, 1.0, 16, 3.0
+MIN_TIME_OPTIONS = dict(n_outer=16)
+
+# ---- examples/constrained_estimation.py: aircraft with a damping spec -------
+ZETA_MIN = 0.6
+P4_0_CONSTRAINED = (-1.0, -4.0, -4.0, -0.1, -5.0)   # zeta(p0) ~ 0.88
+CONSTRAINED4_OPTIONS = dict(n_outer=12, inner_maxiter=40, mu_min=1e-12)
+
+# ---- tests/test_bounds.py: Van der Pol with a parameter cap -----------------
+MU_VDP, B_VDP, TF_VDP = 1.0, 0.7, 8.0
+MU_CAP = 0.8
+BOUNDED_VDP_OPTIONS = dict(n_outer=12, inner_maxiter=40, mu_min=1e-12)
 
 
 def simulate_sde(rng, tf, dt=1e-3):
@@ -117,4 +152,108 @@ def build_config4_problem(*, dtype, device):
     data = prob.pack_data(y, t_meas, u_nodes=u_nodes,
                           meas_weight=1.0 / np.array(NOISE4))
     z0 = prob.initial_guess_from_data(t_meas, y[:, :2], p0=P4_0)
+    return prob, z0, data
+
+
+def build_config3_problem(elements: int, *, dtype, device):
+    """Config 3, the pendulum swing-up, on ``elements`` elements of degree
+    4 (ELEMENTS3 = 25, or ELEMENTS3_LARGE = 500).  Returns ``(prob, z0)``
+    for ``solve.auglag.make_ocp_solver(prob, ALBarrierOptions())(z0)``: z0
+    is ``prob.initial_guess()``, the straight line between the boundary
+    states with u = 0."""
+    prob = OptimalControlProblem.build(
+        Pendulum(m=1.0, l=0.5, grav=9.81, u_max=U_MAX3),
+        uniform_mesh(0.0, TF3, elements, DEGREE), x0=[0.0, 0.0],
+        xf=[np.pi, 0.0], dtype=dtype, device=device)
+    return prob, prob.initial_guess()
+
+
+def config3_warm_start(coarse, z, fine, margin: float = 1e-3) -> Decision:
+    """The nested start of config 3 on a fine mesh (docs/guide.md): the
+    coarse solution ``z`` of problem ``coarse`` interpolated by its
+    collocation polynomial at the fine problem's nodes, the controls
+    clipped to |u| <= U_MAX3 - margin (strictly inside the barrier)."""
+    V = interpolate_trajectory(coarse.mesh, z.V, fine.mesh.node_times)
+    u = torch.clamp(V[:, 2:], -(U_MAX3 - margin), U_MAX3 - margin)
+    return Decision(V=torch.cat([V[:, :2], u], dim=1).to(fine.dtype),
+                    p=z.p.to(fine.dtype))
+
+
+class DoubleIntegrator(Model):
+    """x1' = x2, x2' = u with |u| <= U_MAX_MT (``examples/min_time_ocp.py``)."""
+
+    nx, nu, nq, ng = 2, 1, 0, 2
+
+    def f(self, x, u, p, t):
+        del p, t
+        return torch.stack([x[1], u[0]])
+
+    def g(self, x, u, p, t):
+        del x, p, t
+        return torch.stack([u[0] - U_MAX_MT, -u[0] - U_MAX_MT])
+
+
+def build_min_time_problem(*, dtype, device):
+    """The minimum-time rest-to-rest transfer of ``examples/min_time_ocp.py``
+    (distance DIST, |u| <= 1, 16 elements of degree 4 in normalized time,
+    tf_ref 3, time weight 1; bang-bang optimum T* = 2 sqrt(DIST / U_MAX)).
+    The horizon is the one parameter: b = 12, nq = 1.  Returns ``(prob,
+    ftmodel, z0)``; solve with ``ALBarrierOptions(**MIN_TIME_OPTIONS)``."""
+    prob, ftm = free_time_ocp(
+        DoubleIntegrator(), num_elements=ELEMENTS_MT, degree=DEGREE,
+        x0=[0.0, 0.0], xf=[DIST, 0.0], tf_ref=TF_REF_MT, time_weight=1.0,
+        dtype=dtype, device=device)
+    return prob, ftm, prob.initial_guess()
+
+
+def zeta_constraint(p):
+    """The short-period damping spec of ``examples/constrained_estimation.py``
+    as g(p) = ZETA_MIN - zeta(p) <= 0, zeta = -(Z_a + M_q) / (2 sqrt(Z_a M_q
+    - M_a))."""
+    za, ma, mq = p[0], p[1], p[2]
+    zeta = -(za + mq) / (2.0 * torch.sqrt(za * mq - ma))
+    return torch.atleast_1d(ZETA_MIN - zeta)
+
+
+def build_constrained_aircraft_problem(*, dtype, device):
+    """Config 4's problem with the strictly feasible start of
+    ``examples/constrained_estimation.py`` (p0 = P4_0_CONSTRAINED).
+    Returns ``(prob, z0, data)``; solve with
+    ``make_constrained_solver(prob, ConstrainedOptions(
+    **CONSTRAINED4_OPTIONS), g_param=zeta_constraint)``."""
+    prob, _, data = build_config4_problem(dtype=dtype, device=device)
+    t_meas, vals = load_measurements(str(AIRCRAFT_RECORD))
+    z0 = prob.initial_guess_from_data(t_meas, vals[:, :2],
+                                      p0=P4_0_CONSTRAINED)
+    return prob, z0, data
+
+
+def build_bounded_vdp_problem(elements: int = 60, degree: int = DEGREE, *,
+                              dtype, device):
+    """The Van der Pol set-up of ``tests/test_bounds.py``: x(0) = (2, 0),
+    u = 0.5 sin(1.1 t), truth (MU_VDP, B_VDP) integrated by scipy's
+    ``solve_ivp`` (rtol 1e-11), 160 noise-free samples of x1 on [0.025,
+    7.975], defect weight 30, p0 = (0.6, 0.4).  The test runs 60 elements
+    of degree 2 (b = 4); the card runs degree 4 (b = 8, the kernels' shape).
+    Returns ``(prob, z0, data)``; the active-bound case caps mu at MU_CAP
+    with ``BoundedOptions(**BOUNDED_VDP_OPTIONS)``."""
+    from scipy.integrate import solve_ivp
+
+    def u_fn(t):
+        return 0.5 * np.sin(1.1 * t)
+
+    def rhs(t, x):
+        return [x[1], MU_VDP * (1 - x[0] ** 2) * x[1] - x[0]
+                + B_VDP * u_fn(t)]
+
+    sol = solve_ivp(rhs, (0.0, TF_VDP), (2.0, 0.0), rtol=1e-11, atol=1e-12,
+                    dense_output=True)
+    mesh = uniform_mesh(0.0, TF_VDP, elements, degree)
+    t_meas = np.linspace(0.025, TF_VDP - 0.025, 160)
+    y = sol.sol(t_meas)[0][:, None]
+    prob = EstimationProblem.build(VanDerPol(), mesh, t_meas,
+                                   defect_weight=30.0, dtype=dtype,
+                                   device=device)
+    data = prob.pack_data(y, t_meas, u_nodes=u_fn(mesh.elem_times)[..., None])
+    z0 = prob.initial_guess_from_data(t_meas, y, p0=[0.6, 0.4])
     return prob, z0, data

@@ -45,24 +45,29 @@
 // (config 2, three parameters) b = 8, nq = 3; the aircraft model (config 4,
 // five parameters) b = 8, nq = 5.  The chain solves (config 5's concatenated
 // chain, KKT refinement, nq = 0) take r = 1 + nq = 3 or a single
-// right-hand side.
-#define KKT_SHAPES(X) X(8, 2) X(8, 3) X(8, 5) /* (b, nq) of the KKT solve */
-#define CHAIN_SHAPES(X) X(8, 1) X(8, 3)   /* (b, r) of the plain chain solve */
+// right-hand side.  The optimal-control problems carry [x; u] at a node: the
+// pendulum swing-up (config 3, nx = 2, nu = 1, degree 4) is b = 12 with no
+// parameter (the chain solve at r = 1), its free-time form b = 12 with the
+// horizon as the one parameter (nq = 1).
+#define KKT_SHAPES(X) X(8, 2) X(8, 3) X(8, 5) X(12, 1) /* (b, nq), KKT */
+#define CHAIN_SHAPES(X) X(8, 1) X(8, 3) X(12, 1)   /* (b, r), plain chain */
 
 namespace {
 
-constexpr int kTileThreads = 32;   // one warp: four tiles of b = 8 lanes
+constexpr int kTileThreads = 32;   // one warp: four tiles of b = 8 lanes,
+                                   // two of b = 12 (16-lane groups)
 constexpr int kComposeThreads = 256;
 
 template <typename F, int B, int R, bool KKT>
 int run(const kkt::Args<F>& a, cudaStream_t stream) {
-  const long long lanes = (long long)a.T * B;
+  constexpr int W = kkt::group_width(B);   // lanes a tile
+  const long long lanes = (long long)a.T * W;
   const unsigned tile_blocks =
       (unsigned)((lanes + kTileThreads - 1) / kTileThreads);
   cudaError_t err;
   kkt::tile_sweep<F, B, R, KKT><<<tile_blocks, kTileThreads, 0, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  kkt::interface_solve<F, B, R><<<1, B, 0, stream>>>(a);
+  kkt::interface_solve<F, B, R><<<1, W, 0, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   kkt::back_substitute<F, B, R, KKT><<<tile_blocks, kTileThreads, 0,
                                        stream>>>(a);

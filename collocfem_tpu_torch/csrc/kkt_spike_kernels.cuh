@@ -19,12 +19,12 @@
 //
 // The chain is cut into T tiles of L >= 3 blocks (Kp = T L >= K).  Launches
 // on one stream (4 and 5 only for KKT):
-//   1. tile_sweep       one group of b lanes per tile: block-Thomas forward
+//   1. tile_sweep       one lane group per tile: block-Thomas forward
 //                       sweep over the L-2 interior blocks (factors and
 //                       reduced RHS to scratch), a backward sweep for the
 //                       spike end values, and the tile's 2x2-block interface
 //                       system.
-//   2. interface_solve  one group of b lanes: block Thomas on the 2T-block
+//   2. interface_solve  one lane group: block Thomas on the 2T-block
 //                       chain of tile boundary blocks.
 //   3. back_substitute  one group per tile: interior back-substitution from
 //                       the boundary values; for KKT also the tile's partial
@@ -34,9 +34,11 @@
 //                       Schur system by Cholesky.
 //   5. compose          one thread per chain block: dx = (-x_g + x_b t) inv.
 //
-// Lane layout of phases 1-3: a group is b neighbouring lanes of a warp
-// (b = 8: four tiles share a warp), and lane i owns row i of every b x b
-// block and of every b x N right-hand side the group carries (the factor,
+// Lane layout of phases 1-3: a group is W neighbouring lanes of a warp, W
+// the next power of two at or above b (group_width: W = b = 8, four tiles
+// to a warp; b = 12 takes W = 16, two tiles to a warp), and lane i < b owns
+// row i of every b x b block and of every b x N right-hand side the group
+// carries (the factor,
 // the reduced RHS y with C = r + b columns, the backward-sweep state x with
 // CV = r + 2b columns, W, E).  A row that another lane needs is broadcast
 // with __shfl_sync inside the group (source lane relative to the group); a
@@ -49,7 +51,11 @@
 // before it does its own algebra.  No shared memory.  In the tile phases
 // every group of a warp runs every step (a group past the last tile
 // repeats the last tile and stores nothing), so the shuffles name the whole
-// warp; the interface chain is one group of b lanes.
+// warp; the interface chain is one group of W lanes.  When b < W, lanes
+// b..W-1 join every shuffle, load the rows of row b - 1 (so every address
+// is in bounds), never store, and no lane reads them: every broadcast
+// names a source lane below b, and a transpose, whose xor partner may be
+// one of them, drops what it gets from them.
 //
 // Scratch layouts are block-major, row-major inside a block (lane i writes
 // and reads its own row); every chain index is 64-bit.
@@ -197,25 +203,35 @@ __device__ __forceinline__ void chol_solve(const F l[B][B], F x[B][N]) {
 
 // ---- the lane group ----------------------------------------------------------
 
-// B neighbouring lanes of a warp (B a power of two); lane = this thread's
-// row.  bc(v, j) is lane j's v, with j relative to the group.  The mask
+// W neighbouring lanes of a warp (W a power of two); lane = this thread's
+// place in the group, its row when below the block size.  bc(v, j) is lane
+// j's v, with j relative to the group.  The mask
 // names every lane that runs the shuffle together: the whole warp in the
 // tile phases and in kernel #7 (thomas_kernels.cuh), where every group of
 // the warp runs every step, the one group of the interface chain.  A mask known at compile time lets the compiler
 // emit a plain shuffle, with no convergence bookkeeping around it.
-template <int B>
+template <int W>
 struct Group {
-  static_assert(B >= 2 && B <= 32 && (B & (B - 1)) == 0,
+  static_assert(W >= 2 && W <= 32 && (W & (W - 1)) == 0,
                 "a group is a power-of-two slice of a warp");
   unsigned mask;
   int lane;
   __device__ __forceinline__ explicit Group(unsigned m)
-      : mask(m), lane(threadIdx.x & (B - 1)) {}
+      : mask(m), lane(threadIdx.x & (W - 1)) {}
   template <typename F>
   __device__ __forceinline__ F bc(F v, int src) const {
-    return __shfl_sync(mask, v, src, B);
+    return __shfl_sync(mask, v, src, W);
   }
 };
+
+// The group width of block size b: the next power of two at or above b.
+__host__ __device__ constexpr int group_width(int b) {
+  return b <= 1 ? 1 : 2 * group_width((b + 1) / 2);
+}
+
+// The lane group that carries blocks of size B.
+template <int B>
+using GroupOf = Group<group_width(B)>;
 
 // v[i] for a runtime i, by selects (no local memory).
 template <typename F, int N>
@@ -240,17 +256,18 @@ __device__ __forceinline__ void store(F* dst, const F in[N], bool on = true) {
 }
 
 // col[k] = row_k[lane]: column `lane` of the block whose rows the group
-// holds.  B - 1 xor exchanges (a shuffle costs ~7 cycles of issue a warp
+// holds.  W - 1 xor exchanges (a shuffle costs ~7 cycles of issue a warp
 // on the H100, a select ~1): at step d lane i trades entry i ^ d with lane
-// i ^ d.
+// i ^ d.  A partner at or past B holds no row: what it sends lands in no
+// entry (k == p never holds), and what it gets is never read.
 template <typename F, int B>
-__device__ __forceinline__ void transpose(const Group<B>& g, const F row[B],
+__device__ __forceinline__ void transpose(const GroupOf<B>& g, const F row[B],
                                           F col[B]) {
   const int i = g.lane;
 #pragma unroll
   for (int k = 0; k < B; ++k) col[k] = row[k];   // col[i] = row[i] is right
 #pragma unroll
-  for (int d = 1; d < B; ++d) {
+  for (int d = 1; d < group_width(B); ++d) {
     const int p = i ^ d;                            // the partner lane
     const F v = g.bc(pick<F, B>(row, p), p);
 #pragma unroll
@@ -262,7 +279,7 @@ __device__ __forceinline__ void transpose(const Group<B>& g, const F row[B],
 // diagonal of the lower factor whose rows the group holds (the backward
 // triangular solve reads only that part).
 template <typename F, int B>
-__device__ __forceinline__ void lower_cols(const Group<B>& g, const F l[B],
+__device__ __forceinline__ void lower_cols(const GroupOf<B>& g, const F l[B],
                                            F lt[B]) {
 #pragma unroll
   for (int k = 0; k < B; ++k) lt[k] = l[k];
@@ -281,7 +298,7 @@ __device__ __forceinline__ void lower_cols(const Group<B>& g, const F l[B],
 // this lane's row; the part above the diagonal is left as it was).  Pivots
 // are clamped at tiny as in chol(); lane i sums row i in the same k order.
 template <typename F, int B>
-__device__ __forceinline__ void chol_rows(const Group<B>& g, F a[B]) {
+__device__ __forceinline__ void chol_rows(const GroupOf<B>& g, F a[B]) {
   const int i = g.lane;
 #pragma unroll
   for (int j = 0; j < B; ++j) {
@@ -306,7 +323,7 @@ __device__ __forceinline__ void chol_rows(const Group<B>& g, F a[B]) {
 // subtract it (lane i's sum runs k = 0..i-1, as in chol_solve).  Backward:
 // the same from the last row up.
 template <typename F, int B, int N>
-__device__ __forceinline__ void chol_solve_rows(const Group<B>& g,
+__device__ __forceinline__ void chol_solve_rows(const GroupOf<B>& g,
                                                 const F l[B], const F lt[B],
                                                 F x[N]) {
   const int i = g.lane;
@@ -336,7 +353,7 @@ __device__ __forceinline__ void chol_solve_rows(const Group<B>& g,
 // out <- out - e v: e is this lane's row of a B x B block (pass a column to
 // subtract e^T v), v and out this lane's rows of B x N blocks.
 template <typename F, int B, int N>
-__device__ __forceinline__ void sub_mm_rows(const Group<B>& g, const F e[B],
+__device__ __forceinline__ void sub_mm_rows(const GroupOf<B>& g, const F e[B],
                                             const F v[N], F out[N]) {
 #pragma unroll
   for (int c = 0; c < N; ++c) {
@@ -350,7 +367,7 @@ __device__ __forceinline__ void sub_mm_rows(const Group<B>& g, const F e[B],
 // x <- [r0 | 0] - e x (e: this lane's row, or column for e^T); columns of
 // the right-hand side at or past NR are zero.
 template <typename F, int B, int N, int NR>
-__device__ __forceinline__ void rhs_minus_rows(const Group<B>& g,
+__device__ __forceinline__ void rhs_minus_rows(const GroupOf<B>& g,
                                                const F e[B], const F r0[NR],
                                                F x[N]) {
 #pragma unroll
@@ -365,7 +382,7 @@ __device__ __forceinline__ void rhs_minus_rows(const Group<B>& g,
 // acc[q][s] += sum_i g[i][1 + q] x[i][s] (the tile's share of B_s^T X),
 // summed over the rows in order i = 0..B-1; every lane holds the same acc.
 template <typename F, int B, int NQ>
-__device__ __forceinline__ void accumulate_rows(const Group<B>& g,
+__device__ __forceinline__ void accumulate_rows(const GroupOf<B>& g,
                                                 const F grow[NQ + 1],
                                                 const F x[NQ + 1],
                                                 F acc[NQ][NQ + 1]) {
@@ -467,12 +484,21 @@ __device__ __forceinline__ void store_factor(F* p, const F l[B],
 
 // The tile of this lane's group.  Every group of a warp runs every step
 // (the shuffles name the whole warp): a group past the last tile runs the
-// last tile again and stores nothing (live = false).
+// last tile again and stores nothing, and neither does a lane past the
+// block's rows (live = false for both).
 template <int B>
 __device__ __forceinline__ long long tile_of(int T, bool& live) {
-  const long long t = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / B;
-  live = t < T;
-  return live ? t : T - 1;
+  constexpr int W = group_width(B);
+  const long long t = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / W;
+  live = t < T && (int)(threadIdx.x & (W - 1)) < B;
+  return t < T ? t : T - 1;
+}
+
+// The row whose chain entries a lane loads: its own, or row B - 1 for a
+// lane past the block's rows (its loads stay in bounds; it stores nothing).
+template <int B>
+__device__ __forceinline__ int row_of(int lane) {
+  return lane < B ? lane : B - 1;
 }
 
 // ---- 1. tile sweep -----------------------------------------------------------
@@ -482,10 +508,10 @@ __global__ void tile_sweep(Args<F> a) {
   using S = Shape<B, R_>;
   using Blk = Rows<F, B, R_, KKT>;
   constexpr int R = S::R, C = S::C, CV = S::CV;
-  const Group<B> g(0xffffffffu);
+  const GroupOf<B> g(0xffffffffu);
   bool live;
   const long long tile = tile_of<B>(a.T, live);
-  const int i = g.lane;
+  const int i = row_of<B>(g.lane);
   const int M = a.L - 2;                    // interior blocks per tile
   const long long k0 = tile * a.L;
 
@@ -671,17 +697,19 @@ __device__ __forceinline__ void copy_col(const F* p, int i, F out[B]) {
 template <typename F, int B, int R_>
 __global__ void interface_solve(Args<F> a) {
   constexpr int R = R_;
-  if (blockIdx.x != 0 || threadIdx.x >= B) return;   // one group
-  const Group<B> g(B == 32 ? 0xffffffffu : (1u << B) - 1u);
-  const int i = g.lane;
+  constexpr int W = group_width(B);
+  if (blockIdx.x != 0 || threadIdx.x >= W) return;   // one group
+  const GroupOf<B> g(W == 32 ? 0xffffffffu : (1u << W) - 1u);
+  const bool live = g.lane < B;
+  const int i = row_of<B>(g.lane);
   const int n = 2 * a.T;
   F lfac[B], lt[B], y[R];
   copy<F, B>(iface_d<F, B, R_>(a, 0) + i * B, lfac);
   copy<F, R>(iface_g<F, B, R_>(a, 0) + i * R, y);
   chol_rows<F, B>(g, lfac);
   lower_cols<F, B>(g, lfac, lt);
-  store_factor<F, B>(a.ilf + i * 2 * B, lfac, lt, true);
-  store<F, R>(a.iy + i * R, y);
+  store_factor<F, B>(a.ilf + i * 2 * B, lfac, lt, live);
+  store<F, R>(a.iy + i * R, y, live);
   // Step q reads E(q-1) (row and column), D(q), G(q); those of step q + 1
   // are fetched first.
   F e_c[B], ec_c[B], d_c[B], g_c[R], e_n[B], ec_n[B], d_n[B], g_n[R];
@@ -707,8 +735,8 @@ __global__ void interface_solve(Args<F> a) {
     transpose<F, B>(g, w, tr);
     rhs_minus_rows<F, B, R, R>(g, tr, g_c, y);
     store_factor<F, B>(a.ilf + ((long long)q * B + i) * 2 * B, lfac, lt,
-                       true);
-    store<F, R>(a.iy + ((long long)q * B + i) * R, y);
+                       live);
+    store<F, R>(a.iy + ((long long)q * B + i) * R, y, live);
 #pragma unroll
     for (int j = 0; j < B; ++j) {
       e_c[j] = e_n[j];
@@ -719,7 +747,7 @@ __global__ void interface_solve(Args<F> a) {
     for (int c = 0; c < R; ++c) g_c[c] = g_n[c];
   }
   chol_solve_rows<F, B, R>(g, lfac, lt, y);
-  store<F, R>(a.ix + ((long long)(n - 1) * B + i) * R, y);
+  store<F, R>(a.ix + ((long long)(n - 1) * B + i) * R, y, live);
   // Step q reads the factor and reduced RHS of block q and E(q).
   F l_c[B], y_c[R], l_n[B], lt_n[B], y_n[R];
   load_factor<F, B>(a.ilf + ((long long)(n - 2) * B + i) * 2 * B, l_c, lt);
@@ -732,7 +760,7 @@ __global__ void interface_solve(Args<F> a) {
     copy<F, B>(iface_e<F, B, R_>(a, qn) + i * B, e_n);
     rhs_minus_rows<F, B, R, R>(g, e_c, y_c, y);
     chol_solve_rows<F, B, R>(g, l_c, lt, y);
-    store<F, R>(a.ix + ((long long)q * B + i) * R, y);
+    store<F, R>(a.ix + ((long long)q * B + i) * R, y, live);
 #pragma unroll
     for (int j = 0; j < B; ++j) {
       l_c[j] = l_n[j];
@@ -770,10 +798,10 @@ __global__ void back_substitute(Args<F> a) {
   using Blk = Rows<F, B, R_, KKT>;
   constexpr int R = S::R, C = S::C, NQ = S::NQ;
   constexpr int NA = (KKT && NQ > 0) ? NQ : 1;   // rows of the Schur sums
-  const Group<B> g(0xffffffffu);
+  const GroupOf<B> g(0xffffffffu);
   bool live;
   const long long tile = tile_of<B>(a.T, live);
-  const int i = g.lane;
+  const int i = row_of<B>(g.lane);
   const int M = a.L - 2;
   const long long k0 = tile * a.L;
 

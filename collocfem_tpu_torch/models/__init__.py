@@ -2,6 +2,7 @@
 
 from collocfem_tpu_torch.models.aircraft import AircraftLongitudinal
 from collocfem_tpu_torch.models.duffing import Duffing
+from collocfem_tpu_torch.models.pendulum import Pendulum
 from collocfem_tpu_torch.models.vdp import VanDerPol
 
-__all__ = ["AircraftLongitudinal", "Duffing", "VanDerPol"]
+__all__ = ["AircraftLongitudinal", "Duffing", "Pendulum", "VanDerPol"]

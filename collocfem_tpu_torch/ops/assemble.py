@@ -54,19 +54,16 @@ class BlockTriSystemSoA(NamedTuple):
         return self.D.shape[0]
 
 
-def _scatter_soa(problem, z, data, *, h11, h22, h12, b1, b2, g1, g2, hpp,
-                 gpe):
-    """Scatter per-element blocks, element axis LAST, into the SoA system
-    and add the priors.  Element e's local variables are block e (``bd``)
-    then the leading ``nv`` of block e+1: h11 (bd, bd, N), h22 (nv, nv, N),
-    h12 (bd, nv, N), b1 (bd, nq, N), b2 (nv, nq, N), g1 (bd, N), g2 (nv, N);
-    hpp (nq, nq) and gpe (nq,) are summed over the elements.  The chain
-    scatter is two static lane slices (element e -> chain slots e and
-    e+1)."""
-    n, nv, nx = problem.mesh.num_elements, problem.nv, problem.model.nx
-    k, bd, nq = n + 1, h11.shape[0], hpp.shape[0]
-    dtype, device = z.V.dtype, z.V.device
-    zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
+def _chain_scatter_soa(h11, h22, h12, b1, b2, g1, g2):
+    """Scatter per-element blocks, element axis LAST, into the 2-D SoA
+    chain (D2, E2 (bd*bd, K), B2 (bd*nq, K), gx (bd, K)), K = N + 1.
+    Element e's local variables are block e (``bd``) then the leading
+    ``nv`` of block e+1: h11 (bd, bd, N), h22 (nv, nv, N), h12 (bd, nv, N),
+    b1 (bd, nq, N), b2 (nv, nq, N), g1 (bd, N), g2 (nv, N).  The scatter is
+    two static lane slices (element e -> chain slots e and e+1)."""
+    bd, nv, n = h11.shape[0], h22.shape[0], h11.shape[-1]
+    k, nq = n + 1, b1.shape[1]
+    zeros = lambda *shape: h11.new_zeros(shape)
     # Block e+1's top-left (nv, nv) overlap: rows i*bd + j for i, j < nv are
     # the leading nv*bd rows once the column space is padded nv -> bd.
     pad_cols = (0, 0, 0, bd - nv)
@@ -81,6 +78,18 @@ def _scatter_soa(problem, z, data, *, h11, h22, h12, b1, b2, g1, g2, hpp,
     gx = zeros(bd, k)
     gx[:, :n] += g1
     gx[:nv, 1:] += g2
+    return D2, E2, B2, gx
+
+
+def _scatter_soa(problem, z, data, *, h11, h22, h12, b1, b2, g1, g2, hpp,
+                 gpe):
+    """:func:`_chain_scatter_soa` of the per-element blocks, then the
+    priors; hpp (nq, nq) and gpe (nq,) are summed over the elements."""
+    n, nv, nx = problem.mesh.num_elements, problem.nv, problem.model.nx
+    k, bd, nq = n + 1, h11.shape[0], hpp.shape[0]
+    dtype, device = z.V.dtype, z.V.device
+    zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
+    D2, E2, B2, gx = _chain_scatter_soa(h11, h22, h12, b1, b2, g1, g2)
 
     pw2 = data.p_w**2
     C = hpp + torch.diag(pw2)
@@ -142,6 +151,58 @@ def assemble_gn_soa(problem, z, data, with_cost: bool = False):
         r64 = r64.double()
         return out, 0.5 * torch.sum(r64 * r64)
     return out
+
+
+def scatter_gn_blocks_soa(hxx, hxp, hpp, gxe, gpe, *, num_blocks, nv,
+                          overlap, dtype):
+    """Per-element dense Gauss-Newton blocks, element axis LAST, into the
+    SoA block-tridiagonal + arrowhead system (no priors).
+
+    Counterpart of the JAX package's ``scatter_gn_blocks_soa``.  hxx (s, s,
+    N), hxp (s, nq, N), gxe (s, N) with s = bd + overlap: element e owns
+    block e (its first bd local variables) and the leading ``overlap`` (=
+    ``nv``) variables of block e+1; hpp (nq, nq) and gpe (nq,) are summed
+    over the elements (K = ``num_blocks`` = N + 1; ``nv`` and ``dtype``
+    are the JAX signature's, read off the inputs here).  The trailing pad
+    entries of the last block get an identity, which keeps the padded
+    system SPD.
+    """
+    bd, nq = hxx.shape[0] - overlap, hxp.shape[1]
+    D2, E2, B2, gx = _chain_scatter_soa(
+        hxx[:bd, :bd], hxx[bd:, bd:], hxx[:bd, bd:], hxp[:bd], hxp[bd:],
+        gxe[:bd], gxe[bd:])
+    D2[overlap * (bd + 1)::bd + 1, num_blocks - 1] += 1.0
+    return BlockTriSystemSoA(
+        D=D2.reshape(bd, bd, num_blocks), E=E2.reshape(bd, bd, num_blocks),
+        B=B2.reshape(bd, nq, num_blocks), C=hpp, gx=gx, gp=gpe)
+
+
+def node_block_scatter_soa(sys, Hn, Bn, gn, degree: int):
+    """Add per-node terms to the SoA block structure, node axis LAST.
+
+    Counterpart of the JAX package's ``node_block_scatter_soa``.  Hn (nv,
+    nv, M), Bn (nv, nq, M), gn (nv, M); node m lives in block m // d at
+    node offset m % d, so the nodes of one offset are a strided lane slice
+    [off::d]: d static slices, no dynamic scatter.  Returns a new system
+    (``sys`` is left as it was).
+    """
+    bd, _, k = sys.D.shape
+    nq = sys.C.shape[0]
+    nv, m = gn.shape
+    d = degree
+    D = sys.D.clone()
+    B = sys.B.clone()
+    gx = sys.gx.clone()
+    D5 = D.view(d, nv, d, nv, k)
+    B4 = B.view(d, nv, nq, k)
+    g3 = gx.view(d, nv, k)
+    for off in range(d):
+        w = len(range(off, m, d))
+        D5[off, :, off, :, :w] += Hn[:, :, off::d]
+        if nq:
+            B4[off, :, :, :w] += Bn[:, :, off::d]
+        g3[off, :, :w] += gn[:, off::d]
+    return sys._replace(D=D, B=B, gx=gx)
 
 
 def blocks_to_nodes_soa(dx, num_nodes: int, nv: int):

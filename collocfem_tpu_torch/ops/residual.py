@@ -52,6 +52,23 @@ def defect_residual(model, diff, width, times, Xe, Ue, p, scale):
     return (xdot - fvals)[1:, :] * scale
 
 
+def defect_residual_all(model, diff, width, times, Xe, Ue, p, scale):
+    """Weighted defects at ALL d+1 nodes of one element.
+
+    The trajectory-optimization layer enforces the defect at every LGL node:
+    that pins the degree-d defect polynomial at d+1 points, so it vanishes
+    identically (collocating only at d nodes leaves one dynamics-violating
+    control mode per element that an optimizer exploits).  The constraint
+    set is mildly over-determined across shared nodes, which the
+    augmented-Lagrangian least-squares form absorbs.
+
+    Returns (d+1, nx) scaled defect residuals (``scale`` is (d+1, nx)).
+    """
+    xdot = element_derivative(diff, width, Xe)
+    fvals = vmap(model.f, in_dims=(0, 0, None, 0))(Xe, Ue, p, times)
+    return (xdot - fvals) * scale
+
+
 def measurement_residual(model, rows, Xe, Ue_meas, p, times, y, w, mask):
     """Weighted output residuals for the measurements landing in one element.
 

@@ -1,11 +1,20 @@
-"""Levenberg-Marquardt outer loop (gain ratio + Nielsen damping).
+"""Levenberg-Marquardt outer loop (gain ratio + Nielsen damping, or plain
+decrease with a fixed ladder).
 
-Counterpart of ``collocfem_tpu/solve/lm_core.py`` with ``accept_mode="gain"``.
-The step s solves (H + lam*dmax*I) s = -g; the quadratic model predicts the
-decrease pred = 0.5 * (lam * dmax * s.s - g.s) and the step is accepted iff
-the actual decrease is positive and the gain ratio actual/pred exceeds 1e-4.
-The cost words are float64 scalars: the GPU has native float64, so it
-replaces the JAX package's double-word cost.
+Counterpart of ``collocfem_tpu/solve/lm_core.py``.  The step s solves
+(H + lam*dmax*I) s = -g and is applied as alpha*s (alpha in (0, 1], a
+fraction-to-boundary clip of the interior-point solvers; 1 elsewhere); the
+quadratic model predicts the decrease
+
+    pred = -alpha (1 - alpha/2) (g.s) + (alpha^2 / 2) lam (dmax s.s),
+
+which is 0.5 * (lam * dmax * s.s - g.s) at alpha = 1.  ``accept_mode="gain"``
+accepts iff the actual decrease is positive and the gain ratio actual/pred
+exceeds 1e-4, with Nielsen's damping schedule; ``"decrease"`` accepts any
+decrease, with the fixed x0.2 / x5 ladder (the AL/barrier OCP subproblems,
+whose nonconvex merit the quadratic model fits poorly).  The cost words are
+float64 scalars: the GPU has native float64, so it replaces the JAX
+package's double-word cost.
 
 The loop is a Python loop over device tensors.  The accept decision, the
 damping update and the done flag stay on the device (``torch.where`` on every
@@ -29,9 +38,10 @@ class LMAux(NamedTuple):
     """Reduced scalars the accept test needs."""
 
     gnorm: torch.Tensor      # inf-norm of the gradient at the CURRENT iterate
-    gdot: torch.Tensor       # g . s for the step s
+    gdot: torch.Tensor       # g . s for the unclipped step s
     sds: torch.Tensor        # s^T (dmax I) s, the damping quadratic form
-    step_norm: torch.Tensor  # ||s|| (xtol test + history)
+    step_norm: torch.Tensor  # ||alpha s|| (xtol test + history)
+    alpha: Any = 1.0         # applied step fraction (1 unless FTB-clipped)
 
 
 class LMState(NamedTuple):
@@ -64,13 +74,12 @@ def lm_loop(z0, carry0, cost0, trial_fn, *, maxiter: int, lam0, gtol=0.0,
       cost0: float64 cost at z0.
       trial_fn: ``(z, carry, lam) -> (z_try, carry_try, ct, aux: LMAux)``
         with ``ct`` the float64 trial cost.
+      lam0, gtol: numbers or scalar tensors (the interior-point inner loops
+        warm-start lam and loosen gtol with the barrier parameter).
     """
-    if accept_mode == "decrease":
-        raise NotImplementedError(
-            "accept_mode='decrease' is not ported yet (ROADMAP queue A: "
-            "the OCP solvers)")
-    if accept_mode != "gain":
-        raise ValueError(f"accept_mode must be 'gain', got {accept_mode!r}")
+    if accept_mode not in ("gain", "decrease"):
+        raise ValueError(
+            f"accept_mode must be 'gain' or 'decrease', got {accept_mode!r}")
     device = cost0.device
     scalar = lambda v, dt=dtype: torch.as_tensor(v, dtype=dt, device=device)
     tiny = torch.finfo(dtype).tiny
@@ -82,7 +91,8 @@ def lm_loop(z0, carry0, cost0, trial_fn, *, maxiter: int, lam0, gtol=0.0,
         history=torch.zeros((maxiter, len(HISTORY_COLS)), dtype=dtype,
                             device=device),
     )
-    early_exit = gtol > 0 or ftol > 0 or xtol > 0
+    early_exit = (torch.is_tensor(gtol) or gtol > 0 or ftol > 0
+                  or xtol > 0)
 
     for _ in range(maxiter):
         if early_exit and bool(st.done):
@@ -90,18 +100,29 @@ def lm_loop(z0, carry0, cost0, trial_fn, *, maxiter: int, lam0, gtol=0.0,
         z_try, carry_try, ct, aux = trial_fn(st.z, st.carry, st.lam)
         actual64 = st.cost - ct
         actual = actual64.to(dtype)
-        pred = -0.5 * aux.gdot + 0.5 * st.lam * aux.sds
+        a = aux.alpha
+        pred = -a * (1.0 - 0.5 * a) * aux.gdot + 0.5 * a * a * st.lam * aux.sds
         rho = actual / torch.clamp(pred, min=tiny)
         decrease = torch.isfinite(ct) & (ct < st.cost)
-        accept = decrease & (pred > 0.0) & (rho > 1e-4)
-
-        # Nielsen's adaptive schedule (Madsen-Nielsen-Tingleff).
-        two_rho = 2.0 * rho - 1.0
-        down = torch.clamp(1.0 - two_rho * two_rho * two_rho, min=1.0 / 3.0)
-        lam_new = torch.where(accept, torch.clamp(st.lam * down, min=lam_min),
-                              torch.clamp(st.lam * st.nu, max=lam_max))
-        nu_new = torch.where(accept, scalar(2.0),
-                             torch.clamp(st.nu * 2.0, max=64.0))
+        if accept_mode == "decrease":
+            # Any decrease, and the fixed ladder: the Nielsen factor is a
+            # function of the gain ratio, meaningless for a nonconvex merit.
+            accept = decrease
+            lam_new = torch.where(accept,
+                                  torch.clamp(st.lam * 0.2, min=lam_min),
+                                  torch.clamp(st.lam * 5.0, max=lam_max))
+            nu_new = st.nu
+        else:
+            accept = decrease & (pred > 0.0) & (rho > 1e-4)
+            # Nielsen's adaptive schedule (Madsen-Nielsen-Tingleff).
+            two_rho = 2.0 * rho - 1.0
+            down = torch.clamp(1.0 - two_rho * two_rho * two_rho,
+                               min=1.0 / 3.0)
+            lam_new = torch.where(accept,
+                                  torch.clamp(st.lam * down, min=lam_min),
+                                  torch.clamp(st.lam * st.nu, max=lam_max))
+            nu_new = torch.where(accept, scalar(2.0),
+                                 torch.clamp(st.nu * 2.0, max=64.0))
         rel_drop = actual64 / torch.clamp(st.cost, min=1e-300)
         done = (
             (aux.gnorm < gtol)

@@ -563,3 +563,171 @@ def test_plain_versions_launch_no_kernel(cuda_device):
     thomas.batched_thomas_solve_ref(Db, Eb, Gb)
     torch.cuda.synchronize()
     assert _launches(KERNELS) == before
+
+
+# ---- the optimal-control block size b = 12 ----------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", EDGES + [17, 26, 501])
+def test_kernels_at_block_size_12_match_plain(cuda_device, k):
+    """Kernels #1 (nq = 1: the free-time OCP) and #2 (r = 1: config 3) at
+    b = 12, where a tile's lane group is 16 lanes with 4 idle: float64
+    relative difference <= 1e-9; float32 residual at most 10x the plain
+    version's; each call one counted launch at (12, 1)."""
+    for dtype in (torch.float64, torch.float32):
+        s = random_kkt_system(k, 12, 1, seed=k + 1, dtype=dtype,
+                              device=cuda_device)
+        before = dict(spike.kkt_solve_spike_fused.shapes)
+        got, want = _solve_both(s, 1e-3, None)
+        assert spike.kkt_solve_spike_fused.shapes[(12, 1)] == \
+            before.get((12, 1), 0) + 1
+        if dtype == torch.float64:
+            assert rel_err(got[0], want[0]) <= 1e-9
+            assert rel_err(got[1], want[1]) <= 1e-9
+        else:
+            assert kkt_residual(s, got[0], got[1], 1e-3, got[2]) <= \
+                10 * kkt_residual(s, want[0], want[1], 1e-3, want[2])
+        D, E, G = random_chain(k, 12, 1, seed=k + 1, dtype=dtype,
+                               device=cuda_device)
+        launches = spike.blocktri_solve_spike_fused.launches
+        got = spike.blocktri_solve_spike_fused(D, E, G)
+        torch.cuda.synchronize()
+        assert spike.blocktri_solve_spike_fused.launches == launches + 1
+        want = spike.blocktri_solve_spike_fused_ref(D, E, G)
+        if dtype == torch.float64:
+            assert rel_err(got, want) <= 1e-9
+        else:
+            assert chain_residual(D, E, G, got) <= \
+                10 * chain_residual(D, E, G, want)
+
+
+@pytest.mark.cuda
+def test_kernels_at_block_size_12_are_deterministic(cuda_device):
+    """Two runs of kernels #1 and #2 at b = 12 (K = 501) are
+    bit-identical."""
+    s = random_kkt_system(501, 12, 1, seed=5, device=cuda_device)
+    args = (s.D, s.E, s.B, s.gx, s.C, s.gp, 1e-3)
+    first, again = (spike.kkt_solve_spike_fused(*args) for _ in range(2))
+    D, E, G = random_chain(501, 12, 1, seed=6, device=cuda_device)
+    x1, x2 = (spike.blocktri_solve_spike_fused(D, E, G) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1],
+                                                           again[1])
+    assert torch.equal(x1, x2)
+
+
+def _digest(tensors):
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+# sha256 (first 16 hex digits) of kernel #1's (dx, dp) at (8, 2) on
+# random_kkt_system(k, 8, 2, seed=k) with lam 1e-3, and of kernel #2's X at
+# (8, 3) on random_chain(k, 8, 3, seed=k, boundary=11), float64 and float32,
+# as the kernels before the lane group was separated from the block size
+# computed them on an NVIDIA H100 80GB HBM3 (the same nvcc flags; the
+# kernels after the change gave the same digests in the same call).
+B8_DIGESTS = {
+    ("kkt", "float64", 97): "e371f45615117d4b",
+    ("kkt", "float32", 97): "6f7707472e1385ac",
+    ("kkt", "float64", 1000): "298b6fdfb2d9bcc3",
+    ("kkt", "float32", 1000): "fbfc8b01d0478ba6",
+    ("chain", "float64", 97): "526094e29e0b4bc7",
+    ("chain", "float32", 97): "cb58ac0a71152eb4",
+    ("chain", "float64", 1000): "d724a23f09618aa3",
+    ("chain", "float32", 1000): "23d9165db48c159f",
+}
+
+
+def b8_digests(device):
+    """The digests of B8_DIGESTS computed by this tree's kernels."""
+    out = {}
+    for kind, name, k in B8_DIGESTS:
+        dtype = getattr(torch, name)
+        if kind == "kkt":
+            s = random_kkt_system(k, 8, 2, seed=k, dtype=dtype, device=device)
+            res = spike.kkt_solve_spike_fused(s.D, s.E, s.B, s.gx, s.C, s.gp,
+                                              1e-3)[:2]
+        else:
+            res = (spike.blocktri_solve_spike_fused(*random_chain(
+                k, 8, 3, seed=k, boundary=11, dtype=dtype, device=device)),)
+        torch.cuda.synchronize()
+        out[(kind, name, k)] = _digest(res)
+    return out
+
+
+@pytest.mark.cuda
+def test_block_size_8_results_unchanged(cuda_device):
+    """Kernels #1 and #2 at b = 8 give, bit for bit, what they gave before
+    the lane group was separated from the block size (B8_DIGESTS)."""
+    assert b8_digests(cuda_device) == B8_DIGESTS
+
+
+@pytest.mark.cuda
+def test_ocp_shapes_not_built_raise(cuda_device):
+    """On the card, method='cr' at b = 12 (the CR library is built for b =
+    8 only) and 'auto' at b = 16 (the split-actuator model, nu = 2) raise
+    ValueError instead of running a plain version."""
+    from collocfem_tpu_torch import configs
+    from collocfem_tpu_torch.model import Model
+    from collocfem_tpu_torch.ocp import OptimalControlProblem
+    from collocfem_tpu_torch.ops.mesh import uniform_mesh
+    from collocfem_tpu_torch.solve.auglag import (ALBarrierOptions,
+                                                  make_ocp_solver)
+
+    prob, _ = configs.build_config3_problem(25, dtype=torch.float64,
+                                            device=cuda_device)
+    with pytest.raises(ValueError, match="CR kernels are not built"):
+        make_ocp_solver(prob, ALBarrierOptions(method="cr"))
+
+    class TwoInputs(Model):
+        nx, nu, nq = 2, 2, 0
+
+        def f(self, x, u, p, t):
+            return torch.stack([x[1], u[0] + u[1]])
+
+    wide = OptimalControlProblem.build(
+        TwoInputs(), uniform_mesh(0.0, 1.0, 4, 4), x0=[0.0, 0.0],
+        xf=[1.0, 0.0], dtype=torch.float64, device=cuda_device)
+    with pytest.raises(ValueError, match="not built for block size 16"):
+        make_ocp_solver(wide, ALBarrierOptions())
+
+
+@pytest.mark.cuda
+def test_config3_solve_on_the_card_matches_the_cpu(cuda_device):
+    """Config 3 (N = 25) in float64 on the card ('auto': kernel #2 once per
+    inner LM iteration, no other kernel, no plain version) against the same
+    solve on the CPU (plain cyclic reduction): the objective and V within
+    1e-6, every outer round's objective within 1e-6 (relative)."""
+    from collocfem_tpu_torch import configs
+    from collocfem_tpu_torch.solve.auglag import (ALBarrierOptions,
+                                                  make_ocp_solver)
+
+    plain = (spike.kkt_solve_spike_fused_ref,
+             spike.blocktri_solve_spike_fused_ref,
+             thomas.batched_thomas_solve_ref, cr.cr_level_ref,
+             cr.cr_level_factor_ref, cr.cr_level_apply_ref, cr.cr_backsub_ref)
+    runs = []
+    for device in (cuda_device, "cpu"):
+        prob, z0 = configs.build_config3_problem(25, dtype=torch.float64,
+                                                 device=device)
+        before, before_plain = _launches(KERNELS), _launches(plain)
+        z, st = make_ocp_solver(prob, ALBarrierOptions())(z0)
+        if device != "cpu":
+            torch.cuda.synchronize()
+            ran = [a - b for a, b in zip(_launches(KERNELS), before)]
+            assert ran == [0, 0, 0, 0, 0, int(st.history[:, 4].sum()), 0]
+            assert _launches(plain) == before_plain
+        runs.append((z.V.cpu(), st.history.cpu(), float(st.objective),
+                     float(st.cviol)))
+    (v_card, h_card, obj_card, cv_card), (v_cpu, h_cpu, obj_cpu, _) = runs
+    assert cv_card < 1e-8
+    assert abs(obj_card - obj_cpu) <= 1e-6 * abs(obj_cpu)
+    assert float((v_card - v_cpu).abs().max()) <= 1e-6
+    assert float(((h_card[:, 0] - h_cpu[:, 0]) / h_cpu[:, 0]).abs().max()) \
+        <= 1e-6

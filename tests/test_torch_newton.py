@@ -32,7 +32,7 @@ from collocfem_tpu_torch.models import VanDerPol
 from collocfem_tpu_torch.ops.assemble import assemble_newton
 from collocfem_tpu_torch.ops.mesh import uniform_mesh
 from collocfem_tpu_torch.problem import EstimationProblem
-from collocfem_tpu_torch.solve.lm_core import lm_loop
+from collocfem_tpu_torch.solve.lm_core import LMAux, lm_loop
 from collocfem_tpu_torch.solve.newton import (SolverOptions, make_gn_solver,
                                               make_irls_solver)
 
@@ -214,10 +214,21 @@ def test_unported_solver_paths_raise(change):
 
 
 def test_decrease_accept_mode_raises():
+    """accept_mode='decrease' is ported (tests/test_torch_ocp.py holds it
+    against the JAX package's loop) and takes any decrease; a mode the JAX
+    package does not know still raises."""
     zero = torch.zeros((), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="accept_mode"):
         lm_loop((), (), zero, None, maxiter=1, lam0=1.0, dtype=torch.float64,
-                accept_mode="decrease")
+                accept_mode="armijo")
+
+    def trial(z, carry, lam):   # a decrease whose gain ratio is negative
+        return z + 1.0, carry, zero - 1.0, LMAux(
+            gnorm=zero + 1.0, gdot=zero + 1.0, sds=zero, step_norm=zero)
+
+    st = lm_loop(zero, (), zero, trial, maxiter=1, lam0=1.0,
+                 dtype=torch.float64, accept_mode="decrease")
+    assert float(st.z) == 1.0 and float(st.cost) == -1.0
 
 
 def _carry(jdata, jz):
