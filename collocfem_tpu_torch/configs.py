@@ -73,6 +73,7 @@ C4_CONVERGED = dict(maxiter=60, gtol=1e-6, xtol=1e-12)
 # ---- config 3: pendulum swing-up --------------------------------------------
 TF3, ELEMENTS3, ELEMENTS3_LARGE = 2.5, 25, 500
 U_MAX3 = 2.0
+U_MARGIN3 = 1e-3        # the warm start's controls stay this far inside U_MAX3
 
 # ---- examples/min_time_ocp.py: minimum-time double integrator ---------------
 DIST, U_MAX_MT, ELEMENTS_MT, TF_REF_MT = 1.0, 1.0, 16, 3.0
@@ -84,7 +85,7 @@ P4_0_CONSTRAINED = (-1.0, -4.0, -4.0, -0.1, -5.0)   # zeta(p0) ~ 0.88
 CONSTRAINED4_OPTIONS = dict(n_outer=12, inner_maxiter=40, mu_min=1e-12)
 
 # ---- tests/test_bounds.py: Van der Pol with a parameter cap -----------------
-MU_VDP, B_VDP, TF_VDP = 1.0, 0.7, 8.0
+MU_VDP, B_VDP, TF_VDP, ELEMENTS_VDP = 1.0, 0.7, 8.0, 60
 MU_CAP = 0.8
 BOUNDED_VDP_OPTIONS = dict(n_outer=12, inner_maxiter=40, mu_min=1e-12)
 
@@ -168,13 +169,13 @@ def build_config3_problem(elements: int, *, dtype, device):
     return prob, prob.initial_guess()
 
 
-def config3_warm_start(coarse, z, fine, margin: float = 1e-3) -> Decision:
+def config3_warm_start(coarse, z, fine) -> Decision:
     """The nested start of config 3 on a fine mesh (docs/guide.md): the
     coarse solution ``z`` of problem ``coarse`` interpolated by its
     collocation polynomial at the fine problem's nodes, the controls
-    clipped to |u| <= U_MAX3 - margin (strictly inside the barrier)."""
+    clipped to |u| <= U_MAX3 - U_MARGIN3 (strictly inside the barrier)."""
     V = interpolate_trajectory(coarse.mesh, z.V, fine.mesh.node_times)
-    u = torch.clamp(V[:, 2:], -(U_MAX3 - margin), U_MAX3 - margin)
+    u = torch.clamp(V[:, 2:], -(U_MAX3 - U_MARGIN3), U_MAX3 - U_MARGIN3)
     return Decision(V=torch.cat([V[:, :2], u], dim=1).to(fine.dtype),
                     p=z.p.to(fine.dtype))
 
@@ -228,15 +229,15 @@ def build_constrained_aircraft_problem(*, dtype, device):
     return prob, z0, data
 
 
-def build_bounded_vdp_problem(elements: int = 60, degree: int = DEGREE, *,
-                              dtype, device):
+def build_bounded_vdp_problem(degree: int = DEGREE, *, dtype, device):
     """The Van der Pol set-up of ``tests/test_bounds.py``: x(0) = (2, 0),
     u = 0.5 sin(1.1 t), truth (MU_VDP, B_VDP) integrated by scipy's
     ``solve_ivp`` (rtol 1e-11), 160 noise-free samples of x1 on [0.025,
-    7.975], defect weight 30, p0 = (0.6, 0.4).  The test runs 60 elements
-    of degree 2 (b = 4); the card runs degree 4 (b = 8, the kernels' shape).
-    Returns ``(prob, z0, data)``; the active-bound case caps mu at MU_CAP
-    with ``BoundedOptions(**BOUNDED_VDP_OPTIONS)``."""
+    7.975], on ELEMENTS_VDP elements, defect weight 30, p0 = (0.6, 0.4).
+    The card runs degree 4 (b = 8, the kernels' shape); ``degree`` exists
+    for the CPU parity test, which builds the JAX test's own degree 2 (b =
+    4) with it.  Returns ``(prob, z0, data)``; the active-bound case caps
+    mu at MU_CAP with ``BoundedOptions(**BOUNDED_VDP_OPTIONS)``."""
     from scipy.integrate import solve_ivp
 
     def u_fn(t):
@@ -248,7 +249,7 @@ def build_bounded_vdp_problem(elements: int = 60, degree: int = DEGREE, *,
 
     sol = solve_ivp(rhs, (0.0, TF_VDP), (2.0, 0.0), rtol=1e-11, atol=1e-12,
                     dense_output=True)
-    mesh = uniform_mesh(0.0, TF_VDP, elements, degree)
+    mesh = uniform_mesh(0.0, TF_VDP, ELEMENTS_VDP, degree)
     t_meas = np.linspace(0.025, TF_VDP - 0.025, 160)
     y = sol.sol(t_meas)[0][:, None]
     prob = EstimationProblem.build(VanDerPol(), mesh, t_meas,

@@ -41,11 +41,7 @@ from collocfem_tpu_torch.ops.assemble import (
     scatter_gn_blocks_soa,
 )
 from collocfem_tpu_torch.problem import Decision
-from collocfem_tpu_torch.solve.kkt import (
-    require_cr_shapes,
-    resolve_auto_method,
-    solve_kkt_soa,
-)
+from collocfem_tpu_torch.solve.kkt import resolve_method, solve_kkt_soa
 from collocfem_tpu_torch.solve.lm_core import (
     LMAux,
     fused_quadforms,
@@ -108,25 +104,6 @@ def _barrier_value(g, mu):
 def _amax_abs(x):
     """max |x| over every entry, 0 for an empty x (shape-only branch)."""
     return x.abs().max() if x.numel() else x.new_zeros(())
-
-
-def resolve_method(problem, method: str) -> str:
-    """'auto' -> 'spike' on a CUDA device, 'cr' on the CPU (raising on the
-    card when the kernels are not built for the problem's shape); 'cr'
-    checks the CR kernels' shapes on the card."""
-    block_size = problem.mesh.degree * problem.nv
-    nq = problem.model.nq
-    if method == "cr_dw":
-        raise NotImplementedError(
-            "method='cr_dw' is not ported: float64 takes the place of the "
-            "double-word factorisation")
-    if method == "auto":
-        return resolve_auto_method(block_size, nq, problem.device)
-    if method not in ("spike", "cr"):
-        raise ValueError(f"unknown method {method!r}")
-    if method == "cr":
-        require_cr_shapes(block_size, nq, problem.device)
-    return method
 
 
 def first_feasible_alpha(alpha0, max_backtrack: int, infeasible):

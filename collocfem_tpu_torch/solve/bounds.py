@@ -32,8 +32,7 @@ from collocfem_tpu_torch.ops.assemble import (
     node_block_scatter_soa,
 )
 from collocfem_tpu_torch.problem import Decision
-from collocfem_tpu_torch.solve.auglag import resolve_method
-from collocfem_tpu_torch.solve.kkt import solve_kkt_soa
+from collocfem_tpu_torch.solve.kkt import resolve_method, solve_kkt_soa
 from collocfem_tpu_torch.solve.lm_core import (
     LMAux,
     fused_quadforms,

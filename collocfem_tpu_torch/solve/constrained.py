@@ -39,10 +39,9 @@ from collocfem_tpu_torch.problem import Decision
 from collocfem_tpu_torch.solve.auglag import (
     _barrier_value,
     first_feasible_alpha,
-    resolve_method,
 )
 from collocfem_tpu_torch.solve.bounds import pre_barrier_dmax
-from collocfem_tpu_torch.solve.kkt import solve_kkt_soa
+from collocfem_tpu_torch.solve.kkt import resolve_method, solve_kkt_soa
 from collocfem_tpu_torch.solve.lm_core import (
     LMAux,
     fused_quadforms,

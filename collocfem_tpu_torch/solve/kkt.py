@@ -71,6 +71,25 @@ def require_cr_shapes(block_size: int, nq: int, device, refine: int = 0):
             f"r in {missing}; add the shape to csrc/cr.cu")
 
 
+def resolve_method(problem, method: str, refine: int = 0) -> str:
+    """The solvers' method policy for ``problem``: 'auto' through
+    :func:`resolve_auto_method`; 'cr' checks the CR kernels' shapes on the
+    card (:func:`require_cr_shapes`); 'cr_dw' is not ported."""
+    if method == "cr_dw":
+        raise NotImplementedError(
+            "method='cr_dw' is not ported: float64 takes the place of the "
+            "double-word factorisation (ROADMAP queue A)")
+    block_size = problem.mesh.degree * problem.nv
+    nq = problem.model.nq
+    if method == "auto":
+        return resolve_auto_method(block_size, nq, problem.device, refine)
+    if method not in ("spike", "cr"):
+        raise ValueError(f"unknown method {method!r}")
+    if method == "cr":
+        require_cr_shapes(block_size, nq, problem.device, refine)
+    return method
+
+
 def _schur_solve(schur, rhs):
     """Tiny dense SPD solve of the (nq, nq) parameter Schur system."""
     L = soa.chol(schur[..., None])

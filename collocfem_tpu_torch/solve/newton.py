@@ -26,11 +26,7 @@ from collocfem_tpu_torch.ops.assemble import (
     blocks_to_nodes_soa,
 )
 from collocfem_tpu_torch.problem import Decision
-from collocfem_tpu_torch.solve.kkt import (
-    require_cr_shapes,
-    resolve_auto_method,
-    solve_kkt_soa,
-)
+from collocfem_tpu_torch.solve.kkt import resolve_method, solve_kkt_soa
 from collocfem_tpu_torch.solve.lm_core import (
     HISTORY_COLS,
     LMAux,
@@ -86,20 +82,7 @@ def make_gn_solver(problem, options: SolverOptions = SolverOptions()):
         raise NotImplementedError(
             "state_dw is not ported: float64 takes its place (ROADMAP queue "
             "A)")
-    if opt.method == "cr_dw":
-        raise NotImplementedError(
-            "method='cr_dw' is not ported: float64 takes the place of the "
-            "double-word factorisation (ROADMAP queue A)")
-    method = opt.method
-    block_size = problem.mesh.degree * problem.nv
-    if method == "auto":
-        method = resolve_auto_method(block_size, problem.model.nq,
-                                     problem.device, opt.kkt_refine)
-    if method not in ("spike", "cr"):
-        raise ValueError(f"unknown method {method!r}")
-    if method == "cr":
-        require_cr_shapes(block_size, problem.model.nq, problem.device,
-                          opt.kkt_refine)
+    method = resolve_method(problem, opt.method, opt.kkt_refine)
     nv = problem.nv
     num_nodes = problem.num_nodes
 

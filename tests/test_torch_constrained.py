@@ -234,7 +234,7 @@ def test_state_envelope_matches_jax(envelope_case, method):
 def test_bounded_vdp_builder_matches_the_test_setup():
     """configs.build_bounded_vdp_problem at the test's degree 2 builds the
     problem of _setups(60, 160): same data and initial guess."""
-    prob, z0, data = configs.build_bounded_vdp_problem(60, 2, dtype=F64,
+    prob, z0, data = configs.build_bounded_vdp_problem(2, dtype=F64,
                                                        device="cpu")
     _, (prob2, data2, z02), _ = _setups(60, 160)
     for a, b in zip((*data, *z0), (*data2, *z02)):
