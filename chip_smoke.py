@@ -49,6 +49,11 @@ Phases, each printing its own line; any failure raises and exits non-zero:
      at each problem's shape the kernel and plain times, the device time
      by phase, two runs bit-identical, the float32 bound and
      torch.linalg.solve on the dense damped matrix (312^2, 6,012^2; 205^2).
+     At the moving-horizon estimator's block size b = 6 (_phase2_mhe):
+     kernel #2 at r = 1 (an 8-lane group, lanes 6 and 7 idle) on the
+     serving cell's damped, equilibrated window chain at its first solve
+     (K = 12) and on seeded chains, K in EDGES + {8, 12}, with the same
+     times, device time, bit-identity, bound and dense solve (72^2).
      At the shapes of configs 2 and 4 (_phase2_configs): kernel #1 at
      nq = 3 and 5 on each config's damped system at its initial guess (K =
      1,001 and 201) and on seeded chains, K in EDGES + {201, 1001}, timed
@@ -118,7 +123,7 @@ Phases, each printing its own line; any failure raises and exits non-zero:
      25 solution (the nested protocol of docs/guide.md: a cold start at N =
      500 lands in an infeasible basin, the JAX package's too).  Each run launches kernel #2
      at (12, 1) exactly once per inner LM iteration and no plain version;
-     best-of-3 walls, and for float32 a torch.profiler breakdown with the
+     best-of-2 walls, and for float32 a torch.profiler breakdown with the
      device idle share;
  11. the free-time OCP of examples/min_time_ocp.py (N = 16, n_outer 16,
      b = 12, nq = 1: kernel #1 once per inner iteration), float64: tf
@@ -128,13 +133,34 @@ Phases, each printing its own line; any failure raises and exits non-zero:
      examples/constrained_estimation.py's damping spec (kernel #1 at (8,
      5)): p within 1e-6 of the JAX package's, g_param(p) <= 0; (b)
      tests/test_bounds.py's active parameter bound on Van der Pol at degree
-     4 (kernel #1 at (8, 2)): p within 1e-6 of the JAX package's.
+     4 (kernel #1 at (8, 2)): p within 1e-6 of the JAX package's;
+ 13. the serving path and the Kalman tier (_serving): (a)
+     examples/mhe_online.py's moving-horizon estimator (Van der Pol,
+     horizon 12, degree 3: kernel #2 at (6, 1)) over its 240-sample stream
+     in float64: every 20th estimate and the last, and current_covariance,
+     within 1e-6 of the JAX package's; kernel #2 launches exactly once per
+     LM iteration of the 229 window solves, no plain version; RMSE against
+     the truth, the per-step walls (median, p90) and the device idle share
+     over 20 steps by torch.profiler; (b) the same in float32: position
+     RMSE < 3 sig_v, velocity RMSE < 0.1, every estimate finite; (c)
+     tests/test_mhe.py's linear MHE (horizon 8, degree 4: #2 at (8, 1))
+     against the port's own kalman_filter on the card, estimates and the
+     final covariance within 2e-6; (d) tests/test_kalman_parity.py's
+     full-rule smoother problem (N = 59): converged, the MAP path within
+     1.5e-3 of the numpy RTS smoother; (e) examples/pem_kalman.py (Duffing,
+     400 samples): the EKF NLL and its gradient at p0 and at the JAX
+     package's PEM optimum within 1e-9 (relative; at the optimum, where the
+     gradient is rounding noise of ~2e-11, absolute at 1e-11),
+     smoother_initial_guess
+     there within 1e-8, the MAP polish (kernel #1 at (8, 3)) converged with
+     p within 1e-6 and parameter_std (kernels #3, #6) within 1e-6 of the
+     JAX package's.
 
 The second-to-last lines are the card's name and power limit and a JSON
 object describing every kernel of the path (its numbers at the headline's
 shape; ``shapes``: its main-path launches at each shape, as its wrapper
-counted them; ``at_configs``: phase 2's numbers at configs 2, 3 and 4 and
-the free-time OCP); the
+counted them; ``at_configs``: phase 2's numbers at configs 2, 3 and 4, the
+free-time OCP and the MHE window); the
 last line is {"ok": true, "device": {...}}.  With --out DIR the same records are also
 written to DIR/chip_smoke.json.
 """
@@ -457,6 +483,144 @@ CONSTRAINED4_JAX_F64 = (-1.1993546178196046, -8.163503615725432,
                         -2.893695888103136, -0.1423811994384079,
                         -13.231877739359728)
 BOUNDED_VDP_JAX_F64 = (0.7999999998603717, 0.7843172245985526)
+# Phase 13 (a): examples/mhe_online.py unchanged, the JAX package's float64
+# run on the CPU ('auto' is its XLA cyclic reduction there): position and
+# velocity RMSE against the truth, the estimates at every 20th online sample
+# and the last (229 in all), and current_covariance at the end, produced
+# from the root of the repo by
+#   JAX_PLATFORMS=cpu python - <<'EOF'
+#   import sys; sys.path[:0] = [".", "examples"]
+#   import jax; jax.config.update("jax_enable_x64", True)
+#   import jax.numpy as jnp
+#   import numpy as np
+#   from mhe_online import DT, HORIZON, MU_TRUE, SIG_V, SIG_W, T_TOTAL
+#   from collocfem_tpu.mhe import MovingHorizonEstimator
+#   from collocfem_tpu.models.vdp import VanDerPol
+#   from collocfem_tpu.solve.newton import SolverOptions
+#   from collocfem_tpu.utils.simulate import rk4_trajectory
+#   rng = np.random.default_rng(0)
+#   n = int(T_TOTAL / DT)
+#   ts = np.arange(n) * DT
+#   xs = np.asarray(rk4_trajectory(VanDerPol().f, jnp.asarray([2.0, 0.0]),
+#       jnp.asarray(ts), u_fn=lambda t: jnp.zeros((1,)),
+#       p=jnp.asarray(MU_TRUE)))
+#   ys = xs[:, :1] + SIG_V * rng.standard_normal((n, 1))
+#   mhe = MovingHorizonEstimator(VanDerPol(), horizon=HORIZON, dt=DT,
+#       sig_w=SIG_W, sig_v=SIG_V, degree=3, p_fixed=np.asarray(MU_TRUE),
+#       options=SolverOptions(maxiter=20, gtol=1e-9))
+#   state = mhe.init(ys[:HORIZON], m0=np.array([1.5, 0.5]), P0=np.eye(2))
+#   ests = [np.asarray(mhe.estimate(state))]
+#   for k in range(HORIZON, n):
+#       state, est = mhe.step(state, ys[k])
+#       ests.append(np.asarray(est))
+#   ests = np.asarray(ests)
+#   rmse = np.sqrt(((ests - xs[HORIZON - 1:n]) ** 2).mean(axis=0))
+#   print(repr(rmse.tolist()))
+#   print(repr({i: ests[i].tolist()
+#               for i in [*range(0, len(ests), 20), len(ests) - 1]}))
+#   print(repr(np.asarray(mhe.current_covariance(state)).tolist()))
+#   EOF
+MHE_DT, MHE_HORIZON, MHE_SIG_V, MHE_SIG_W, MHE_SAMPLES = 0.05, 12, 0.02, 0.5, 240
+MHE_JAX_RMSE = (0.01985993353425002, 0.018215979048823907)
+MHE_JAX_ESTIMATES = {
+    0: (1.810819665982519, -0.4989054815769797),
+    20: (0.9788778512973525, -1.1621466781555008),
+    40: (-0.9977560398705008, -2.7203822439362),
+    60: (-1.9525608227500795, 0.3329735689698644),
+    80: (-1.2947502345450195, 0.9172762818529433),
+    100: (0.1287968192416854, 2.3049681135624938),
+    120: (2.0017063792110403, 0.24550569534830333),
+    140: (1.5958019948644002, -0.7263323635062012),
+    160: (0.5203582633517857, -1.6278410600506494),
+    180: (-1.7482605356066674, -1.5516609350109112),
+    200: (-1.764566591462723, 0.5796492686432914),
+    220: (-1.0067568229492547, 1.164414481653236),
+    228: (-0.42757634742554823, 1.7295015487079297),
+}
+MHE_JAX_COV = ((0.00038851490178060615, 0.00037059510721289116),
+               (0.00037059510721289116, 0.24637606115308516))
+# Phase 13 (e): examples/pem_kalman.py, the JAX package's float64 run on the
+# CPU: the EKF NLL and its gradient at p0 and at the PEM optimum (18 L-BFGS
+# iterations), the smoother warm start V0 at that optimum (every 50th of its
+# 801 nodes, the sum of its entries and of their squares), the MAP polish's
+# p (converged in 12 iterations) and parameter_std, produced from the root
+# of the repo by
+#   JAX_PLATFORMS=cpu python - <<'EOF'
+#   import sys; sys.path[:0] = [".", "examples"]
+#   import jax; jax.config.update("jax_enable_x64", True)
+#   import jax.numpy as jnp
+#   import numpy as np
+#   from pem_kalman import (GAMMA, MEAS_NOISE, OMEGA, PROC_NOISE, TF,
+#                           simulate_sde)
+#   from collocfem_tpu.kalman import (make_ekf_nll, run_lbfgs,
+#                                     smoother_initial_guess)
+#   from collocfem_tpu.models import Duffing
+#   from collocfem_tpu.ops.mesh import uniform_mesh
+#   from collocfem_tpu.problem import EstimationProblem
+#   from collocfem_tpu.solve import SolverOptions
+#   from collocfem_tpu.solve.covariance import parameter_std
+#   from collocfem_tpu.solve.newton import make_gn_solver
+#   rng = np.random.default_rng(11)
+#   ts, xs = simulate_sde(rng, TF)
+#   t_meas = np.linspace(0.05, TF - 0.05, 400)
+#   y = np.interp(t_meas, ts, xs[:, 0])[:, None]
+#   y += MEAS_NOISE * rng.standard_normal(y.shape)
+#   model = Duffing(gamma=GAMMA, omega=OMEGA)
+#   R = np.array([[MEAS_NOISE**2]]); Qc = np.diag([1e-8, PROC_NOISE**2])
+#   m0 = np.array([float(y[0, 0]), 0.0]); P0 = np.diag([0.1, 4.0])
+#   nll = make_ekf_nll(model, t_meas, y, R, Qc, m0, P0, substeps=4)
+#   p0 = jnp.array([0.5, 1.0, 0.5])
+#   p_pem, (val, gnorm, it) = run_lbfgs(jax.jit(nll), p0, maxiter=150)
+#   for p in (p0, p_pem):
+#       v, g = jax.jit(jax.value_and_grad(nll))(p)
+#       print(repr(np.asarray(p).tolist()), repr(float(v)),
+#             repr(np.asarray(g).tolist()))
+#   prob = EstimationProblem.build(model, uniform_mesh(0.0, TF, 200, 4),
+#                                  t_meas, defect_weight=1.0 / PROC_NOISE)
+#   data = prob.pack_data(y, t_meas, meas_weight=1.0 / MEAS_NOISE,
+#                         p_prior=[0.0, 0.0, 0.0], p_weight=1e-3)
+#   z0 = smoother_initial_guess(prob, t_meas, y, np.asarray(p_pem), R=R,
+#                               Qc=Qc, m0=m0, P0=P0)
+#   V0 = np.asarray(z0.V)
+#   print(repr(V0[::50].tolist()), repr(float(V0.sum())),
+#         repr(float((V0**2).sum())))
+#   z, st = make_gn_solver(prob, SolverOptions(maxiter=60, gtol=1e-6,
+#                                              xtol=1e-10))(z0, data)
+#   print(repr(np.asarray(z.p).tolist()),
+#         repr(np.asarray(parameter_std(prob, z, data)).tolist()))
+#   EOF
+PEM_ALPHA, PEM_BETA, PEM_DELTA = 1.0, 5.0, 0.2          # the truth
+PEM_GAMMA, PEM_OMEGA, PEM_TF = 8.0, 0.5, 20.0            # known forcing
+PEM_PROC_NOISE, PEM_MEAS_NOISE = 0.05, 0.01
+PEM_P0 = (0.5, 1.0, 0.5)
+PEM_JAX_NLL_P0 = (115939.01884093753,
+                  (-40664.36120923414, -49556.84347002865,
+                   1455.6702728816767))
+PEM_JAX_OPT = (1.0114232502436258, 5.0020321609471985, 0.18893252321379087)
+PEM_JAX_NLL_OPT = (-1220.9262145370647,
+                   (-5.971195760068326e-12, 5.909148170779588e-12,
+                    -2.2683431522008135e-11))
+PEM_JAX_V0_EVERY_50 = (
+    (0.9989534590756789, 0.11850282167989676),
+    (0.9628485918225264, -0.47049497717544553),
+    (0.8487494264420385, -0.5364551336598936),
+    (-0.33746957994596716, -1.5263136352160473),
+    (-0.7428647638324691, 0.7976196137317803),
+    (-1.1858377422173463, 1.308188537338569),
+    (-1.2958049750767773, 0.4300191753184395),
+    (-0.7226501467714639, -0.5518370100552843),
+    (0.08391613129914788, 1.851120860190397),
+    (0.6693075746172733, -1.30562119193387),
+    (1.2862953259614924, -1.7185167460264583),
+    (1.399405254691222, 0.07291018246385522),
+    (0.5263790377966423, 0.6840604530881876),
+    (0.14146340374863842, -1.8353887894848782),
+    (-0.7506728390297519, 1.8142874000606217),
+    (-1.4598413369405674, 1.285214839040299),
+    (-1.2981382382422317, -1.356983154008837))
+PEM_JAX_V0_SUMS = (-118.88679337384738, 1790.87080727995)
+PEM_JAX_MAP_P = (1.0054724173860383, 5.012419019090712, 0.19522483319732653)
+PEM_JAX_STD = (0.08683179825030315, 0.07437388508049603, 0.02937604351618655)
 
 
 def _card() -> str:
@@ -1317,13 +1481,22 @@ def _main_shapes(name, launches):
     return out
 
 
-def _at_configs(name, measured, ocp):
+def _at_configs(name, measured, ocp, mhe):
     """The kernels line's ``at_configs`` of kernel ``name``: what phase 2
     measured at the shapes of configs 2 and 4 (``measured``, from
-    _phase2_configs) and of config 3 and the free-time OCP (``ocp``, from
-    _phase2_ocp): float32 times and bound, the float64 max abs error, and
-    for kernels #1 and #2 the dense torch.linalg.solve."""
+    _phase2_configs), of config 3 and the free-time OCP (``ocp``, from
+    _phase2_ocp) and of the MHE window (``mhe``, from _phase2_mhe): float32
+    times and bound, the float64 max abs error, and for kernels #1 and #2
+    the dense torch.linalg.solve."""
     out = []
+    if name == "blocktri_solve_spike_fused":
+        f32, f64 = (mhe["chain"][f"MHE window {d}"]
+                    for d in ("float32", "float64"))
+        out.append(dict(
+            config="MHE window", K=f32["K"], b=f32["b"], r=1,
+            max_abs_err=f64["max_abs_err"], ms=f32["ms"],
+            plain_ms=f32["plain_ms"], bound_ms=f32["bound_ms"],
+            bound_by=f32["bound_by"], library_ms=f32["library_ms"]))
     keys = {"kkt_solve_spike_fused": ("kkt", ["free-time"], "nq"),
             "blocktri_solve_spike_fused": (
                 "chain", ["config 3 N=25", "config 3 N=500"], "r")}
@@ -1519,6 +1692,41 @@ def _dense_solve(sys_, lam_abs, x):
     return ms, tuple(M.shape), rel
 
 
+def _time_kernel(out, card, key, label, kernel, plain, bound, dense, err):
+    """Phase 2's record of a kernel at one problem's shape, into
+    out[key[0]][key[1]]: the kernel and its plain version by CUDA events,
+    the kernel's device time by phase (torch.profiler), two runs
+    bit-identical, its float32 bound and ``dense`` = _dense_solve's
+    (ms, shape, rel diff) of torch.linalg.solve on the dense damped
+    matrix."""
+    import torch
+
+    from collocfem_tpu_torch.tools.spike_tiles import _split
+
+    k_ms, p_ms = _cuda_ms(kernel, 20), _cuda_ms(plain, 3)
+    split = _split(kernel)
+    first, again = kernel(), kernel()
+    torch.cuda.synchronize()
+    first, again = ((first,), (again,)) if torch.is_tensor(first) else \
+        (first[:2], again[:2])
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise RuntimeError(f"{label}: two runs of the kernel differ")
+    lib_ms, shape, lib_rel = dense
+    out[key[0]][key[1]] = dict(
+        max_abs_err=err, ms=k_ms, plain_ms=p_ms, device_us=split,
+        device_us_total=sum(split.values()), library_ms=lib_ms,
+        library_shape=shape, library_rel_diff=lib_rel,
+        bound_ms=bound[0], bound_by=bound[1])
+    print(f"  {label}: kernel {k_ms:.3f} ms/call ("
+          f"{sum(split.values()):.1f} us on the device: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+          + f"), plain {p_ms:.3f} ms/call, two runs bit-identical; "
+          f"torch.linalg.solve on the dense damped matrix {shape} "
+          f"{lib_ms:.3f} ms/call (rel diff to the kernel {lib_rel:.2e});"
+          f" float32 bound {bound[0] * 1e3:.3f} us ({bound[1]}) on "
+          f"{card}")
+
+
 def _phase2_ocp(dev, card):
     """Phase 2 at the optimal-control shapes (b = 12): kernel #2 at r = 1 on
     config 3's equilibrated, damped chain at the initial guess (N = 25 and
@@ -1538,35 +1746,11 @@ def _phase2_ocp(dev, card):
     from collocfem_tpu_torch.solve.kkt import _equilibrate_soa, damping_scales
     from collocfem_tpu_torch.testing import (chain_residual, random_chain,
                                              random_kkt_system)
-    from collocfem_tpu_torch.tools.spike_tiles import _split
 
     out = {"chain": {}, "kkt": {}}
     opts = ALBarrierOptions()
     lam = opts.lam0
-
-    def timed(key, label, kernel, plain, bound, dense, err):
-        k_ms, p_ms = _cuda_ms(kernel, 20), _cuda_ms(plain, 3)
-        split = _split(kernel)
-        first, again = kernel(), kernel()
-        torch.cuda.synchronize()
-        first, again = ((first,), (again,)) if torch.is_tensor(first) else \
-            (first[:2], again[:2])
-        if not all(torch.equal(a, b) for a, b in zip(first, again)):
-            raise RuntimeError(f"{label}: two runs of the kernel differ")
-        lib_ms, shape, lib_rel = dense
-        out[key[0]][key[1]] = dict(
-            max_abs_err=err, ms=k_ms, plain_ms=p_ms, device_us=split,
-            device_us_total=sum(split.values()), library_ms=lib_ms,
-            library_shape=shape, library_rel_diff=lib_rel,
-            bound_ms=bound[0], bound_by=bound[1])
-        print(f"  {label}: kernel {k_ms:.3f} ms/call ("
-              f"{sum(split.values()):.1f} us on the device: "
-              + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
-              + f"), plain {p_ms:.3f} ms/call, two runs bit-identical; "
-              f"torch.linalg.solve on the dense damped matrix {shape} "
-              f"{lib_ms:.3f} ms/call (rel diff to the kernel {lib_rel:.2e});"
-              f" float32 bound {bound[0] * 1e3:.3f} us ({bound[1]}) on "
-              f"{card}")
+    timed = lambda *a: _time_kernel(out, card, *a)
 
     for dtype in (torch.float32, torch.float64):
         name = str(dtype).split(".")[1]
@@ -1703,7 +1887,9 @@ def _ocp_solves(dev, card, record):
         z, st, wall, n_launch = counted(tag, run, chain)
         if n == configs.ELEMENTS3:
             coarse[dtype] = (prob, z)
-        walls = [wall] + [_timed(run)[1] for _ in range(2)]
+        # Best of 2 (the counted run and one more): the whole script has to
+        # stay well inside its time limit on a slow host.
+        walls = [wall, _timed(run)[1]]
         x, u = z.V[:, :2].double(), z.V[:, 2].double()
         obj, cviol, gviol = (float(st.objective), float(st.cviol),
                              float(st.gviol))
@@ -1714,7 +1900,7 @@ def _ocp_solves(dev, card, record):
         print(f"{tag}: objective {obj:.10f}, cviol {cviol:.3e}, gviol "
               f"{gviol:.3e}, max|u| {umax:.8f}, {n_launch} inner LM "
               f"iterations = kernel #2 launches at (12, 1), no plain call; "
-              f"best of 3 wall {min(walls):.4f} s (the counted run and two "
+              f"best of 2 wall {min(walls):.4f} s (the counted run and one "
               f"more: {', '.join(f'{w:.4f}' for w in walls)}) on {card}")
         if dtype == torch.float64:
             ref_obj, ref_u = C3_JAX_F64[n]
@@ -1836,6 +2022,500 @@ def _constrained_estimation(dev, card, record):
         if not ok:
             raise RuntimeError(f"{tag}: a gate failed")
     return launches
+
+
+def _mhe_stream(dtype, dev):
+    """examples/mhe_online.py's estimator and stream: Van der Pol with p
+    fixed at [1, 1], horizon 12, dt 0.05, degree 3 (b = 6), sig_w 0.5,
+    sig_v 0.02, maxiter 20, gtol 1e-9, 'auto'.  The RK4 truth from [2, 0]
+    and the noise of default_rng(0) are made on the host in float64.
+    Returns (mhe, truth (240, 2), ys (240, 1))."""
+    import numpy as np
+    import torch
+
+    from collocfem_tpu_torch.mhe import MovingHorizonEstimator
+    from collocfem_tpu_torch.models import VanDerPol
+    from collocfem_tpu_torch.solve.newton import SolverOptions
+    from collocfem_tpu_torch.utils.simulate import rk4_trajectory
+
+    rng = np.random.default_rng(0)
+    ts = np.arange(MHE_SAMPLES) * MHE_DT
+    model = VanDerPol()
+    f64 = torch.float64
+    xs = rk4_trajectory(model.f, torch.tensor([2.0, 0.0], dtype=f64), ts,
+                        u_fn=lambda t: torch.zeros(1, dtype=f64),
+                        p=[1.0, 1.0], device="cpu").numpy()
+    ys = xs[:, :1] + MHE_SIG_V * rng.standard_normal((MHE_SAMPLES, 1))
+    mhe = MovingHorizonEstimator(
+        model, horizon=MHE_HORIZON, dt=MHE_DT, sig_w=MHE_SIG_W,
+        sig_v=MHE_SIG_V, degree=3, p_fixed=np.array([1.0, 1.0]),
+        options=SolverOptions(maxiter=20, gtol=1e-9), device=dev,
+        dtype=dtype)
+    return mhe, xs, ys
+
+
+def _phase2_mhe(dev, card):
+    """Phase 2 at the moving-horizon estimator's shape (b = 6, r = 1):
+    kernel #2 on the serving cell's damped, equilibrated window chain at
+    its first solve (K = 12) and on seeded chains, K in EDGES + {8, 12};
+    at the window's shape the kernel and plain times, the device time by
+    phase, two runs bit-identical, the float32 bound and
+    torch.linalg.solve on the dense 72^2 damped matrix.  Returns the
+    per-shape records."""
+    import numpy as np
+    import torch
+
+    from collocfem_tpu_torch.ops import spike
+    from collocfem_tpu_torch.ops.assemble import assemble_gn_soa
+    from collocfem_tpu_torch.solve.kkt import _equilibrate_soa
+    from collocfem_tpu_torch.testing import chain_residual, random_chain
+
+    out = {"chain": {}}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[1]
+        mhe, _, ys = _mhe_stream(dtype, dev)
+        prob, h = mhe.problem, MHE_HORIZON
+        z0 = prob.initial_guess_from_data(mhe._t_samples, ys[:h], np.zeros(0))
+        data = mhe._data(prob._tensor(ys[:h]), prob._tensor(np.zeros((h - 1,
+                                                                      1))),
+                         prob._tensor([1.5, 0.5]), prob._tensor(np.eye(2)))
+        lam = max(mhe.options.lam0, torch.finfo(dtype).eps)
+        s = _equilibrate_soa(assemble_gn_soa(prob, z0, data), lam)[0]
+        D, E, G = s.D, s.E, s.gx[:, None, :].contiguous()
+        K, b = D.shape[-1], D.shape[0]
+        label = f"kernel #2 MHE window {name} K={K} b={b} r=1"
+        X = spike.blocktri_solve_spike_fused(D, E, G)
+        err = _hold(label, dtype, X,
+                    spike.blocktri_solve_spike_fused_ref(D, E, G),
+                    lambda X: chain_residual(D, E, G, X))
+        _time_kernel(out, card, ("chain", f"MHE window {name}"), label,
+                     lambda: spike.blocktri_solve_spike_fused(D, E, G),
+                     lambda: spike.blocktri_solve_spike_fused_ref(D, E, G),
+                     _chain_bound(K, 1, b),
+                     _dense_solve(s, 0.0, -X[:, 0, :].T.reshape(-1)), err)
+        out["chain"][f"MHE window {name}"].update(K=K, b=b, r=1)
+        for k in (*EDGES, 8, 12):
+            D, E, G = random_chain(k, 6, 1, seed=k + 6, dtype=dtype,
+                                   device=dev)
+            _hold(f"kernel #2 random {name} K={k} b=6 r=1", dtype,
+                  spike.blocktri_solve_spike_fused(D, E, G),
+                  spike.blocktri_solve_spike_fused_ref(D, E, G),
+                  lambda X: chain_residual(D, E, G, X))
+    print(f"  kernel #2 at b=6: seeded chains, K in {(*EDGES, 8, 12)}, ok")
+    return out
+
+
+def _serve(mhe, ys, m0, P0, iterations):
+    """Run the stream through ``mhe`` (init on the first window from the
+    prior (m0, P0), then one step a sample), each step bracketed by
+    torch.cuda.synchronize().  ``iterations`` collects every window solve's
+    LM iteration count (a tensor, read at the end).  Returns (estimates (T,
+    nx) on the host, per-step walls, the final state)."""
+    import time
+
+    import torch
+
+    solver = mhe._solver
+
+    def counting(z0, data):
+        z, st = solver(z0, data)
+        iterations.append(st.iterations)
+        return z, st
+
+    mhe._solver = counting
+    state = mhe.init(ys[:mhe.horizon], m0=m0, P0=P0)
+    ests, walls = [mhe.estimate(state)], []
+    for k in range(mhe.horizon, ys.shape[0]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, est = mhe.step(state, ys[k])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        ests.append(est)
+    mhe._solver = solver
+    return torch.stack(ests).double().cpu().numpy(), walls, state
+
+
+def _walls_line(walls):
+    import numpy as np
+
+    w = np.asarray(walls) * 1e3
+    return (f"per-step wall median {np.median(w):.3f} ms, p90 "
+            f"{np.percentile(w, 90):.3f} ms, max {w.max():.3f} ms over "
+            f"{w.size} steps")
+
+
+def _simulate_and_smooth_linear():
+    """tests/test_kalman_parity.py's linear-Gaussian problem: an
+    Euler-Maruyama truth (default_rng(7)), 60 noisy samples of x1 and the
+    numpy Kalman filter / RTS smoother over them (exact Van Loan
+    discretization).  Returns (A, sig_w, sig_v, t_meas, y, smoothed path
+    (60, 2))."""
+    import numpy as np
+    from scipy.linalg import expm
+
+    A = np.array([[0.0, 1.0], [-4.0, -0.4]])
+    sig_w, sig_v, tf, nt = 0.15, 0.05, 6.0, 60
+    rng = np.random.default_rng(7)
+    t_meas = np.linspace(0.08, tf - 0.02, nt)
+    dt = 1e-4
+    ts = np.arange(0.0, tf + dt, dt)
+    x = np.zeros((ts.size, 2))
+    x[0] = [1.0, 0.0]
+    for i in range(ts.size - 1):
+        x[i + 1] = x[i] + dt * (A @ x[i])
+        x[i + 1, 1] += sig_w * np.sqrt(dt) * rng.standard_normal()
+    y = np.interp(t_meas, ts, x[:, 0]) + sig_v * rng.standard_normal(nt)
+    Qc = np.array([[0.0, 0.0], [0.0, sig_w**2]])
+
+    def disc(dtk):
+        M = np.zeros((4, 4))
+        M[:2, :2] = A * dtk
+        M[:2, 2:] = Qc * dtk
+        M[2:, 2:] = -A.T * dtk
+        EM = expm(M)
+        Ad = EM[:2, :2]
+        Qd = EM[:2, 2:] @ Ad.T
+        return Ad, (Qd + Qd.T) / 2
+
+    H = np.array([[1.0, 0.0]])
+    R = np.array([[sig_v**2]])
+    mk, Pk = np.zeros(2), np.eye(2) * 1e6
+    ms_f, Ps_f, ms_p, Ps_p, Ads = [], [], [], [], []
+    for i in range(nt):
+        if i > 0:
+            Ad, Qd = disc(t_meas[i] - t_meas[i - 1])
+            mk = Ad @ mk
+            Pk = Ad @ Pk @ Ad.T + Qd
+        else:
+            Ad = np.eye(2)
+        ms_p.append(mk.copy())
+        Ps_p.append(Pk.copy())
+        Ads.append(Ad)
+        S = H @ Pk @ H.T + R
+        K = Pk @ H.T @ np.linalg.inv(S)
+        mk = mk + (K @ (y[i] - H @ mk)).ravel()
+        Pk = (np.eye(2) - K @ H) @ Pk
+        ms_f.append(mk.copy())
+        Ps_f.append(Pk.copy())
+    xs = [None] * nt
+    xs[-1] = ms_f[-1]
+    for i in range(nt - 2, -1, -1):
+        Ck = Ps_f[i] @ Ads[i + 1].T @ np.linalg.inv(Ps_p[i + 1])
+        xs[i] = ms_f[i] + Ck @ (xs[i + 1] - ms_p[i + 1])
+    return A, sig_w, sig_v, t_meas, y, np.asarray(xs)
+
+
+def _pem_data():
+    """examples/pem_kalman.py's data: the Euler-Maruyama Duffing path
+    (dt 1e-3, default_rng(11)) and 400 noisy samples of x1."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    dt = 1e-3
+    n = int(PEM_TF / dt)
+    ts = np.linspace(0.0, PEM_TF, n + 1)
+    x = np.zeros((n + 1, 2))
+    x[0] = [1.0, 0.0]
+    for i in range(n):
+        t, (x1, x2) = ts[i], x[i]
+        drift = np.array([
+            x2,
+            -PEM_DELTA * x2 - PEM_ALPHA * x1 - PEM_BETA * x1**3
+            + PEM_GAMMA * np.cos(PEM_OMEGA * t),
+        ])
+        x[i + 1] = x[i] + dt * drift
+        x[i + 1, 1] += PEM_PROC_NOISE * np.sqrt(dt) * rng.standard_normal()
+    t_meas = np.linspace(0.05, PEM_TF - 0.05, 400)
+    y = np.interp(t_meas, ts, x[:, 0])[:, None]
+    y += PEM_MEAS_NOISE * rng.standard_normal(y.shape)
+    return t_meas, y
+
+
+def _serving(dev, card, record):
+    """Phase 13: the serving path (the moving-horizon estimator) and the
+    Kalman tier at the examples' full sizes.  (a) examples/mhe_online.py in
+    float64: every 20th estimate and the last within 1e-6 of the JAX
+    package's, current_covariance within 1e-6, kernel #2 at (6, 1) exactly
+    once per LM iteration of every window solve and no plain version; the
+    RMSE against the truth, the per-step walls and, by torch.profiler, the
+    device idle share over 20 steps.  (b) the same stream in float32:
+    position RMSE < 3 sig_v and velocity RMSE < 0.1, every estimate
+    finite.  (c) tests/test_mhe.py's linear set-up on 'auto' (kernel #2 at
+    (8, 1)): the estimates and the final covariance within 2e-6 of the
+    port's own kalman_filter on the card.  (d) tests/test_kalman_parity.py's
+    full-rule smoother problem: converged, the MAP path within 1.5e-3 of
+    the numpy RTS smoother.  (e) examples/pem_kalman.py: the EKF NLL and its
+    gradient at p0 and at the JAX package's PEM optimum, the smoother warm
+    start there, the MAP polish (kernel #1 at (8, 3)) and parameter_std
+    (kernels #3 and #6) against the JAX package's.  Returns the
+    launches."""
+    import numpy as np
+    import torch
+
+    from collocfem_tpu_torch import kalman
+    from collocfem_tpu_torch.mhe import MovingHorizonEstimator
+    from collocfem_tpu_torch.models import Duffing, LinearSystem
+    from collocfem_tpu_torch.ops.basis import make_basis
+    from collocfem_tpu_torch.ops.mesh import (Mesh, interpolate_trajectory,
+                                              uniform_mesh)
+    from collocfem_tpu_torch.problem import EstimationProblem
+    from collocfem_tpu_torch.solve.covariance import parameter_std
+    from collocfem_tpu_torch.solve.newton import SolverOptions, make_gn_solver
+
+    chain, kkt = "blocktri_solve_spike_fused", "kkt_solve_spike_fused"
+    launches = {}
+    rec = record.setdefault("serving", {})
+
+    def keep(label, counts, plain, want, shape):
+        _expect_only(counts, plain, want, label)
+        for k in want:
+            if LAST_SHAPES[k] != {shape: want[k]}:
+                raise RuntimeError(f"{label}: launches by shape "
+                                   f"{LAST_SHAPES[k]}, expected {shape}")
+        _keep_shapes(want)
+        for k, v in want.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # ---- (a), (b): the serving cell in float64 and float32 -----------------
+    f64_ests = None
+    for part, dtype in (("(a)", torch.float64), ("(b)", torch.float32)):
+        name = str(dtype).split(".")[1]
+        tag = f"phase 13 {part}: MHE serving {name}"
+        mhe, xs, ys = _mhe_stream(dtype, dev)
+        its = []
+        _reset_counts()
+        ests, walls, state = _serve(mhe, ys, [1.5, 0.5], np.eye(2), its)
+        torch.cuda.synchronize()
+        counts, plain = _counts()
+        n_its = int(torch.stack(its).sum())
+        keep(tag, counts, plain, {chain: n_its}, (6, 1))
+        truth = xs[MHE_HORIZON - 1:]
+        rmse = np.sqrt(((ests - truth) ** 2).mean(axis=0))
+        steps = len(walls)
+        r = dict(rmse=rmse.tolist(), walls_s=walls, iterations=n_its,
+                 launches=counts[chain], launches_per_step=n_its / (steps + 1),
+                 finite=bool(np.isfinite(ests).all()))
+        print(f"{tag}: {steps + 1} online samples (window {MHE_HORIZON}, dt "
+              f"{MHE_DT}, degree 3, b = 6, K = {MHE_HORIZON}); RMSE position "
+              f"{rmse[0]:.6f} velocity {rmse[1]:.6f} (JAX: "
+              f"{MHE_JAX_RMSE[0]:.6f} {MHE_JAX_RMSE[1]:.6f}); {n_its} LM "
+              f"iterations over {steps + 1} window solves = kernel #2 "
+              f"launches at (6, 1) ({n_its / (steps + 1):.2f} a solve), no "
+              f"plain call; {_walls_line(walls)} on {card}")
+        if dtype == torch.float64:
+            d_est = max(abs(ests[i] - np.asarray(v)).max()
+                        for i, v in MHE_JAX_ESTIMATES.items())
+            cov = mhe.current_covariance(state).cpu().numpy()
+            d_cov = float(np.abs(cov - np.asarray(MHE_JAX_COV)).max())
+            r.update(est_vs_jax=d_est, cov=cov.tolist(), cov_vs_jax=d_cov)
+            print(f"  max |estimate - JAX| at every 20th sample and the last "
+                  f"{d_est:.3e} (<= 1e-6); max |current_covariance - JAX| "
+                  f"{d_cov:.3e} (<= 1e-6)")
+            ok = len(ests) == 229 and d_est <= 1e-6 and d_cov <= 1e-6
+            f64_ests = ests
+            # The device idle share over the first 20 steps: one unprofiled
+            # run for the wall, one profiled.
+            first = mhe.init(ys[:MHE_HORIZON], m0=[1.5, 0.5], P0=np.eye(2))
+            run20 = lambda: _steps(mhe, first, ys, MHE_HORIZON, 20)
+            wall20 = _timed(run20)[1]
+            r["profile_20_steps"] = _profile_run(
+                "MHE serving float64, 20 steps", run20, wall20)
+            r["wall_20_steps_s"] = wall20
+        else:
+            dev_a = float(np.abs(ests - f64_ests).max())
+            r["max_dev_from_float64"] = dev_a
+            print(f"  max |estimate - float64's| {dev_a:.3e}; gates: RMSE "
+                  f"position < {3 * MHE_SIG_V} and velocity < 0.1, every "
+                  "estimate finite")
+            ok = (r["finite"] and rmse[0] < 3 * MHE_SIG_V and rmse[1] < 0.1)
+        rec[f"{part} {name}"] = r
+        if not ok:
+            raise RuntimeError(f"{tag}: a gate failed")
+        del mhe
+
+    # ---- (c): MHE against the Kalman filter, float64 -----------------------
+    tag = "phase 13 (c): linear MHE against the Kalman filter float64"
+    f64 = torch.float64
+    rng = np.random.default_rng(7)
+    A = np.array([[0.0, 1.0], [-2.0, -0.4]])
+    C = np.array([[1.0, 0.0]])
+    dt, sig_w, sig_v, T, H = 0.1, 0.4, 0.05, 24, 8
+    Qc = np.diag([sig_w**2, sig_w**2])
+    Ad, Qd = kalman.van_loan(torch.as_tensor(A, device=dev),
+                             torch.as_tensor(Qc, device=dev), dt)
+    Ad_np, Qd_np = Ad.cpu().numpy(), Qd.cpu().numpy()
+    R = np.array([[sig_v**2]])
+    m0, P0 = np.array([0.3, -0.2]), 0.5 * np.eye(2)
+    x = rng.multivariate_normal(m0, P0)
+    ys = []
+    for _ in range(T):
+        ys.append(C @ x + rng.multivariate_normal(np.zeros(1), R))
+        x = Ad_np @ x + rng.multivariate_normal(np.zeros(2), Qd_np)
+    ys = np.asarray(ys)
+    kf = kalman.kalman_filter(
+        torch.cat([torch.eye(2, dtype=f64, device=dev)[None],
+                   Ad.expand(T - 1, 2, 2)]),
+        torch.cat([torch.zeros(1, 2, 2, dtype=f64, device=dev),
+                   Qd.expand(T - 1, 2, 2)]),
+        C, R, torch.as_tensor(ys, device=dev), m0, P0, device=dev)
+    mhe = MovingHorizonEstimator(
+        LinearSystem(A, C=C), horizon=H, dt=dt, sig_w=sig_w, sig_v=sig_v,
+        degree=4, substeps=8, options=SolverOptions(maxiter=30, gtol=1e-12),
+        device=dev)
+    its = []
+    _reset_counts()
+    ests, _, state = _serve(mhe, ys, m0, P0, its)
+    cov = mhe.current_covariance(state).cpu().numpy()
+    torch.cuda.synchronize()
+    counts, plain = _counts()
+    n_its = int(torch.stack(its).sum())
+    keep(tag, counts, plain, {chain: n_its}, (8, 1))
+    d_est = float(np.abs(ests - kf.mean_f[H - 1:].cpu().numpy()).max())
+    d_cov = float(np.abs(cov - kf.cov_f[-1].cpu().numpy()).max())
+    rec["(c) float64"] = dict(est_vs_kf=d_est, cov_vs_kf=d_cov,
+                              iterations=n_its)
+    print(f"{tag} (horizon {H}, degree 4, b = 8, T = {T}): max |estimate - "
+          f"KF mean| {d_est:.3e} (<= 2e-6), max |covariance - KF's| "
+          f"{d_cov:.3e} (<= 2e-6); {n_its} LM iterations = kernel #2 "
+          f"launches at (8, 1), no plain call")
+    if not (d_est <= 2e-6 and d_cov <= 2e-6):
+        raise RuntimeError(f"{tag}: a gate failed")
+
+    # ---- (d): the full-rule smoother parity, float64 -----------------------
+    tag = "phase 13 (d): full-rule MAP path against the RTS smoother float64"
+    A, sig_w, sig_v, t_meas, y, x_smooth = _simulate_and_smooth_linear()
+    mesh = Mesh(make_basis(4), t_meas)
+    prob = EstimationProblem.build(
+        LinearSystem(A, C=np.array([[1.0, 0.0]])), mesh, t_meas,
+        defect_weight=[1e3, 1.0 / sig_w], defect_rule="full", device=dev,
+        dtype=f64)
+    data = prob.pack_data(y[:, None], t_meas, meas_weight=1.0 / sig_v)
+    z0 = prob.initial_guess_from_data(t_meas, y[:, None], p0=np.zeros(0))
+    solve = make_gn_solver(prob, SolverOptions(maxiter=30, gtol=1e-8,
+                                               xtol=1e-12))
+    (z, st), wall, counts = _counted(
+        tag, lambda: solve(z0, data),
+        lambda out: {chain: int(out[1].iterations)})
+    keep(tag, counts, 0, {chain: counts[chain]}, (8, 1))
+    x_map = interpolate_trajectory(mesh, z.V, t_meas).cpu().numpy()
+    err = float(np.abs(x_map - x_smooth).max())
+    rec["(d) float64"] = dict(converged=bool(st.converged), err=err,
+                              iterations=counts[chain], wall_s=wall)
+    print(f"{tag} (N = {mesh.num_elements}, degree 4, b = 8): converged "
+          f"{bool(st.converged)} in {counts[chain]} iterations = kernel #2 "
+          f"launches at (8, 1); max |x_MAP - x_RTS| {err:.3e} (< 1.5e-3); "
+          f"wall {wall:.4f} s")
+    if not (bool(st.converged) and err < 1.5e-3):
+        raise RuntimeError(f"{tag}: a gate failed")
+
+    # ---- (e): the Kalman/PEM pipeline, float64 -----------------------------
+    tag = "phase 13 (e): Kalman/PEM pipeline float64"
+    t_meas, y = _pem_data()
+    model = Duffing(gamma=PEM_GAMMA, omega=PEM_OMEGA)
+    R = np.array([[PEM_MEAS_NOISE**2]])
+    Qc = np.diag([1e-8, PEM_PROC_NOISE**2])
+    m0, P0 = np.array([float(y[0, 0]), 0.0]), np.diag([0.1, 4.0])
+    nll = kalman.make_ekf_nll(model, t_meas, y, R, Qc, m0, P0, substeps=4,
+                              device=dev)
+    r = {}
+    for key, p, (ref_v, ref_g) in (("p0", PEM_P0, PEM_JAX_NLL_P0),
+                                   ("optimum", PEM_JAX_OPT, PEM_JAX_NLL_OPT)):
+        x = torch.tensor(p, dtype=f64, device=dev, requires_grad=True)
+
+        def value_and_grad():
+            x.grad = None
+            v = nll(x)
+            v.backward()
+            return v.detach()
+        _reset_counts()
+        v, wall = _timed(value_and_grad)
+        _expect_only(*_counts(), {}, f"{tag} NLL")
+        v, g = float(v), x.grad.cpu().numpy()
+        d_v = abs(v - ref_v) / abs(ref_v)
+        ref_g = np.asarray(ref_g)
+        if key == "p0":
+            d_g = float(np.abs(g - ref_g).max() / np.abs(ref_g).max())
+            g_bar = "relative to max |g_JAX|"
+        else:
+            # At the optimum the gradient is rounding noise (~2e-11): held
+            # absolutely, at 1e-11 (the H100 read 9.6e-13).
+            d_g = float(np.abs(g - ref_g).max())
+            g_bar = "absolute"
+        r[key] = dict(nll=v, grad=g.tolist(), nll_vs_jax=d_v,
+                      grad_vs_jax=d_g, wall_s=wall)
+        g_tol = 1e-9 if key == "p0" else 1e-11
+        print(f"{tag}: EKF NLL at the {key} {v!r} (|rel diff to JAX| "
+              f"{d_v:.3e} <= 1e-9), gradient {g.tolist()} (max diff "
+              f"{g_bar} {d_g:.3e} <= {g_tol:g}); one NLL-and-gradient "
+              f"evaluation {wall:.3f} s on {card}")
+        if not (d_v <= 1e-9 and d_g <= g_tol):
+            raise RuntimeError(f"{tag}: the NLL at the {key} disagrees")
+    # The launches of an NLL-and-gradient evaluation, by torch.profiler on
+    # the first 40 of the 400 samples (the filter loop is the same at every
+    # sample).
+    nll40 = kalman.make_ekf_nll(model, t_meas[:40], y[:40], R, Qc, m0, P0,
+                                substeps=4, device=dev)
+    x40 = torch.tensor(PEM_P0, dtype=f64, device=dev, requires_grad=True)
+    run40 = lambda: torch.autograd.grad(nll40(x40), x40)
+    r["profile_40_samples"] = _profile_run(
+        "EKF NLL and gradient, 40 samples", run40, _timed(run40)[1])
+
+    mesh = uniform_mesh(0.0, PEM_TF, 200, 4)
+    prob = EstimationProblem.build(model, mesh, t_meas,
+                                   defect_weight=1.0 / PEM_PROC_NOISE,
+                                   device=dev, dtype=f64)
+    data = prob.pack_data(y, t_meas, meas_weight=1.0 / PEM_MEAS_NOISE,
+                          p_prior=[0.0, 0.0, 0.0], p_weight=1e-3)
+    z0, wall = _timed(lambda: kalman.smoother_initial_guess(
+        prob, t_meas, y, np.asarray(PEM_JAX_OPT), R=R, Qc=Qc, m0=m0, P0=P0))
+    V0 = z0.V.cpu().numpy()
+    d_v0 = max(float(np.abs(V0[::50] - np.asarray(PEM_JAX_V0_EVERY_50)).max()),
+               abs(float(V0.sum()) - PEM_JAX_V0_SUMS[0]) / abs(
+                   PEM_JAX_V0_SUMS[0]),
+               abs(float((V0**2).sum()) - PEM_JAX_V0_SUMS[1])
+               / PEM_JAX_V0_SUMS[1])
+    print(f"{tag}: smoother_initial_guess at the JAX optimum: max diff of "
+          f"V0 at every 50th node and of its sums to JAX {d_v0:.3e} "
+          f"(<= 1e-8); wall {wall:.3f} s")
+    solve = make_gn_solver(prob, SolverOptions(maxiter=60, gtol=1e-6,
+                                               xtol=1e-10))
+    (z, st), wall, counts = _counted(
+        f"{tag} MAP polish", lambda: solve(z0, data),
+        lambda out: {kkt: int(out[1].iterations)})
+    keep(f"{tag} MAP polish", counts, 0, {kkt: counts[kkt]}, (8, 3))
+    n_map = counts[kkt]
+    p = z.p.tolist()
+    d_p = _p_dev(p, PEM_JAX_MAP_P)
+    (sd, sd_wall, counts) = _counted(
+        f"{tag} parameter_std", lambda: parameter_std(prob, z, data),
+        {"cr_level", "cr_backsub"})
+    for k in ("cr_level", "cr_backsub"):
+        launches[k] = launches.get(k, 0) + counts[k]
+    _keep_shapes(["cr_level", "cr_backsub"])
+    d_sd = _p_dev(sd.tolist(), PEM_JAX_STD)
+    r.update(v0_vs_jax=d_v0, map_p=p, map_p_vs_jax=d_p,
+             map_converged=bool(st.converged), map_iterations=n_map,
+             map_wall_s=wall, std=sd.tolist(), std_vs_jax=d_sd,
+             std_wall_s=sd_wall)
+    rec["(e) float64"] = r
+    print(f"{tag}: MAP polish (N = 200, b = 8, nq = 3) converged "
+          f"{bool(st.converged)} in {n_map} iterations = kernel "
+          f"#1 launches at (8, 3), p={p}, |p - p_JAX|/|p_JAX| {d_p:.3e} (<= "
+          f"1e-6), wall {wall:.4f} s; parameter_std {sd.tolist()} (|rel diff "
+          f"to JAX| {d_sd:.3e} <= 1e-6; kernels #3 and #6 {counts['cr_level']}"
+          f" and {counts['cr_backsub']} launches), wall {sd_wall:.4f} s")
+    if not (d_v0 <= 1e-8 and bool(st.converged) and d_p <= 1e-6
+            and d_sd <= 1e-6):
+        raise RuntimeError(f"{tag}: a gate failed")
+    return launches
+
+
+def _steps(mhe, state, ys, k0, n):
+    """``n`` steps from ``state`` on ys[k0:k0 + n]; returns the state."""
+    for k in range(k0, k0 + n):
+        state, _ = mhe.step(state, ys[k])
+    return state
 
 
 def main() -> int:
@@ -2032,6 +2712,7 @@ def main() -> int:
     record["cr_ms"] = cr_ms
     record["config_shapes"] = _phase2_configs(dev, card)
     record["ocp_shapes"] = _phase2_ocp(dev, card)
+    record["mhe_shapes"] = _phase2_mhe(dev, card)
     elapsed()
 
     # ---- phase 3: headline fixed work, float32 -----------------------------
@@ -2161,9 +2842,10 @@ def main() -> int:
                                   bar).items():
             main_launches[k] = main_launches.get(k, 0) + v
 
-    # ---- phases 10-12: config 3, the free-time OCP, constrained estimation -
+    # ---- phases 10-13: config 3, the free-time OCP, constrained estimation,
+    # the serving path and the Kalman tier ----------------------------------
     elapsed()
-    for phase in (_ocp_solves, _constrained_estimation):
+    for phase in (_ocp_solves, _constrained_estimation, _serving):
         for k, v in phase(dev, card, record).items():
             main_launches[k] = main_launches.get(k, 0) + v
         elapsed()
@@ -2184,7 +2866,8 @@ def main() -> int:
         "library_ms": lib_ms if name == "batched_thomas_solve" else None,
         "shapes": _main_shapes(name, main_launches[name]),
         "at_configs": _at_configs(name, record["config_shapes"],
-                                  record["ocp_shapes"]),
+                                  record["ocp_shapes"],
+                                  record["mhe_shapes"]),
     } for name, (source, replaces) in KERNELS.items()]}
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

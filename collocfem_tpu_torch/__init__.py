@@ -21,7 +21,9 @@ Main paths:
     horizon) -> ``solve.auglag.make_ocp_solver(problem, options)(z0)``;
   * estimation under bounds or inequality constraints:
     ``solve.bounds.make_bounded_solver`` and
-    ``solve.constrained.make_constrained_solver``.
+    ``solve.constrained.make_constrained_solver``;
+  * online estimation (the serving path): ``mhe.MovingHorizonEstimator``
+    (``init``, then ``step`` per sample); the Kalman tier in ``kalman``.
 
 Importing the package turns TF32 off for float32 matmuls
 (:mod:`collocfem_tpu_torch.precision`).

@@ -30,10 +30,8 @@ def decision_from_numpy(V, p, device, dtype) -> Decision:
 def data_from_numpy(y, u, meas_w, p_prior, p_w, x0_prior, x0_w, device,
                     dtype) -> ProblemData:
     """ProblemData from the JAX package's fields, in field order, for one
-    experiment or stacked over a leading experiment axis."""
-    if np.ndim(x0_w) > np.ndim(x0_prior):
-        raise NotImplementedError(
-            "a full sqrt-information x0 prior is not ported yet")
+    experiment or stacked over a leading experiment axis; ``x0_w`` may be
+    per-state weights or a full sqrt-information matrix."""
     return ProblemData(*(_tensor(x, device, dtype) for x in
                          (y, u, meas_w, p_prior, p_w, x0_prior, x0_w)))
 

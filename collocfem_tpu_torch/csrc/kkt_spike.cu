@@ -48,14 +48,16 @@
 // right-hand side.  The optimal-control problems carry [x; u] at a node: the
 // pendulum swing-up (config 3, nx = 2, nu = 1, degree 4) is b = 12 with no
 // parameter (the chain solve at r = 1), its free-time form b = 12 with the
-// horizon as the one parameter (nq = 1).
+// horizon as the one parameter (nq = 1).  The moving-horizon estimator's
+// window (Van der Pol, nx = 2, degree 3, no parameter) is b = 6 at r = 1,
+// on an 8-lane group with lanes 6 and 7 idle.
 #define KKT_SHAPES(X) X(8, 2) X(8, 3) X(8, 5) X(12, 1) /* (b, nq), KKT */
-#define CHAIN_SHAPES(X) X(8, 1) X(8, 3) X(12, 1)   /* (b, r), plain chain */
+#define CHAIN_SHAPES(X) X(6, 1) X(8, 1) X(8, 3) X(12, 1) /* (b, r), chain */
 
 namespace {
 
-constexpr int kTileThreads = 32;   // one warp: four tiles of b = 8 lanes,
-                                   // two of b = 12 (16-lane groups)
+constexpr int kTileThreads = 32;   // one warp: four tiles of b = 6 or 8
+                                   // (8-lane groups), two of b = 12 (16)
 constexpr int kComposeThreads = 256;
 
 template <typename F, int B, int R, bool KKT>

@@ -36,7 +36,8 @@
 //
 // Lane layout of phases 1-3: a group is W neighbouring lanes of a warp, W
 // the next power of two at or above b (group_width: W = b = 8, four tiles
-// to a warp; b = 12 takes W = 16, two tiles to a warp), and lane i < b owns
+// to a warp; b = 6 also takes W = 8; b = 12 takes W = 16, two tiles to a
+// warp), and lane i < b owns
 // row i of every b x b block and of every b x N right-hand side the group
 // carries (the factor,
 // the reduced RHS y with C = r + b columns, the backward-sweep state x with

@@ -15,6 +15,10 @@ Two layouts:
     leading experiment axes; :func:`assemble_gn` and
     :func:`assemble_gn_batched` (config 5's ``layout="blocks"``).
 
+The initial-state prior enters every assembly through two helpers,
+:func:`x0_prior_residual` and :func:`add_x0_prior`: per-state weights (nx,)
+or a full (nx, nx) sqrt-information matrix.
+
 The batched assemblies carry an explicit experiment axis: ``torch.func.vmap``
 maps only the per-element ``jacfwd`` (the scatters below write in place into
 fresh tensors, which ``vmap`` cannot run).  Every cost is float64, read off
@@ -52,6 +56,30 @@ class BlockTriSystemSoA(NamedTuple):
     @property
     def block_size(self) -> int:
         return self.D.shape[0]
+
+
+def x0_prior_residual(x0_w, dx0):
+    """Residual of the initial-state prior at dx0 = x(t0) - x0_prior (...,
+    nx): L dx0 for a full sqrt-information matrix x0_w (..., nx, nx), x0_w *
+    dx0 for per-state weights (..., nx)."""
+    if x0_w.ndim > dx0.ndim:
+        return torch.einsum("...ij,...j->...i", x0_w, dx0)
+    return x0_w * dx0
+
+
+def add_x0_prior(D0, g0, x0_w, dx0):
+    """Add the initial-state prior's normal equations in place: D0 (...,
+    nx, nx) is a view of block 0's leading states, g0 (..., nx) of their
+    gradient.  A full sqrt-information matrix L adds L^T L and L^T L dx0;
+    per-state weights w add w^2 on the diagonal and w^2 dx0."""
+    if x0_w.ndim > dx0.ndim:
+        lam_x0 = x0_w.mT @ x0_w
+        D0 += lam_x0
+        g0 += torch.einsum("...ij,...j->...i", lam_x0, dx0)
+    else:
+        w2 = x0_w**2
+        torch.diagonal(D0, dim1=-2, dim2=-1).add_(w2)
+        g0 += w2 * dx0
 
 
 def _chain_scatter_soa(h11, h22, h12, b1, b2, g1, g2):
@@ -94,15 +122,13 @@ def _scatter_soa(problem, z, data, *, h11, h22, h12, b1, b2, g1, g2, hpp,
     pw2 = data.p_w**2
     C = hpp + torch.diag(pw2)
     gp = gpe + pw2 * (z.p - data.p_prior)
-    dx0 = z.V[0, :nx] - data.x0_prior
-    x0w2 = data.x0_w**2
-    # Diagonal additions: SPD identity on the trailing pad entries of the
-    # last block, and the x0-prior weights on block 0.
+    # SPD identity on the trailing pad entries of the last block, and the
+    # x0 prior on block 0.
     diag_add = zeros(bd, k)
     diag_add[nv:, k - 1] = 1.0
-    diag_add[:nx, 0] += x0w2
-    gx[:nx, 0] += x0w2 * dx0
     D2[::bd + 1] += diag_add
+    add_x0_prior(D2.view(bd, bd, k)[:nx, :nx, 0], gx[:nx, 0], data.x0_w,
+                 z.V[0, :nx] - data.x0_prior)
     return BlockTriSystemSoA(
         D=D2.reshape(bd, bd, k), E=E2.reshape(bd, bd, k),
         B=B2.reshape(bd, nq, k), C=C, gx=gx, gp=gp,
@@ -278,10 +304,6 @@ def _batched_jacobians(problem, Vb, p, data_batch):
     r (E, N, m), jx (E, N, m, s), jp (E, N, m, nq).  ``vmap`` over the
     elements of ``jacfwd``, then over experiments with the shared tables
     unbatched."""
-    if data_batch.x0_w.ndim == 3:
-        raise NotImplementedError(
-            "a full sqrt-information x0 prior is not ported yet "
-            "(ROADMAP queue A, the MHE port)")
     ed, dims = problem.elem_data_batched(data_batch)
 
     def res_aux(xe_flat, p_, edata):
@@ -329,10 +351,9 @@ def assemble_gn_batched(problem, Vb, p, data_batch, with_cost: bool = False):
         torch.einsum("xemq,xem->xq", jp, r),
         num_blocks=mesh.num_blocks, overlap=nv, dtype=Vb.dtype)
     pw2 = data_batch.p_w**2                                   # (E, nq)
-    x0w2 = data_batch.x0_w**2                                 # (E, nx)
     D, gx = sys.D, sys.gx
-    torch.diagonal(D[:, 0], dim1=-2, dim2=-1)[:, :nx] += x0w2
-    gx[:, 0, :nx] += x0w2 * (Vb[:, 0, :nx] - data_batch.x0_prior)
+    add_x0_prior(D[:, 0, :nx, :nx], gx[:, 0, :nx], data_batch.x0_w,
+                 Vb[:, 0, :nx] - data_batch.x0_prior)
     out = BlockTriSystem(
         D=D, E=sys.E, B=sys.B, C=sys.C + torch.diag_embed(pw2), gx=gx,
         gp=sys.gp + pw2 * (p - data_batch.p_prior))
@@ -400,12 +421,11 @@ def assemble_gn_soa_batched(problem, Vb, p, data_batch,
     C = torch.einsum("xemq,xemr->qr", jp, jp) + torch.diag(pw2.sum(0))
     gp = (torch.einsum("xemq,xem->q", jp, r)
           + torch.sum(pw2 * (p - data_batch.p_prior), dim=0))
-    x0w2 = data_batch.x0_w**2                               # (E, nx)
     diag_add = zeros(bd, n_exp, k)
     diag_add[nv:, :, k - 1] = 1.0
-    diag_add[:nx, :, 0] += x0w2.T
-    gx[:nx, :, 0] += (x0w2 * (Vb[:, 0, :nx] - data_batch.x0_prior)).T
     torch.diagonal(D, dim1=0, dim2=1)[...] += diag_add.permute(1, 2, 0)
+    add_x0_prior(D[:nx, :nx, :, 0].permute(2, 0, 1), gx[:nx, :, 0].T,
+                 data_batch.x0_w, Vb[:, 0, :nx] - data_batch.x0_prior)
 
     out = BlockTriSystemSoA(
         D=D.reshape(bd, bd, n_exp * k), E=E.reshape(bd, bd, n_exp * k),

@@ -11,8 +11,7 @@ Counterpart of ``collocfem_tpu/problem.py``.  A problem is split into
 
 Residuals are evaluated per element (``torch.func.vmap``) and turned into
 the block-tridiagonal + arrowhead Gauss-Newton system by
-:mod:`collocfem_tpu_torch.ops.assemble`.  Only the ``"interior"`` defect rule
-is ported.
+:mod:`collocfem_tpu_torch.ops.assemble`.
 """
 
 from __future__ import annotations
@@ -25,6 +24,7 @@ from torch import nn
 from torch.func import vmap
 
 from collocfem_tpu_torch.model import Model
+from collocfem_tpu_torch.ops.assemble import x0_prior_residual
 from collocfem_tpu_torch.ops import residual as res_ops
 from collocfem_tpu_torch.ops.mesh import Mesh
 
@@ -47,7 +47,10 @@ class ProblemData(NamedTuple):
       p_prior:  (nq,) parameter prior mean.
       p_w:      (nq,) sqrt prior weights (0 = no prior on that parameter).
       x0_prior: (nx,) initial-state prior mean.
-      x0_w:     (nx,) sqrt prior weights (0 = free initial state).
+      x0_w:     (nx,) sqrt prior weights (0 = free initial state), or a
+                full (nx, nx) sqrt-information matrix L (residual
+                L (x(t0) - x0_prior), normal-equation term L^T L): the
+                moving-horizon estimator's arrival prior (``mhe.py``).
     """
 
     y: torch.Tensor
@@ -65,7 +68,7 @@ class ElemData(NamedTuple):
     width: torch.Tensor   # ()
     times: torch.Tensor   # (d+1,)
     u: torch.Tensor       # (d+1, nu)
-    dscale: torch.Tensor  # (d, nx)
+    dscale: torch.Tensor  # (d, nx), or (d+1, nx) for the 'full' rule
     rows: torch.Tensor    # (S, d+1)
     mask: torch.Tensor    # (S,)
     mtimes: torch.Tensor  # (S,)
@@ -112,13 +115,15 @@ class EstimationProblem(nn.Module):
     """Weighted nonlinear least-squares collocation problem.
 
     Residual groups:
-      * defects at local nodes 1..d of every element, scaled by
+      * defects at local nodes 1..d of every element (all d+1 nodes for
+        ``defect_rule='full'``), scaled by
         sqrt(quadrature weight * h/2) * defect_weight;
       * measurement residuals h(x(t_i)) - y_i scaled by meas_w;
       * optional Gaussian priors on p and on x(t0).
 
     Buffers (moved by ``.to(device)``): ``diff`` (d+1, d+1), ``widths``
-    (N,), ``elem_times`` (N, d+1), ``dscale`` (N, d, nx), ``mrows``
+    (N,), ``elem_times`` (N, d+1), ``dscale`` (N, d, nx) or (N, d+1, nx),
+    ``mrows``
     (N, S, d+1), ``mmask`` (N, S), ``mtimes`` (N, S).
     """
 
@@ -130,10 +135,12 @@ class EstimationProblem(nn.Module):
     mmask: torch.Tensor
     mtimes: torch.Tensor
 
-    def __init__(self, model: Model, mesh: Mesh, tables: dict):
+    def __init__(self, model: Model, mesh: Mesh, tables: dict,
+                 defect_rule: str = "interior"):
         super().__init__()
         self.model = model
         self.mesh = mesh
+        self.defect_rule = defect_rule
         for name, value in tables.items():
             self.register_buffer(name, value)
 
@@ -142,18 +149,24 @@ class EstimationProblem(nn.Module):
               pad_to: int | None = None, *, device, dtype,
               defect_rule: str = "interior") -> "EstimationProblem":
         """Precompute the static tables on the host and place them on
-        ``device`` in ``dtype``."""
-        if defect_rule == "full":
-            raise NotImplementedError(
-                "defect_rule='full' is not ported yet (ROADMAP queue A)")
-        if defect_rule != "interior":
+        ``device`` in ``dtype``.
+
+        ``defect_rule``: ``"interior"`` collocates the defects at local
+        nodes 1..d; ``"full"`` at all d+1 LGL nodes, each with its own
+        quadrature weight, so the MAP objective integrates the process
+        noise with the complete LGL rule (filtering-grade estimation: the
+        moving-horizon estimator and the Kalman-smoother parity).
+        """
+        if defect_rule not in ("interior", "full"):
             raise ValueError(f"unknown defect_rule {defect_rule!r}")
         nx = model.nx
         dummy_vals = np.zeros((np.asarray(meas_times).size, model.ny))
         _, rg, mg, tg = group_measurements(mesh, meas_times, dummy_vals,
                                            pad_to)
-        # Defect scale sqrt(w_k * h_e / 2) * defect_weight at nodes 1..d.
-        w = mesh.basis.weights[1:]
+        # Defect scale sqrt(w_k * h_e / 2) * defect_weight at the collocated
+        # nodes (1..d, or 0..d for the 'full' rule).
+        w = mesh.basis.weights if defect_rule == "full" else \
+            mesh.basis.weights[1:]
         h = mesh.widths
         dw = np.broadcast_to(np.asarray(defect_weight, dtype=np.float64),
                              (nx,))
@@ -164,7 +177,7 @@ class EstimationProblem(nn.Module):
         return EstimationProblem(model, mesh, {
             k: torch.as_tensor(np.array(v), dtype=dtype, device=device)
             for k, v in tables.items()
-        })
+        }, defect_rule)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -189,10 +202,6 @@ class EstimationProblem(nn.Module):
                 f"y_values has {y_arr.shape[-1]} channel(s) but the model's "
                 f"output map h produces ny={m.ny}"
             )
-        if np.ndim(x0_weight) == 2:
-            raise NotImplementedError(
-                "a full sqrt-information x0 prior is not ported yet "
-                "(ROADMAP queue A, the MHE port)")
         yg, _, _, _ = group_measurements(
             self.mesh, meas_times, y_values, pad_to=self.mrows.shape[1]
         )
@@ -200,6 +209,7 @@ class EstimationProblem(nn.Module):
         if u_nodes is None:
             u_nodes = np.zeros((n, d + 1, m.nu))
         bc = lambda v, k: np.broadcast_to(np.asarray(v, dtype=np.float64), (k,))
+        x0w = x0_weight if np.ndim(x0_weight) == 2 else bc(x0_weight, m.nx)
         return ProblemData(
             y=self._tensor(yg),
             u=self._tensor(u_nodes),
@@ -209,7 +219,7 @@ class EstimationProblem(nn.Module):
             p_w=self._tensor(bc(p_weight, m.nq)),
             x0_prior=self._tensor(np.zeros(m.nx) if x0_prior is None
                                   else x0_prior),
-            x0_w=self._tensor(bc(x0_weight, m.nx)),
+            x0_w=self._tensor(x0w),
         )
 
     @property
@@ -237,11 +247,15 @@ class EstimationProblem(nn.Module):
         )
 
     def elem_residual(self, xe_flat, p, ed: ElemData):
-        """Residual vector of ONE element: (d*nx + S*ny,). jacfwd target."""
+        """Residual vector of ONE element: (d*nx + S*ny,), or ((d+1)*nx +
+        S*ny,) for the 'full' rule. jacfwd target."""
         d, nx = self.mesh.degree, self.model.nx
         xe = xe_flat.reshape(d + 1, self.nv)
         x_nodes, u_nodes = xe[:, :nx], ed.u
-        defect = res_ops.defect_residual(
+        defect_fn = (res_ops.defect_residual_all
+                     if self.defect_rule == "full"
+                     else res_ops.defect_residual)
+        defect = defect_fn(
             self.model, self.diff, ed.width, ed.times, x_nodes, u_nodes, p,
             ed.dscale,
         )
@@ -289,14 +303,15 @@ class EstimationProblem(nn.Module):
     def prior_residuals_batched(self, Vb, p, data_batch: ProblemData):
         """(E, nq + nx) per-experiment prior residuals (p and x(t0))."""
         r_p = data_batch.p_w * (p - data_batch.p_prior)
-        r_x0 = data_batch.x0_w * (Vb[:, 0, :self.model.nx]
-                                  - data_batch.x0_prior)
+        r_x0 = x0_prior_residual(
+            data_batch.x0_w, Vb[:, 0, :self.model.nx] - data_batch.x0_prior)
         return torch.cat([r_p, r_x0], dim=-1)
 
     def prior_residuals(self, z: Decision, data: ProblemData):
         """(nq + nx,) residuals of the parameter and initial-state priors."""
         r_p = data.p_w * (z.p - data.p_prior)
-        r_x0 = data.x0_w * (z.V[0, :self.model.nx] - data.x0_prior)
+        r_x0 = x0_prior_residual(data.x0_w,
+                                 z.V[0, :self.model.nx] - data.x0_prior)
         return torch.cat([r_p, r_x0])
 
     def residual_vector(self, z: Decision, data: ProblemData):

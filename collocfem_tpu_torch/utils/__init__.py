@@ -1,5 +1,6 @@
-"""Utilities: measurement-data loading."""
+"""Utilities: measurement-data loading, trajectory simulation."""
 
 from collocfem_tpu_torch.utils.io import load_measurements, save_measurements
+from collocfem_tpu_torch.utils.simulate import rk4_trajectory
 
-__all__ = ["load_measurements", "save_measurements"]
+__all__ = ["load_measurements", "save_measurements", "rk4_trajectory"]

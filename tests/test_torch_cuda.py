@@ -731,3 +731,88 @@ def test_config3_solve_on_the_card_matches_the_cpu(cuda_device):
     assert float((v_card - v_cpu).abs().max()) <= 1e-6
     assert float(((h_card[:, 0] - h_cpu[:, 0]) / h_cpu[:, 0]).abs().max()) \
         <= 1e-6
+
+
+# ---- the moving-horizon estimator's block size b = 6 ------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", EDGES + [8, 12, 229, 1000])
+def test_chain_kernel_at_block_size_6_matches_plain(cuda_device, k):
+    """Kernel #2 at (6, 1), the MHE window's shape (degree 3, nx = 2), on an
+    8-lane group with lanes 6 and 7 idle: float64 relative difference <=
+    1e-9; float32 residual at most 10x the plain version's; each call one
+    counted launch at (6, 1), and two runs bit-identical."""
+    for dtype in (torch.float64, torch.float32):
+        D, E, G = random_chain(k, 6, 1, seed=k + 6, dtype=dtype,
+                               device=cuda_device)
+        before = dict(spike.blocktri_solve_spike_fused.shapes)
+        got = spike.blocktri_solve_spike_fused(D, E, G)
+        again = spike.blocktri_solve_spike_fused(D, E, G)
+        torch.cuda.synchronize()
+        assert spike.blocktri_solve_spike_fused.shapes[(6, 1)] == \
+            before.get((6, 1), 0) + 2
+        assert torch.equal(got, again)
+        want = spike.blocktri_solve_spike_fused_ref(D, E, G)
+        if dtype == torch.float64:
+            assert rel_err(got, want) <= 1e-9
+        else:
+            assert chain_residual(D, E, G, got) <= \
+                10 * chain_residual(D, E, G, want)
+
+
+@pytest.mark.cuda
+def test_mhe_on_the_card_matches_the_cpu(cuda_device):
+    """A Van der Pol moving-horizon estimator (degree 3, horizon 8: b = 6,
+    K = 8) in float64 on the card ('auto': kernel #2 at (6, 1) once per LM
+    iteration of every window solve, no other kernel, no plain version)
+    against the same stream on the CPU: every estimate within 1e-7 and the
+    final covariance within 1e-11 of its largest entry.  Each window solve
+    stops at gtol = 1e-9 on the gradient, which fixes the unmeasured
+    velocity only to ~1e-8, so the two chain solves' rounding moves the
+    estimates by a few 1e-9; the covariance, a function of the estimate
+    through the model's Jacobians, moves by a few 1e-13 of its largest
+    entry.  Each bar is some 25-35 times the H100's reading."""
+    import numpy as np
+
+    from collocfem_tpu_torch.mhe import MovingHorizonEstimator
+    from collocfem_tpu_torch.models import VanDerPol
+    from collocfem_tpu_torch.solve.newton import SolverOptions
+
+    rng = np.random.default_rng(3)
+    ys = np.sin(0.05 * np.arange(14))[:, None] + 0.01 * rng.standard_normal(
+        (14, 1))
+    plain = (spike.kkt_solve_spike_fused_ref,
+             spike.blocktri_solve_spike_fused_ref,
+             thomas.batched_thomas_solve_ref, cr.cr_level_ref,
+             cr.cr_level_factor_ref, cr.cr_level_apply_ref, cr.cr_backsub_ref)
+    runs = []
+    for device in (cuda_device, "cpu"):
+        mhe = MovingHorizonEstimator(
+            VanDerPol(), horizon=8, dt=0.05, sig_w=0.5, sig_v=0.01, degree=3,
+            p_fixed=[1.0, 1.0], options=SolverOptions(maxiter=20, gtol=1e-9),
+            device=device)
+        its = []
+        solver = mhe._solver
+        mhe._solver = lambda z0, data: (lambda out: (its.append(
+            int(out[1].iterations)), out)[1])(solver(z0, data))
+        before, before_plain = _launches(KERNELS), _launches(plain)
+        state = mhe.init(ys[:8], m0=[0.0, 1.0], P0=np.eye(2))
+        ests = [mhe.estimate(state)]
+        for k in range(8, 14):
+            state, est = mhe.step(state, ys[k])
+            ests.append(est)
+        cov = mhe.current_covariance(state)
+        if device != "cpu":
+            torch.cuda.synchronize()
+            ran = [a - b for a, b in zip(_launches(KERNELS), before)]
+            assert ran == [0, 0, 0, 0, 0, sum(its), 0]
+            assert _launches(plain) == before_plain
+        runs.append((torch.stack(ests).cpu(), cov.cpu()))
+    (e_card, c_card), (e_cpu, c_cpu) = runs
+    d_est = float((e_card - e_cpu).abs().max())
+    d_cov = float((c_card - c_cpu).abs().max() / c_cpu.abs().max())
+    print(f"card against CPU: estimates {d_est:.3e}, covariance {d_cov:.3e} "
+          f"of max |cov| {float(c_cpu.abs().max()):.3e}")
+    assert d_est <= 1e-7
+    assert d_cov <= 1e-11
