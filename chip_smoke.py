@@ -156,6 +156,20 @@ Phases, each printing its own line; any failure raises and exits non-zero:
      p within 1e-6 and parameter_std (kernels #3, #6) within 1e-6 of the
      JAX package's.
 
+Phases 3-9 and 13 run each solve as it runs by default on a CUDA device:
+from CUDA graphs captured at its first call (collocfem_tpu_torch/solve/
+graph.py), and every launch count above is the captured run's (each replay
+adds its graph's share).  Each of these phases also runs ``solve.eager`` once
+on the same inputs and raises unless it gives the captured result bit for
+bit (z, cost, iterations, history and the other SolveStats fields, by
+torch.equal on their bit patterns); phase 13 does so for the first 20 MHE
+steps (``step_eager``) in both dtypes, and phase 7 for the ladder
+(``ConvergedLadder.eager``).  A phase line's wall is the captured one, with
+the eager wall beside it; phases 3, 5 and 7 also profile one captured run
+(device time, and the idle share of the captured and of the eager wall).
+Phases 10-12 run eagerly: their solvers (solve/auglag.py, bounds.py,
+constrained.py) are not captured.
+
 The second-to-last lines are the card's name and power limit and a JSON
 object describing every kernel of the path (its numbers at the headline's
 shape; ``shapes``: its main-path launches at each shape, as its wrapper
@@ -520,7 +534,7 @@ BOUNDED_VDP_JAX_F64 = (0.7999999998603717, 0.7843172245985526)
 #               for i in [*range(0, len(ests), 20), len(ests) - 1]}))
 #   print(repr(np.asarray(mhe.current_covariance(state)).tolist()))
 #   EOF
-MHE_DT, MHE_HORIZON, MHE_SIG_V, MHE_SIG_W, MHE_SAMPLES = 0.05, 12, 0.02, 0.5, 240
+MHE_DT, MHE_HORIZON, MHE_SIG_V = 0.05, 12, 0.02   # testing.mhe_online_stream
 MHE_JAX_RMSE = (0.01985993353425002, 0.018215979048823907)
 MHE_JAX_ESTIMATES = {
     0: (1.810819665982519, -0.4989054815769797),
@@ -821,17 +835,9 @@ def _compare(sys_, lam, damp_scale, label):
 
 
 def _headline(dtype, device, elements=ELEMENTS):
-    from collocfem_tpu_torch.headline import build_headline_problem
-    from collocfem_tpu_torch.models import VanDerPol
-    from collocfem_tpu_torch.problem import EstimationProblem
+    from collocfem_tpu_torch.headline import headline_problem
 
-    mesh, t_meas, y, u_nodes = build_headline_problem(elements)
-    prob = EstimationProblem.build(VanDerPol(), mesh, t_meas,
-                                   defect_weight=100.0, device=device,
-                                   dtype=dtype)
-    data = prob.pack_data(y, t_meas, u_nodes=u_nodes)
-    z0 = prob.initial_guess_from_data(t_meas, y, p0=[0.5, 0.5])
-    return prob, data, z0
+    return headline_problem(elements, dtype=dtype, device=device)
 
 
 def _cr_chain(prob, data, z0, lam, covariance_rhs=True):
@@ -1156,23 +1162,53 @@ def _p_dev(p, ref):
 
 def _timed(fn):
     """(result, wall in s) of fn() bracketed by torch.cuda.synchronize()."""
-    import torch
+    from collocfem_tpu_torch.utils.profiling import timed
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, time.perf_counter() - t0
+    wall, out = timed(fn, device="cuda", reps=1, warmup=0)
+    return out, wall
+
+
+def _profile_captured(label, run, wall, eager_wall):
+    """_profile_run of one captured run, with the device idle share of the
+    captured ``wall`` and of the ``eager_wall`` (the kernels are the same)."""
+    prof = _profile_run(f"{label} captured", run, wall)
+    prof["eager_idle_share"] = 1 - prof["device_ms"] / 1e3 / eager_wall
+    print(f"    idle share of the eager wall {prof['eager_idle_share']:.3f}")
+    return prof
+
+
+def _vs_eager(label, solve, args, got):
+    """Run the captured ``solve`` once more (a replay) and ``solve.eager``
+    once on ``args``; raise unless both give ``got``, the captured solve's
+    first result, bit for bit: z and every SolveStats field (cost,
+    iterations, history, ...), by torch.equal on their bit patterns (a NaN
+    in a rejected step's history row matches itself).  Returns (the
+    replay's wall, the eager wall)."""
+    from collocfem_tpu_torch.testing import bit_equal
+
+    again, wall = _timed(lambda: solve(*args))
+    want, eager_wall = _timed(lambda: solve.eager(*args))
+    ok = bit_equal(again, got) and bit_equal(want, got)
+    print(f"  {label}: captured and eager bit-identical (z, cost, "
+          f"iterations, history) {'ok' if ok else 'FAIL'}; wall captured "
+          f"{wall:.4f} s, eager {eager_wall:.4f} s")
+    if not ok:
+        raise RuntimeError(f"{label}: the captured solve differs from "
+                           "solve.eager")
+    return wall, eager_wall
 
 
 def _run_ladder(ladder, label, card):
     """Run a ConvergedLadder once with the launch counts read after every
-    level, then once more without the reads for the wall.  With gtol = 0
-    every level runs all its maxiter trial solves (the lambda rail stops
+    level (each level's solve captures its graphs here), then once more
+    without the reads for the wall, then eagerly (``ladder.eager``), which
+    must give the captured run's finest (z, stats) bit for bit.  With gtol =
+    0 every level runs all its maxiter trial solves (the lambda rail stops
     its progress, not its loop), so a level on 'auto' launches kernel #1
     maxiter times and a level on 'cr' launches kernels #4-#6 (levels x
     maxiter) times each; nothing else may launch and no plain version may run.
-    Returns (z of every level, stats, per-level records, wall)."""
+    Returns (z of every level, stats, per-level records, wall, eager
+    wall)."""
     zs, per_level = [], []
 
     def on_level(i, z, stats):
@@ -1194,16 +1230,25 @@ def _run_ladder(ladder, label, card):
         zs.append(z)
         _reset_counts()
 
+    from collocfem_tpu_torch.testing import bit_equal
+
     _reset_counts()
     (z, stats), first = _timed(lambda: ladder(on_level))
-    (z2, _), wall = _timed(ladder)
+    again, wall = _timed(ladder)
+    want, eager_wall = _timed(ladder.eager)
     for r in per_level:
         print(f"  {label} level {r['elements']} ({r['method']}): "
               f"{r['iterations']} iterations, launches {r['launches']}, "
               f"p={r['p']}")
-    print(f"  {label}: wall {wall:.3f} s (first run, with per-level reads: "
-          f"{first:.3f} s) on {card}")
-    return zs, stats, per_level, wall
+    ok = bit_equal(again, (z, stats)) and bit_equal(want, (z, stats))
+    print(f"  {label}: wall {wall:.3f} s captured, {eager_wall:.3f} s eager "
+          f"(first run, with the captures and per-level reads: {first:.3f} "
+          f"s) on {card}; captured and eager bit-identical at the finest "
+          f"level (z, cost, iterations, history) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"{label}: the captured ladder differs from the "
+                           "eager one")
+    return zs, stats, per_level, wall, eager_wall
 
 
 def _phase7(dev, card, record):
@@ -1236,19 +1281,25 @@ def _phase7(dev, card, record):
                  for _ in range(3 if dtype == torch.float32 else 1)]
         c0, c_end = float(prob.cost(z0, data)), float(stats.cost)
         p = z.p.tolist()
-        record[f"cr_fixed_work_{name}"] = dict(
-            wall_s=min(walls), walls_s=walls, cost=[c0, c_end], p=p,
-            launches=counts, accepts=stats.history[:, 4].tolist(),
-            lam=stats.history[:, 2].tolist())
         print(f"phase 7: N={ELEMENTS_CR} {name} method='cr', 15 LM "
               f"iterations: cost {c0:.6e} -> {c_end:.6e} ({c0 / c_end:.2f}x), "
               f"p={p}, accepted {int(stats.history[:, 4].sum())} of 15, "
               f"launches { {k: v for k, v in counts.items() if v} }, plain "
-              f"calls {plain_calls}; wall {min(walls):.4f} s (best of "
-              f"{len(walls)}) on {card}")
+              f"calls {plain_calls}; wall {min(walls):.4f} s captured (best "
+              f"of {len(walls)}) on {card}")
         _expect_only(counts, plain_calls,
                      {k: 15 * n_levels for k in CR_NAMES[1:]},
                      f"phase 7 fixed work {name}")
+        _, eager_wall = _vs_eager(f"phase 7 fixed work {name}", solve,
+                                  (z0, data), (z, stats))
+        record[f"cr_fixed_work_{name}"] = dict(
+            wall_s=min(walls), walls_s=walls, eager_wall_s=eager_wall,
+            profile=_profile_captured(f"phase 7 fixed work {name}",
+                                      lambda: solve(z0, data), min(walls),
+                                      eager_wall),
+            cost=[c0, c_end], p=p, launches=counts,
+            accepts=stats.history[:, 4].tolist(),
+            lam=stats.history[:, 2].tolist())
         if not (c_end < c0 and all(math.isfinite(v) for v in p)):
             raise RuntimeError(f"the CR fixed-work solve ({name}) did no "
                                "useful work")
@@ -1273,10 +1324,12 @@ def _phase7(dev, card, record):
 
     # The converged ladder, float32 then float64.
     ladder = ConvergedLadder(ELEMENTS_CR, device=dev, dtype=torch.float32)
-    _, _, per_level, wall = _run_ladder(ladder, "ladder float32", card)
+    _, _, per_level, wall, eager_wall = _run_ladder(ladder, "ladder float32",
+                                                    card)
     p = per_level[-1]["p"]
     p_err = max(abs(v - 1.0) for v in p)
-    record["ladder_f32"] = dict(wall_s=wall, levels=per_level, p_err=p_err)
+    record["ladder_f32"] = dict(wall_s=wall, eager_wall_s=eager_wall,
+                                levels=per_level, p_err=p_err)
     print(f"  ladder float32: p={p}, ||p - 1||_inf {p_err:.3e} (< 1e-4; the "
           f"JAX package's CPU float32 ladder: {P_ERR_JAX_LADDER_F32:.3e})")
     if not p_err < 1e-4:
@@ -1284,10 +1337,12 @@ def _phase7(dev, card, record):
     del ladder
 
     ladder = ConvergedLadder(ELEMENTS_CR, device=dev, dtype=torch.float64)
-    zs, _, per_level, wall = _run_ladder(ladder, "ladder float64", card)
+    zs, _, per_level, wall, eager_wall = _run_ladder(ladder, "ladder float64",
+                                                     card)
     p = per_level[-1]["p"]
     p_dev = _p_dev(p, P_JAX_LADDER_F64)
-    record["ladder_f64"] = dict(wall_s=wall, levels=per_level, p_vs_jax=p_dev)
+    record["ladder_f64"] = dict(wall_s=wall, eager_wall_s=eager_wall,
+                                levels=per_level, p_vs_jax=p_dev)
     print(f"  ladder float64: p={p}, |p - p_jax|/|p_jax| {p_dev:.3e} "
           f"(<= 1e-6)")
     if not p_dev <= 1e-6:
@@ -1573,7 +1628,6 @@ def _config_phase(num, cname, build, fixed, converged, truth, jax_p,
     from collocfem_tpu_torch.solve.newton import (SolverOptions,
                                                   make_gn_solver,
                                                   make_irls_solver)
-    from collocfem_tpu_torch.tools.spike_tiles import _profile
 
     launches = {}
     rec = record.setdefault(cname.replace(" ", ""), {})
@@ -1598,21 +1652,24 @@ def _config_phase(num, cname, build, fixed, converged, truth, jax_p,
     walls = [_timed(lambda: solve(z0, data))[1] for _ in range(3)]
     c0, c_end, p = float(prob.cost(z0, data)), float(st.cost), z.p.tolist()
     p_err = max(abs(a / b - 1.0) for a, b in zip(p, truth))
-    rec["fixed_float32"] = dict(wall_s=min(walls), walls_s=walls,
-                                cost=[c0, c_end], p=p, p_rel_err=p_err,
-                                iterations=int(st.iterations),
-                                launches=counts[kkt])
     print(f"{tag} (a) K={prob.mesh.num_blocks} nq={prob.model.nq} float32, "
           f"{maxiter} LM iterations ({int(st.iterations)} counted): cost "
           f"{c0:.6e} -> {c_end:.6e}, p={p}, max|p/p_true - 1| {p_err:.4f}"
           + (f" (<= {f32_bar}; the JAX benchmark: ~0.098)" if f32_bar else "")
           + f", kernel #1 launches {counts[kkt]}, no plain call; best of 3 "
-          f"wall {min(walls):.4f} s on {card}")
+          f"wall {min(walls):.4f} s captured on {card}")
     if not (c_end < c0 and all(math.isfinite(v) for v in p)):
         raise RuntimeError(f"{tag} (a): the float32 solve did no useful work")
     if f32_bar is not None and not p_err <= f32_bar:
         raise RuntimeError(f"{tag} (a): p is {p_err:.4f} from the truth")
-    _profile(f"{cname} fixed work float32", lambda: solve(z0, data), rec)
+    _, eager_wall = _vs_eager(f"{tag} (a)", solve, (z0, data), (z, st))
+    rec["fixed_float32"] = dict(wall_s=min(walls), walls_s=walls,
+                                eager_wall_s=eager_wall, cost=[c0, c_end],
+                                p=p, p_rel_err=p_err,
+                                iterations=int(st.iterations),
+                                launches=counts[kkt])
+    rec["fixed_float32"]["profile"] = _profile_captured(
+        f"{tag} (a)", lambda: solve(z0, data), min(walls), eager_wall)
     del prob, z0, data, solve
 
     # (b), (c) float64 fixed work on 'auto' and 'cr'; (d) converged.
@@ -1625,56 +1682,63 @@ def _config_phase(num, cname, build, fixed, converged, truth, jax_p,
              {k: maxiter * n_levels for k in CR_NAMES[1:]}, jax_p["fixed"]),
             ("(d)", dict(converged), only_kkt, jax_p["converged"])):
         solve = make_gn_solver(prob, SolverOptions(**opts))
-        (z, st), wall, counts = _counted(f"{tag} {part}",
-                                         lambda: solve(z0, data), want)
+        (z, st), first, counts = _counted(f"{tag} {part}",
+                                          lambda: solve(z0, data), want)
         add(counts)
         p, dev_p = z.p.tolist(), _p_dev(z.p.tolist(), ref)
-        rec[f"float64 {part} {opts.get('method', 'auto')}"] = dict(
-            wall_s=wall, cost=[c0, float(st.cost)], p=p, p_vs_jax=dev_p,
-            iterations=int(st.iterations), converged=bool(st.converged),
-            launches={k: v for k, v in counts.items() if v})
         print(f"{tag} {part} float64 {opts}: {int(st.iterations)} "
               f"iterations, converged {bool(st.converged)}, cost {c0:.6e} -> "
               f"{float(st.cost):.6e}, p={p}, |p - p_jax|/|p_jax| {dev_p:.3e} "
               f"(<= 1e-6), launches "
               f"{ {k: v for k, v in counts.items() if v} }, no plain call; "
-              f"wall {wall:.4f} s on {card}")
+              f"first call (with the capture) {first:.4f} s on {card}")
         if not (float(st.cost) < c0 and dev_p <= 1e-6):
             raise RuntimeError(f"{tag} {part}: p disagrees with the JAX "
                                "package's")
         if part == "(d)" and not bool(st.converged):
             raise RuntimeError(f"{tag} (d): the converged run did not "
                                "converge")
+        wall, eager_wall = _vs_eager(f"{tag} {part}", solve, (z0, data),
+                                     (z, st))
+        rec[f"float64 {part} {opts.get('method', 'auto')}"] = dict(
+            wall_s=wall, eager_wall_s=eager_wall, first_call_s=first,
+            cost=[c0, float(st.cost)], p=p, p_vs_jax=dev_p,
+            iterations=int(st.iterations), converged=bool(st.converged),
+            launches={k: v for k, v in counts.items() if v})
 
     # (e) IRLS or exact Newton, float64.
     if robust == "irls":
         opts = SolverOptions(**converged, irls_delta=2.0)
         solve = make_irls_solver(prob, opts, n_rounds=4)
-        (z, rounds, _), wall, counts = _counted(
+        out, first, counts = _counted(
             f"{tag} (e)", lambda: solve(z0, data),
             lambda out: {kkt: sum(int(r.iterations) for r in out[1])})
+        z, rounds, _ = out
         st = rounds[-1]
     else:
         solve = make_gn_solver(prob, SolverOptions(**converged,
                                                    hessian="newton"))
-        (z, st), wall, counts = _counted(f"{tag} (e)",
-                                         lambda: solve(z0, data), only_kkt)
+        out, first, counts = _counted(f"{tag} (e)",
+                                      lambda: solve(z0, data), only_kkt)
+        z, st = out
         rounds = (st,)
         if not bool(st.converged):
             raise RuntimeError(f"{tag} (e): the Newton run did not converge")
     add(counts)
     p, dev_p = z.p.tolist(), _p_dev(z.p.tolist(), jax_p[robust])
     its = [int(r.iterations) for r in rounds]
-    rec[f"float64 (e) {robust}"] = dict(
-        wall_s=wall, p=p, p_vs_jax=dev_p, iterations=its,
-        converged=bool(st.converged), launches=counts[kkt])
     print(f"{tag} (e) float64 {robust}: LM iterations {its} (one entry per "
           f"solve), last solve converged {bool(st.converged)}, p={p}, "
           f"|p - p_jax|/|p_jax| {dev_p:.3e} (<= 1e-6), kernel #1 launches "
-          f"{counts[kkt]} (one per iteration), no plain call; wall "
-          f"{wall:.4f} s on {card}")
+          f"{counts[kkt]} (one per iteration), no plain call; first call "
+          f"(with the captures) {first:.4f} s on {card}")
     if not dev_p <= 1e-6:
         raise RuntimeError(f"{tag} (e): p disagrees with the JAX package's")
+    wall, eager_wall = _vs_eager(f"{tag} (e)", solve, (z0, data), out)
+    rec[f"float64 (e) {robust}"] = dict(
+        wall_s=wall, eager_wall_s=eager_wall, first_call_s=first, p=p,
+        p_vs_jax=dev_p, iterations=its, converged=bool(st.converged),
+        launches=counts[kkt])
     return launches
 
 
@@ -2025,33 +2089,11 @@ def _constrained_estimation(dev, card, record):
 
 
 def _mhe_stream(dtype, dev):
-    """examples/mhe_online.py's estimator and stream: Van der Pol with p
-    fixed at [1, 1], horizon 12, dt 0.05, degree 3 (b = 6), sig_w 0.5,
-    sig_v 0.02, maxiter 20, gtol 1e-9, 'auto'.  The RK4 truth from [2, 0]
-    and the noise of default_rng(0) are made on the host in float64.
-    Returns (mhe, truth (240, 2), ys (240, 1))."""
-    import numpy as np
-    import torch
+    """examples/mhe_online.py's estimator and stream
+    (``testing.mhe_online_stream``): (mhe, truth (240, 2), ys (240, 1))."""
+    from collocfem_tpu_torch.testing import mhe_online_stream
 
-    from collocfem_tpu_torch.mhe import MovingHorizonEstimator
-    from collocfem_tpu_torch.models import VanDerPol
-    from collocfem_tpu_torch.solve.newton import SolverOptions
-    from collocfem_tpu_torch.utils.simulate import rk4_trajectory
-
-    rng = np.random.default_rng(0)
-    ts = np.arange(MHE_SAMPLES) * MHE_DT
-    model = VanDerPol()
-    f64 = torch.float64
-    xs = rk4_trajectory(model.f, torch.tensor([2.0, 0.0], dtype=f64), ts,
-                        u_fn=lambda t: torch.zeros(1, dtype=f64),
-                        p=[1.0, 1.0], device="cpu").numpy()
-    ys = xs[:, :1] + MHE_SIG_V * rng.standard_normal((MHE_SAMPLES, 1))
-    mhe = MovingHorizonEstimator(
-        model, horizon=MHE_HORIZON, dt=MHE_DT, sig_w=MHE_SIG_W,
-        sig_v=MHE_SIG_V, degree=3, p_fixed=np.array([1.0, 1.0]),
-        options=SolverOptions(maxiter=20, gtol=1e-9), device=dev,
-        dtype=dtype)
-    return mhe, xs, ys
+    return mhe_online_stream(dtype, dev)
 
 
 def _phase2_mhe(dev, card):
@@ -2134,6 +2176,33 @@ def _serve(mhe, ys, m0, P0, iterations):
         ests.append(est)
     mhe._solver = solver
     return torch.stack(ests).double().cpu().numpy(), walls, state
+
+
+def _mhe_vs_eager(tag, mhe, ys, walls, n=20):
+    """The first ``n`` steps from the first window, captured
+    (``mhe.step``) and eager (``mhe.step_eager``) from the same state:
+    raise unless every step's state (z, m, P, y, u) and estimate agree bit
+    for bit.  Prints the eager steps' walls beside the captured stream's
+    (``walls``).  Returns the record."""
+    import numpy as np
+
+    from collocfem_tpu_torch.testing import bit_equal
+
+    a = b = mhe.init(ys[:MHE_HORIZON], m0=[1.5, 0.5], P0=np.eye(2))
+    eager_walls, ok = [], True
+    for k in range(MHE_HORIZON, MHE_HORIZON + n):
+        a, est_a = mhe.step(a, ys[k])
+        (b, est_b), wall = _timed(lambda: mhe.step_eager(b, ys[k]))
+        eager_walls.append(wall)
+        ok = ok and bit_equal((a.z, a.m, a.P, a.y, a.u, est_a),
+                              (b.z, b.m, b.P, b.y, b.u, est_b))
+    print(f"  {tag}: {n} steps captured and eager bit-identical (z, m, P, "
+          f"y, u, estimate) {'ok' if ok else 'FAIL'}; captured "
+          f"{_walls_line(walls)}; eager {_walls_line(eager_walls)}")
+    if not ok:
+        raise RuntimeError(f"{tag}: the captured step differs from "
+                           "step_eager")
+    return dict(eager_walls_s=eager_walls)
 
 
 def _walls_line(walls):
@@ -2302,7 +2371,7 @@ def _serving(dev, card, record):
               f"{MHE_JAX_RMSE[0]:.6f} {MHE_JAX_RMSE[1]:.6f}); {n_its} LM "
               f"iterations over {steps + 1} window solves = kernel #2 "
               f"launches at (6, 1) ({n_its / (steps + 1):.2f} a solve), no "
-              f"plain call; {_walls_line(walls)} on {card}")
+              f"plain call; captured {_walls_line(walls)} on {card}")
         if dtype == torch.float64:
             d_est = max(abs(ests[i] - np.asarray(v)).max()
                         for i, v in MHE_JAX_ESTIMATES.items())
@@ -2329,6 +2398,7 @@ def _serving(dev, card, record):
                   f"position < {3 * MHE_SIG_V} and velocity < 0.1, every "
                   "estimate finite")
             ok = (r["finite"] and rmse[0] < 3 * MHE_SIG_V and rmse[1] < 0.1)
+        r["vs_eager_20_steps"] = _mhe_vs_eager(tag, mhe, ys, walls)
         rec[f"{part} {name}"] = r
         if not ok:
             raise RuntimeError(f"{tag}: a gate failed")
@@ -2394,20 +2464,22 @@ def _serving(dev, card, record):
     z0 = prob.initial_guess_from_data(t_meas, y[:, None], p0=np.zeros(0))
     solve = make_gn_solver(prob, SolverOptions(maxiter=30, gtol=1e-8,
                                                xtol=1e-12))
-    (z, st), wall, counts = _counted(
+    (z, st), first, counts = _counted(
         tag, lambda: solve(z0, data),
         lambda out: {chain: int(out[1].iterations)})
     keep(tag, counts, 0, {chain: counts[chain]}, (8, 1))
     x_map = interpolate_trajectory(mesh, z.V, t_meas).cpu().numpy()
     err = float(np.abs(x_map - x_smooth).max())
-    rec["(d) float64"] = dict(converged=bool(st.converged), err=err,
-                              iterations=counts[chain], wall_s=wall)
     print(f"{tag} (N = {mesh.num_elements}, degree 4, b = 8): converged "
           f"{bool(st.converged)} in {counts[chain]} iterations = kernel #2 "
           f"launches at (8, 1); max |x_MAP - x_RTS| {err:.3e} (< 1.5e-3); "
-          f"wall {wall:.4f} s")
+          f"first call (with the capture) {first:.4f} s")
     if not (bool(st.converged) and err < 1.5e-3):
         raise RuntimeError(f"{tag}: a gate failed")
+    wall, eager_wall = _vs_eager(tag, solve, (z0, data), (z, st))
+    rec["(d) float64"] = dict(converged=bool(st.converged), err=err,
+                              iterations=counts[chain], wall_s=wall,
+                              eager_wall_s=eager_wall, first_call_s=first)
 
     # ---- (e): the Kalman/PEM pipeline, float64 -----------------------------
     tag = "phase 13 (e): Kalman/PEM pipeline float64"
@@ -2480,11 +2552,13 @@ def _serving(dev, card, record):
           f"(<= 1e-8); wall {wall:.3f} s")
     solve = make_gn_solver(prob, SolverOptions(maxiter=60, gtol=1e-6,
                                                xtol=1e-10))
-    (z, st), wall, counts = _counted(
+    (z, st), first, counts = _counted(
         f"{tag} MAP polish", lambda: solve(z0, data),
         lambda out: {kkt: int(out[1].iterations)})
     keep(f"{tag} MAP polish", counts, 0, {kkt: counts[kkt]}, (8, 3))
     n_map = counts[kkt]
+    wall, eager_wall = _vs_eager(f"{tag} MAP polish", solve, (z0, data),
+                                 (z, st))
     p = z.p.tolist()
     d_p = _p_dev(p, PEM_JAX_MAP_P)
     (sd, sd_wall, counts) = _counted(
@@ -2496,13 +2570,16 @@ def _serving(dev, card, record):
     d_sd = _p_dev(sd.tolist(), PEM_JAX_STD)
     r.update(v0_vs_jax=d_v0, map_p=p, map_p_vs_jax=d_p,
              map_converged=bool(st.converged), map_iterations=n_map,
-             map_wall_s=wall, std=sd.tolist(), std_vs_jax=d_sd,
+             map_wall_s=wall, map_eager_wall_s=eager_wall,
+             map_first_call_s=first, std=sd.tolist(), std_vs_jax=d_sd,
              std_wall_s=sd_wall)
     rec["(e) float64"] = r
     print(f"{tag}: MAP polish (N = 200, b = 8, nq = 3) converged "
           f"{bool(st.converged)} in {n_map} iterations = kernel "
           f"#1 launches at (8, 3), p={p}, |p - p_JAX|/|p_JAX| {d_p:.3e} (<= "
-          f"1e-6), wall {wall:.4f} s; parameter_std {sd.tolist()} (|rel diff "
+          f"1e-6), wall {wall:.4f} s captured, {eager_wall:.4f} s eager "
+          f"(first call, with the capture: {first:.4f} s); parameter_std "
+          f"{sd.tolist()} (|rel diff "
           f"to JAX| {d_sd:.3e} <= 1e-6; kernels #3 and #6 {counts['cr_level']}"
           f" and {counts['cr_backsub']} launches), wall {sd_wall:.4f} s")
     if not (d_v0 <= 1e-8 and bool(st.converged) and d_p <= 1e-6
@@ -2727,44 +2804,42 @@ def main() -> int:
     _keep_shapes(["kkt_solve_spike_fused"])
     launches = counts["kkt_solve_spike_fused"]
     c0, c_end = float(prob.cost(z0, data)), float(stats.cost)
-    walls = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        solve(z0, data)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
+    walls = [_timed(lambda: solve(z0, data))[1] for _ in range(3)]
     p = z.p.tolist()
-    record.update(fixed_work_wall_s=min(walls), fixed_work_walls_s=walls,
-                  fixed_work_cost=[c0, c_end], fixed_work_p=p,
-                  fixed_work_accepts=stats.history[:, 4].tolist())
     print(f"phase 3: N={ELEMENTS} float32, 15 LM iterations: cost {c0:.6e} -> "
           f"{c_end:.6e}, p={p}, kernel launches {launches}, plain calls "
-          f"{plain_calls}; best of 3 wall {min(walls):.4f} s on {card}")
+          f"{plain_calls}; best of 3 wall {min(walls):.4f} s captured on "
+          f"{card}")
     if not (c_end < 0.1 * c0 and all(math.isfinite(v) for v in p)):
         raise RuntimeError("the fixed-work solve did no useful work")
     _expect_only(counts, plain_calls, {"kkt_solve_spike_fused": 15},
                  "phase 3")
+    _, eager_wall = _vs_eager("phase 3", solve, (z0, data), (z, stats))
+    record.update(fixed_work_wall_s=min(walls), fixed_work_walls_s=walls,
+                  fixed_work_eager_wall_s=eager_wall,
+                  fixed_work_profile=_profile_captured(
+                      "phase 3", lambda: solve(z0, data), min(walls),
+                      eager_wall),
+                  fixed_work_cost=[c0, c_end], fixed_work_p=p,
+                  fixed_work_accepts=stats.history[:, 4].tolist())
 
     # ---- phase 4: float64 convergence --------------------------------------
     prob, data, z0 = _headline(torch.float64, dev)
     solve = make_gn_solver(prob, SolverOptions(maxiter=60, gtol=1e-10,
                                                xtol=1e-12))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    z, stats = solve(z0, data)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    (z, stats), first = _timed(lambda: solve(z0, data))
     p = z.p.tolist()
     p_err = max(abs(v - 1.0) for v in p)
     its = int(stats.iterations)
-    record.update(f64_wall_s=wall, f64_iterations=its, f64_p=p,
-                  f64_p_err=p_err, f64_converged=bool(stats.converged))
     print(f"phase 4: N={ELEMENTS} float64: {its} iterations, p={p}, "
-          f"p err {p_err:.3e} (one-thread kernel: 2.95e-11), wall {wall:.3f} s on "
-          f"{card}")
+          f"p err {p_err:.3e} (one-thread kernel: 2.95e-11); first call "
+          f"(with the capture) {first:.3f} s on {card}")
     if not p_err < 1e-4:
         raise RuntimeError("the float64 solve did not reach ||p - 1|| < 1e-4")
+    wall, eager_wall = _vs_eager("phase 4", solve, (z0, data), (z, stats))
+    record.update(f64_wall_s=wall, f64_eager_wall_s=eager_wall,
+                  f64_first_call_s=first, f64_iterations=its, f64_p=p,
+                  f64_p_err=p_err, f64_converged=bool(stats.converged))
 
     # ---- phase 5: config 5 fixed work, float32, both layouts ---------------
     prob, z0, data, p_prior, p_w = c5[torch.float32]
@@ -2780,48 +2855,49 @@ def main() -> int:
         counts, plain_calls = _counts()
         _keep_shapes([kname])
         main_launches[kname] = counts[kname]
-        walls = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            solve(z0, data, p_prior, p_w)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
+        c5_args = (z0, data, p_prior, p_w)
+        walls = [_timed(lambda: solve(*c5_args))[1] for _ in range(3)]
         p = z.p.tolist()
         c_end = float(stats.cost)
         p_rel = max(abs(p[0] / MU_TRUE - 1.0), abs(p[1] / B_TRUE - 1.0))
-        record[f"config5_{layout}"] = dict(
-            wall_s=min(walls), walls_s=walls, cost=[c0, c_end], p=p,
-            p_rel_err=p_rel, launches=counts, plain_calls=plain_calls,
-            accepts=stats.history[:, 4].tolist())
         print(f"phase 5: config 5 {layout} {N_EXP}x10 float32, 15 LM "
               f"iterations: cost {c0:.6e} -> {c_end:.6e}, p={p}, p rel err "
               f"{p_rel:.4e}, {kname} launches {counts[kname]}, plain calls "
-              f"{plain_calls}; best of 3 wall {min(walls):.4f} s on {card}")
+              f"{plain_calls}; best of 3 wall {min(walls):.4f} s captured "
+              f"on {card}")
         if not (c_end < 0.1 * c0 and all(math.isfinite(v) for v in p)):
             raise RuntimeError(f"config 5 {layout} did no useful work")
         _expect_only(counts, plain_calls, {kname: 15}, f"phase 5 {layout}")
+        _, eager_wall = _vs_eager(f"phase 5 {layout}", solve, c5_args,
+                                  (z, stats))
+        record[f"config5_{layout}"] = dict(
+            wall_s=min(walls), walls_s=walls, eager_wall_s=eager_wall,
+            profile=_profile_captured(f"phase 5 {layout}",
+                                      lambda: solve(*c5_args), min(walls),
+                                      eager_wall),
+            cost=[c0, c_end], p=p, p_rel_err=p_rel, launches=counts,
+            plain_calls=plain_calls, accepts=stats.history[:, 4].tolist())
 
     # ---- phase 6: config 5 float64 convergence -----------------------------
     prob, z0, data, p_prior, p_w = c5[torch.float64]
     solve = make_multi_experiment_solver(prob, SolverOptions(**C5_CONVERGED),
                                          layout="soa")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    z, stats = solve(z0, data, p_prior, p_w)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    c5_args = (z0, data, p_prior, p_w)
+    (z, stats), first = _timed(lambda: solve(*c5_args))
     p = z.p.tolist()
     p_dev = _p_dev(p, P_JAX_F64)
     its = int(stats.iterations)
-    record.update(config5_f64_wall_s=wall, config5_f64_iterations=its,
-                  config5_f64_p=p, config5_f64_p_vs_jax=p_dev)
     print(f"phase 6: config 5 float64 soa: {its} iterations, p={p}, "
-          f"|p - p_jax|/|p_jax| {p_dev:.3e} (<= 1e-6; one-thread kernel: 4.220e-11), "
-          f"wall {wall:.3f} s on {card}")
+          f"|p - p_jax|/|p_jax| {p_dev:.3e} (<= 1e-6; one-thread kernel: "
+          f"4.220e-11); first call (with the capture) {first:.3f} s on "
+          f"{card}")
     if not p_dev <= 1e-6:
         raise RuntimeError("config 5 float64 p disagrees with the JAX "
                            "package's")
+    wall, eager_wall = _vs_eager("phase 6", solve, c5_args, (z, stats))
+    record.update(config5_f64_wall_s=wall, config5_f64_eager_wall_s=eager_wall,
+                  config5_f64_first_call_s=first, config5_f64_iterations=its,
+                  config5_f64_p=p, config5_f64_p_vs_jax=p_dev)
 
     elapsed()
     main_launches.update(_phase7(dev, card, record))

@@ -25,6 +25,12 @@ Main paths:
   * online estimation (the serving path): ``mhe.MovingHorizonEstimator``
     (``init``, then ``step`` per sample); the Kalman tier in ``kalman``.
 
+On a CUDA device ``make_gn_solver``'s and ``make_multi_experiment_solver``'s
+solves and ``MovingHorizonEstimator.step`` run from CUDA graphs captured at
+their first call, as the JAX package runs them jitted
+(:mod:`collocfem_tpu_torch.solve.graph`); ``solve.eager`` and
+``step_eager`` are the eager loops.
+
 Importing the package turns TF32 off for float32 matmuls
 (:mod:`collocfem_tpu_torch.precision`).
 """

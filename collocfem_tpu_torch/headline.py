@@ -41,6 +41,19 @@ def build_headline_problem(num_elements: int, degree: int = 4):
     return mesh, t_meas, y, u_nodes
 
 
+def headline_problem(num_elements: int, *, dtype, device):
+    """``bench.py``'s headline estimation at ``num_elements``: (prob, data,
+    z0), defect weight 100, the initial guess from the data with p0 =
+    (0.5, 0.5)."""
+    mesh, t_meas, y, u_nodes = build_headline_problem(num_elements)
+    prob = EstimationProblem.build(VanDerPol(), mesh, t_meas,
+                                   defect_weight=100.0, device=device,
+                                   dtype=dtype)
+    data = prob.pack_data(y, t_meas, u_nodes=u_nodes)
+    return prob, data, prob.initial_guess_from_data(t_meas, y,
+                                                    p0=[0.5, 0.5])
+
+
 # The TPU's fused SPIKE kernel holds the chain in VMEM up to 16,384 blocks
 # at b = 8, r = 3 (collocfem_tpu/ops/spike_pallas.py:60,65-73); 'auto' runs
 # longer chains through the per-level cyclic reduction
@@ -95,7 +108,17 @@ class ConvergedLadder:
 
     def __call__(self, on_level=None):
         """Run every level; ``on_level(index, z, stats)`` is called after
-        each one.  Returns (z, stats) of the last level."""
+        each one.  Returns (z, stats) of the last level.  Each level's solve
+        replays its CUDA graphs on a CUDA device (captured at its first
+        call); the prolongation between levels runs eagerly."""
+        return self._run(on_level, lambda lvl: lvl.solve)
+
+    def eager(self, on_level=None):
+        """The ladder with every level on its solve's eager loop: the same
+        result bit for bit."""
+        return self._run(on_level, lambda lvl: lvl.solve.eager)
+
+    def _run(self, on_level, solver_of):
         z = None
         for i, lvl in enumerate(self.levels):
             if z is None:
@@ -103,7 +126,7 @@ class ConvergedLadder:
                                                          p0=[0.5, 0.5])
             else:
                 z0 = Decision(V=lvl.prolong(z.V), p=z.p)
-            z, stats = lvl.solve(z0, lvl.data)
+            z, stats = solver_of(lvl)(z0, lvl.data)
             if on_level is not None:
                 on_level(i, z, stats)
         return z, stats

@@ -23,10 +23,15 @@ Design
   fixed online).  On a CUDA device 'auto' runs the SPIKE chain kernel
   (kernel #2) once per LM iteration.
 
-``step`` runs eagerly: the JAX package compiles it with ``jax.jit``; a CUDA
-graph of the step is not built here.  For linear-Gaussian models the scheme
-reproduces the Kalman filter at the newest sample (up to collocation/RK4
-discretization error).
+The JAX package compiles ``step`` with ``jax.jit``.  On a CUDA device the
+port replays it from CUDA graphs (:mod:`solve.graph`): one graph of the work
+before the window solve (the EKF update, the RK4 moment propagation, the
+window slide, the warm start and the window's data), then the captured
+window solve, whose early exit reads ``done`` once per LM iteration.
+:meth:`MovingHorizonEstimator.step_eager` is the same step run eagerly, bit
+for bit; on the CPU ``step`` runs eagerly too.  For linear-Gaussian models
+the scheme reproduces the Kalman filter at the newest sample (up to
+collocation/RK4 discretization error).
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from collocfem_tpu_torch.problem import (
     group_measurements,
 )
 from collocfem_tpu_torch.solve.covariance import state_covariance_nodes
+from collocfem_tpu_torch.solve.graph import CapturedFunction
 from collocfem_tpu_torch.solve.newton import SolverOptions, make_gn_solver
 
 
@@ -166,6 +172,7 @@ class MovingHorizonEstimator:
 
         self.options = options or SolverOptions(maxiter=25)
         self._solver = make_gn_solver(self.problem, self.options)
+        self._advance_graph = CapturedFunction(self._advance)
 
     # -- data plumbing ---------------------------------------------------------
     def _sqrt_info(self, P):
@@ -239,8 +246,34 @@ class MovingHorizonEstimator:
         z, _ = self._solver(z0, self._data(y_t, u_t, m0, P0))
         return MHEState(z=z, m=m0, P=P0, y=y_t, u=u_t, k=self.horizon)
 
+    def _advance(self, m, P, y, u, V, y_new, u_new):
+        """The step's work before its window solve: (m, P, y_win, u_win, z0,
+        data)."""
+        d, nx = self.degree, self.model.nx
+        # 1. Fold the departing oldest sample into the arrival prior.
+        m, P = self._ekf_update(m, P, y[0], u[0], 0.0)
+        m, P = self._propagate(m, P, u[0], 0.0)
+        # 2. Slide the window.
+        y_win = torch.cat([y[1:], y_new[None, :]])
+        u_win = torch.cat([u[1:], u_new[None, :]])
+        # 3. Warm start: shift the previous solution one element left and
+        #    hold the newest state over the fresh interval.
+        z0 = Decision(V=torch.cat([V[d:], V[-1].expand(d, nx)]),
+                      p=self._empty)
+        return m, P, y_win, u_win, z0, self._data(y_win, u_win, m, P)
+
     def step(self, state: MHEState, y_new, u_new=None):
-        """Consume one sample; returns (new_state, (nx,) newest-state MAP)."""
+        """Consume one sample; returns (new_state, (nx,) newest-state MAP).
+        On a CUDA device it replays the step's CUDA graphs."""
+        return self._step(state, y_new, u_new, self._advance_graph,
+                          self._solver)
+
+    def step_eager(self, state: MHEState, y_new, u_new=None):
+        """:meth:`step` run eagerly on any device, with the same result."""
+        return self._step(state, y_new, u_new, self._advance_graph.eager,
+                          self._solver.eager)
+
+    def _step(self, state, y_new, u_new, advance, solve):
         ny, nu = self.model.ny, self.model.nu
         y_new = torch.as_tensor(y_new, dtype=self.dtype,
                                 device=self.device).reshape(ny)
@@ -248,20 +281,14 @@ class MovingHorizonEstimator:
                  if u_new is None else
                  torch.as_tensor(u_new, dtype=self.dtype,
                                  device=self.device).reshape(nu))
-        d, nx = self.degree, self.model.nx
-        # 1. Fold the departing oldest sample into the arrival prior.
-        m, P = self._ekf_update(state.m, state.P, state.y[0], state.u[0], 0.0)
-        m, P = self._propagate(m, P, state.u[0], 0.0)
-        # 2. Slide the window.
-        y_win = torch.cat([state.y[1:], y_new[None, :]])
-        u_win = torch.cat([state.u[1:], u_new[None, :]])
-        # 3. Warm start: shift the previous solution one element left and
-        #    hold the newest state over the fresh interval.
-        v_tail = state.z.V[-1].expand(d, nx)
-        z0 = Decision(V=torch.cat([state.z.V[d:], v_tail]), p=self._empty)
+        m, P, y_win, u_win, z0, data = advance(
+            state.m, state.P, state.y, state.u, state.z.V, y_new, u_new)
         # 4. Window MAP solve with the full-matrix arrival prior.
-        z, _ = self._solver(z0, self._data(y_win, u_win, m, P))
-        new_state = MHEState(z=z, m=m, P=P, y=y_win, u=u_win, k=state.k + 1)
+        z, _ = solve(z0, data)
+        # The captured step's outputs are overwritten by the next step: the
+        # state keeps copies.
+        new_state = MHEState(z=z, m=m.clone(), P=P.clone(), y=y_win.clone(),
+                             u=u_win.clone(), k=state.k + 1)
         return new_state, z.V[-1]
 
     def estimate(self, state: MHEState) -> torch.Tensor:

@@ -10,6 +10,7 @@ started together.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
@@ -37,6 +38,73 @@ def count_launches(fn, shape, n: int = 1) -> None:
     or (b,) for a kernel that takes no right-hand side -> launches)."""
     fn.launches += n
     fn.shapes[shape] = fn.shapes.get(shape, 0) + n
+
+
+# Every counted function: the kernel wrappers and their plain versions.
+COUNTED: list = []
+
+
+def register(fn, shapes: bool) -> None:
+    """Give ``fn`` a count of 0 (``fn.launches``; with ``shapes``, a kernel
+    wrapper's count by shape ``fn.shapes`` too) and list it in
+    :data:`COUNTED`."""
+    fn.launches = 0
+    if shapes:
+        fn.shapes = {}
+    COUNTED.append(fn)
+
+
+def snapshot() -> dict:
+    """Every counted function's counts: {fn: (launches, {shape: n})}."""
+    return {fn: (fn.launches, dict(getattr(fn, "shapes", {})))
+            for fn in COUNTED}
+
+
+def restore(snap: dict) -> None:
+    """Set every count back to what ``snap`` (:func:`snapshot`) holds (0
+    for a function registered since)."""
+    for fn in COUNTED:
+        launches, shapes = snap.get(fn, (0, {}))
+        fn.launches = launches
+        if hasattr(fn, "shapes"):
+            fn.shapes = dict(shapes)
+
+
+def difference(before: dict, after: dict) -> dict:
+    """The counts made between two snapshots: {fn: (launches, {shape:
+    n})}, for the functions whose count moved."""
+    out = {}
+    for fn, (launches, shapes) in after.items():
+        n0, s0 = before.get(fn, (0, {}))
+        if launches != n0:
+            out[fn] = (launches - n0,
+                       {s: n - s0.get(s, 0) for s, n in shapes.items()
+                        if n != s0.get(s, 0)})
+    return out
+
+
+def add_counts(share: dict) -> None:
+    """Add ``share`` (:func:`difference`) to the counts: what a captured
+    CUDA graph's replay launches, which no wrapper counts."""
+    for fn, (launches, shapes) in share.items():
+        fn.launches += launches
+        for shape, n in shapes.items():
+            fn.shapes[shape] = fn.shapes.get(shape, 0) + n
+
+
+@contextlib.contextmanager
+def counts_held():
+    """Run the block and leave every count as it was before it.  Yields a
+    dict that holds, once the block has ended, the counts the block made
+    (:func:`difference`): a CUDA graph's warm-up and capture count nothing,
+    and its replays add this share."""
+    before = snapshot()
+    share = {}
+    try:
+        yield share
+        share.update(difference(before, snapshot()))
+    finally:
+        restore(before)
 
 
 @dataclasses.dataclass(frozen=True)

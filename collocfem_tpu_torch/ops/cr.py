@@ -197,7 +197,7 @@ def cr_backsub_ref(x_even, s_up, s_lo, s_g):
 
 for _fn in (cr_level_ref, cr_level_factor_ref, cr_level_apply_ref,
             cr_backsub_ref):
-    _fn.launches = 0
+    _build.register(_fn, shapes=False)
 
 
 # ---- the kernels --------------------------------------------------------------
@@ -566,6 +566,5 @@ def cr_level(Ds, Es, Gs):
 
 
 for _fn in (cr_level, cr_level_factor, cr_level_apply, cr_backsub):
-    _fn.launches = 0
-    _fn.shapes = {}
+    _build.register(_fn, shapes=True)
 del _fn

@@ -94,7 +94,7 @@ def kkt_solve_spike_fused_ref(D, E, B, gx, C, gp, lam, damp_scale=None):
                            lam, damp_scale)
 
 
-kkt_solve_spike_fused_ref.launches = 0
+_build.register(kkt_solve_spike_fused_ref, shapes=False)
 
 
 def _check(D, E, B, gx, C, gp):
@@ -147,8 +147,7 @@ def kkt_solve_spike_fused(D, E, B, gx, C, gp, lam, damp_scale=None):
     return dx, -t * inv_sp, dmax
 
 
-kkt_solve_spike_fused.launches = 0
-kkt_solve_spike_fused.shapes = {}
+_build.register(kkt_solve_spike_fused, shapes=True)
 
 
 # ---- kernel #2: the plain SPIKE chain solve -----------------------------------
@@ -163,7 +162,7 @@ def blocktri_solve_spike_fused_ref(Ds, Es, Gs):
     return blocktri_cr_factor_plain(Ds, Es)(Gs)
 
 
-blocktri_solve_spike_fused_ref.launches = 0
+_build.register(blocktri_solve_spike_fused_ref, shapes=False)
 
 
 def blocktri_solve_spike_fused(Ds, Es, Gs):
@@ -200,5 +199,4 @@ def blocktri_solve_spike_fused(Ds, Es, Gs):
     return X
 
 
-blocktri_solve_spike_fused.launches = 0
-blocktri_solve_spike_fused.shapes = {}
+_build.register(blocktri_solve_spike_fused, shapes=True)

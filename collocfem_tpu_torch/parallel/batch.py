@@ -19,10 +19,11 @@ Two layouts, chosen by ``make_multi_experiment_solver(layout=...)``:
     (:func:`ops.assemble.assemble_gn_batched`) solved by the batched Thomas
     kernel, the trial cost a separate residual pass.
 
-The accept/damping logic is the shared :func:`solve.lm_core.lm_loop`; the
+The accept/damping logic is the shared :func:`solve.lm_core.lm_step`; the
 JAX package's double-word cost sums and dot products are float64 sums here.
-Sharding over a "dp" device axis is not ported (ROADMAP queue A,
-multi-device).
+Where the JAX package jits the solve, the port replays it from CUDA graphs
+on a CUDA device (``solve.newton.captured_lm_solve``).  Sharding over a "dp"
+device axis is not ported (ROADMAP queue A, multi-device).
 """
 
 from __future__ import annotations
@@ -38,8 +39,8 @@ from collocfem_tpu_torch.ops.assemble import (
     cost64_from_residuals,
 )
 from collocfem_tpu_torch.ops.smallblocks import spd_solve
-from collocfem_tpu_torch.solve.lm_core import LMAux, grad_inf_norm, lm_loop
-from collocfem_tpu_torch.solve.newton import SolverOptions, SolveStats
+from collocfem_tpu_torch.solve.lm_core import LMAux, grad_inf_norm
+from collocfem_tpu_torch.solve.newton import SolverOptions, captured_lm_solve
 
 
 class BatchDecision(NamedTuple):
@@ -209,11 +210,6 @@ def shared_gn_step(problem, z: BatchDecision, data_batch, lam, p_prior,
     return dV, dp, gnorm, aux
 
 
-def _stats(st) -> SolveStats:
-    return SolveStats(iterations=st.it, converged=st.done, cost=st.cost,
-                      grad_norm=st.gnorm, lam=st.lam, history=st.history)
-
-
 def make_multi_experiment_solver(problem, options: SolverOptions =
                                  SolverOptions(), *, dp_axis=None,
                                  layout: str = "auto"):
@@ -222,7 +218,11 @@ def make_multi_experiment_solver(problem, options: SolverOptions =
     Returns ``solve(z0: BatchDecision, data_batch, p_prior, p_w) ->
     (BatchDecision, SolveStats)``.  ``data_batch`` is a ProblemData with a
     leading experiment axis on every leaf and ``p_w == 0`` (the shared
-    prior is passed explicitly).
+    prior is passed explicitly).  Counterpart of the JAX package's
+    ``jax.jit(solve)``: on a CUDA device a call replays CUDA graphs of the
+    assembly at z0 and of one LM iteration (:mod:`solve.graph`); on the CPU
+    it runs the eager loop, which ``solve.eager`` runs on any device with
+    the same result bit for bit.
 
     ``layout``: ``"soa"`` (concatenated chain, SPIKE chain kernel; also
     what ``"auto"`` selects) or ``"blocks"`` (block-major, batched Thomas
@@ -235,51 +235,41 @@ def make_multi_experiment_solver(problem, options: SolverOptions =
         raise NotImplementedError(
             "sharding over a dp axis is not ported yet (ROADMAP queue A, "
             "multi-device)")
-    opt = options
     if layout == "auto":
         layout = "soa"
     if layout not in ("soa", "blocks"):
         raise ValueError(f"unknown layout {layout!r}")
-    lm_args = dict(maxiter=opt.maxiter, lam0=opt.lam0, gtol=opt.gtol,
-                   ftol=opt.ftol, xtol=opt.xtol, lam_min=opt.lam_min,
-                   lam_max=opt.lam_max)
 
     if layout == "soa":
         chain_solve = concat_chain_solver()
 
-        def solve(z0: BatchDecision, data_batch, p_prior, p_w):
-            n_exp = z0.V.shape[0]
+        def initial(z, data_batch, p_prior, p_w):
+            sys, ct = assemble_gn_soa_batched(problem, z.V, z.p, data_batch,
+                                              with_cost=True)
+            return sys, ct + _prior_cost(z.p, p_prior, p_w)
 
-            def assemble(z):
-                sys, ct = assemble_gn_soa_batched(problem, z.V, z.p,
-                                                  data_batch, with_cost=True)
-                return sys, ct + _prior_cost(z.p, p_prior, p_w)
+        def trial(z0, data_batch, p_prior, p_w):
+            n_exp = z0.V.shape[0]
 
             def trial_fn(z, sys, lam):
                 dV, dp, aux = shared_gn_step_soa(
                     problem, sys, lam, z.p, p_prior, p_w, n_exp=n_exp,
                     chain_solve=chain_solve)
                 z_try = BatchDecision(V=z.V + dV, p=z.p + dp)
-                sys_try, ct = assemble(z_try)
+                sys_try, ct = initial(z_try, data_batch, p_prior, p_w)
                 return z_try, sys_try, ct, aux
+            return trial_fn
+    else:
+        def initial(z, data_batch, p_prior, p_w):
+            return (), batch_cost(problem, z, data_batch, p_prior, p_w)
 
-            carry0, c0 = assemble(z0)
-            st = lm_loop(z0, carry0, c0, trial_fn, dtype=z0.V.dtype,
-                         **lm_args)
-            return st.z, _stats(st)
+        def trial(z0, data_batch, p_prior, p_w):
+            def trial_fn(z, carry, lam):
+                dV, dp, _, aux = shared_gn_step(problem, z, data_batch, lam,
+                                                p_prior, p_w)
+                z_try = BatchDecision(V=z.V + dV, p=z.p + dp)
+                ct = batch_cost(problem, z_try, data_batch, p_prior, p_w)
+                return z_try, carry, ct, aux
+            return trial_fn
 
-        return solve
-
-    def solve(z0: BatchDecision, data_batch, p_prior, p_w):
-        def trial_fn(z, carry, lam):
-            dV, dp, _, aux = shared_gn_step(problem, z, data_batch, lam,
-                                            p_prior, p_w)
-            z_try = BatchDecision(V=z.V + dV, p=z.p + dp)
-            ct = batch_cost(problem, z_try, data_batch, p_prior, p_w)
-            return z_try, carry, ct, aux
-
-        c0 = batch_cost(problem, z0, data_batch, p_prior, p_w)
-        st = lm_loop(z0, (), c0, trial_fn, dtype=z0.V.dtype, **lm_args)
-        return st.z, _stats(st)
-
-    return solve
+    return captured_lm_solve(initial, trial, options)

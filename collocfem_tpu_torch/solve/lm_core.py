@@ -16,12 +16,17 @@ whose nonconvex merit the quadratic model fits poorly).  The cost words are
 float64 scalars: the GPU has native float64, so it replaces the JAX
 package's double-word cost.
 
-The loop is a Python loop over device tensors.  The accept decision, the
-damping update and the done flag stay on the device (``torch.where`` on every
-leaf of the carry); once ``done`` is set every later iteration leaves the
-state as it is, which reproduces the JAX ``while_loop`` exit exactly.  The
-host reads ``done`` only when a tolerance is non-zero, to stop early; the
-fixed-work path never synchronises.
+One iteration is :func:`lm_step`: the accept decision, the damping update
+and the done flag stay on the device (``torch.where`` on every leaf of the
+carry), and it makes no copy from the host and no read to it, so a CUDA graph
+can capture it (``solve.graph``).  Once ``done`` is set every later iteration
+leaves the state as it is, which reproduces the JAX ``while_loop`` exit
+exactly.  :func:`lm_init` makes the initial state from constants that
+:func:`lm_constants` builds once.  :func:`lm_loop` runs them eagerly, a
+Python loop over device tensors; the solvers of ``solve.newton`` and
+``parallel.batch`` replay them from CUDA graphs on a CUDA device.  The host
+reads ``done`` only when a tolerance is non-zero (:func:`stops_early`), to
+stop early; the fixed-work path never synchronises.
 """
 
 from __future__ import annotations
@@ -60,11 +65,106 @@ def _select(accept, new, old):
     return tree_map(lambda a, b: torch.where(accept, a, b), new, old)
 
 
+def stops_early(gtol, ftol: float, xtol: float) -> bool:
+    """Whether a loop with these tolerances reads ``done`` on the host
+    before each iteration to stop early (a tensor gtol counts as set)."""
+    return torch.is_tensor(gtol) or gtol > 0 or ftol > 0 or xtol > 0
+
+
+def lm_constants(lam0, *, maxiter: int, dtype, device) -> LMState:
+    """The constant part of the initial state (all but z, carry and cost):
+    lam = max(lam0, eps), nu = 2, it = 0, done = False, gnorm = inf and a
+    zero history.  Building it copies from the host, so a solver builds it
+    once, outside any CUDA graph."""
+    scalar = lambda v, dt=dtype: torch.as_tensor(v, dtype=dt, device=device)
+    return LMState(
+        z=None, carry=None, cost=None,
+        lam=torch.maximum(scalar(lam0), scalar(torch.finfo(dtype).eps)),
+        nu=scalar(2.0), it=scalar(0, torch.int64),
+        done=scalar(False, torch.bool), gnorm=scalar(float("inf")),
+        history=torch.zeros((maxiter, len(HISTORY_COLS)), dtype=dtype,
+                            device=device),
+    )
+
+
+def lm_init(z0, carry0, cost0, consts: LMState) -> LMState:
+    """The initial :class:`LMState`: z0, carry0, cost0 and device-to-device
+    copies of ``consts`` (:func:`lm_constants`)."""
+    return consts._replace(
+        z=z0, carry=carry0, cost=cost0,
+        **{f: getattr(consts, f).clone()
+           for f in ("lam", "nu", "it", "done", "gnorm", "history")})
+
+
+def lm_step(st: LMState, trial_fn, *, gtol=0.0, ftol: float = 0.0,
+            xtol: float = 0.0, lam_min: float = 1e-14, lam_max: float = 1e12,
+            accept_mode: str = "gain") -> LMState:
+    """One LM iteration from ``st``; returns the new :class:`LMState` (new
+    tensors: ``st`` is not written).  No copy from the host, no read to it.
+    ``trial_fn`` and the options are :func:`lm_loop`'s."""
+    if accept_mode not in ("gain", "decrease"):
+        raise ValueError(
+            f"accept_mode must be 'gain' or 'decrease', got {accept_mode!r}")
+    dtype = st.lam.dtype
+    tiny = torch.finfo(dtype).tiny
+    z_try, carry_try, ct, aux = trial_fn(st.z, st.carry, st.lam)
+    actual64 = st.cost - ct
+    actual = actual64.to(dtype)
+    a = aux.alpha
+    pred = -a * (1.0 - 0.5 * a) * aux.gdot + 0.5 * a * a * st.lam * aux.sds
+    rho = actual / torch.clamp(pred, min=tiny)
+    decrease = torch.isfinite(ct) & (ct < st.cost)
+    if accept_mode == "decrease":
+        # Any decrease, and the fixed ladder: the Nielsen factor is a
+        # function of the gain ratio, meaningless for a nonconvex merit.
+        accept = decrease
+        lam_new = torch.where(accept,
+                              torch.clamp(st.lam * 0.2, min=lam_min),
+                              torch.clamp(st.lam * 5.0, max=lam_max))
+        nu_new = st.nu
+    else:
+        accept = decrease & (pred > 0.0) & (rho > 1e-4)
+        # Nielsen's adaptive schedule (Madsen-Nielsen-Tingleff).
+        two_rho = 2.0 * rho - 1.0
+        down = torch.clamp(1.0 - two_rho * two_rho * two_rho, min=1.0 / 3.0)
+        lam_new = torch.where(accept,
+                              torch.clamp(st.lam * down, min=lam_min),
+                              torch.clamp(st.lam * st.nu, max=lam_max))
+        # The reset value is a Python scalar: a kernel argument, not a copy
+        # from the host.
+        nu_new = torch.where(accept, 2.0, torch.clamp(st.nu * 2.0, max=64.0))
+    rel_drop = actual64 / torch.clamp(st.cost, min=1e-300)
+    done = (
+        (aux.gnorm < gtol)
+        | (accept & (ftol > 0.0) & (rel_drop < ftol))
+        | (accept & (xtol > 0.0) & (aux.step_norm < xtol))
+        # lam railed at lam_max: every damping level was rejected.
+        | (~accept & (lam_new >= lam_max))
+    )
+    row = torch.stack([st.cost.to(dtype), aux.gnorm, st.lam,
+                       aux.step_norm, accept.to(dtype)])
+    # A finished loop keeps its state, as the JAX while_loop exit does.
+    keep = st.done
+    take = accept & ~keep
+    small_old = (st.lam, st.nu, st.it, st.done, st.gnorm, st.history)
+    small_new = (lam_new, nu_new, st.it + 1, done, aux.gnorm,
+                 st.history.index_copy(0, st.it.reshape(1), row[None]))
+    lam_s, nu_s, it_s, done_s, gnorm_s, hist_s = _select(
+        keep, small_old, small_new)
+    return LMState(
+        z=_select(take, z_try, st.z),
+        carry=_select(take, carry_try, st.carry),
+        cost=torch.where(take, ct, st.cost),
+        lam=lam_s, nu=nu_s, it=it_s, done=done_s, gnorm=gnorm_s,
+        history=hist_s,
+    )
+
+
 def lm_loop(z0, carry0, cost0, trial_fn, *, maxiter: int, lam0, gtol=0.0,
             ftol: float = 0.0, xtol: float = 0.0, lam_min: float = 1e-14,
             lam_max: float = 1e12, dtype, accept_mode: str = "gain"
             ) -> LMState:
-    """Run the LM loop; returns the final :class:`LMState`.
+    """Run the LM loop eagerly; returns the final :class:`LMState`.
 
     Args:
       z0: initial iterate (tuple of tensors).
@@ -77,77 +177,15 @@ def lm_loop(z0, carry0, cost0, trial_fn, *, maxiter: int, lam0, gtol=0.0,
       lam0, gtol: numbers or scalar tensors (the interior-point inner loops
         warm-start lam and loosen gtol with the barrier parameter).
     """
-    if accept_mode not in ("gain", "decrease"):
-        raise ValueError(
-            f"accept_mode must be 'gain' or 'decrease', got {accept_mode!r}")
-    device = cost0.device
-    scalar = lambda v, dt=dtype: torch.as_tensor(v, dtype=dt, device=device)
-    tiny = torch.finfo(dtype).tiny
-    lam_init = torch.maximum(scalar(lam0), scalar(torch.finfo(dtype).eps))
-    st = LMState(
-        z=z0, carry=carry0, cost=cost0, lam=lam_init, nu=scalar(2.0),
-        it=scalar(0, torch.int64), done=scalar(False, torch.bool),
-        gnorm=scalar(float("inf")),
-        history=torch.zeros((maxiter, len(HISTORY_COLS)), dtype=dtype,
-                            device=device),
-    )
-    early_exit = (torch.is_tensor(gtol) or gtol > 0 or ftol > 0
-                  or xtol > 0)
-
+    st = lm_init(z0, carry0, cost0, lm_constants(
+        lam0, maxiter=maxiter, dtype=dtype, device=cost0.device))
+    early_exit = stops_early(gtol, ftol, xtol)
     for _ in range(maxiter):
         if early_exit and bool(st.done):
             break
-        z_try, carry_try, ct, aux = trial_fn(st.z, st.carry, st.lam)
-        actual64 = st.cost - ct
-        actual = actual64.to(dtype)
-        a = aux.alpha
-        pred = -a * (1.0 - 0.5 * a) * aux.gdot + 0.5 * a * a * st.lam * aux.sds
-        rho = actual / torch.clamp(pred, min=tiny)
-        decrease = torch.isfinite(ct) & (ct < st.cost)
-        if accept_mode == "decrease":
-            # Any decrease, and the fixed ladder: the Nielsen factor is a
-            # function of the gain ratio, meaningless for a nonconvex merit.
-            accept = decrease
-            lam_new = torch.where(accept,
-                                  torch.clamp(st.lam * 0.2, min=lam_min),
-                                  torch.clamp(st.lam * 5.0, max=lam_max))
-            nu_new = st.nu
-        else:
-            accept = decrease & (pred > 0.0) & (rho > 1e-4)
-            # Nielsen's adaptive schedule (Madsen-Nielsen-Tingleff).
-            two_rho = 2.0 * rho - 1.0
-            down = torch.clamp(1.0 - two_rho * two_rho * two_rho,
-                               min=1.0 / 3.0)
-            lam_new = torch.where(accept,
-                                  torch.clamp(st.lam * down, min=lam_min),
-                                  torch.clamp(st.lam * st.nu, max=lam_max))
-            nu_new = torch.where(accept, scalar(2.0),
-                                 torch.clamp(st.nu * 2.0, max=64.0))
-        rel_drop = actual64 / torch.clamp(st.cost, min=1e-300)
-        done = (
-            (aux.gnorm < gtol)
-            | (accept & (ftol > 0.0) & (rel_drop < ftol))
-            | (accept & (xtol > 0.0) & (aux.step_norm < xtol))
-            # lam railed at lam_max: every damping level was rejected.
-            | (~accept & (lam_new >= lam_max))
-        )
-        row = torch.stack([st.cost.to(dtype), aux.gnorm, st.lam,
-                           aux.step_norm, accept.to(dtype)])
-        # A finished loop keeps its state, as the JAX while_loop exit does.
-        keep = st.done
-        take = accept & ~keep
-        small_old = (st.lam, st.nu, st.it, st.done, st.gnorm, st.history)
-        small_new = (lam_new, nu_new, st.it + 1, done, aux.gnorm,
-                     st.history.index_copy(0, st.it.reshape(1), row[None]))
-        lam_s, nu_s, it_s, done_s, gnorm_s, hist_s = _select(
-            keep, small_old, small_new)
-        st = LMState(
-            z=_select(take, z_try, st.z),
-            carry=_select(take, carry_try, st.carry),
-            cost=torch.where(take, ct, st.cost),
-            lam=lam_s, nu=nu_s, it=it_s, done=done_s, gnorm=gnorm_s,
-            history=hist_s,
-        )
+        st = lm_step(st, trial_fn, gtol=gtol, ftol=ftol, xtol=xtol,
+                     lam_min=lam_min, lam_max=lam_max,
+                     accept_mode=accept_mode)
     return st
 
 

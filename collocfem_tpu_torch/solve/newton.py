@@ -10,7 +10,11 @@ iteration with its system already built.  The exact-Newton branch
 takes the trial cost from a separate float64 residual pass
 (``problem.cost``, in place of the JAX package's double-word ``cost_dw``).
 :func:`make_irls_solver` wraps either in Huber reweighting rounds.  The
-accept/damping logic is :func:`collocfem_tpu_torch.solve.lm_core.lm_loop`.
+accept/damping logic is :func:`collocfem_tpu_torch.solve.lm_core.lm_step`.
+Where the JAX package jits the solve, the port replays it from CUDA graphs
+on a CUDA device (:mod:`collocfem_tpu_torch.solve.graph`); each solve keeps
+its eager loop (:func:`~collocfem_tpu_torch.solve.lm_core.lm_loop`) as
+``solve.eager``.
 """
 
 from __future__ import annotations
@@ -26,17 +30,22 @@ from collocfem_tpu_torch.ops.assemble import (
     blocks_to_nodes_soa,
 )
 from collocfem_tpu_torch.problem import Decision
+from collocfem_tpu_torch.solve.graph import CapturedSolve
 from collocfem_tpu_torch.solve.kkt import resolve_method, solve_kkt_soa
 from collocfem_tpu_torch.solve.lm_core import (
     HISTORY_COLS,
     LMAux,
     fused_quadforms,
     grad_inf_norm,
+    lm_constants,
+    lm_init,
     lm_loop,
+    lm_step,
+    stops_early,
 )
 
-__all__ = ["HISTORY_COLS", "SolverOptions", "SolveStats", "make_gn_solver",
-           "make_irls_solver"]
+__all__ = ["HISTORY_COLS", "SolverOptions", "SolveStats", "captured_lm_solve",
+           "make_gn_solver", "make_irls_solver"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,8 +81,51 @@ class SolveStats(NamedTuple):
     history: torch.Tensor     # (maxiter, 5) per-iteration table
 
 
+def captured_lm_solve(initial, trial, options: SolverOptions):
+    """A :class:`solve.graph.CapturedSolve` of the LM loop whose initial
+    (carry, cost) is ``initial(*inputs)`` and whose trial function is
+    ``trial(*inputs)``; the first input is z0.  It returns (z,
+    :class:`SolveStats`), and ``.eager`` runs :func:`lm_core.lm_loop`.  The
+    initial state's constants are made once per dtype and device."""
+    opt = options
+    lm_args = dict(gtol=opt.gtol, ftol=opt.ftol, xtol=opt.xtol,
+                   lam_min=opt.lam_min, lam_max=opt.lam_max)
+    consts = {}
+
+    def finish(st):
+        return st.z, SolveStats(iterations=st.it, converged=st.done,
+                                cost=st.cost, grad_norm=st.gnorm, lam=st.lam,
+                                history=st.history)
+
+    def eager(z0, *inputs):
+        carry0, c0 = initial(z0, *inputs)
+        return finish(lm_loop(z0, carry0, c0, trial(z0, *inputs),
+                              maxiter=opt.maxiter, lam0=opt.lam0,
+                              dtype=z0.V.dtype, **lm_args))
+
+    def prelude(z0, *inputs):
+        key = (z0.V.dtype, z0.V.device)
+        if key not in consts:
+            consts[key] = lm_constants(opt.lam0, maxiter=opt.maxiter,
+                                       dtype=z0.V.dtype, device=z0.V.device)
+        return lm_init(z0, *initial(z0, *inputs), consts[key])
+
+    def step(st, *inputs):
+        return lm_step(st, trial(*inputs), **lm_args)
+
+    return CapturedSolve(prelude, step, finish, eager, maxiter=opt.maxiter,
+                         early_exit=stops_early(opt.gtol, opt.ftol, opt.xtol))
+
+
 def make_gn_solver(problem, options: SolverOptions = SolverOptions()):
-    """Build ``solve(z0, data) -> (z, SolveStats)`` for ``problem``."""
+    """Build ``solve(z0, data) -> (z, SolveStats)`` for ``problem``.
+
+    Counterpart of the JAX package's jitted ``solve``: on a CUDA device a
+    call replays CUDA graphs of the assembly at z0 and of one LM iteration
+    (captured at the first call of each input shape, :mod:`solve.graph`);
+    on the CPU it runs the eager loop, which ``solve.eager(z0, data)`` runs
+    on any device with the same result bit for bit.
+    """
     opt = options
     if opt.hessian not in ("gn", "newton"):
         raise ValueError(f"hessian must be 'gn' or 'newton', not "
@@ -99,35 +151,30 @@ def make_gn_solver(problem, options: SolverOptions = SolverOptions()):
         return z_try, LMAux(gnorm=gnorm, gdot=gdot, sds=dmax * snorm2,
                             step_norm=torch.sqrt(snorm2))
 
-    def solve(z0: Decision, data):
-        if opt.hessian == "newton":
-            # The exact-Newton assembly has no residual vector to reuse, so
-            # the trial cost is a separate float64 residual pass.
+    if opt.hessian == "newton":
+        # The exact-Newton assembly has no residual vector to reuse, so the
+        # trial cost is a separate float64 residual pass.
+        def initial(z0, data):
+            return (), problem.cost(z0, data)
+
+        def trial(z0, data):
             def trial_fn(z, carry, lam):
                 z_try, aux = step(z, assemble_newton(problem, z, data), lam)
                 return z_try, carry, problem.cost(z_try, data), aux
+            return trial_fn
+    else:
+        def initial(z0, data):
+            return assemble_gn_soa(problem, z0, data, with_cost=True)
 
-            carry0, c0 = (), problem.cost(z0, data)
-        else:
+        def trial(z0, data):
             def trial_fn(z, sys, lam):
                 z_try, aux = step(z, sys, lam)
                 sys_try, ct = assemble_gn_soa(problem, z_try, data,
                                               with_cost=True)
                 return z_try, sys_try, ct, aux
+            return trial_fn
 
-            carry0, c0 = assemble_gn_soa(problem, z0, data, with_cost=True)
-        st = lm_loop(
-            z0, carry0, c0, trial_fn,
-            maxiter=opt.maxiter, lam0=opt.lam0,
-            gtol=opt.gtol, ftol=opt.ftol, xtol=opt.xtol,
-            lam_min=opt.lam_min, lam_max=opt.lam_max, dtype=z0.V.dtype,
-        )
-        return st.z, SolveStats(
-            iterations=st.it, converged=st.done, cost=st.cost,
-            grad_norm=st.gnorm, lam=st.lam, history=st.history,
-        )
-
-    return solve
+    return captured_lm_solve(initial, trial, opt)
 
 
 def make_irls_solver(problem, options: SolverOptions = SolverOptions(),
@@ -145,7 +192,10 @@ def make_irls_solver(problem, options: SolverOptions = SolverOptions(),
     the tuple of every round's :class:`SolveStats` (``n_rounds + 1`` of
     them; the JAX package returns only the last), so a caller can count the
     LM iterations of the whole run.  ``data_weighted`` carries the final
-    per-sample weights (N, S, ny).
+    per-sample weights (N, S, ny).  Each round's solve is
+    :func:`make_gn_solver`'s (captured on a CUDA device); the reweighting
+    between rounds runs eagerly.  ``solve.eager`` runs every round on the
+    inner solver's eager loop.
     """
     if options.irls_delta <= 0:
         raise ValueError("set options.irls_delta > 0 for IRLS")
@@ -157,14 +207,19 @@ def make_irls_solver(problem, options: SolverOptions = SolverOptions(),
         w = torch.clamp(delta / torch.clamp(r.abs(), min=1e-30), max=1.0)
         return data._replace(meas_w=base_w * torch.sqrt(w))
 
-    def solve(z0, data):
-        base_w = data.meas_w.expand(*problem.mmask.shape, problem.model.ny)
-        z, stats = inner(z0, data)
-        rounds = [stats]
-        for _ in range(n_rounds):
-            data = reweight(z, data, base_w)
-            z, stats = inner(z, data)
-            rounds.append(stats)
-        return z, tuple(rounds), data
+    def rounds_of(inner_solve):
+        def solve(z0, data):
+            base_w = data.meas_w.expand(*problem.mmask.shape,
+                                        problem.model.ny)
+            z, stats = inner_solve(z0, data)
+            rounds = [stats]
+            for _ in range(n_rounds):
+                data = reweight(z, data, base_w)
+                z, stats = inner_solve(z, data)
+                rounds.append(stats)
+            return z, tuple(rounds), data
+        return solve
 
+    solve = rounds_of(inner)
+    solve.eager = rounds_of(inner.eager)
     return solve

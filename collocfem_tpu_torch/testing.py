@@ -1,4 +1,4 @@
-"""Seeded inputs and residual checks shared by the port's tests and
+"""Seeded inputs, set-ups and residual checks shared by the port's tests and
 ``chip_smoke.py``."""
 
 from __future__ import annotations
@@ -152,3 +152,54 @@ def batch_residual(D, E, G, X) -> float:
     AX[:, :-1] += E[:, :-1] @ X[:, 1:]
     AX[:, 1:] += E[:, :-1].mT @ X[:, :-1]
     return float((AX - G).abs().max() / G.abs().max())
+
+
+def bits(x):
+    """A tensor's bit pattern: a float tensor viewed as integers of its
+    width, so that ``torch.equal`` on it is bit-for-bit equality in which a
+    NaN matches the same NaN (``torch.equal`` on floats says NaN != NaN)."""
+    ints = {torch.float64: torch.int64, torch.float32: torch.int32}
+    return x.view(ints[x.dtype]) if x.dtype in ints else x
+
+
+def bit_equal(a, b) -> bool:
+    """Whether two pytrees of tensors have the same structure and every
+    leaf the same dtype, shape and bits (:func:`bits`)."""
+    from torch.utils._pytree import tree_flatten
+
+    (la, sa), (lb, sb) = tree_flatten(a), tree_flatten(b)
+    return sa == sb and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(bits(x), bits(y)) for x, y in zip(la, lb))
+
+
+# examples/mhe_online.py's stream: Van der Pol with p = [1, 1] from x0 = [2,
+# 0], sampled every MHE_DT, position measured with noise MHE_SIG_V.
+MHE_DT, MHE_HORIZON, MHE_SIG_V, MHE_SIG_W, MHE_SAMPLES = 0.05, 12, 0.02, 0.5, 240
+
+
+def mhe_online_stream(dtype, device, samples: int = MHE_SAMPLES):
+    """examples/mhe_online.py's estimator and stream: Van der Pol with p
+    fixed at [1, 1], horizon 12, dt 0.05, degree 3 (b = 6), sig_w 0.5,
+    sig_v 0.02, maxiter 20, gtol 1e-9, 'auto'.  The RK4 truth from [2, 0]
+    and the noise of default_rng(0) are made on the host in float64.
+    Returns (mhe, truth (samples, 2), ys (samples, 1))."""
+    from collocfem_tpu_torch.mhe import MovingHorizonEstimator
+    from collocfem_tpu_torch.models import VanDerPol
+    from collocfem_tpu_torch.solve.newton import SolverOptions
+    from collocfem_tpu_torch.utils.simulate import rk4_trajectory
+
+    rng = np.random.default_rng(0)
+    ts = np.arange(samples) * MHE_DT
+    model = VanDerPol()
+    f64 = torch.float64
+    xs = rk4_trajectory(model.f, torch.tensor([2.0, 0.0], dtype=f64), ts,
+                        u_fn=lambda t: torch.zeros(1, dtype=f64),
+                        p=[1.0, 1.0], device="cpu").numpy()
+    ys = xs[:, :1] + MHE_SIG_V * rng.standard_normal((samples, 1))
+    mhe = MovingHorizonEstimator(
+        model, horizon=MHE_HORIZON, dt=MHE_DT, sig_w=MHE_SIG_W,
+        sig_v=MHE_SIG_V, degree=3, p_fixed=np.array([1.0, 1.0]),
+        options=SolverOptions(maxiter=20, gtol=1e-9), device=device,
+        dtype=dtype)
+    return mhe, xs, ys

@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card, against their plain PyTorch versions.
 
 Kernel #1 (fused damped KKT), kernel #2 (SPIKE chain solve), kernels #3-#6
-(the per-level cyclic reduction) and kernel #7 (batched block Thomas).
+(the per-level cyclic reduction) and kernel #7 (batched block Thomas); and
+the solves captured as CUDA graphs (``solve/graph.py``) against their eager
+loops, bit for bit.
 Every test here is marked ``cuda`` and skips where
 there is no GPU (the kernels have no CPU mode).  The file imports no JAX, so
 it also runs on a machine without it:
@@ -816,3 +818,170 @@ def test_mhe_on_the_card_matches_the_cpu(cuda_device):
           f"of max |cov| {float(c_cpu.abs().max()):.3e}")
     assert d_est <= 1e-7
     assert d_cov <= 1e-11
+
+
+# ---- the solves captured as CUDA graphs (solve/graph.py) ---------------------
+
+
+def _counted_call(fn, *args):
+    """(fn(*args), the launch counts it made), synchronised."""
+    from collocfem_tpu_torch.ops import _build
+
+    before = _build.snapshot()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, _build.difference(before, _build.snapshot())
+
+
+def _hold_captured(solve, *args):
+    """The captured solve's first call (warm-up, capture, replays) and a
+    second call (replays) against ``solve.eager`` on the same inputs: bit
+    for bit (a NaN matches itself), and the same launch counts per call, as
+    the wrappers count them.  Returns the captured result."""
+    from collocfem_tpu_torch.testing import bit_equal
+
+    got, counts = _counted_call(solve, *args)
+    again, counts_again = _counted_call(solve, *args)
+    want, eager_counts = _counted_call(solve.eager, *args)
+    assert bit_equal(got, want) and bit_equal(again, want)
+    assert counts == counts_again == eager_counts and counts
+    return got
+
+
+CAPTURED_CASES = {
+    "fixed float64": dict(maxiter=15, gtol=0.0, lam0=3e-6, lam_max=1e30),
+    "fixed float32": dict(maxiter=15, gtol=0.0, lam0=3e-6, lam_max=1e30),
+    "early exit": dict(maxiter=60, gtol=1e-10, xtol=1e-12),
+    "newton": dict(maxiter=30, gtol=1e-10, hessian="newton"),
+    "cr": dict(maxiter=15, gtol=0.0, lam0=3e-6, lam_max=1e30, method="cr"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CAPTURED_CASES))
+def test_captured_gn_solver_matches_eager(cuda_device, case):
+    """make_gn_solver on the headline at N = 40: 'auto' (kernel #1) at fixed
+    work in both dtypes, with early exit, exact Newton, and method='cr'
+    (kernels #4-#6): the captured solve equals solve.eager bit for bit,
+    with the same launches per call."""
+    from collocfem_tpu_torch.headline import headline_problem
+    from collocfem_tpu_torch.solve.newton import SolverOptions, make_gn_solver
+
+    dtype = torch.float32 if "float32" in case else torch.float64
+    prob, data, z0 = headline_problem(40, dtype=dtype, device=cuda_device)
+    solve = make_gn_solver(prob, SolverOptions(**CAPTURED_CASES[case]))
+    z, st = _hold_captured(solve, z0, data)
+    assert float(st.cost) < float(st.history[0, 0])
+    assert len(solve._plans) == 1
+
+
+@pytest.mark.cuda
+def test_captured_irls_matches_eager(cuda_device):
+    """make_irls_solver (two rounds of the captured inner solve, the
+    reweighting eager between them) against solve.eager; the later round's
+    per-sample weights make a second plan."""
+    from collocfem_tpu_torch.headline import headline_problem
+    from collocfem_tpu_torch.solve.newton import (SolverOptions,
+                                                  make_irls_solver)
+
+    prob, data, z0 = headline_problem(40, dtype=torch.float64,
+                                      device=cuda_device)
+    solve = make_irls_solver(prob, SolverOptions(maxiter=30, gtol=1e-10,
+                                                 irls_delta=2.0), n_rounds=2)
+    _hold_captured(solve, z0, data)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["soa", "blocks"])
+def test_captured_multi_experiment_solver_matches_eager(cuda_device, layout):
+    """Config 5 at 4 experiments x 10 elements, float64 fixed work: kernel
+    #2 ('soa') or #7 ('blocks') from the graph, bit for bit the eager
+    loop's."""
+    from collocfem_tpu_torch.batched import build_config5_problem
+    from collocfem_tpu_torch.parallel.batch import (
+        make_multi_experiment_solver)
+    from collocfem_tpu_torch.solve.newton import SolverOptions
+
+    prob, z0, data, p_prior, p_w = build_config5_problem(
+        4, 10, dtype=torch.float64, device=cuda_device)
+    solve = make_multi_experiment_solver(
+        prob, SolverOptions(maxiter=15, gtol=0.0, lam0=1e-6, lam_max=1e30),
+        layout=layout)
+    _hold_captured(solve, z0, data, p_prior, p_w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_captured_mhe_step_matches_eager(cuda_device, dtype):
+    """examples/mhe_online.py's estimator, ten steps: the captured step (its
+    prelude graph and the captured window solve) against step_eager, bit for
+    bit in every state field and estimate, with the same launches."""
+    import numpy as np
+
+    from collocfem_tpu_torch.testing import (MHE_HORIZON, bit_equal,
+                                             mhe_online_stream)
+
+    mhe, _, ys = mhe_online_stream(dtype, cuda_device,
+                                   samples=MHE_HORIZON + 10)
+    a = b = mhe.init(ys[:MHE_HORIZON], m0=[1.5, 0.5], P0=np.eye(2))
+    for k in range(MHE_HORIZON, MHE_HORIZON + 10):
+        (a, est_a), counts = _counted_call(mhe.step, a, ys[k])
+        (b, est_b), eager_counts = _counted_call(mhe.step_eager, b, ys[k])
+        assert bit_equal((a.z, a.m, a.P, a.y, a.u, est_a),
+                         (b.z, b.m, b.P, b.y, b.u, est_b))
+        assert counts == eager_counts and counts
+    assert len(mhe._advance_graph._plans) == 1
+
+
+@pytest.mark.cuda
+def test_captured_outputs_do_not_alias(cuda_device):
+    """A second call (another z0, same shapes) leaves the first call's
+    outputs as they were and shares no storage with them; data of a new
+    shape captures a new plan."""
+    from collocfem_tpu_torch.headline import headline_problem
+    from collocfem_tpu_torch.problem import Decision
+    from collocfem_tpu_torch.solve.newton import SolverOptions, make_gn_solver
+    from collocfem_tpu_torch.testing import bit_equal
+    from torch.utils._pytree import tree_flatten, tree_map
+
+    prob, data, z0 = headline_problem(40, dtype=torch.float64,
+                                      device=cuda_device)
+    solve = make_gn_solver(prob, SolverOptions(**CAPTURED_CASES[
+        "fixed float64"]))
+    first = solve(z0, data)
+    kept = tree_map(torch.clone, first)
+    second = solve(Decision(V=z0.V * 1.01, p=z0.p * 0.9), data)
+    torch.cuda.synchronize()
+    assert bit_equal(first, kept) and not torch.equal(first[0].V,
+                                                      second[0].V)
+    for a, b in zip(tree_flatten(first)[0], tree_flatten(second)[0]):
+        assert a.data_ptr() != b.data_ptr()
+    assert len(solve._plans) == 1
+    per_sample = data._replace(
+        meas_w=data.meas_w.expand(*prob.mmask.shape, 1).clone())
+    assert bit_equal(solve(z0, per_sample), first)
+    assert len(solve._plans) == 2
+
+
+@pytest.mark.cuda
+def test_a_failing_capture_raises(cuda_device):
+    """A step that reads a value back to the host (``.item()``) cannot be
+    captured: the call raises, runs nothing eagerly in its place, keeps no
+    plan and leaves the launch counts as they were."""
+    from collocfem_tpu_torch.ops import _build
+    from collocfem_tpu_torch.solve.graph import CapturedSolve
+
+    eager_calls = []
+
+    def step(st, x):
+        return (st[0] + x * st[0].sum().item(),)
+
+    solve = CapturedSolve(lambda x: (2.0 * x,), step, lambda st: st[0],
+                          lambda x: eager_calls.append(x),
+                          maxiter=3, early_exit=False)
+    before = _build.snapshot()
+    with pytest.raises(RuntimeError):
+        solve(torch.ones(3, device=cuda_device))
+    torch.cuda.synchronize()
+    assert not eager_calls and not solve._plans
+    assert _build.snapshot() == before
