@@ -54,6 +54,11 @@ Phases, each printing its own line; any failure raises and exits non-zero:
      serving cell's damped, equilibrated window chain at its first solve
      (K = 12) and on seeded chains, K in EDGES + {8, 12}, with the same
      times, device time, bit-identity, bound and dense solve (72^2).
+     At the sharded solve's interior shape (b = 8, r = 19, _phase2_sp):
+     kernel #2 on the interior chain of a headline shard at the initial
+     guess (N = 9,999, sp = 4: K = 2,498 against [gx | B | U | V]) and on
+     seeded chains, K in EDGES + {2498, 4998}, with the same times, device
+     time, bit-identity, bound and dense solve (19,984^2).
      At the shapes of configs 2 and 4 (_phase2_configs): kernel #1 at
      nq = 3 and 5 on each config's damped system at its initial guess (K =
      1,001 and 201) and on seeded chains, K in EDGES + {201, 1001}, timed
@@ -154,7 +159,29 @@ Phases, each printing its own line; any failure raises and exits non-zero:
      smoother_initial_guess
      there within 1e-8, the MAP polish (kernel #1 at (8, 3)) converged with
      p within 1e-6 and parameter_std (kernels #3, #6) within 1e-6 of the
-     JAX package's.
+     JAX package's;
+ 14. the multi-rank tier (parallel/; _phase14): one world of 4 gloo ranks
+     sharing the card (collocfem_tpu_torch.testing.run_world: the rank
+     workers live in the package, so the spawned children import it and not
+     this script) and an NCCL world of one in this process; every case's
+     ranks must give the same bits.  (a) sp: make_sp_gn_solver on the
+     headline at N = 9,999 (K = 10,000), 15 fixed-work LM iterations in
+     float64 at sp = 1 (NCCL), 2 and 4: p within 1e-8 of the single-rank
+     make_gn_solver's, V within 1e-6 (relative), the same accept history;
+     float32 at sp = 4: the cost falls more than 10x, p finite; every rank
+     launches kernel #2 once at (8, 19) and once at (8, 3) per iteration
+     and no plain version.  (b) dp: config 5 at dp = 1 (NCCL), 2 and 4 in
+     both layouts, 15 iterations in float64: p within 1e-9 and V within
+     1e-8 of the unsharded solver's, the layout's kernel 15 times a rank.
+     (c) dp x sp = 2 x 2: four config-5 experiments of 511 elements,
+     blocks layout with spike_chain_solver, 5 iterations: p within 1e-9 of
+     the unsharded solver's.  (d) IRLS (irls_delta 2, 2 rounds) with the
+     sp = 2 solver as the inner solver: p within 1e-6 of the single-rank
+     IRLS.  (e) the Van der Pol model built by symbolic_model from strings
+     through the captured make_gn_solver: N = 10,000 float32, 15 iterations,
+     kernel #1 exactly 15 times, the cost falls more than 10x; float64 to
+     convergence, p within 1e-10 of the hand-written model's.  The ranks'
+     walls are printed under a label that says they share one card.
 
 Phases 3-9 and 13 run each solve as it runs by default on a CUDA device:
 from CUDA graphs captured at its first call (collocfem_tpu_torch/solve/
@@ -168,13 +195,14 @@ steps (``step_eager``) in both dtypes, and phase 7 for the ladder
 the eager wall beside it; phases 3, 5 and 7 also profile one captured run
 (device time, and the idle share of the captured and of the eager wall).
 Phases 10-12 run eagerly: their solvers (solve/auglag.py, bounds.py,
-constrained.py) are not captured.
+constrained.py) are not captured; so do phase 14's sharded solves (their
+collectives are not captured).
 
 The second-to-last lines are the card's name and power limit and a JSON
 object describing every kernel of the path (its numbers at the headline's
 shape; ``shapes``: its main-path launches at each shape, as its wrapper
 counted them; ``at_configs``: phase 2's numbers at configs 2, 3 and 4, the
-free-time OCP and the MHE window); the
+free-time OCP, the MHE window and a headline shard's interior); the
 last line is {"ok": true, "device": {...}}.  With --out DIR the same records are also
 written to DIR/chip_smoke.json.
 """
@@ -192,6 +220,8 @@ import time
 
 ELEMENTS = 10000
 ELEMENTS_CR = 20000       # K = 20,001: past the TPU fused kernel's 16,384
+ELEMENTS_SP = 9999        # K = 10,000 blocks: divides by sp = 1, 2 and 4
+SP_MAX = 4                # ranks of phase 14's world, sharing the one card
 N_EXP = 1024
 SPIKE_SOURCE = "collocfem_tpu_torch/csrc/kkt_spike.cu"
 THOMAS_SOURCE = "collocfem_tpu_torch/csrc/thomas.cu"
@@ -1536,22 +1566,24 @@ def _main_shapes(name, launches):
     return out
 
 
-def _at_configs(name, measured, ocp, mhe):
+def _at_configs(name, measured, ocp, mhe, sp):
     """The kernels line's ``at_configs`` of kernel ``name``: what phase 2
     measured at the shapes of configs 2 and 4 (``measured``, from
     _phase2_configs), of config 3 and the free-time OCP (``ocp``, from
-    _phase2_ocp) and of the MHE window (``mhe``, from _phase2_mhe): float32
-    times and bound, the float64 max abs error, and for kernels #1 and #2
-    the dense torch.linalg.solve."""
+    _phase2_ocp), of the MHE window (``mhe``, from _phase2_mhe) and of a
+    headline shard's interior (``sp``, from _phase2_sp): float32 times and
+    bound, the float64 max abs error, and for kernels #1 and #2 the dense
+    torch.linalg.solve."""
     out = []
     if name == "blocktri_solve_spike_fused":
-        f32, f64 = (mhe["chain"][f"MHE window {d}"]
-                    for d in ("float32", "float64"))
-        out.append(dict(
-            config="MHE window", K=f32["K"], b=f32["b"], r=1,
-            max_abs_err=f64["max_abs_err"], ms=f32["ms"],
-            plain_ms=f32["plain_ms"], bound_ms=f32["bound_ms"],
-            bound_by=f32["bound_by"], library_ms=f32["library_ms"]))
+        for cname, rec in (("MHE window", mhe), ("headline shard", sp)):
+            f32, f64 = (rec["chain"][f"{cname} {d}"]
+                        for d in ("float32", "float64"))
+            out.append(dict(
+                config=cname, K=f32["K"], b=f32["b"], r=f32["r"],
+                max_abs_err=f64["max_abs_err"], ms=f32["ms"],
+                plain_ms=f32["plain_ms"], bound_ms=f32["bound_ms"],
+                bound_by=f32["bound_by"], library_ms=f32["library_ms"]))
     keys = {"kkt_solve_spike_fused": ("kkt", ["free-time"], "nq"),
             "blocktri_solve_spike_fused": (
                 "chain", ["config 3 N=25", "config 3 N=500"], "r")}
@@ -2145,6 +2177,317 @@ def _phase2_mhe(dev, card):
                   lambda X: chain_residual(D, E, G, X))
     print(f"  kernel #2 at b=6: seeded chains, K in {(*EDGES, 8, 12)}, ok")
     return out
+
+
+def _dense_chain_solve(D, E, G, X):
+    """torch.linalg.solve of the dense SoA chain (D, E (b, b, K)) against G
+    (b, r, K): (ms a call by CUDA events, its size, its result's relative
+    difference to ``X``, the kernel's)."""
+    import torch
+
+    from collocfem_tpu_torch.testing import rel_err
+
+    blocks = lambda a: a.permute(2, 0, 1)[None]
+    A, rhs = _dense_batch(blocks(D), blocks(E), blocks(G))
+    ms = _cuda_ms(lambda: torch.linalg.solve(A, rhs), 5)
+    rel = rel_err(torch.linalg.solve(A, rhs).reshape(blocks(G).shape),
+                  blocks(X))
+    return ms, tuple(A.shape[1:]), rel
+
+
+def _phase2_sp(dev, card):
+    """Phase 2 at the sharded solve's interior shape (b = 8, r = 19):
+    kernel #2 on the interior chain of a headline shard at the initial
+    guess (N = 9,999, K = 10,000, sp = 4: rank 1's 2,498 blocks of the
+    damped, equilibrated chain against [gx | B | U | V],
+    ``testing.shard_interior_chain``) and on seeded chains, K in EDGES +
+    {2498, 4998} (the interiors at sp = 4 and 2); at the shard's shape the
+    kernel and plain times, the device time by phase, two runs
+    bit-identical, the float32 bound and torch.linalg.solve on the dense
+    19,984^2 chain.  Returns the per-shape records."""
+    import torch
+
+    from collocfem_tpu_torch.ops import spike
+    from collocfem_tpu_torch.ops.assemble import assemble_gn_soa
+    from collocfem_tpu_torch.solve.kkt import _equilibrate_soa
+    from collocfem_tpu_torch.testing import (chain_residual, random_chain,
+                                             shard_interior_chain)
+
+    out = {"chain": {}}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[1]
+        prob, data, z0 = _headline(dtype, dev, ELEMENTS_SP)
+        s = _equilibrate_soa(assemble_gn_soa(prob, z0, data), 3e-6)[0]
+        D, E, G = shard_interior_chain(
+            s.D, s.E, torch.cat([s.gx[:, None, :], s.B], dim=1), SP_MAX, 1)
+        K, r = D.shape[-1], G.shape[1]
+        label = f"kernel #2 headline shard {name} K={K} b=8 r={r}"
+        X = spike.blocktri_solve_spike_fused(D, E, G)
+        err = _hold(label, dtype, X,
+                    spike.blocktri_solve_spike_fused_ref(D, E, G),
+                    lambda X: chain_residual(D, E, G, X))
+        _time_kernel(out, card, ("chain", f"headline shard {name}"), label,
+                     lambda: spike.blocktri_solve_spike_fused(D, E, G),
+                     lambda: spike.blocktri_solve_spike_fused_ref(D, E, G),
+                     _chain_bound(K, r), _dense_chain_solve(D, E, G, X), err)
+        out["chain"][f"headline shard {name}"].update(K=K, b=8, r=r)
+        for k in (*EDGES, 2498, 4998):
+            D, E, G = random_chain(k, 8, 19, seed=k + 19, dtype=dtype,
+                                   device=dev)
+            _hold(f"kernel #2 random {name} K={k} r=19", dtype,
+                  spike.blocktri_solve_spike_fused(D, E, G),
+                  spike.blocktri_solve_spike_fused_ref(D, E, G),
+                  lambda X: chain_residual(D, E, G, X))
+    print(f"  kernel #2 at (8, 19): seeded chains, K in "
+          f"{(*EDGES, 2498, 4998)}, ok")
+    return out
+
+
+# Phase 14's LM options: the headline's fixed work (phase 3's), config 5's,
+# five iterations for dp x sp, and IRLS to convergence (tests/
+# test_sharded_sp.py's IRLS options).
+SP_FIXED = dict(maxiter=15, gtol=0.0, lam0=3e-6, lam_max=1e30)
+DPSP_FIXED = dict(C5_FIXED, maxiter=5)
+SP_IRLS = dict(maxiter=40, gtol=1e-9, xtol=1e-12, irls_delta=2.0)
+VDP_SYM = dict(name="VanDerPolSym", states="x0 x1", inputs="u0",
+               params="mu b", f=["x1", "mu*(1 - x0**2)*x1 - x0 + b*u0"],
+               h=["x0"])
+
+
+def _world_cases():
+    """Phase 14's cases for the world of SP_MAX ranks sharing the card (a 2
+    x 2 grid runs each sp = 2 or dp = 2 case on both of its rows or
+    columns), and for the NCCL world of one."""
+    import torch
+
+    from collocfem_tpu_torch import testing
+
+    f64 = torch.float64
+    head = dict(kind="headline", elements=ELEMENTS_SP)
+    c5 = dict(kind="config5", n_exp=N_EXP, elements=10)
+    sp = lambda grid, dtype=f64: (testing.sp_gn_case, dict(
+        mesh=grid, spec=head, options=SP_FIXED, dtype=dtype))
+    dp = lambda grid, layout: (testing.dp_case, dict(
+        mesh=grid, spec=c5, options=C5_FIXED, layout=layout, dtype=f64))
+    world = {
+        "sp=4 float64": sp((1, 4)), "sp=2 float64": sp((2, 2)),
+        "sp=4 float32": sp((1, 4), torch.float32),
+        **{f"dp={n} {layout}": dp(grid, layout)
+           for n, grid in ((4, (4, 1)), (2, (2, 2)))
+           for layout in ("soa", "blocks")},
+        "dp x sp": (testing.dp_case, dict(
+            mesh=(2, 2), spec=dict(kind="config5", n_exp=4, elements=511),
+            options=DPSP_FIXED, layout="blocks", dtype=f64, sp_chain=True)),
+        "irls sp=2": (testing.sp_gn_case, dict(
+            mesh=(2, 2), spec=head, options=SP_IRLS, dtype=f64,
+            irls_rounds=2)),
+    }
+    one = {"sp=1 float64": sp((1, 1)),
+           **{f"dp=1 {layout}": dp((1, 1), layout)
+              for layout in ("soa", "blocks")}}
+    return world, one
+
+
+def _rank_results(ranks, one):
+    """{case: [each rank's result]}: the world's ranks and the world of one,
+    every case's ranks bit-identical (raises otherwise)."""
+    from collocfem_tpu_torch.testing import bit_equal
+
+    out = {name: [r[name] for r in ranks] for name in ranks[0]}
+    out.update({name: [res] for name, res in one.items()})
+    for name, rs in out.items():
+        if not all(bit_equal(r["out"], rs[0]["out"]) for r in rs[1:]):
+            raise RuntimeError(f"phase 14 {name}: the ranks' results differ")
+    return out
+
+
+def _phase14_refs(dev):
+    """The single-rank runs phase 14 holds the sharded ones against: the
+    captured make_gn_solver on the headline at N = 9,999 (fixed work),
+    make_multi_experiment_solver on config 5 in each layout and on the four
+    experiments of 511 elements, and make_irls_solver; each (z, stats)."""
+    import torch
+
+    from collocfem_tpu_torch.parallel.batch import \
+        make_multi_experiment_solver
+    from collocfem_tpu_torch.solve.newton import (SolverOptions,
+                                                  make_gn_solver,
+                                                  make_irls_solver)
+    from collocfem_tpu_torch.testing import batch_inputs, estimation_inputs
+
+    f64 = torch.float64
+    prob, z0, data = estimation_inputs(
+        dict(kind="headline", elements=ELEMENTS_SP), dtype=f64, device=dev)
+    refs = {"sp": make_gn_solver(prob, SolverOptions(**SP_FIXED))(z0, data),
+            "irls": make_irls_solver(prob, SolverOptions(**SP_IRLS), 2)(
+                z0, data)}
+    c5 = batch_inputs(dict(kind="config5", n_exp=N_EXP, elements=10),
+                      dtype=f64, device=dev)
+    for layout in ("soa", "blocks"):
+        refs[layout] = make_multi_experiment_solver(
+            c5[0], SolverOptions(**C5_FIXED), layout=layout)(*c5[1:])
+    dpsp = batch_inputs(dict(kind="config5", n_exp=4, elements=511),
+                        dtype=f64, device=dev)
+    refs["dp x sp"] = make_multi_experiment_solver(
+        dpsp[0], SolverOptions(**DPSP_FIXED))(*dpsp[1:])
+    return refs
+
+
+def _phase14(dev, card, record):
+    """Phase 14: the multi-rank tier (parallel/), one world of SP_MAX gloo
+    ranks sharing the card (testing.run_world) and an NCCL world of one in
+    this process, held against single-rank runs; then the symbolic model.
+    Returns the kernels' launches ({kernel: n}; by shape into MAIN_SHAPES),
+    summed over every rank."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from collocfem_tpu_torch import symbolic_model, testing
+    from collocfem_tpu_torch.headline import build_headline_problem
+    from collocfem_tpu_torch.problem import EstimationProblem
+    from collocfem_tpu_torch.solve.newton import SolverOptions, make_gn_solver
+
+    t_start = time.perf_counter()
+    world, one = _world_cases()
+    with tempfile.TemporaryDirectory() as wd:
+        ranks = testing.run_world(
+            SP_MAX, [(n, fn, kw) for n, (fn, kw) in world.items()], wd,
+            device=str(dev))
+    world_wall = time.perf_counter() - t_start
+    with tempfile.TemporaryDirectory() as wd:
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo",
+            init_method=f"file://{wd}/init", world_size=1, rank=0)
+        try:
+            alone = {n: fn(**kw, device=str(dev)) for n, (fn, kw) in
+                     one.items()}
+        finally:
+            dist.destroy_process_group()
+    res = _rank_results(ranks, alone)
+    refs = _phase14_refs(dev)
+    print(f"phase 14: {SP_MAX} gloo ranks sharing {card} ({world_wall:.1f} s "
+          "with the spawn) and an NCCL world of one; every case's ranks "
+          "bit-identical")
+    walls = {n: [r["wall"] for r in rs] for n, rs in res.items()}
+    record["phase14_walls_s"] = walls
+    print("  walls of ranks sharing one card (they measure correctness, not "
+          "speed across cards): " + "; ".join(
+              f"{n} {max(w):.3f} s" for n, w in walls.items()))
+    launches = {}
+
+    def counted(name, want):
+        for r in res[name]:
+            counts = dict(r["counts"])
+            got = {k: v for k, v in counts.items() if not k.endswith("_ref")}
+            if any(k.endswith("_ref") for k in counts) or got != want:
+                raise RuntimeError(f"phase 14 {name}: expected launches "
+                                   f"{want} and no plain call, got {counts}")
+            for k, (n, shapes) in got.items():
+                launches[k] = launches.get(k, 0) + n
+                kept = MAIN_SHAPES.setdefault(k, {})
+                for shape, m in shapes.items():
+                    kept[shape] = kept.get(shape, 0) + m
+
+    def two_shapes(n):
+        return {"blocktri_solve_spike_fused": (2 * n, {(8, 19): n,
+                                                       (8, 3): n})}
+
+    # (a) sp: fixed work against the single-rank solver.
+    z_ref, st_ref = refs["sp"]
+    for name in ("sp=1 float64", "sp=2 float64", "sp=4 float64"):
+        z, st = res[name][0]["out"]
+        dp_abs = float((z["p"] - z_ref.p.cpu()).abs().max())
+        dv = float((z["V"] - z_ref.V.cpu()).abs().max()
+                   / z_ref.V.abs().max())
+        same = torch.equal(st["history"][:, 4], st_ref.history[:, 4].cpu())
+        print(f"  (a) {name}: p {z['p'].tolist()}, |p - p_1rank| {dp_abs:.3e}"
+              f" (<= 1e-8), V rel {dv:.3e} (<= 1e-6), accept history "
+              f"{'same' if same else 'DIFFERENT'}")
+        if not (dp_abs <= 1e-8 and dv <= 1e-6 and same):
+            raise RuntimeError(f"phase 14 (a) {name} disagrees with the "
+                               "single-rank solver")
+        counted(name, two_shapes(15))
+    z, st = res["sp=4 float32"][0]["out"]
+    c0, c_end = float(st["history"][0, 0]), float(st["cost"])
+    print(f"  (a) sp=4 float32: cost {c0:.6e} -> {c_end:.6e}, p "
+          f"{z['p'].tolist()}")
+    if not (c_end < 0.1 * c0 and bool(torch.isfinite(z["p"]).all())):
+        raise RuntimeError("phase 14 (a) float32 did no useful work")
+    counted("sp=4 float32", two_shapes(15))
+    # (b) dp: config 5 against the unsharded solver, each layout.
+    for layout, kernel in (("soa", "blocktri_solve_spike_fused"),
+                           ("blocks", "batched_thomas_solve")):
+        z_ref, _ = refs[layout]
+        for n in (1, 2, 4):
+            name = f"dp={n} {layout}"
+            z, _ = res[name][0]["out"]
+            dp_abs = float((z["p"] - z_ref.p.cpu()).abs().max())
+            dv = float((z["V"] - z_ref.V.cpu()).abs().max())
+            print(f"  (b) config 5 {name}: |p - p_unsharded| {dp_abs:.3e} "
+                  f"(<= 1e-9), |V - V_unsharded| {dv:.3e} (<= 1e-8)")
+            if not (dp_abs <= 1e-9 and dv <= 1e-8):
+                raise RuntimeError(f"phase 14 (b) {name} disagrees with the "
+                                   "unsharded solver")
+            shapes = res[name][0]["counts"].get(kernel, (0, {}))[1]
+            counted(name, {kernel: (15, shapes)})
+    # (c) dp x sp.
+    z, _ = res["dp x sp"][0]["out"]
+    dp_abs = float((z["p"] - refs["dp x sp"][0].p.cpu()).abs().max())
+    print(f"  (c) dp x sp = 2 x 2, 4 x 511 elements: |p - p_unsharded| "
+          f"{dp_abs:.3e} (<= 1e-9)")
+    if not dp_abs <= 1e-9:
+        raise RuntimeError("phase 14 (c) disagrees with the unsharded solver")
+    counted("dp x sp", two_shapes(5))
+    # (d) IRLS with the sharded inner solver.
+    z, stats, _ = res["irls sp=2"][0]["out"]
+    z_ref = refs["irls"][0]
+    its = sum(int(s["iterations"]) for s in stats)
+    dp_abs = float((z["p"] - z_ref.p.cpu()).abs().max())
+    print(f"  (d) IRLS sp=2, 2 rounds: {its} LM iterations, |p - p_1rank| "
+          f"{dp_abs:.3e} (<= 1e-6)")
+    if not dp_abs <= 1e-6:
+        raise RuntimeError("phase 14 (d) disagrees with the single-rank IRLS")
+    counted("irls sp=2", two_shapes(its))
+
+    # (e) the symbolic model through the captured make_gn_solver.
+    mesh, t_meas, y, u_nodes = build_headline_problem(ELEMENTS)
+    sym = symbolic_model(**VDP_SYM)()
+    ps = {}
+    for dtype in (torch.float32, torch.float64):
+        prob = EstimationProblem.build(sym, mesh, t_meas, defect_weight=100.0,
+                                       device=dev, dtype=dtype)
+        data = prob.pack_data(y, t_meas, u_nodes=u_nodes)
+        z0 = prob.initial_guess_from_data(t_meas, y, p0=[0.5, 0.5])
+        if dtype == torch.float32:
+            solve = make_gn_solver(prob, SolverOptions(**SP_FIXED))
+            (z, st), wall, counts = _counted(
+                "phase 14 (e)", lambda: solve(z0, data),
+                {"kkt_solve_spike_fused": 15})
+            c0, c_end = float(prob.cost(z0, data)), float(st.cost)
+            print(f"  (e) symbolic model N={ELEMENTS} float32, 15 LM "
+                  f"iterations captured: cost {c0:.6e} -> {c_end:.6e}, "
+                  f"kernel #1 launches {counts['kkt_solve_spike_fused']}, "
+                  f"wall {wall:.4f} s")
+            if not (c_end < 0.1 * c0 and bool(torch.isfinite(z.p).all())):
+                raise RuntimeError("phase 14 (e) float32 did no useful work")
+            launches["kkt_solve_spike_fused"] = 15
+            _keep_shapes(["kkt_solve_spike_fused"])
+        else:
+            opts = SolverOptions(maxiter=60, gtol=1e-10, xtol=1e-12)
+            hand, hdata, hz0 = _headline(dtype, dev, ELEMENTS)
+            ps = {"symbolic": make_gn_solver(prob, opts)(z0, data)[0].p,
+                  "hand-written": make_gn_solver(hand, opts)(hz0, hdata)[0].p}
+    d_sym = float((ps["symbolic"] - ps["hand-written"]).abs().max())
+    print(f"  (e) symbolic model float64 to convergence: p "
+          f"{ps['symbolic'].tolist()}, |p - p_hand-written| {d_sym:.3e} "
+          "(<= 1e-10)")
+    if not d_sym <= 1e-10:
+        raise RuntimeError("phase 14 (e) the symbolic model's p differs")
+    record["phase14_wall_s"] = time.perf_counter() - t_start
+    print(f"  phase 14 took {record['phase14_wall_s']:.1f} s on {card}")
+    return launches
 
 
 def _serve(mhe, ys, m0, P0, iterations):
@@ -2790,6 +3133,7 @@ def main() -> int:
     record["config_shapes"] = _phase2_configs(dev, card)
     record["ocp_shapes"] = _phase2_ocp(dev, card)
     record["mhe_shapes"] = _phase2_mhe(dev, card)
+    record["sp_shapes"] = _phase2_sp(dev, card)
     elapsed()
 
     # ---- phase 3: headline fixed work, float32 -----------------------------
@@ -2921,7 +3265,7 @@ def main() -> int:
     # ---- phases 10-13: config 3, the free-time OCP, constrained estimation,
     # the serving path and the Kalman tier ----------------------------------
     elapsed()
-    for phase in (_ocp_solves, _constrained_estimation, _serving):
+    for phase in (_ocp_solves, _constrained_estimation, _serving, _phase14):
         for k, v in phase(dev, card, record).items():
             main_launches[k] = main_launches.get(k, 0) + v
         elapsed()
@@ -2943,7 +3287,8 @@ def main() -> int:
         "shapes": _main_shapes(name, main_launches[name]),
         "at_configs": _at_configs(name, record["config_shapes"],
                                   record["ocp_shapes"],
-                                  record["mhe_shapes"]),
+                                  record["mhe_shapes"],
+                                  record["sp_shapes"]),
     } for name, (source, replaces) in KERNELS.items()]}
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

@@ -23,7 +23,15 @@ Main paths:
     ``solve.bounds.make_bounded_solver`` and
     ``solve.constrained.make_constrained_solver``;
   * online estimation (the serving path): ``mhe.MovingHorizonEstimator``
-    (``init``, then ``step`` per sample); the Kalman tier in ``kalman``.
+    (``init``, then ``step`` per sample); the Kalman tier in ``kalman``;
+  * several ranks (``torch.distributed``): ``parallel.make_device_mesh``,
+    then ``parallel.make_sp_gn_solver`` (the element chain sharded over
+    "sp") or ``make_multi_experiment_solver(..., dp_axis=mesh.dp_group)``
+    (experiments over "dp"; ``chain_solver=parallel.spike_chain_solver``
+    composes dp x sp);
+  * models from sympy strings: ``symbolic_model``; checkpoints and debug
+    guards in ``utils`` (``save_pytree`` / ``load_pytree``, ``checkified``,
+    ``assert_all_finite``).
 
 On a CUDA device ``make_gn_solver``'s and ``make_multi_experiment_solver``'s
 solves and ``MovingHorizonEstimator.step`` run from CUDA graphs captured at
@@ -40,6 +48,7 @@ from collocfem_tpu_torch import precision
 precision.apply()
 
 from collocfem_tpu_torch.model import Model  # noqa: E402
+from collocfem_tpu_torch.model_sym import symbolic_model  # noqa: E402
 from collocfem_tpu_torch.ocp import (  # noqa: E402
     Multipliers,
     OptimalControlProblem,
@@ -58,6 +67,7 @@ from collocfem_tpu_torch.problem import (  # noqa: E402
 
 __all__ = [
     "Model",
+    "symbolic_model",
     "LGLBasis",
     "make_basis",
     "Mesh",

@@ -50,9 +50,12 @@
 // parameter (the chain solve at r = 1), its free-time form b = 12 with the
 // horizon as the one parameter (nq = 1).  The moving-horizon estimator's
 // window (Van der Pol, nx = 2, degree 3, no parameter) is b = 6 at r = 1,
-// on an 8-lane group with lanes 6 and 7 idle.
+// on an 8-lane group with lanes 6 and 7 idle.  The element-chain sharded
+// solve (parallel/spike.py) solves each shard's interior against [G | U |
+// V]: r = (1 + nq) + 2 b = 19 at the headline's b = 8, nq = 2.
 #define KKT_SHAPES(X) X(8, 2) X(8, 3) X(8, 5) X(12, 1) /* (b, nq), KKT */
-#define CHAIN_SHAPES(X) X(6, 1) X(8, 1) X(8, 3) X(12, 1) /* (b, r), chain */
+#define CHAIN_SHAPES(X) \
+  X(6, 1) X(8, 1) X(8, 3) X(8, 19) X(12, 1) /* (b, r), chain */
 
 namespace {
 

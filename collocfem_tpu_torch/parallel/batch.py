@@ -22,8 +22,11 @@ Two layouts, chosen by ``make_multi_experiment_solver(layout=...)``:
 The accept/damping logic is the shared :func:`solve.lm_core.lm_step`; the
 JAX package's double-word cost sums and dot products are float64 sums here.
 Where the JAX package jits the solve, the port replays it from CUDA graphs
-on a CUDA device (``solve.newton.captured_lm_solve``).  Sharding over a "dp"
-device axis is not ported (ROADMAP queue A, multi-device).
+on a CUDA device (``solve.newton.captured_lm_solve``).  With ``dp_axis`` (a
+process group, :mod:`parallel.meshes`) each rank passes its own experiments
+and the Schur pieces and the LM loop's scalars are all-reduced over the
+group, as the JAX package's ``psum`` / ``pmax`` do inside ``shard_map``; that
+solve runs eagerly (its collectives are not captured).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from collocfem_tpu_torch.ops.assemble import (
     assemble_gn_batched,
@@ -39,6 +43,7 @@ from collocfem_tpu_torch.ops.assemble import (
     cost64_from_residuals,
 )
 from collocfem_tpu_torch.ops.smallblocks import spd_solve
+from collocfem_tpu_torch.parallel.meshes import all_max, all_sum
 from collocfem_tpu_torch.solve.lm_core import LMAux, grad_inf_norm
 from collocfem_tpu_torch.solve.newton import SolverOptions, captured_lm_solve
 
@@ -70,15 +75,25 @@ def concat_chain_solver():
     return blocktri_solve_spike_fused
 
 
-def batch_cost(problem, z: BatchDecision, data_batch, p_prior, p_w):
-    """float64 total cost over the batch plus the shared parameter prior.
+def batch_cost(problem, z: BatchDecision, data_batch, p_prior, p_w,
+               dp_axis=None):
+    """float64 total cost over the batch plus the shared parameter prior;
+    with ``dp_axis``, over every rank's experiments.
 
     Per-experiment ``data_batch.p_w`` must be zero: the shared prior enters
     exactly once, here.
     """
     r = problem.residuals_batched(z.V, z.p, data_batch)
-    return (cost64_from_residuals(problem, r, z.V, z.p, data_batch)
-            + _prior_cost(z.p, p_prior, p_w))
+    return _finish_cost(cost64_from_residuals(problem, r, z.V, z.p,
+                                              data_batch),
+                        z.p, p_prior, p_w, dp_axis)
+
+
+def _finish_cost(local, p, p_prior, p_w, dp_axis):
+    """The local batch's float64 cost -> the global cost plus the shared
+    prior (added once, on every rank alike)."""
+    local, = all_sum(dp_axis, local)
+    return local + _prior_cost(p, p_prior, p_w)
 
 
 def _prior_cost(p, p_prior, p_w):
@@ -130,14 +145,28 @@ def scale_concat_chain(sys, lam, n_exp: int):
     return Dsc, Esc, rhs, inv, dmax_e
 
 
+def _reduced_aux(gnorm, gx, dx, dmax_e, dx2_e, dp, gp_tot, smax, dp_axis):
+    """The LM accept quantities of a shared-parameter step from this rank's
+    gradient norm and state step, maxed and summed over ``dp_axis``: the
+    norm, g.s in float64, the damping quadratic form sum_e dmax_e
+    ||dx_e||^2 + smax ||dp||^2 and ||s||."""
+    gnorm, = all_max(dp_axis, gnorm)
+    gdot, sds, sn2 = all_sum(dp_axis, _dot64(gx, dx), torch.dot(dmax_e, dx2_e),
+                             dx2_e.sum())
+    dp2 = torch.dot(dp, dp)
+    return LMAux(gnorm=gnorm, gdot=(gdot + _dot64(gp_tot, dp)).to(dx.dtype),
+                 sds=sds + smax * dp2, step_norm=torch.sqrt(sn2 + dp2))
+
+
 def shared_gn_step_soa(problem, sys, lam, p, p_prior, p_w, *, n_exp: int,
-                       chain_solve):
+                       chain_solve, dp_axis=None):
     """One damped shared-parameter GN step from the concatenated-chain SoA
     system (:func:`ops.assemble.assemble_gn_soa_batched`), config 5's hot
     path.  The chain solve (:func:`concat_chain_solver`) runs on the
     Jacobi-scaled chain; the damping quadratic form in ``aux.sds`` is that
     of the block-diagonal damping matrix, sum_e dmax_e ||dx_e||^2 +
-    smax ||dp||^2.
+    smax ||dp||^2.  ``dp_axis``: the process group the experiments are
+    sharded over (None: one rank).
 
     Returns (dV (n_exp, M, nv), dp (nq,), aux: LMAux).
     """
@@ -149,22 +178,17 @@ def shared_gn_step_soa(problem, sys, lam, p, p_prior, p_w, *, n_exp: int,
     # Unscale: A_d^-1 = S X~ S for the state-side Jacobi scaling S.
     a_g = x[:, 0, :] * inv
     a_b = x[:, 1:, :] * inv[:, None, :]
-    s_loc = sys.C - torch.einsum("bqk,brk->qr", sys.B, a_b)
-    r_loc = sys.gp - torch.einsum("bqk,bk->q", sys.B, a_g)
-    dp, gp_tot, smax = _shared_schur_step(s_loc, r_loc, sys.gp, lam, p,
+    s_loc, r_loc, gp_sum = all_sum(
+        dp_axis, sys.C - torch.einsum("bqk,brk->qr", sys.B, a_b),
+        sys.gp - torch.einsum("bqk,bk->q", sys.B, a_g), sys.gp)
+    dp, gp_tot, smax = _shared_schur_step(s_loc, r_loc, gp_sum, lam, p,
                                           p_prior, p_w)
     dx = -(a_g + torch.einsum("bqk,q->bk", a_b, dp))        # (bd, Kt)
     dV = (dx.reshape(bd, n_exp, k).permute(1, 2, 0)
           .reshape(n_exp, k * (bd // nv), nv)[:, :problem.num_nodes])
-
     dx2_e = torch.sum(dx.reshape(bd, n_exp, k) ** 2, dim=(0, 2))
-    dp2 = torch.dot(dp, dp)
-    gdot = (_dot64(sys.gx, dx) + _dot64(gp_tot, dp)).to(dx.dtype)
-    gnorm = grad_inf_norm(sys.gx, gp_tot)
-    aux = LMAux(gnorm=gnorm, gdot=gdot,
-                sds=torch.dot(dmax_e, dx2_e) + smax * dp2,
-                step_norm=torch.sqrt(dx2_e.sum() + dp2))
-    return dV, dp, aux
+    return dV, dp, _reduced_aux(grad_inf_norm(sys.gx, gp_tot), sys.gx, dx,
+                                dmax_e, dx2_e, dp, gp_tot, smax, dp_axis)
 
 
 def damp_blocks(D, lam):
@@ -177,42 +201,43 @@ def damp_blocks(D, lam):
 
 
 def shared_gn_step(problem, z: BatchDecision, data_batch, lam, p_prior,
-                   p_w):
+                   p_w, *, chain_solver=None, dp_axis=None):
     """One damped shared-parameter GN step in the block-major layout.
 
     Assembles every experiment at ``z`` (:func:`ops.assemble.
     assemble_gn_batched`), damps each by lam * its own max diagonal (no
-    Jacobi scaling), and solves all chains at once
-    (:func:`batched_chain_solver`).
+    Jacobi scaling), and solves every chain with ``chain_solver``:
+    ``solve(D, E, G) -> X`` on the whole (E, K, b, ·) batch (default
+    :func:`batched_chain_solver`; ``parallel.spike.spike_chain_solver``
+    shards every chain over "sp").
+    ``dp_axis``: the process group the experiments are sharded over.
 
     Returns (dV (n_exp, M, nv), dp (nq,), gnorm, aux: LMAux).
     """
-    chain_solver = batched_chain_solver()
+    chain_solver = chain_solver or batched_chain_solver()
     sys_b = assemble_gn_batched(problem, z.V, z.p, data_batch)
     d_damped, dmax = damp_blocks(sys_b.D, lam)
     rhs = torch.cat([sys_b.gx[..., None], sys_b.B], dim=-1)
     x = chain_solver(d_damped, sys_b.E, rhs)                # (E, K, bd, 1+nq)
     a_g, a_b = x[..., 0], x[..., 1:]
-    s_loc = sys_b.C.sum(0) - torch.einsum("ekbq,ekbr->qr", sys_b.B, a_b)
-    r_loc = sys_b.gp.sum(0) - torch.einsum("ekbq,ekb->q", sys_b.B, a_g)
-    dp, gp_tot, smax = _shared_schur_step(s_loc, r_loc, sys_b.gp.sum(0), lam,
-                                          z.p, p_prior, p_w)
+    s_loc, r_loc, gp_sum = all_sum(
+        dp_axis,
+        sys_b.C.sum(0) - torch.einsum("ekbq,ekbr->qr", sys_b.B, a_b),
+        sys_b.gp.sum(0) - torch.einsum("ekbq,ekb->q", sys_b.B, a_g),
+        sys_b.gp.sum(0))
+    dp, gp_tot, smax = _shared_schur_step(s_loc, r_loc, gp_sum, lam, z.p,
+                                          p_prior, p_w)
     dx = -(a_g + torch.einsum("ekbq,q->ekb", a_b, dp))
     dV = blocks_to_nodes(dx, problem.num_nodes, problem.nv)
-
-    gnorm = grad_inf_norm(sys_b.gx, sys_b.gp)
-    dx2_e = torch.sum(dx * dx, dim=(1, 2))
-    dp2 = torch.dot(dp, dp)
-    gdot = (_dot64(sys_b.gx, dx) + _dot64(gp_tot, dp)).to(dx.dtype)
-    aux = LMAux(gnorm=gnorm, gdot=gdot,
-                sds=torch.dot(dmax, dx2_e) + smax * dp2,
-                step_norm=torch.sqrt(dx2_e.sum() + dp2))
-    return dV, dp, gnorm, aux
+    aux = _reduced_aux(grad_inf_norm(sys_b.gx, sys_b.gp), sys_b.gx, dx, dmax,
+                       torch.sum(dx * dx, dim=(1, 2)), dp, gp_tot, smax,
+                       dp_axis)
+    return dV, dp, aux.gnorm, aux
 
 
 def make_multi_experiment_solver(problem, options: SolverOptions =
                                  SolverOptions(), *, dp_axis=None,
-                                 layout: str = "auto"):
+                                 chain_solver=None, layout: str = "auto"):
     """Shared-parameter LM solver over a batch of experiments.
 
     Returns ``solve(z0: BatchDecision, data_batch, p_prior, p_w) ->
@@ -224,19 +249,25 @@ def make_multi_experiment_solver(problem, options: SolverOptions =
     it runs the eager loop, which ``solve.eager`` runs on any device with
     the same result bit for bit.
 
-    ``layout``: ``"soa"`` (concatenated chain, SPIKE chain kernel; also
-    what ``"auto"`` selects) or ``"blocks"`` (block-major, batched Thomas
-    kernel).  The JAX package's custom ``chain_solver`` closures exist for
-    its sharded SPIKE solve and are not ported.  On the CPU each kernel's
-    wrapper runs its plain version.  ``options.method`` and
+    ``dp_axis``: a process group (``parallel.meshes.DeviceMesh.dp_group``)
+    the experiments are sharded over, the counterpart of the JAX package's
+    call inside ``shard_map``: each rank passes its own experiments (z0.V
+    and data_batch) and the shared p, prior and options alike, and gets its
+    experiments' V and the shared p.  That solve runs eagerly.
+
+    ``layout``: ``"soa"`` (concatenated chain, SPIKE chain kernel) or
+    ``"blocks"`` (block-major, batched Thomas kernel, or ``chain_solver``:
+    see :func:`shared_gn_step`); ``"auto"`` is ``"blocks"`` when a
+    ``chain_solver`` is given, ``"soa"`` otherwise.  On the CPU each
+    kernel's wrapper runs its plain version.  ``options.method`` and
     ``options.kkt_refine`` do not apply.
     """
-    if dp_axis is not None:
-        raise NotImplementedError(
-            "sharding over a dp axis is not ported yet (ROADMAP queue A, "
-            "multi-device)")
+    if dp_axis is not None and not isinstance(dp_axis, dist.ProcessGroup):
+        raise TypeError(f"dp_axis must be a torch.distributed process group "
+                        f"(parallel.meshes.DeviceMesh.dp_group), not "
+                        f"{dp_axis!r}")
     if layout == "auto":
-        layout = "soa"
+        layout = "blocks" if chain_solver is not None else "soa"
     if layout not in ("soa", "blocks"):
         raise ValueError(f"unknown layout {layout!r}")
 
@@ -246,7 +277,7 @@ def make_multi_experiment_solver(problem, options: SolverOptions =
         def initial(z, data_batch, p_prior, p_w):
             sys, ct = assemble_gn_soa_batched(problem, z.V, z.p, data_batch,
                                               with_cost=True)
-            return sys, ct + _prior_cost(z.p, p_prior, p_w)
+            return sys, _finish_cost(ct, z.p, p_prior, p_w, dp_axis)
 
         def trial(z0, data_batch, p_prior, p_w):
             n_exp = z0.V.shape[0]
@@ -254,22 +285,26 @@ def make_multi_experiment_solver(problem, options: SolverOptions =
             def trial_fn(z, sys, lam):
                 dV, dp, aux = shared_gn_step_soa(
                     problem, sys, lam, z.p, p_prior, p_w, n_exp=n_exp,
-                    chain_solve=chain_solve)
+                    chain_solve=chain_solve, dp_axis=dp_axis)
                 z_try = BatchDecision(V=z.V + dV, p=z.p + dp)
                 sys_try, ct = initial(z_try, data_batch, p_prior, p_w)
                 return z_try, sys_try, ct, aux
             return trial_fn
     else:
         def initial(z, data_batch, p_prior, p_w):
-            return (), batch_cost(problem, z, data_batch, p_prior, p_w)
+            return (), batch_cost(problem, z, data_batch, p_prior, p_w,
+                                  dp_axis)
 
         def trial(z0, data_batch, p_prior, p_w):
             def trial_fn(z, carry, lam):
-                dV, dp, _, aux = shared_gn_step(problem, z, data_batch, lam,
-                                                p_prior, p_w)
+                dV, dp, _, aux = shared_gn_step(
+                    problem, z, data_batch, lam, p_prior, p_w,
+                    chain_solver=chain_solver, dp_axis=dp_axis)
                 z_try = BatchDecision(V=z.V + dV, p=z.p + dp)
-                ct = batch_cost(problem, z_try, data_batch, p_prior, p_w)
+                ct = batch_cost(problem, z_try, data_batch, p_prior, p_w,
+                                dp_axis)
                 return z_try, carry, ct, aux
             return trial_fn
 
-    return captured_lm_solve(initial, trial, options)
+    solve = captured_lm_solve(initial, trial, options)
+    return solve if dp_axis is None else solve.eager

@@ -178,7 +178,7 @@ def make_gn_solver(problem, options: SolverOptions = SolverOptions()):
 
 
 def make_irls_solver(problem, options: SolverOptions = SolverOptions(),
-                     n_rounds: int = 4):
+                     n_rounds: int = 4, inner_solver=None):
     """Huber-robust estimation: iteratively reweighted Gauss-Newton.
 
     Counterpart of the JAX package's ``make_irls_solver``.  Each round
@@ -195,12 +195,18 @@ def make_irls_solver(problem, options: SolverOptions = SolverOptions(),
     per-sample weights (N, S, ny).  Each round's solve is
     :func:`make_gn_solver`'s (captured on a CUDA device); the reweighting
     between rounds runs eagerly.  ``solve.eager`` runs every round on the
-    inner solver's eager loop.
+    inner solver's eager loop (``inner.eager``, or the inner solver itself
+    where it has none).
+
+    ``inner_solver`` swaps the per-round solver, e.g.
+    ``parallel.sharded.make_sp_gn_solver(problem, dev_mesh, options)`` for
+    element-chain-sharded robust estimation (the reweighting works on
+    global tensors either way).
     """
     if options.irls_delta <= 0:
         raise ValueError("set options.irls_delta > 0 for IRLS")
     delta = options.irls_delta
-    inner = make_gn_solver(problem, options)
+    inner = inner_solver or make_gn_solver(problem, options)
 
     def reweight(z, data, base_w):
         r = problem.measurement_residuals(z, data._replace(meas_w=base_w))
@@ -221,5 +227,5 @@ def make_irls_solver(problem, options: SolverOptions = SolverOptions(),
         return solve
 
     solve = rounds_of(inner)
-    solve.eager = rounds_of(inner.eager)
+    solve.eager = rounds_of(getattr(inner, "eager", inner))
     return solve

@@ -203,3 +203,204 @@ def mhe_online_stream(dtype, device, samples: int = MHE_SAMPLES):
         options=SolverOptions(maxiter=20, gtol=1e-9), device=device,
         dtype=dtype)
     return mhe, xs, ys
+
+
+# ---- worlds of ranks: the sharded solvers' runs -------------------------------
+#
+# A gloo world of spawned processes runs a list of cases, each a (name,
+# function, kwargs) with a module-level function below; each rank saves its
+# results, which run_world returns in rank order.  The children import this
+# module and torch only.  Specs are plain dicts of numpy arrays and numbers.
+
+
+def shard_interior_chain(Ds, Es, G, sp: int, j: int):
+    """The interior chain that rank ``j`` of ``sp`` solves in
+    ``parallel.spike.blocktri_solve_spike``, taken from a global SoA chain
+    (Ds, Es (b, b, K), G (b, r, K)): blocks j m + 1 .. (j + 1) m - 2 against
+    [G | U | V] (r + 2 b columns, U = E[j m]^T at the first block, V =
+    E[(j + 1) m - 2] at the last).  Returns SoA (D, E, rhs), contiguous."""
+    b, _, K = Ds.shape
+    m = K // sp
+    lo, hi = j * m + 1, (j + 1) * m - 1
+    U = Ds.new_zeros((b, b, hi - lo))
+    V = torch.zeros_like(U)
+    U[..., 0] = Es[..., lo - 1].T
+    V[..., -1] = Es[..., hi - 1]
+    return (Ds[..., lo:hi].contiguous(), Es[..., lo:hi].contiguous(),
+            torch.cat([G[..., lo:hi], U, V], dim=1).contiguous())
+
+
+def estimation_inputs(spec: dict, *, dtype, device):
+    """(prob, z0, data) of one Van der Pol estimation: ``{"kind":
+    "headline", "elements": N}`` (``headline.headline_problem``) or
+    ``{"kind": "vdp", "breakpoints", "degree", "t_meas", "y", "u_nodes",
+    "defect_weight", "p0"}``."""
+    from collocfem_tpu_torch.headline import headline_problem
+    from collocfem_tpu_torch.models import VanDerPol
+    from collocfem_tpu_torch.ops.basis import make_basis
+    from collocfem_tpu_torch.ops.mesh import Mesh
+    from collocfem_tpu_torch.problem import EstimationProblem
+
+    if spec["kind"] == "headline":
+        prob, data, z0 = headline_problem(spec["elements"], dtype=dtype,
+                                          device=device)
+        return prob, z0, data
+    mesh = Mesh(basis=make_basis(spec["degree"]),
+                breakpoints=np.asarray(spec["breakpoints"]))
+    prob = EstimationProblem.build(VanDerPol(), mesh, spec["t_meas"],
+                                   defect_weight=spec["defect_weight"],
+                                   device=device, dtype=dtype)
+    data = prob.pack_data(spec["y"], spec["t_meas"], u_nodes=spec["u_nodes"])
+    return prob, prob.initial_guess_from_data(spec["t_meas"], spec["y"],
+                                              p0=spec["p0"]), data
+
+
+def batch_inputs(spec: dict, *, dtype, device):
+    """(prob, z0, data_batch, p_prior, p_w) of a Van der Pol batch:
+    ``{"kind": "config5", "n_exp", "elements"}``
+    (``batched.build_config5_problem``) or ``{"kind": "vdp_batch",
+    "breakpoints", "degree", "t_meas", "y" (E, S, 1), "u_nodes" (E, N, d+1,
+    1), "defect_weight", "p0", "p_prior", "p_w"}`` (each experiment's
+    initial guess from its data with p0 = 0, no per-experiment prior)."""
+    from collocfem_tpu_torch.batched import build_config5_problem, stack_data
+    from collocfem_tpu_torch.models import VanDerPol
+    from collocfem_tpu_torch.ops.basis import make_basis
+    from collocfem_tpu_torch.ops.mesh import Mesh
+    from collocfem_tpu_torch.parallel.batch import BatchDecision
+    from collocfem_tpu_torch.problem import EstimationProblem
+
+    if spec["kind"] == "config5":
+        return build_config5_problem(spec["n_exp"], spec["elements"],
+                                     dtype=dtype, device=device)
+    mesh = Mesh(basis=make_basis(spec["degree"]),
+                breakpoints=np.asarray(spec["breakpoints"]))
+    t, y = spec["t_meas"], spec["y"]
+    prob = EstimationProblem.build(VanDerPol(), mesh, t,
+                                   defect_weight=spec["defect_weight"],
+                                   device=device, dtype=dtype)
+    data = stack_data([prob.pack_data(y[e], t, u_nodes=spec["u_nodes"][e],
+                                      p_weight=0.0) for e in range(len(y))])
+    V0 = torch.stack([prob.initial_guess_from_data(t, y[e], p0=[0, 0]).V
+                      for e in range(len(y))])
+    as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    return (prob, BatchDecision(V=V0, p=as_t(spec["p0"])), data,
+            as_t(spec["p_prior"]), as_t(spec["p_w"]))
+
+
+def _host(tree):
+    """A result pytree with every tensor on the host; NamedTuples become
+    dicts."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if hasattr(tree, "_asdict"):
+        return {k: _host(v) for k, v in tree._asdict().items()}
+    if isinstance(tree, (tuple, list)):
+        return [_host(v) for v in tree]
+    return tree
+
+
+def _counted(run, device):
+    """Run ``run()`` with the kernel counts read just before and just after.
+    Returns {"out": its result on the host, "wall": seconds, "counts":
+    {function name: (calls, {shape: n})}} (kernel wrappers and plain
+    versions that ran)."""
+    from collocfem_tpu_torch.ops import _build
+    from collocfem_tpu_torch.utils.profiling import timed
+
+    before = _build.snapshot()
+    wall, out = timed(run, device=device, reps=1, warmup=0)
+    made = _build.difference(before, _build.snapshot())
+    return {"out": _host(out), "wall": wall,
+            "counts": {fn.__name__: c for fn, c in made.items()}}
+
+
+def spike_case(*, mesh, D, E, G, dtype, device):
+    """``parallel.spike_sharded_solver`` on a global block-major chain."""
+    from collocfem_tpu_torch.parallel import make_device_mesh
+    from collocfem_tpu_torch.parallel.spike import spike_sharded_solver
+
+    solve = spike_sharded_solver(make_device_mesh(*mesh, device=device))
+    args = [torch.as_tensor(a, dtype=dtype, device=device) for a in (D, E, G)]
+    return _counted(lambda: solve(*args), device)
+
+
+def sp_gn_case(*, mesh, spec, options, dtype, device, irls_rounds=None):
+    """``parallel.make_sp_gn_solver`` on ``estimation_inputs(spec)``, or
+    with ``irls_rounds`` the IRLS solver with it as the inner solver."""
+    from collocfem_tpu_torch.parallel import make_device_mesh
+    from collocfem_tpu_torch.parallel.sharded import make_sp_gn_solver
+    from collocfem_tpu_torch.solve.newton import (SolverOptions,
+                                                  make_irls_solver)
+
+    prob, z0, data = estimation_inputs(spec, dtype=dtype, device=device)
+    opts = SolverOptions(**options)
+    solve = make_sp_gn_solver(prob, make_device_mesh(*mesh, device=device),
+                              opts)
+    if irls_rounds is not None:
+        solve = make_irls_solver(prob, opts, irls_rounds, inner_solver=solve)
+    return _counted(lambda: solve(z0, data), device)
+
+
+def dp_case(*, mesh, spec, options, layout, dtype, device, sp_chain=False):
+    """``make_multi_experiment_solver(dp_axis=...)`` on ``batch_inputs(
+    spec)``, this rank's dp share of the experiments; with ``sp_chain`` the
+    block layout's chains go through ``spike_chain_solver`` over the sp
+    ranks.  The result's V is gathered over dp: the whole batch."""
+    from collocfem_tpu_torch.parallel import make_device_mesh
+    from collocfem_tpu_torch.parallel.batch import (
+        BatchDecision, make_multi_experiment_solver)
+    from collocfem_tpu_torch.parallel.meshes import gather
+    from collocfem_tpu_torch.parallel.spike import spike_chain_solver
+    from collocfem_tpu_torch.problem import ProblemData
+    from collocfem_tpu_torch.solve.newton import SolverOptions
+
+    dm = make_device_mesh(*mesh, device=device)
+    prob, z0, data, p_prior, p_w = batch_inputs(spec, dtype=dtype,
+                                                device=device)
+    n = z0.V.shape[0] // dm.dp
+    mine = lambda a: a[dm.dp_rank * n:(dm.dp_rank + 1) * n]
+    chain = spike_chain_solver(prob.mesh.num_blocks, dm.sp,
+                               group=dm.sp_group) if sp_chain else None
+    solve = make_multi_experiment_solver(
+        prob, SolverOptions(**options), dp_axis=dm.dp_group,
+        chain_solver=chain, layout=layout)
+    args = (BatchDecision(V=mine(z0.V), p=z0.p),
+            ProblemData(*(mine(x) for x in data)), p_prior, p_w)
+    res = _counted(lambda: solve(*args), device)
+    z, stats = res["out"]
+    V = gather(z["V"].to(device), dm.dp_group)
+    res["out"] = [{"V": V.reshape(-1, *V.shape[2:]).cpu(), "p": z["p"]},
+                  stats]
+    return res
+
+
+def _rank_main(rank, n_ranks, workdir, cases, device):
+    import datetime
+
+    import torch.distributed as dist
+
+    if device == "cpu":
+        torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/init",
+                            world_size=n_ranks, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        out = {name: fn(**kwargs, device=device) for name, fn, kwargs in cases}
+        torch.save(out, f"{workdir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def run_world(n_ranks: int, cases, workdir, *, device="cpu"):
+    """Spawn a gloo world of ``n_ranks`` processes in which every rank runs
+    every case of ``cases`` ((name, function, kwargs), a function of this
+    module called with ``device=``), in order; returns each rank's
+    {name: result} in rank order.  ``workdir`` is a fresh directory for the
+    world's rendezvous file and the results.  On a CUDA device every rank
+    uses the current card (gloo reduces CUDA tensors)."""
+    import torch.multiprocessing as mp
+
+    mp.spawn(_rank_main, args=(n_ranks, str(workdir), cases, device),
+             nprocs=n_ranks, join=True)
+    return [torch.load(f"{workdir}/rank{r}.pt", weights_only=False)
+            for r in range(n_ranks)]

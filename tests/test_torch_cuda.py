@@ -985,3 +985,56 @@ def test_a_failing_capture_raises(cuda_device):
     torch.cuda.synchronize()
     assert not eager_calls and not solve._plans
     assert _build.snapshot() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", EDGES + [2498, 4998])
+def test_chain_kernel_at_r19_matches_plain(cuda_device, k):
+    """Kernel #2 at (8, 19), the sharded solve's interior [G | U | V] (K =
+    2,498 and 4,998: the headline's shard interiors at sp = 4 and 2), with
+    kernel #2's bars: float64 1e-9 relative, float32 residual at most 10x
+    the plain version's."""
+    for dtype in (torch.float64, torch.float32):
+        D, E, G = random_chain(k, 8, 19, seed=k + 19, dtype=dtype,
+                               device=cuda_device)
+        shapes = dict(spike.blocktri_solve_spike_fused.shapes)
+        got = spike.blocktri_solve_spike_fused(D, E, G)
+        torch.cuda.synchronize()
+        assert spike.blocktri_solve_spike_fused.shapes[(8, 19)] == \
+            shapes.get((8, 19), 0) + 1
+        want = spike.blocktri_solve_spike_fused_ref(D, E, G)
+        if dtype == torch.float64:
+            assert rel_err(got, want) <= 1e-9
+        else:
+            assert chain_residual(D, E, G, got) <= \
+                10 * chain_residual(D, E, G, want)
+
+
+@pytest.mark.cuda
+def test_sp_solve_on_the_card_matches_one_rank(cuda_device, tmp_path):
+    """A 2-rank gloo world sharing the card runs make_sp_gn_solver on the
+    headline problem at N = 511 (K = 512) in float64, 10 fixed-work LM
+    iterations: both ranks give the same bits, p within 1e-8 of the
+    single-rank make_gn_solver's, and each rank launches kernel #2 once at
+    (8, 19) and once at (8, 3) per iteration and no plain version."""
+    from collocfem_tpu_torch.solve.newton import (SolverOptions,
+                                                  make_gn_solver)
+    from collocfem_tpu_torch.testing import (bit_equal, estimation_inputs,
+                                             run_world, sp_gn_case)
+
+    spec = dict(kind="headline", elements=511)
+    opts = dict(maxiter=10, gtol=0.0, lam0=3e-6, lam_max=1e30)
+    ranks = run_world(2, [("sp", sp_gn_case,
+                           dict(mesh=(1, 2), spec=spec, options=opts,
+                                dtype=torch.float64))],
+                      tmp_path, device="cuda")
+    prob, z0, data = estimation_inputs(spec, dtype=torch.float64,
+                                       device=cuda_device)
+    z_ref, _ = make_gn_solver(prob, SolverOptions(**opts))(z0, data)
+    outs = [r["sp"] for r in ranks]
+    assert bit_equal(outs[0]["out"], outs[1]["out"])
+    z, _ = outs[0]["out"]
+    assert float((z["p"] - z_ref.p.cpu()).abs().max()) <= 1e-8
+    for r in outs:
+        assert r["counts"] == {"blocktri_solve_spike_fused":
+                               (20, {(8, 19): 10, (8, 3): 10})}
