@@ -7,8 +7,12 @@ Usage (from the root of a checkout, on a machine with a CUDA card):
 Phases, each printing its own line; any failure raises and exits non-zero:
 
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  1. build every kernel library from csrc/ with nvcc, one process per
-     library, all at once (time, ptxas registers and spills per kernel);
+  1. build every kernel instance the run uses from csrc/ with nvcc
+     (ops/_build.py: one nvcc per (library, b, r), as many at once as the
+     machine has cores): the prebuild set, the shapes of the benchmark
+     problems (_prebuild_set), and the shapes this run adds
+     (_new_instances); each instance's wall and its kernels' ptxas
+     registers and spills;
   2. hold each kernel against its plain PyTorch version on the card.
      float64: max|x - x_ref| / max|x_ref| <= 1e-9.  float32 (the systems
      are ill-conditioned): the kernel's relative residual, computed in
@@ -59,6 +63,15 @@ Phases, each printing its own line; any failure raises and exits non-zero:
      guess (N = 9,999, sp = 4: K = 2,498 against [gx | B | U | V]) and on
      seeded chains, K in EDGES + {2498, 4998}, with the same times, device
      time, bit-identity, bound and dense solve (19,984^2).
+     At the shapes only per-shape builds run (_phase2_new_shapes): each
+     problem's own system at its initial guess, timed with the dense
+     torch.linalg.solve and the float32 bound beside (#1 at (4, 2), the
+     degree-2 Van der Pol, and (9, 1), the free-time OCP at degree 3; #2
+     and #7 at (4, 3), tests/test_multi_experiment.py's batch; #2 at (8,
+     4) and (8, 6), configs 2 and 4 under kkt_refine, and (16, 1), the
+     split actuator; #3-#6 at b = 12, config 3 with method='cr', and at b
+     = 4 on the degree-2 Van der Pol), and seeded chains at b in
+     SEEDED_BLOCKS (1, 2, 3, 4, 9, 16): #1, #2 at K in EDGES, #7, #3-#6.
      At the shapes of configs 2 and 4 (_phase2_configs): kernel #1 at
      nq = 3 and 5 on each config's damped system at its initial guess (K =
      1,001 and 201) and on seeded chains, K in EDGES + {201, 1001}, timed
@@ -138,7 +151,8 @@ Phases, each printing its own line; any failure raises and exits non-zero:
      examples/constrained_estimation.py's damping spec (kernel #1 at (8,
      5)): p within 1e-6 of the JAX package's, g_param(p) <= 0; (b)
      tests/test_bounds.py's active parameter bound on Van der Pol at degree
-     4 (kernel #1 at (8, 2)): p within 1e-6 of the JAX package's;
+     4 (kernel #1 at (8, 2)) and at the test's own degree 2 (kernel #1 at
+     (4, 2)): p within 1e-6 of the JAX package's;
  13. the serving path and the Kalman tier (_serving): (a)
      examples/mhe_online.py's moving-horizon estimator (Van der Pol,
      horizon 12, degree 3: kernel #2 at (6, 1)) over its 240-sample stream
@@ -182,6 +196,18 @@ Phases, each printing its own line; any failure raises and exits non-zero:
      kernel #1 exactly 15 times, the cost falls more than 10x; float64 to
      convergence, p within 1e-10 of the hand-written model's.  The ranks'
      walls are printed under a label that says they share one card.
+ 15. every shape (_phase15), float64, the JAX package's problems at block
+     sizes only per-shape builds run, each within 1e-6 of the JAX
+     package's float64 result (constants above): (a)
+     tests/test_multi_experiment.py's batch through the captured
+     make_multi_experiment_solver, #2 (soa) and #7 (blocks) at (4, 3);
+     (b) the free-time OCP at degree 3, #1 at (9, 1); (c) the split
+     actuator, #2 at (16, 1); (d) config 3 at N = 25 and 500 with
+     method='cr', #4-#6 at b = 12; (e) configs 2 and 4 under
+     kkt_refine=2, #2 at (8, 4) / (8, 6) and (8, 1); (f) parameter_std on
+     the degree-2 Van der Pol, #3 and #6 at (4, 2), within 1e-9 of the
+     plain solve.  Each prints its wall, launches by shape, construction
+     and first-call walls and its instances' phase-1 build walls.
 
 Phases 3-9 and 13 run each solve as it runs by default on a CUDA device:
 from CUDA graphs captured at its first call (collocfem_tpu_torch/solve/
@@ -527,6 +553,143 @@ CONSTRAINED4_JAX_F64 = (-1.1993546178196046, -8.163503615725432,
                         -2.893695888103136, -0.1423811994384079,
                         -13.231877739359728)
 BOUNDED_VDP_JAX_F64 = (0.7999999998603717, 0.7843172245985526)
+# Phase 12 (b) at tests/test_bounds.py's own degree 2 (b = 4) and phase 15:
+# the JAX package's float64 results on the CPU, produced from the root of
+# the repo by ``JAX_PLATFORMS=cpu python - <case> <<'EOF'`` with case
+# bounded2, multi, min_time3, split, refine2 and refine4 and the script
+#
+#   import sys; sys.path[:0] = [".", "examples"]
+#   import jax; jax.config.update("jax_enable_x64", True)
+#   import jax.numpy as jnp
+#   import numpy as np
+#   from scipy.integrate import solve_ivp
+#   from collocfem_tpu.model import Model
+#   from collocfem_tpu.ops.mesh import uniform_mesh
+#   from collocfem_tpu.problem import EstimationProblem
+#   from collocfem_tpu.solve import SolverOptions as O
+#   w = sys.argv[1]
+#   if w == "multi":      # tests/test_multi_experiment.py:50's batch
+#       from collocfem_tpu.models import VanDerPol
+#       from collocfem_tpu.parallel.batch import (BatchDecision,
+#                                                 make_multi_experiment_solver)
+#       mesh = uniform_mesh(0.0, 8.0, 48, 2)
+#       t = np.linspace(0.05, 7.95, 80)
+#       prob = EstimationProblem.build(VanDerPol(), mesh, t,
+#                                      defect_weight=300.0)
+#       rng = np.random.default_rng(42)
+#       ds, v0 = [], []
+#       for i in range(8):
+#           x0, freq = rng.uniform(-2, 2, size=2), 0.7 + 0.15 * i
+#           sol = solve_ivp(lambda s, x: [x[1], 1.3 * (1 - x[0] ** 2) * x[1]
+#               - x[0] + 0.5 * np.sin(freq * s)], (0.0, 8.0), x0, rtol=1e-10,
+#               atol=1e-11, dense_output=True)
+#           y = sol.sol(t)[0][:, None]
+#           u = np.sin(freq * mesh.elem_times)[..., None]
+#           ds.append(prob.pack_data(y, t, u_nodes=u, p_weight=0.0))
+#           v0.append(prob.initial_guess_from_data(t, y, p0=[0.0, 0.0]).V)
+#       data = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *ds)
+#       z0 = BatchDecision(V=jnp.stack(v0), p=jnp.asarray([2.0, 0.2]))
+#       for layout in ("soa", "blocks"):
+#           solve = make_multi_experiment_solver(prob, O(maxiter=40, gtol=1e-9,
+#               xtol=1e-10), layout=layout)
+#           z, st = solve(z0, data, jnp.asarray([1.0, 1.0]),
+#                         jnp.asarray([1e-3, 1e-3]))
+#           print(layout, repr(np.asarray(z.p).tolist()), int(st.iterations))
+#   elif w in ("min_time3", "split"):
+#       from collocfem_tpu.ocp import OptimalControlProblem
+#       from collocfem_tpu.ocp_time import free_time_ocp
+#       from collocfem_tpu.solve.auglag import ALBarrierOptions, make_ocp_solver
+#       if w == "min_time3":   # examples/min_time_ocp.py at degree 3
+#           class DoubleIntegrator(Model):
+#               nx, nu, nq, ng = 2, 1, 0, 2
+#               def f(self, x, u, p, t): return jnp.stack([x[1], u[0]])
+#               def g(self, x, u, p, t):
+#                   return jnp.stack([u[0] - 1.0, -u[0] - 1.0])
+#           prob, ftm = free_time_ocp(DoubleIntegrator(), num_elements=16,
+#               degree=3, x0=[0.0, 0.0], xf=[1.0, 0.0], tf_ref=3.0,
+#               time_weight=1.0)
+#           z, st = make_ocp_solver(prob, ALBarrierOptions(n_outer=16))(
+#               prob.initial_guess())
+#           print(repr(float(ftm.final_time(z.p))), repr(float(st.objective)))
+#       else:                  # tests/test_ocp.py:149's split actuator
+#           class SplitActuator(Model):
+#               nx, nu, nq, ng, ne = 2, 2, 0, 0, 1
+#               def f(self, x, u, p, t): return jnp.stack([x[1], u[0] + u[1]])
+#               def g_eq(self, x, u, p, t):
+#                   return jnp.stack([u[0] - 2.0 * u[1]])
+#               def running_cost_residual(self, x, u, p, t): return u
+#           prob = OptimalControlProblem.build(SplitActuator(),
+#               uniform_mesh(0.0, 1.0, 8, 4), x0=[0.0, 0.0], xf=[1.0, 0.0])
+#           z, st = make_ocp_solver(prob, ALBarrierOptions(n_outer=16))(
+#               prob.initial_guess())
+#           print(repr(float(st.objective)), repr(np.asarray(z.V[:, 2])[
+#               np.linspace(0, 32, 11).astype(int)].tolist()))
+#   elif w in ("refine2", "refine4"):   # configs 2 and 4, kkt_refine=2
+#       from collocfem_tpu.models import AircraftLongitudinal, Duffing
+#       from collocfem_tpu.solve.newton import make_gn_solver
+#       from collocfem_tpu.utils.io import load_measurements
+#       if w == "refine2":
+#           from duffing_joint import (GAMMA, MEAS_NOISE, OMEGA, PROC_NOISE, TF,
+#                                      simulate_sde)
+#           rng = np.random.default_rng(7)
+#           ts, xs = simulate_sde(rng, TF)
+#           t = np.linspace(0.05, TF - 0.05, 2000)
+#           y = np.interp(t, ts, xs[:, 0])[:, None]
+#           y += MEAS_NOISE * rng.standard_normal(y.shape)
+#           prob = EstimationProblem.build(Duffing(gamma=GAMMA, omega=OMEGA),
+#               uniform_mesh(0.0, TF, 1000, 4), t, defect_weight=1 / PROC_NOISE)
+#           data = prob.pack_data(y, t, meas_weight=1 / MEAS_NOISE,
+#                                 p_prior=[0.0, 0.0, 0.0], p_weight=1e-3)
+#           z0 = prob.initial_guess_from_data(t, y, p0=[0.5, 1.0, 0.5])
+#           fixed = O(maxiter=40, gtol=0.0, lam0=1e-6, kkt_refine=2)
+#       else:
+#           t, vals = load_measurements("examples/data/aircraft_doublet.csv")
+#           y, u = vals[:, :3], vals[:, 3]
+#           mesh = uniform_mesh(0.0, 8.0, 200, 4)
+#           prob = EstimationProblem.build(AircraftLongitudinal(V=60.0,
+#               g0=9.81), mesh, t, defect_weight=1e4)
+#           data = prob.pack_data(y, t, u_nodes=np.interp(
+#               mesh.elem_times, t, u)[..., None], meas_weight=1.0 / np.array(
+#               [0.002, 0.005, 0.05]))
+#           z0 = prob.initial_guess_from_data(t, y[:, :2],
+#                                             p0=[-1.0, -5.0, -1.0, -0.1, -5.0])
+#           fixed = O(maxiter=40, gtol=0.0, lam0=1e-6, lam_max=1e30,
+#                     kkt_refine=2)
+#       z, st = make_gn_solver(prob, fixed)(z0, data)
+#       print(repr(np.asarray(z.p).tolist()))
+#   else:   # "bounded2": tests/test_bounds.py's active bound at its degree 2
+#       from collocfem_tpu.models import VanDerPol
+#       from collocfem_tpu.solve.bounds import (
+#           BoundedOptions, bounded_gauss_newton, make_bounds)
+#       u_fn = lambda t: 0.5 * np.sin(1.1 * t)
+#       sol = solve_ivp(lambda t, x: [x[1], (1 - x[0] ** 2) * x[1] - x[0]
+#           + 0.7 * u_fn(t)], (0.0, 8.0), (2.0, 0.0), rtol=1e-11, atol=1e-12,
+#           dense_output=True)
+#       mesh = uniform_mesh(0.0, 8.0, 60, 2)
+#       t = np.linspace(0.025, 7.975, 160)
+#       y = sol.sol(t)[0][:, None]
+#       prob = EstimationProblem.build(VanDerPol(), mesh, t, defect_weight=30.0)
+#       data = prob.pack_data(y, t, u_nodes=u_fn(mesh.elem_times)[..., None])
+#       z0 = prob.initial_guess_from_data(t, y, p0=[0.6, 0.4])
+#       z, st = bounded_gauss_newton(prob, z0, data, make_bounds(prob,
+#           p_lo=[0.0, None], p_hi=[0.8, None]), BoundedOptions(n_outer=12,
+#           inner_maxiter=40, mu_min=1e-12))
+#       print(repr(np.asarray(z.p).tolist()))
+#   EOF
+BOUNDED_VDP2_JAX_F64 = (0.7999999998571655, 0.7884131421637182)
+MULTI_JAX_F64 = {"soa": (1.3197458351200613, 0.49703888655761824),
+                 "blocks": (1.3197458351196327, 0.49703888655767664)}
+MIN_TIME3_JAX = (2.005228809824622, 2.005228809824621)   # tf, objective
+SPLIT_JAX_F64 = (3.3333333333333335,       # the objective and u1 at 11 nodes
+                 (4.000000000094942, 3.1726731647052384, 2.499999999995641,
+                  1.8273268352743526, 0.9999999999854937,
+                  3.5199914890405334e-14, -0.8273268352870806,
+                  -1.5000000000028142, -2.17267316473076, -3.0000000000429305,
+                  -4.000000000094905))
+REFINE_JAX_F64 = {
+    "config 2": (1.0042641985187852, 4.987648776806841, 0.18035889983793357),
+    "config 4": (-1.2097362110617522, -8.228952931501478, -2.557399394867827,
+                 -0.14454344529385654, -12.355985957602279)}
 # Phase 13 (a): examples/mhe_online.py unchanged, the JAX package's float64
 # run on the CPU ('auto' is its XLA cyclic reduction there): position and
 # velocity RMSE against the truth, the estimates at every 20th online sample
@@ -1028,11 +1191,11 @@ def _hold_backsub_sweep(label, facs, s_gs, X):
     n0 = cr.device_launches()
     got = cr.cr_backsub_sweep(X, s_up, s_lo, s_gs)
     launches = cr.device_launches() - n0
-    want_launches = cr.backsub_sweep_launches(h0, levels)
+    small = cr.backsub_small_pairs(X.shape[0], X.shape[1], X.element_size())
+    want_launches = cr.backsub_sweep_launches(h0, levels, small)
     print(f"  {label}: backsub sweep {launches} device launches for {levels} "
-          f"levels (one for the levels of at most {cr.BACKSUB_SMALL_PAIRS} "
-          f"pairs, one for each bigger level: {want_launches}), one library "
-          "call")
+          f"levels (one for the levels of at most {small} pairs, one for each "
+          f"bigger level: {want_launches}), one library call")
     if launches != want_launches or launches >= levels > 1:
         raise RuntimeError(f"{label}: the backsub sweep made {launches} "
                            f"launches, its design {want_launches}")
@@ -1134,7 +1297,7 @@ def _cr_bounds(levels, r, r_cov):
     Cholesky and four b x b products and solves (#4), 6 b^2 r for the
     right-hand sides (#5, #3) and 4 b^2 r for the back-substitution
     (#6)."""
-    b, f = 8, 4
+    b, f = levels[0][0].shape[0], 4
     bb = b * b
     per_pair = {   # (elements moved, operations) per pair of blocks
         "cr_level_factor": (9 * bb, bb * b / 3 + 5 * 2 * bb * b),
@@ -1551,6 +1714,293 @@ def _phase2_configs(dev, card):
         print(f"  kernels #3-#6 r={r}: seeded chains K in (16, 17, 130, "
               "1000), every level, the sweeps and whole solves ok")
     return out
+
+
+# Block sizes of phase 2's seeded chains at the shapes the per-shape builds
+# added: one lane (b = 1), groups of 2 and 4 (b = 3 with one lane idle), 9
+# (16 lanes, 7 idle) and the range's largest, 16.
+SEEDED_BLOCKS = (1, 2, 3, 4, 9, 16)
+
+
+def _prebuild_set():
+    """The instances of the benchmark problems' shapes, which the libraries
+    were compiled for as fixed lists before per-shape builds: kernel #1 at
+    (b, nq) (8, 2), (8, 3), (8, 5), (12, 1); #2 at (b, r) (6, 1), (8, 1),
+    (8, 3), (8, 19), (12, 1); #7 at (8, 3); the CR kernels at b = 8 (the
+    factor kernel, r = 0, and r = 1, 2, 3, 4, 6)."""
+    from collocfem_tpu_torch.ops import cr, spike, thomas
+
+    return ([spike.kkt_instance(b, nq) for b, nq in ((8, 2), (8, 3), (8, 5),
+                                                     (12, 1))]
+            + [spike.chain_instance(b, r) for b, r in
+               ((6, 1), (8, 1), (8, 3), (8, 19), (12, 1))]
+            + [thomas.instance(8, 3)]
+            + [cr.instance(8, r) for r in (0, 1, 2, 3, 4, 6)])
+
+
+def _new_instances():
+    """The instances this run adds to the prebuild set: phase 2's seeded
+    shapes at SEEDED_BLOCKS (#1 at nq = 2, #2 at r = 1 and 3, #7 at r = 3,
+    the CR kernels at r = 0, 1, 3) and the shapes of the problems of phases
+    2, 12 (b) and 15: #1 at (4, 2) (Van der Pol at degree 2) and (9, 1)
+    (the free-time OCP at degree 3); #2 at (4, 3) and #7 at (4, 3)
+    (tests/test_multi_experiment.py's batch), #2 at (8, 4) and (8, 6)
+    (configs 2 and 4 with kkt_refine) and (16, 1) (the split actuator);
+    the CR kernels at (4, 2) (parameter_std at degree 2) and b = 12 (config
+    3 with method='cr')."""
+    from collocfem_tpu_torch.ops import cr, spike, thomas
+
+    out = []
+    for b in SEEDED_BLOCKS:
+        out += [spike.kkt_instance(b, 2), spike.chain_instance(b, 1),
+                spike.chain_instance(b, 3), thomas.instance(b, 3),
+                *(cr.instance(b, r) for r in (0, 1, 3))]
+    out += [spike.kkt_instance(9, 1), spike.chain_instance(8, 4),
+            spike.chain_instance(8, 6), spike.chain_instance(16, 1),
+            cr.instance(4, 2), cr.instance(12, 0), cr.instance(12, 1)]
+    prebuilt = set(_prebuild_set())
+    return [i for i in dict.fromkeys(out) if i not in prebuilt]
+
+
+def _thomas_bound(n_exp, K, b, r):
+    """(bound ms, binding) of kernel #7's float32 call on n_exp chains of K
+    blocks of b with r right-hand sides: D, E, G in, X out; block
+    Thomas."""
+    return _bound(4 * n_exp * K * (2 * b * b + 2 * r * b),
+                  _thomas_flops(b, r, n_exp * K))
+
+
+def _time_plain_kernel(label, card, kernel, plain, key, bound, dense, err):
+    """Phase 2's record of kernel #7 or a CR solve at one problem's shape:
+    kernel and plain version by CUDA events, the kernel's device time
+    (torch.profiler, the kernels whose name holds ``key``), its float32
+    bound and ``dense`` = (ms, shape, rel diff) of torch.linalg.solve."""
+    k_ms, p_ms = _cuda_ms(kernel, 20), _cuda_ms(plain, 3)
+    us = _device_us(kernel, key)
+    lib_ms, shape, lib_rel = dense
+    print(f"  {label}: kernel {k_ms:.3f} ms/call ({us:.1f} us on the "
+          f"device), plain {p_ms:.3f} ms/call; torch.linalg.solve on the "
+          f"dense matrix {shape} {lib_ms:.3f} ms/call (rel diff to the kernel "
+          f"{lib_rel:.2e}); float32 bound {bound[0] * 1e3:.3f} us "
+          f"({bound[1]}) on {card}")
+    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, device_us_total=us,
+                library_ms=lib_ms, library_shape=shape,
+                library_rel_diff=lib_rel, bound_ms=bound[0],
+                bound_by=bound[1])
+
+
+def _phase2_new_shapes(dev, card):
+    """Phase 2 at the shapes the per-shape builds added, float32 and
+    float64, at phase 2's bars.  Each problem's own system at its initial
+    guess, timed (kernel, plain version, device time, dense
+    torch.linalg.solve with TF32 off, float32 bound):
+      #1 at (4, 2): tests/test_bounds.py's Van der Pol at its degree 2;
+      #1 at (9, 1): the free-time OCP at degree 3 (its first subproblem);
+      #2 and #7 at (4, 3): tests/test_multi_experiment.py's batch, both
+        layouts (as _config5_systems forms config 5's);
+      #2 at (8, 4) and (8, 6): configs 2 and 4, the chain solve of
+        kkt_refine's passes against [gx | B];
+      #2 at (16, 1): the split actuator (its first subproblem);
+      #3-#6 at (12, 1): config 3 at N = 25 with method='cr', every level,
+        the sweeps and whole solves; and at b = 4 on the degree-2 Van der
+        Pol (G = [gx | B], r = 3; #3 on B, r = 2: parameter_std's shape).
+    Then seeded chains at every b of SEEDED_BLOCKS: #1 (nq = 2) and #2 (r
+    = 1, 3) at K in EDGES, #7 (r = 3) on 37 chains of K in (1, 2, 11), the
+    CR kernels (r = 1, 3) on the first level and whole solves of K in (16,
+    17, 130).  Returns {kernel name: [at_configs records]}."""
+    import torch
+
+    from collocfem_tpu_torch import configs
+    from collocfem_tpu_torch.ops import spike, thomas
+    from collocfem_tpu_torch.ops.assemble import assemble_gn_soa
+    from collocfem_tpu_torch.solve import blocktri as bt
+    from collocfem_tpu_torch.solve.auglag import (ALBarrierOptions,
+                                                  make_ocp_solver)
+    from collocfem_tpu_torch.solve.kkt import _equilibrate_soa, damping_scales
+    from collocfem_tpu_torch.solve.newton import SolverOptions
+    from collocfem_tpu_torch.testing import (batch_residual, chain_residual,
+                                             random_chain,
+                                             random_chain_batch,
+                                             random_kkt_system, rel_err)
+
+    recs = {}
+    timed = {"chain": {}, "kkt": {}}
+
+    def keep(name, config, dtype, rec, **shape):
+        if dtype == torch.float64:
+            recs.setdefault(name, {}).setdefault(config, {})["err"] = \
+                rec["max_abs_err"]
+        else:
+            recs.setdefault(name, {}).setdefault(config, {}).update(
+                config=config, **shape, ms=rec["ms"],
+                plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+                bound_by=rec["bound_by"], library_ms=rec["library_ms"])
+
+    def kkt_case(config, dtype, sys_, lam):
+        K, b, nq = sys_.num_blocks, sys_.D.shape[0], sys_.C.shape[0]
+        name = str(dtype).split(".")[1]
+        label = f"kernel #1 {config} {name} K={K} b={b} nq={nq}"
+        err = _compare(sys_, lam, None, label)
+        call = (sys_.D, sys_.E, sys_.B, sys_.gx, sys_.C, sys_.gp, lam)
+        dx, dp, _ = spike.kkt_solve_spike_fused(*call)
+        _time_kernel(timed, card, ("kkt", f"{config} {name}"), label,
+                     lambda: spike.kkt_solve_spike_fused(*call),
+                     lambda: spike.kkt_solve_spike_fused_ref(*call),
+                     _kkt_bound(K, nq, b),
+                     _dense_solve(sys_, damping_scales(sys_.D, sys_.C,
+                                                       lam)[0],
+                                  torch.cat([dx.T.reshape(-1), dp])), err)
+        keep("kkt_solve_spike_fused", config, dtype,
+             timed["kkt"][f"{config} {name}"], K=K, b=b, nq=nq)
+
+    def chain_case(config, dtype, D, E, G):
+        (b, r, K), name = G.shape, str(dtype).split(".")[1]
+        label = f"kernel #2 {config} {name} K={K} b={b} r={r}"
+        X = spike.blocktri_solve_spike_fused(D, E, G)
+        err = _hold(label, dtype, X,
+                    spike.blocktri_solve_spike_fused_ref(D, E, G),
+                    lambda X: chain_residual(D, E, G, X))
+        _time_kernel(timed, card, ("chain", f"{config} {name}"), label,
+                     lambda: spike.blocktri_solve_spike_fused(D, E, G),
+                     lambda: spike.blocktri_solve_spike_fused_ref(D, E, G),
+                     _chain_bound(K, r, b), _dense_chain_solve(D, E, G, X),
+                     err)
+        keep("blocktri_solve_spike_fused", config, dtype,
+             timed["chain"][f"{config} {name}"], K=K, b=b, r=r)
+
+    def cr_case(config, dtype, padded, unpadded):
+        name = str(dtype).split(".")[1]
+        b, r, K = unpadded[2].shape
+        r_cov = padded[3].shape[1]
+        label = f"CR {config} {name} K={K} b={b} r={r}"
+        levels, tail = _cr_levels(*padded)
+        errs = {}
+        for i, (D, E, G, B, *_) in enumerate(levels):
+            for k, v in _hold_cr(f"{label} level {i}", dtype, D, E, G,
+                                 B).items():
+                errs[k] = max(errs.get(k, 0.0), v)
+        facs, s_gs, x_tail = _hold_cr_sweeps(
+            label, levels, tail, *_cr_levels(*(a.double() for a in padded)))
+        errs["cr_backsub"] = max(errs["cr_backsub"], _hold_backsub_sweep(
+            label, facs, s_gs, x_tail))
+        _hold_cr_solves(label, dtype, *unpadded)
+        ms, _ = _cr_times(levels, facs, s_gs, x_tail)
+        bounds = _cr_bounds(levels, r, r_cov)
+        D, E, G = unpadded[:3]
+        dense = _dense_chain_solve(D, E, G, bt.blocktri_cr_factor_soa(D, E)(G))
+        print(f"  {label}: torch.linalg.solve on the dense chain "
+              f"{dense[1]} {dense[0]:.3f} ms/call (rel diff {dense[2]:.2e})")
+        for k, (k_ms, p_ms) in ms.items():
+            print(f"  {label} {k}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
+                  f"per solve ({len(levels)} levels; #3 at r={r_cov}); "
+                  f"float32 bound {bounds[k][0] * 1e3:.3f} us on {card}")
+            keep(k, config, dtype, dict(
+                max_abs_err=errs[k], ms=k_ms, plain_ms=p_ms,
+                bound_ms=bounds[k][0], bound_by=bounds[k][1],
+                library_ms=dense[0]), K=K, b=b,
+                r=r_cov if k == "cr_level" else r)
+
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[1]
+        lam = SolverOptions().lam0
+        vdp, v0, vdata = configs.build_bounded_vdp_problem(2, dtype=dtype,
+                                                           device=dev)
+        kkt_case("Van der Pol degree 2", dtype,
+                 assemble_gn_soa(vdp, v0, vdata), lam)
+        cr_case("Van der Pol degree 2", dtype,
+                *_cr_chain(vdp, vdata, v0, lam))
+        prob, _, z0 = configs.build_min_time_problem(dtype=dtype, device=dev,
+                                                     degree=3)
+        opts = ALBarrierOptions(**configs.MIN_TIME_OPTIONS)
+        kkt_case("free-time OCP degree 3", dtype,
+                 make_ocp_solver(prob, opts).first_system(z0), opts.lam0)
+
+        batch = configs.build_multi_experiment_problem(dtype=dtype,
+                                                       device=dev)
+        (Dc, Ec, Gc), (Db, Eb, Gb) = _config5_systems(batch, lam)
+        chain_case("multi-experiment batch soa", dtype, Dc, Ec, Gc)
+        label = (f"kernel #7 multi-experiment batch blocks {name} n_exp="
+                 f"{Db.shape[0]} K={Db.shape[1]} b={Db.shape[2]} r=3")
+        X = thomas.batched_thomas_solve(Db, Eb, Gb)
+        err = _hold(label, dtype, X, thomas.batched_thomas_solve_ref(Db, Eb,
+                                                                     Gb),
+                    lambda X: batch_residual(Db, Eb, Gb, X))
+        A, rhs = _dense_batch(Db, Eb, Gb)
+        dense = (_cuda_ms(lambda: torch.linalg.solve(A, rhs), 5),
+                 tuple(A.shape), rel_err(torch.linalg.solve(A, rhs)
+                                         .reshape(Gb.shape), X))
+        keep("batched_thomas_solve", "multi-experiment batch blocks", dtype,
+             _time_plain_kernel(
+                 label, card, lambda: thomas.batched_thomas_solve(Db, Eb, Gb),
+                 lambda: thomas.batched_thomas_solve_ref(Db, Eb, Gb),
+                 "batched_thomas", _thomas_bound(*Db.shape[:3], 3), dense,
+                 err), K=Db.shape[1], b=Db.shape[2], r=3,
+             n_exp=Db.shape[0])
+        del batch, Dc, Ec, Gc, Db, Eb, Gb, A, rhs
+
+        for cname, build, fixed in (
+                ("config 2", configs.build_config2_problem, configs.C2_FIXED),
+                ("config 4", configs.build_config4_problem,
+                 configs.C4_FIXED)):
+            prob, z0, data = build(dtype=dtype, device=dev)
+            s = _equilibrate_soa(assemble_gn_soa(prob, z0, data),
+                                 fixed["lam0"])[0]
+            chain_case(f"{cname} kkt_refine", dtype, s.D, s.E, torch.cat(
+                [s.gx[:, None, :], s.B], dim=1).contiguous())
+            del prob, z0, data, s
+
+        prob, z0 = configs.build_split_actuator_problem(dtype=dtype,
+                                                        device=dev)
+        opts = ALBarrierOptions(**configs.SPLIT_OPTIONS)
+        s = _equilibrate_soa(make_ocp_solver(prob, opts).first_system(z0),
+                             opts.lam0)[0]
+        chain_case("split actuator", dtype, s.D, s.E,
+                   s.gx[:, None, :].contiguous())
+        prob, z0 = configs.build_config3_problem(configs.ELEMENTS3,
+                                                 dtype=dtype, device=dev)
+        opts = ALBarrierOptions(method="cr")
+        s = _equilibrate_soa(make_ocp_solver(prob, opts).first_system(z0),
+                             opts.lam0)[0]
+        G = s.gx[:, None, :].contiguous()
+        Ds, Es = bt._pad_pow2_soa(s.D, s.E)
+        Gp = bt._pad_rhs(G, Ds.shape[-1])
+        cr_case("config 3 N=25 method='cr'", dtype, (Ds, Es, Gp, Gp),
+                (s.D, s.E, G, G))
+
+        for b in SEEDED_BLOCKS:
+            for k in EDGES:
+                _compare(random_kkt_system(k, b, 2, seed=k + b, dtype=dtype,
+                                           device=dev), 1e-3, None,
+                         f"kernel #1 random {name} K={k} b={b} nq=2")
+                for r in (1, 3):
+                    D, E, G = random_chain(k, b, r, seed=k + r + b,
+                                           boundary=11, dtype=dtype,
+                                           device=dev)
+                    _hold(f"kernel #2 random {name} K={k} b={b} r={r}", dtype,
+                          spike.blocktri_solve_spike_fused(D, E, G),
+                          spike.blocktri_solve_spike_fused_ref(D, E, G),
+                          lambda X: chain_residual(D, E, G, X))
+            for k in (1, 2, 11):
+                D, E, G = random_chain_batch(37, k, b, 3, seed=k + b,
+                                             dtype=dtype, device=dev)
+                _hold(f"kernel #7 random {name} n_exp=37 K={k} b={b}", dtype,
+                      thomas.batched_thomas_solve(D, E, G),
+                      thomas.batched_thomas_solve_ref(D, E, G),
+                      lambda X: batch_residual(D, E, G, X))
+            for k in (16, 17, 130):
+                for r in (1, 3):
+                    D, E, G = random_chain(k, b, r, seed=k + r + b,
+                                           dtype=dtype, device=dev)
+                    Dp, Ep = bt._pad_pow2_soa(D, E)
+                    label = f"CR random {name} K={k} b={b} r={r}"
+                    _hold_cr(label, dtype, Dp, Ep,
+                             bt._pad_rhs(G, Dp.shape[-1]))
+                    _hold_cr_solves(label, dtype, D, E, G, G)
+        print(f"  seeded {name}: #1, #2 at K in {EDGES}, #7 on 37 chains of K "
+              f"in (1, 2, 11), #3-#6 at K in (16, 17, 130), at every b in "
+              f"{SEEDED_BLOCKS}: ok")
+    return {name: [dict(rec, max_abs_err=rec.pop("err")) for rec in
+                   by_config.values()] for name, by_config in recs.items()}
 
 
 def _main_shapes(name, launches):
@@ -2064,9 +2514,10 @@ def _constrained_estimation(dev, card, record):
     with examples/constrained_estimation.py's damping spec g_param (kernel
     #1 at (8, 5)): p within 1e-6 of the JAX package's and g_param(p) <= 0;
     (b) tests/test_bounds.py's active parameter bound on Van der Pol, on 60
-    elements of degree 4 (kernel #1 at (8, 2)): p within 1e-6 of the JAX
-    package's.  Kernel #1 launches once per inner LM iteration, no plain
-    version.  Returns the launches."""
+    elements of degree 4 (kernel #1 at (8, 2)) and of the test's own
+    degree 2 (kernel #1 at (4, 2)): p within 1e-6 of the JAX package's.
+    Kernel #1 launches once per inner LM iteration, no plain version.
+    Returns the launches."""
     import torch
 
     from collocfem_tpu_torch import configs
@@ -2083,17 +2534,22 @@ def _constrained_estimation(dev, card, record):
     solve_a = make_constrained_solver(
         prob, ConstrainedOptions(**configs.CONSTRAINED4_OPTIONS),
         g_param=configs.zeta_constraint)
-    vdp, v0, vdata = configs.build_bounded_vdp_problem(dtype=torch.float64,
-                                                       device=dev)
-    bounds = make_bounds(vdp, p_lo=[0.0, None], p_hi=[configs.MU_CAP, None])
-    solve_b = make_bounded_solver(vdp, bounds,
-                                  BoundedOptions(**configs.BOUNDED_VDP_OPTIONS))
-    for part, solve, args, shape, ref in (
-            ("(a) aircraft, zeta >= 0.6", solve_a, (z0, data), (8, 5),
+    bounded = {}
+    for degree in (4, 2):
+        vdp, v0, vdata = configs.build_bounded_vdp_problem(
+            degree, dtype=torch.float64, device=dev)
+        bounds = make_bounds(vdp, p_lo=[0.0, None],
+                             p_hi=[configs.MU_CAP, None])
+        bounded[degree] = (make_bounded_solver(
+            vdp, bounds, BoundedOptions(**configs.BOUNDED_VDP_OPTIONS)),
+            (project_interior(v0, bounds), vdata))
+    for part, (solve, args), shape, ref in (
+            ("(a) aircraft, zeta >= 0.6", (solve_a, (z0, data)), (8, 5),
              CONSTRAINED4_JAX_F64),
-            ("(b) Van der Pol, mu <= 0.8", solve_b,
-             (project_interior(v0, bounds), vdata), (8, 2),
-             BOUNDED_VDP_JAX_F64)):
+            ("(b) Van der Pol degree 4, mu <= 0.8", bounded[4], (8, 2),
+             BOUNDED_VDP_JAX_F64),
+            ("(b) Van der Pol degree 2, mu <= 0.8", bounded[2], (4, 2),
+             BOUNDED_VDP2_JAX_F64)):
         tag = f"phase 12 {part}"
         (z, st), wall, counts = _counted(
             tag, lambda: solve(*args),
@@ -2117,6 +2573,200 @@ def _constrained_estimation(dev, card, record):
               f"{shape}, no plain call; wall {wall:.4f} s on {card}")
         if not ok:
             raise RuntimeError(f"{tag}: a gate failed")
+    return launches
+
+
+def _gate(tag, ok, rec, **values):
+    """Print a case's ``values`` into its line, keep them in ``rec`` and
+    raise unless ``ok``."""
+    rec.update(values)
+    print(f"  {tag}: " + ", ".join(f"{k} {v:.3e}" if isinstance(v, float)
+                                   else f"{k} {v}" for k, v in values.items()))
+    if not ok:
+        raise RuntimeError(f"{tag}: a gate failed")
+
+
+def _phase15(dev, card, record):
+    """Phase 15, every shape: the JAX package's problems at block sizes that
+    only per-shape builds run on the card, float64, each held to the JAX
+    package's float64 result within 1e-6 (the bar of phases 8-12; constants
+    above) or to the plain solve:
+      (a) tests/test_multi_experiment.py's batch (8 experiments x 48
+          elements of degree 2) through the captured
+          make_multi_experiment_solver in both layouts: #2 at (4, 3) (soa),
+          #7 at (4, 3) (blocks); p;
+      (b) the free-time OCP of examples/min_time_ocp.py at degree 3: #1 at
+          (9, 1); tf and the objective;
+      (c) tests/test_ocp.py's split actuator (N = 8): #2 at (16, 1); the
+          objective and u1 at 11 nodes;
+      (d) config 3 at N = 25 and 500 with method='cr' (N = 500 from the N =
+          25 solution): #4-#6 at b = 12; the objective and u at 11 nodes
+          (C3_U_GATE at N = 500);
+      (e) configs 2 and 4, the fixed work with kkt_refine=2 (captured): #2
+          at (8, 1 + nq) once and (8, 1) twice an iteration; p;
+      (f) parameter_std on the degree-2 Van der Pol at its converged float64
+          estimate (#1 at (4, 2)): #3 and #6 at (4, 2), within 1e-9 of the
+          plain solve.
+    Every kernel launches as its design says and no plain version runs.
+    Each case prints its wall, its launches by shape, its solver's
+    construction and first-call walls, and the build walls of its instances
+    (phase 1, where they were built).  Returns the launches."""
+    import torch
+
+    from collocfem_tpu_torch import configs
+    from collocfem_tpu_torch.ops import cr, spike, thomas
+    from collocfem_tpu_torch.ops.assemble import assemble_gn
+    from collocfem_tpu_torch.parallel.batch import make_multi_experiment_solver
+    from collocfem_tpu_torch.solve import blocktri as bt
+    from collocfem_tpu_torch.solve import covariance as cov
+    from collocfem_tpu_torch.solve.auglag import (ALBarrierOptions,
+                                                  make_ocp_solver)
+    from collocfem_tpu_torch.solve.newton import SolverOptions, make_gn_solver
+    from collocfem_tpu_torch.testing import rel_err
+
+    f64 = dict(dtype=torch.float64, device=dev)
+    launches, rec = {}, record.setdefault("phase15", {})
+    inner = lambda st: int(st.history[:, 4].sum())
+
+    def case(tag, make, run, want, instances):
+        """Make the solver (its construction builds and loads what it runs),
+        run it once counted (``want``: as _counted takes it), keep its
+        launches; returns (solver, run's result, record)."""
+        solver, made = _timed(make)
+        out, first, counts = _counted(tag, lambda: run(solver), want)
+        _keep_shapes(counts)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        shapes = {k: LAST_SHAPES[k] for k, v in counts.items() if v}
+        builds = {i.name: record["build_s"].get(i.name, 0.0)
+                  for i in instances}
+        r = rec[tag] = dict(construction_s=made, first_call_s=first,
+                            launches={k: v for k, v in counts.items() if v},
+                            shapes={k: {str(s): n for s, n in v.items()}
+                                    for k, v in shapes.items()},
+                            build_s=builds)
+        print(f"{tag}: launches by shape "
+              + "; ".join(f"{k} {v}" for k, v in shapes.items())
+              + f", no plain call; construction {made:.3f} s, first call "
+              f"{first:.4f} s; its instances' build walls in phase 1: "
+              + ", ".join(f"{n} {w:.1f} s" for n, w in builds.items())
+              + f" on {card}")
+        return solver, out, r
+
+    gate = lambda tag, ok, **values: _gate(tag, ok, rec[tag], **values)
+
+    # (a) the multi-experiment batch, both layouts, captured.
+    prob, *batch = configs.build_multi_experiment_problem(**f64)
+    for layout, kname, inst in (
+            ("soa", "blocktri_solve_spike_fused", spike.chain_instance(4, 3)),
+            ("blocks", "batched_thomas_solve", thomas.instance(4, 3))):
+        tag = f"phase 15 (a) multi-experiment batch {layout}"
+        solve, (z, st), _ = case(
+            tag, lambda: make_multi_experiment_solver(
+                prob, SolverOptions(**configs.MULTI_OPTIONS), layout=layout),
+            lambda solve: solve(*batch), {kname}, [inst])
+        wall = _timed(lambda: solve(*batch))[1]
+        p, ref = z.p.tolist(), MULTI_JAX_F64[layout]
+        d_p = _p_dev(p, ref)
+        gate(tag, d_p <= 1e-6 and bool(st.converged), p=p, p_vs_jax=d_p,
+             iterations=int(st.iterations), wall_s=wall)
+
+    # (b) the free-time OCP at degree 3.
+    tag = "phase 15 (b) free-time OCP degree 3"
+    prob, ftm, z0 = configs.build_min_time_problem(degree=3, **f64)
+    _, (z, st), _ = case(
+        tag, lambda: make_ocp_solver(
+            prob, ALBarrierOptions(**configs.MIN_TIME_OPTIONS)),
+        lambda solve: solve(z0),
+        lambda out: {"kkt_solve_spike_fused": inner(out[1])},
+        [spike.kkt_instance(9, 1)])
+    tf, obj = float(ftm.final_time(z.p)), float(st.objective)
+    d_tf = abs(tf / MIN_TIME3_JAX[0] - 1)
+    d_obj = abs(obj / MIN_TIME3_JAX[1] - 1)
+    gate(tag, d_tf <= 1e-6 and d_obj <= 1e-6 and float(st.gviol) <= 1e-10,
+         tf=tf, tf_vs_jax=d_tf, objective_vs_jax=d_obj,
+         gviol=float(st.gviol))
+
+    # (c) the split actuator.
+    tag = "phase 15 (c) split actuator"
+    prob, z0 = configs.build_split_actuator_problem(**f64)
+    _, (z, st), _ = case(
+        tag, lambda: make_ocp_solver(
+            prob, ALBarrierOptions(**configs.SPLIT_OPTIONS)),
+        lambda solve: solve(z0),
+        lambda out: {"blocktri_solve_spike_fused": inner(out[1])},
+        [spike.chain_instance(16, 1)])
+    n = configs.ELEMENTS_SPLIT
+    u11 = z.V[torch.linspace(0, 4 * n, 11).long(), 2].tolist()
+    d_obj = abs(float(st.objective) - SPLIT_JAX_F64[0])
+    d_u = max(abs(a - b) for a, b in zip(u11, SPLIT_JAX_F64[1]))
+    gate(tag, d_obj <= 1e-6 and d_u <= 1e-6 and float(st.cviol) < 1e-8,
+         objective=float(st.objective), objective_vs_jax=d_obj,
+         u11_vs_jax=d_u, cviol=float(st.cviol))
+
+    # (d) config 3 with method='cr'.
+    coarse = None
+    for n in (configs.ELEMENTS3, configs.ELEMENTS3_LARGE):
+        tag = f"phase 15 (d) config 3 N={n} method='cr'"
+        prob, z0 = configs.build_config3_problem(n, **f64)
+        if coarse is not None:
+            z0 = configs.config3_warm_start(*coarse, prob)
+        lv = _cr_level_count(n + 1)
+        _, (z, st), _ = case(
+            tag, lambda: make_ocp_solver(prob, ALBarrierOptions(method="cr")),
+            lambda solve: solve(z0),
+            lambda out: {k: inner(out[1]) * lv for k in (
+                "cr_level_factor", "cr_level_apply", "cr_backsub")},
+            [cr.instance(12, 0), cr.instance(12, 1)])
+        coarse = (prob, z)
+        ref_obj, ref_u = C3_JAX_F64[n]
+        u11 = z.V[torch.linspace(0, 4 * n, 11).long(), 2].tolist()
+        d_obj = abs(float(st.objective) - ref_obj)
+        d_u = max(abs(a - b) for a, b in zip(u11, ref_u))
+        gate(tag, d_obj <= 1e-6 and d_u <= C3_U_GATE[n]
+             and float(st.cviol) < 1e-8, objective=float(st.objective),
+             objective_vs_jax=d_obj, u11_vs_jax=d_u, levels=lv,
+             cviol=float(st.cviol))
+
+    # (e) configs 2 and 4 with kkt_refine=2, captured.
+    for cname, build, fixed, nq in (
+            ("config 2", configs.build_config2_problem, configs.C2_FIXED, 3),
+            ("config 4", configs.build_config4_problem, configs.C4_FIXED, 5)):
+        tag = f"phase 15 (e) {cname} kkt_refine=2"
+        prob, z0, data = build(**f64)
+        opts = SolverOptions(**fixed, kkt_refine=2)
+        its = opts.maxiter
+        solve, (z, st), r = case(
+            tag, lambda: make_gn_solver(prob, opts),
+            lambda solve: solve(z0, data),
+            {"blocktri_solve_spike_fused": 3 * its},
+            [spike.chain_instance(8, 1 + nq), spike.chain_instance(8, 1)])
+        want = {(8, 1 + nq): its, (8, 1): 2 * its}
+        wall = _timed(lambda: solve(z0, data))[1]
+        p = z.p.tolist()
+        d_p = _p_dev(p, REFINE_JAX_F64[cname])
+        gate(tag, d_p <= 1e-6 and LAST_SHAPES["blocktri_solve_spike_fused"]
+             == want, p=p, p_vs_jax=d_p, wall_s=wall)
+        del prob, z0, data, solve
+
+    # (f) parameter_std on the degree-2 Van der Pol.
+    tag = "phase 15 (f) parameter_std, Van der Pol degree 2"
+    prob, z0, data = configs.build_bounded_vdp_problem(2, **f64)
+    _, (z, st), _ = case(
+        f"{tag}: the estimate", lambda: make_gn_solver(
+            prob, SolverOptions(maxiter=60, gtol=1e-10, xtol=1e-12)),
+        lambda solve: solve(z0, data), {"kkt_solve_spike_fused"},
+        [spike.kkt_instance(4, 2)])
+    lv = _cr_level_count(prob.mesh.num_elements + 1)
+    _, std, _ = case(tag, lambda: None,
+                     lambda _: cov.parameter_std(prob, z, data),
+                     {"cr_level": lv, "cr_backsub": lv}, [cr.instance(4, 2)])
+    sys_ = assemble_gn(prob, z, data)
+    a_b = bt.blocktri_solve_cr_plain(sys_.D, sys_.E, sys_.B)
+    schur = sys_.C - torch.einsum("kbq,kbr->qr", sys_.B, a_b)
+    rel = rel_err(std, torch.sqrt(torch.diagonal(torch.linalg.inv(schur))))
+    gate(tag, rel <= 1e-9 and bool(st.converged), std=std.tolist(),
+         rel_vs_plain=rel, p=z.p.tolist())
     return launches
 
 
@@ -2971,18 +3621,21 @@ def main() -> int:
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     # ---- phase 1: build ----------------------------------------------------
+    prebuild, new = _prebuild_set(), _new_instances()
     t0 = time.perf_counter()
-    built = _build.load_all(["kkt_spike", "thomas", "cr"])
+    built = _build.load_all(prebuild + new)
     record["build_wall_s"] = time.perf_counter() - t0
     record["build_s"], record["ptxas"] = {}, {}
-    print(f"phase 1: built {len(built)} libraries in "
-          f"{record['build_wall_s']:.1f} s (one nvcc each, concurrently)")
-    for name, b in built.items():
+    print(f"phase 1: built {len(built)} instances ({len(prebuild)} of the "
+          f"prebuild set, {len(new)} new) in {record['build_wall_s']:.1f} s "
+          f"(one nvcc each, {os.cpu_count()} at once)")
+    for inst, b in built.items():
         ptxas = _ptxas_summary(b.log)
-        record["build_s"][name] = b.seconds
-        record["ptxas"][name] = ptxas
+        record["build_s"][inst.name] = b.seconds
+        record["ptxas"][inst.name] = ptxas
         print(f"  {b.path.name}: {b.seconds:.1f} s "
-              f"({'fresh' if b.seconds else 'reused'})")
+              f"({'fresh' if b.seconds else 'reused'}"
+              f"{'' if inst in prebuild else '; new'})")
         for ln in ptxas:
             print(f"    {ln}")
 
@@ -3134,6 +3787,8 @@ def main() -> int:
     record["ocp_shapes"] = _phase2_ocp(dev, card)
     record["mhe_shapes"] = _phase2_mhe(dev, card)
     record["sp_shapes"] = _phase2_sp(dev, card)
+    new_shapes = _phase2_new_shapes(dev, card)
+    record["new_shapes"] = new_shapes
     elapsed()
 
     # ---- phase 3: headline fixed work, float32 -----------------------------
@@ -3265,7 +3920,8 @@ def main() -> int:
     # ---- phases 10-13: config 3, the free-time OCP, constrained estimation,
     # the serving path and the Kalman tier ----------------------------------
     elapsed()
-    for phase in (_ocp_solves, _constrained_estimation, _serving, _phase14):
+    for phase in (_ocp_solves, _constrained_estimation, _serving, _phase14,
+                  _phase15):
         for k, v in phase(dev, card, record).items():
             main_launches[k] = main_launches.get(k, 0) + v
         elapsed()
@@ -3288,7 +3944,8 @@ def main() -> int:
         "at_configs": _at_configs(name, record["config_shapes"],
                                   record["ocp_shapes"],
                                   record["mhe_shapes"],
-                                  record["sp_shapes"]),
+                                  record["sp_shapes"])
+        + new_shapes.get(name, []),
     } for name, (source, replaces) in KERNELS.items()]}
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

@@ -6,9 +6,10 @@ Counterparts of the set-ups in ``benchmarks/configs_bench.py``
 (``config2_duffing``, ``config3_pendulum``, ``config3_large``,
 ``config4_aircraft``), of the constants and the Euler-Maruyama generator of
 ``examples/duffing_joint.py``, and of the set-ups of
-``examples/min_time_ocp.py``, ``examples/constrained_estimation.py`` and
-``tests/test_bounds.py``, in numpy, scipy and torch only: the same data and
-the same initial guesses.
+``examples/min_time_ocp.py``, ``examples/constrained_estimation.py``,
+``tests/test_bounds.py``, ``tests/test_ocp.py``'s split actuator and
+``tests/test_multi_experiment.py``'s batch, in numpy, scipy and torch only:
+the same data and the same initial guesses.
 
   * Config 2: Duffing (nx 2, nu 0, nq 3: b = 8, r = 4) on N = 1,000
     elements of degree 4 over [0, 20], 2,000 samples of x1 from a seeded
@@ -85,7 +86,7 @@ P4_0_CONSTRAINED = (-1.0, -4.0, -4.0, -0.1, -5.0)   # zeta(p0) ~ 0.88
 CONSTRAINED4_OPTIONS = dict(n_outer=12, inner_maxiter=40, mu_min=1e-12)
 
 # ---- tests/test_bounds.py: Van der Pol with a parameter cap -----------------
-MU_VDP, B_VDP, TF_VDP, ELEMENTS_VDP = 1.0, 0.7, 8.0, 60
+MU_VDP, B_VDP, TF_VDP, ELEMENTS_VDP, DEGREE_VDP = 1.0, 0.7, 8.0, 60, 2
 MU_CAP = 0.8
 BOUNDED_VDP_OPTIONS = dict(n_outer=12, inner_maxiter=40, mu_min=1e-12)
 
@@ -194,14 +195,15 @@ class DoubleIntegrator(Model):
         return torch.stack([u[0] - U_MAX_MT, -u[0] - U_MAX_MT])
 
 
-def build_min_time_problem(*, dtype, device):
+def build_min_time_problem(*, dtype, device, degree: int = DEGREE):
     """The minimum-time rest-to-rest transfer of ``examples/min_time_ocp.py``
     (distance DIST, |u| <= 1, 16 elements of degree 4 in normalized time,
     tf_ref 3, time weight 1; bang-bang optimum T* = 2 sqrt(DIST / U_MAX)).
-    The horizon is the one parameter: b = 12, nq = 1.  Returns ``(prob,
+    The horizon is the one parameter: b = 3 degree (12 at degree 4, 9 at
+    ``tests/test_ocp_time.py``'s degree 3), nq = 1.  Returns ``(prob,
     ftmodel, z0)``; solve with ``ALBarrierOptions(**MIN_TIME_OPTIONS)``."""
     prob, ftm = free_time_ocp(
-        DoubleIntegrator(), num_elements=ELEMENTS_MT, degree=DEGREE,
+        DoubleIntegrator(), num_elements=ELEMENTS_MT, degree=degree,
         x0=[0.0, 0.0], xf=[DIST, 0.0], tf_ref=TF_REF_MT, time_weight=1.0,
         dtype=dtype, device=device)
     return prob, ftm, prob.initial_guess()
@@ -229,15 +231,14 @@ def build_constrained_aircraft_problem(*, dtype, device):
     return prob, z0, data
 
 
-def build_bounded_vdp_problem(degree: int = DEGREE, *, dtype, device):
+def build_bounded_vdp_problem(degree: int = DEGREE_VDP, *, dtype, device):
     """The Van der Pol set-up of ``tests/test_bounds.py``: x(0) = (2, 0),
     u = 0.5 sin(1.1 t), truth (MU_VDP, B_VDP) integrated by scipy's
     ``solve_ivp`` (rtol 1e-11), 160 noise-free samples of x1 on [0.025,
-    7.975], on ELEMENTS_VDP elements, defect weight 30, p0 = (0.6, 0.4).
-    The card runs degree 4 (b = 8, the kernels' shape); ``degree`` exists
-    for the CPU parity test, which builds the JAX test's own degree 2 (b =
-    4) with it.  Returns ``(prob, z0, data)``; the active-bound case caps
-    mu at MU_CAP with ``BoundedOptions(**BOUNDED_VDP_OPTIONS)``."""
+    7.975], on ELEMENTS_VDP elements of the test's degree 2 (b = 4, nq =
+    2), defect weight 30, p0 = (0.6, 0.4); ``degree`` 4 gives b = 8.
+    Returns ``(prob, z0, data)``; the active-bound case caps mu at MU_CAP
+    with ``BoundedOptions(**BOUNDED_VDP_OPTIONS)``."""
     from scipy.integrate import solve_ivp
 
     def u_fn(t):
@@ -258,3 +259,78 @@ def build_bounded_vdp_problem(degree: int = DEGREE, *, dtype, device):
     data = prob.pack_data(y, t_meas, u_nodes=u_fn(mesh.elem_times)[..., None])
     z0 = prob.initial_guess_from_data(t_meas, y, p0=[0.6, 0.4])
     return prob, z0, data
+
+
+# ---- tests/test_ocp.py: the split actuator (an equality path constraint) ----
+ELEMENTS_SPLIT = 8
+SPLIT_OPTIONS = dict(n_outer=16)
+
+
+class SplitActuator(Model):
+    """x1' = x2, x2' = u1 + u2 with the equality path constraint u1 = 2 u2
+    and cost 0.5 int (u1^2 + u2^2) (``tests/test_ocp.py``): the minimum-
+    effort transfer, J* = 10/3."""
+
+    nx, nu, nq, ng, ne = 2, 2, 0, 0, 1
+
+    def f(self, x, u, p, t):
+        del p, t
+        return torch.stack([x[1], u[0] + u[1]])
+
+    def g_eq(self, x, u, p, t):
+        del x, p, t
+        return torch.stack([u[0] - 2.0 * u[1]])
+
+    def running_cost_residual(self, x, u, p, t):
+        del x, p, t
+        return u
+
+
+def build_split_actuator_problem(elements: int = ELEMENTS_SPLIT, *, dtype,
+                                 device):
+    """The split actuator from rest at 0 to rest at 1 over [0, 1] on
+    ``elements`` elements of degree 4 ([x; u] at 4 nodes an element: b =
+    16, nq = 0).  Returns ``(prob, z0)``; solve with
+    ``ALBarrierOptions(**SPLIT_OPTIONS)``."""
+    prob = OptimalControlProblem.build(
+        SplitActuator(), uniform_mesh(0.0, 1.0, elements, DEGREE),
+        x0=[0.0, 0.0], xf=[1.0, 0.0], dtype=dtype, device=device)
+    return prob, prob.initial_guess()
+
+
+# ---- tests/test_multi_experiment.py: a batch of Van der Pol experiments -----
+MU_MULTI, B_MULTI, TF_MULTI = 1.3, 0.5, 8.0
+N_EXP_MULTI, ELEMENTS_MULTI, DEGREE_MULTI = 8, 48, 2
+MULTI_OPTIONS = dict(maxiter=40, gtol=1e-9, xtol=1e-10)
+
+
+def build_multi_experiment_problem(*, dtype, device):
+    """``tests/test_multi_experiment.py``'s batch: N_EXP_MULTI Van der Pol
+    experiments (truth MU_MULTI, B_MULTI; x0 uniform in [-2, 2]^2 from a
+    generator of seed 42, input sin((0.7 + 0.15 i) t)), 80 samples of x1
+    each on ELEMENTS_MULTI elements of degree 2 (b = 4, nq = 2), defect
+    weight 300, the shared prior (1, 1) of weight 1e-3, p0 = (2, 0.2).
+    Returns ``(prob, z0, data, p_prior, p_w)`` for
+    ``parallel.batch.make_multi_experiment_solver(prob, SolverOptions(
+    **MULTI_OPTIONS), layout=...)(z0, data, p_prior, p_w)``."""
+    from scipy.integrate import solve_ivp
+
+    from collocfem_tpu_torch.testing import batch_inputs
+
+    mesh = uniform_mesh(0.0, TF_MULTI, ELEMENTS_MULTI, DEGREE_MULTI)
+    t_meas = np.linspace(0.05, TF_MULTI - 0.05, 80)
+    rng = np.random.default_rng(42)
+    ys, us = [], []
+    for i in range(N_EXP_MULTI):
+        x0, freq = rng.uniform(-2, 2, size=2), 0.7 + 0.15 * i
+        sol = solve_ivp(
+            lambda t, x: [x[1], MU_MULTI * (1 - x[0] ** 2) * x[1] - x[0]
+                          + B_MULTI * np.sin(freq * t)],
+            (0.0, TF_MULTI), x0, rtol=1e-10, atol=1e-11, dense_output=True)
+        ys.append(sol.sol(t_meas)[0][:, None])
+        us.append(np.sin(freq * mesh.elem_times)[..., None])
+    return batch_inputs(dict(
+        kind="vdp_batch", breakpoints=mesh.breakpoints, degree=DEGREE_MULTI,
+        t_meas=t_meas, y=np.stack(ys), u_nodes=np.stack(us),
+        defect_weight=300.0, p0=[2.0, 0.2], p_prior=[1.0, 1.0],
+        p_w=[1e-3, 1e-3]), dtype=dtype, device=device)

@@ -56,24 +56,26 @@
 // whole sweep takes ~0.1-0.25 ms, because the host cannot launch it faster
 // (PERF.md).
 
-// The device code is in cr_kernels.cuh.  Build:
+// The device code is in cr_kernels.cuh.  Build (one instance per shape;
+// collocfem_tpu_torch/ops/_build.py does this at first use of the shape):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-//        -Xcompiler -fPIC -o libcr.so cr.cu
-// (collocfem_tpu_torch/ops/_build.py does this at first use).
+//        -Xcompiler -fPIC -DCF_B=8 -DCF_R=3 -o cr-b8-r3.so cr.cu
+// CF_B is the block size b (1..16).  CF_R = 0 builds the factor kernel
+// (#4), which needs only b; CF_R = r >= 1 builds the kernels that take r
+// right-hand sides (#3, #5, #6).
 
 #include <cuda_runtime.h>
 
 #include "cr_kernels.cuh"
 
-// The (block size, right-hand sides) the library is compiled for: the
-// models at degree 4 (b = 8) with r = 1 + nq for the KKT right-hand side
-// [gx | B] (Van der Pol r = 3, Duffing r = 4, the aircraft model r = 6),
-// r = 2 (Van der Pol covariance's B) and r = 1 (refinement passes, nq = 0).
-// The factor kernel needs only b.
-#define CR_SHAPES(X) X(8, 1) X(8, 2) X(8, 3) X(8, 4) X(8, 6)
-#define CR_BLOCKS(X) X(8)
+#if !defined(CF_B) || !defined(CF_R)
+#error "build with -DCF_B=<b> -DCF_R=<r> (ops/_build.py)"
+#endif
+static_assert(CF_B >= 1 && CF_B <= 16 && CF_R >= 0, "b in 1..16, r >= 0");
 
 namespace {
+
+constexpr int B = CF_B, R = CF_R;
 
 // Kernel launches made by this library since it was loaded.
 unsigned long long device_launches = 0;
@@ -104,80 +106,73 @@ bool sweep_ok(long long h0, int levels) {
          (2 * h0) % (1LL << levels) == 0;
 }
 
+#if CF_R == 0
+
 template <typename F>
 int factor_sweep(const F* D, const F* E, F* ws, int b, long long h0,
                  int levels, void* stream) {
-  if (!sweep_ok(h0, levels)) return cudaErrorInvalidValue;
+  if (b != B || !sweep_ok(h0, levels)) return cudaErrorInvalidValue;
+  constexpr int P = cr::kFactorPairs<F, B>;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define CR_FACTOR(Bv)                                                        \
-  if (b == Bv) {                                                             \
-    for (int lv = 0; lv < levels; ++lv) {                                    \
-      const long long h = h0 >> lv, n = (long long)Bv * Bv * h;              \
-      F* out = ws + cr::sweep_offset(5, Bv * Bv, h0, h);                     \
-      const cudaError_t err = launch<cr::factor_pairs<F, Bv>>(               \
-          blocks_for(h, cr::kNew), Bv * cr::kLanes,                          \
-          cr::factor_tile(Bv) * sizeof(F), s, D, E, out, out + n,            \
-          out + 2 * n, out + 3 * n, out + 4 * n, h);                         \
-      if (err != cudaSuccess) return err;                                    \
-      D = out;                                                               \
-      E = out + n;                                                           \
-    }                                                                        \
-    return cudaSuccess;                                                      \
+  for (int lv = 0; lv < levels; ++lv) {
+    const long long h = h0 >> lv, n = (long long)B * B * h;
+    F* out = ws + cr::sweep_offset(5, B * B, h0, h);
+    const cudaError_t err = launch<cr::factor_pairs<F, B, P>>(
+        blocks_for(h, P - 1), cr::whole_warps(B * P),
+        cr::factor_tile(B, P) * sizeof(F), s, D, E, out, out + n,
+        out + 2 * n, out + 3 * n, out + 4 * n, h);
+    if (err != cudaSuccess) return err;
+    D = out;
+    E = out + n;
   }
-  CR_BLOCKS(CR_FACTOR)
-#undef CR_FACTOR
-  return cudaErrorInvalidValue;
+  return cudaSuccess;
 }
+
+#else
 
 template <typename F>
 int apply_sweep(const F* const* lo, const F* const* E, const F* G, F* ws,
                 int b, int r, long long h0, int levels, void* stream) {
-  if (!sweep_ok(h0, levels)) return cudaErrorInvalidValue;
+  if (b != B || r != R || !sweep_ok(h0, levels)) return cudaErrorInvalidValue;
+  constexpr int P = cr::kApplyPairs<F, B, R>;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define CR_APPLY(Bv, Rv)                                                     \
-  if (b == Bv && r == Rv) {                                                  \
-    for (int lv = 0; lv < levels; ++lv) {                                    \
-      const long long h = h0 >> lv, n = (long long)Bv * Rv * h;              \
-      F* out = ws + cr::sweep_offset(2, Bv * Rv, h0, h);                     \
-      const cudaError_t err = launch<cr::apply_pairs<F, Bv, Rv>>(            \
-          blocks_for(h, cr::kNew), cr::kApplyWarps<Rv> * cr::kLanes,         \
-          cr::apply_tile(Bv, Rv) * sizeof(F), s, lo[lv], E[lv], G, out,      \
-          out + n, h);                                                       \
-      if (err != cudaSuccess) return err;                                    \
-      G = out;                                                               \
-    }                                                                        \
-    return cudaSuccess;                                                      \
+  for (int lv = 0; lv < levels; ++lv) {
+    const long long h = h0 >> lv, n = (long long)B * R * h;
+    F* out = ws + cr::sweep_offset(2, B * R, h0, h);
+    const cudaError_t err = launch<cr::apply_pairs<F, B, R, P>>(
+        blocks_for(h, P - 1), cr::kApplyWarps<R> * 32,
+        cr::apply_tile(B, R, P) * sizeof(F), s, lo[lv], E[lv], G, out,
+        out + n, h);
+    if (err != cudaSuccess) return err;
+    G = out;
   }
-  CR_SHAPES(CR_APPLY)
-#undef CR_APPLY
-  return cudaErrorInvalidValue;
+  return cudaSuccess;
 }
 
 template <typename F>
 int level(const F* D, const F* E, const F* G, F* dn, F* en, F* gn, F* su,
           F* sl, F* sg, int b, int r, long long h, void* stream) {
-  if (h < 1) return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define CR_LEVEL(Bv, Rv)                                                     \
-  if (b == Bv && r == Rv) {                                                  \
-    return launch<cr::level_pairs<F, Bv, Rv>>(                               \
-        blocks_for(h, cr::kNew), Bv * cr::kLanes,                            \
-        cr::level_tile(Bv, Rv) * sizeof(F), s, D, E, G, dn, en, gn, su, sl,  \
-        sg, h);                                                              \
-  }
-  CR_SHAPES(CR_LEVEL)
-#undef CR_LEVEL
-  return cudaErrorInvalidValue;
+  if (b != B || r != R || h < 1) return cudaErrorInvalidValue;
+  constexpr int P = cr::kLevelPairs<F, B, R>;
+  return launch<cr::level_pairs<F, B, R, P>>(
+      blocks_for(h, P - 1), cr::whole_warps(B * P),
+      cr::level_tile(B, R, P) * sizeof(F), static_cast<cudaStream_t>(stream),
+      D, E, G, dn, en, gn, su, sl, sg, h);
 }
 
 // Level lv of a back-substitution sweep reads the X of level lv + 1 (the
 // tail's, xt, for the last level) and writes its own to X (lv = 0) or to the
 // workspace.  The levels of at most h_small pairs run first, in one launch
 // that keeps their X in shared memory but for the last one's.
-template <typename F, int B, int R>
-int backsub_levels(const F* xt, const F* const* su, const F* const* sl,
-                   const F* const* sg, F* X, F* ws, long long h0, int levels,
-                   long long h_small, cudaStream_t s) {
+template <typename F>
+int backsub_sweep(const F* xt, const F* const* su, const F* const* sl,
+                  const F* const* sg, F* X, F* ws, int b, int r, long long h0,
+                  int levels, long long h_small, void* stream) {
+  if (b != B || r != R || !sweep_ok(h0, levels) || h_small < 0 ||
+      h_small > cr::kMaxSmallPairs ||
+      cr::small_bytes<F, B, R>(h_small) > cr::kMaxSmem)
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto out = [&](int lv) {
     return lv == 0 ? X : ws + cr::backsub_offset(B * R, h0, h0 >> lv);
   };
@@ -196,54 +191,29 @@ int backsub_levels(const F* xt, const F* const* su, const F* const* sl,
   if (small.n) {
     small.X = out(lv + 1);
     const cudaError_t err = launch<cr::backsub_small<F, B, R>>(
-        1, cr::kSmallThreads,
+        1, cr::kSmallThreads<B>,
         cr::small_bytes<F, B, R>(small.h[small.n - 1]), s, small);
     if (err != cudaSuccess) return err;
   }
   for (; lv >= 0; --lv) {
     const long long h = h0 >> lv;
     const cudaError_t err = launch<cr::backsub_pairs<F, B, R>>(
-        blocks_for(h, cr::kLanes), B * cr::kLanes, 0, s, in(lv), su[lv],
-        sl[lv], sg[lv], out(lv), h);
+        blocks_for(h, cr::kLanes), B * cr::kLanes,
+        cr::backsub_tile(B, R) * sizeof(F), s, in(lv), su[lv], sl[lv],
+        sg[lv], out(lv), h);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
 }
 
-template <typename F>
-int backsub_sweep(const F* xt, const F* const* su, const F* const* sl,
-                  const F* const* sg, F* X, F* ws, int b, int r, long long h0,
-                  int levels, long long h_small, void* stream) {
-  if (!sweep_ok(h0, levels) || h_small < 0 || h_small > cr::kMaxSmallPairs)
-    return cudaErrorInvalidValue;
-#define CR_BACKSUB(Bv, Rv)                                                   \
-  if (b == Bv && r == Rv)                                                    \
-    return backsub_levels<F, Bv, Rv>(xt, su, sl, sg, X, ws, h0, levels,      \
-                                     h_small,                                \
-                                     static_cast<cudaStream_t>(stream));
-  CR_SHAPES(CR_BACKSUB)
-#undef CR_BACKSUB
-  return cudaErrorInvalidValue;
-}
+#endif
 
 }  // namespace
 
 extern "C" {
 
-// 1 if the library is compiled for (b, r); r = 0 asks for the factor
-// kernel, which needs only b.
-int cr_supported(int b, int r) {
-  if (r == 0) {
-#define CR_MATCH_B(Bv) if (b == Bv) return 1;
-    CR_BLOCKS(CR_MATCH_B)
-#undef CR_MATCH_B
-    return 0;
-  }
-#define CR_MATCH(Bv, Rv) if (b == Bv && r == Rv) return 1;
-  CR_SHAPES(CR_MATCH)
-#undef CR_MATCH
-  return 0;
-}
+// 1 if this instance is (b, r); r = 0 is the factor kernel's instance.
+int cr_supported(int b, int r) { return b == B && r == R; }
 
 // Kernel launches made by this library since it was loaded (every entry
 // below adds one per kernel it launches).
@@ -251,7 +221,9 @@ unsigned long long cr_device_launches() { return device_launches; }
 
 // All arrays SoA with the chain last.  Each entry returns 0 or the
 // cudaError_t of its first failed launch.
-//
+
+#if CF_R == 0
+
 // cr_factor_sweep: `levels` factor levels from the chain D, E of 2 h0 blocks
 // (2 h0 a multiple of 2^levels).  Level lv (h = h0 >> lv pairs) writes dn,
 // en, su, sl, lo, each (b, b, h), one after the other from
@@ -265,6 +237,8 @@ int cr_factor_sweep_f64(const double* D, const double* E, double* ws, int b,
                         long long h0, int levels, void* stream) {
   return factor_sweep<double>(D, E, ws, b, h0, levels, stream);
 }
+
+#else
 
 // cr_apply_sweep: `levels` apply levels from G (b, r, 2 h0) through the
 // factors lo[lv] (b, b, h) and the levels' input couplings E[lv] (b, b, 2h)
@@ -317,6 +291,8 @@ int cr_level_f64(const double* D, const double* E, const double* G,
                  double* sg, int b, int r, long long h, void* stream) {
   return level<double>(D, E, G, dn, en, gn, su, sl, sg, b, r, h, stream);
 }
+
+#endif
 
 const char* cr_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

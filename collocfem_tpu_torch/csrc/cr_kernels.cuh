@@ -17,8 +17,13 @@
 // (x_even[h] = 0) interleaves x_even and x_odd into the (b, r, 2h) solution.
 //
 // The pair passes (kernels #3, #4, #5): a warp per block column.  A block of
-// b warps works on 32 consecutive pairs: warp c owns column c of every b x b
-// (or b x r) result of those pairs, and lane l owns the pair p0 + l.  All a
+// b warps works on P = 32 consecutive pairs: warp c owns column c of every
+// b x b (or b x r) result of those pairs, and lane l owns the pair p0 + l.
+// Where the tiles of 32 pairs would not fit in a block's shared memory
+// (pairs_for: in float64 only, the factor pass at b = 16 and the fused level
+// and apply pass at b >= 12 with many right-hand sides), a block works on P
+// = 16 pairs and a warp holds two columns, a half-warp each; a block of b
+// odd then has a last half-warp with no column, which stages and leaves.  All a
 // pair computes is column-parallel: column c of s_lo, s_up and s_g is one
 // pair of triangular solves with the pair's factor, and column c of d_new,
 // e_new, g_new and of the cross terms needs the whole of e_up / e_lo and only
@@ -45,11 +50,12 @@
 //
 // The cross term.  Pair p's cross_d / cross_g belongs to pair p + 1, the
 // next lane of the same warp: one __shfl_up_sync per value with the whole
-// warp's constant mask.  Lane 0 needs the pair before the block's first, so
-// each block computes that pair again as a halo and stores nothing for it:
-// a block stores kNew = 31 pairs.  A slot before or past the chain reads the
-// nearest one, so the lanes there work on a harmless pair and store nothing;
-// the pair before the chain passes a zero cross term on.  d_new and g_new
+// warp's constant mask (the half-warp's at P = 16).  Lane 0 needs the pair
+// before the block's first, so each block computes that pair again as a
+// halo and stores nothing for it: a block stores P - 1 = 31 pairs.  A slot
+// before or past the chain reads the nearest one, so the lanes there work on
+// a harmless pair and store nothing; the pair before the chain passes a zero
+// cross term on.  d_new and g_new
 // are so written once, complete, as (d_even - e_up s_up) - cross, the order
 // of the plain version.
 //
@@ -61,7 +67,10 @@
 // pivots), its columns of s_lo and s_up, the cross column and one row of E.
 // Shared memory per block, b = 8: 32 KB (float32) / 64 KB (float64) for the
 // factor pass, up to 38 / 76 KB for the fused level, up to 30 / 60 KB for
-// the apply pass; above 48 KB it is dynamic shared memory by leave.
+// the apply pass; above 48 KB it is dynamic shared memory by leave, and at
+// most the 227 KB a block may have (pairs_for).  The fused level and the
+// apply pass take more right-hand-side columns than they have column
+// groups by striding the columns over them.
 
 #pragma once
 
@@ -69,9 +78,25 @@
 
 namespace cr {
 
-constexpr int kLanes = 32;        // pairs a block works on, the halo included
-constexpr int kNew = kLanes - 1;  // pairs a block stores
+constexpr int kLanes = 32;        // a warp; the pairs of the back-substitution
 constexpr unsigned kWarp = 0xffffffffu;
+constexpr size_t kMaxSmem = 232448;   // shared memory a block may have: 227 KB
+
+// Threads of a block of n column threads: whole warps.
+__host__ __device__ constexpr int whole_warps(int n) {
+  return (n + 31) / 32 * 32;
+}
+
+// The lanes of this thread's group of P pairs (P = 32: the whole warp), the
+// mask of the group's shuffles.
+template <int P>
+__device__ __forceinline__ unsigned segment_mask() {
+  if constexpr (P == 32) {
+    return kWarp;
+  } else {
+    return ((1u << P) - 1u) << (threadIdx.x % 32 / P * P);
+  }
+}
 
 // Start of level lv's arrays in a sweep's workspace, in elements.  A sweep
 // runs levels lv = 0, 1, ... on chains of 2 h0 >> lv blocks, and level lv
@@ -85,19 +110,21 @@ inline long long sweep_offset(int arrays, int rows, long long h0,
   return (long long)arrays * rows * 2 * (h0 - h);
 }
 
-// The pair a lane works on.
+// The pair a lane works on, in a block of P pairs (the halo included) that
+// stores P - 1.
+template <int P>
 struct Lane {
   long long p;   // the pair; in the chain where store is set
   bool store;    // this lane writes its pair's outputs
   bool before;   // the pair before the chain: its cross term is zero
-  int lane;      // this thread's lane: its pair's place in the block
-  int col;       // the column this thread's warp owns
+  int lane;      // this thread's place among the P: its pair's in the block
+  int col;       // the column this thread's group of P owns
   __device__ __forceinline__ explicit Lane(long long h) {
-    lane = threadIdx.x % kLanes;
-    p = (long long)blockIdx.x * kNew + lane - 1;
+    lane = threadIdx.x % P;
+    p = (long long)blockIdx.x * (P - 1) + lane - 1;
     store = lane > 0 && p < h;
     before = p < 0;
-    col = threadIdx.x / kLanes;
+    col = threadIdx.x / P;
   }
 };
 
@@ -124,23 +151,35 @@ __device__ __forceinline__ F* dynamic_smem() {
 // pair's even block at l and its odd block at SLOTS / 2 + l.  With LOWER > 0
 // the rows are those of a LOWER x LOWER block and only its lower triangle
 // is copied.
+// Where THREADS is no whole number of rows of SLOTS, or ROWS no whole
+// number of passes, the threads walk the tile's elements instead.
 template <typename F, int ROWS, int SLOTS, int THREADS, bool SPLIT,
           int LOWER = 0>
 __device__ __forceinline__ void stage(const F* a, long long n, long long s0,
                                       F* tile) {
-  static_assert(THREADS % SLOTS == 0 && ROWS % (THREADS / SLOTS) == 0,
-                "whole rows per pass");
-  constexpr int kRowsPerPass = THREADS / SLOTS, kPasses = ROWS / kRowsPerPass;
   constexpr int kBlock = LOWER > 0 ? LOWER : 1;
-  const int j = threadIdx.x % SLOTS, r0 = threadIdx.x / SLOTS;
-  long long s = s0 + j;
-  s = s < 0 ? 0 : (s < n ? s : n - 1);
-  const int dst = SPLIT ? (j & 1) * (SLOTS / 2) + j / 2 : j;
+  if constexpr (THREADS % SLOTS == 0 && ROWS % (THREADS / SLOTS) == 0) {
+    constexpr int kRowsPerPass = THREADS / SLOTS;
+    constexpr int kPasses = ROWS / kRowsPerPass;
+    const int j = threadIdx.x % SLOTS, r0 = threadIdx.x / SLOTS;
+    long long s = s0 + j;
+    s = s < 0 ? 0 : (s < n ? s : n - 1);
+    const int dst = SPLIT ? (j & 1) * (SLOTS / 2) + j / 2 : j;
 #pragma unroll(kPasses <= 32 ? kPasses : 16)
-  for (int k = 0; k < kPasses; ++k) {
-    const int row = k * kRowsPerPass + r0;
-    if (LOWER > 0 && row % kBlock > row / kBlock) continue;
-    tile[row * SLOTS + dst] = a[(long long)row * n + s];
+    for (int k = 0; k < kPasses; ++k) {
+      const int row = k * kRowsPerPass + r0;
+      if (LOWER > 0 && row % kBlock > row / kBlock) continue;
+      tile[row * SLOTS + dst] = a[(long long)row * n + s];
+    }
+  } else {
+    for (int e = threadIdx.x; e < ROWS * SLOTS; e += THREADS) {
+      const int row = e / SLOTS, j = e % SLOTS;
+      if (LOWER > 0 && row % kBlock > row / kBlock) continue;
+      long long s = s0 + j;
+      s = s < 0 ? 0 : (s < n ? s : n - 1);
+      const int dst = SPLIT ? (j & 1) * (SLOTS / 2) + j / 2 : j;
+      tile[row * SLOTS + dst] = a[(long long)row * n + s];
+    }
   }
 }
 
@@ -201,28 +240,29 @@ __device__ __forceinline__ void solve_col(const F l[B][B], const F inv[B],
 }
 
 // (e_lo^T s)[i] for the pair before this lane's: this pair's column of the
-// cross term, zero for the pair before the chain, handed one lane up.  Every
-// lane of the warp must call it.
-template <typename F, int B>
+// cross term, zero for the pair before the chain, handed one lane up inside
+// the group of P pairs.  Every lane of the group must call it.
+template <typename F, int B, int P>
 __device__ __forceinline__ void cross_from_below(const F* E, long long m,
                                                  long long ko, const F s[B],
                                                  bool before, F cross[B]) {
+  const unsigned mask = segment_mask<P>();
 #pragma unroll
   for (int i = 0; i < B; ++i) {
     F t = F(0);
 #pragma unroll
     for (int k = 0; k < B; ++k) t += E[(long long)(k * B + i) * m + ko] * s[k];
-    cross[i] = __shfl_up_sync(kWarp, before ? F(0) : t, 1);
+    cross[i] = __shfl_up_sync(mask, before ? F(0) : t, 1, P);
   }
 }
 
 // Column ln.col of the G-independent half of pair ln.p through the factor
 // in l / inv: s_lo, s_up, e_new and d_new, complete with the cross term of
 // the pair before.
-template <typename F, int B>
+template <typename F, int B, int P>
 __device__ __forceinline__ void factor_column(const F l[B][B], const F inv[B],
                                               const Inputs<F>& in,
-                                              long long h, const Lane& ln,
+                                              long long h, const Lane<P>& ln,
                                               F* dn, F* en, F* su, F* sl) {
   const F *D = in.D, *E = in.E;
   const long long m = in.n, ke = in.ke, ko = in.ko, p = ln.p;
@@ -235,7 +275,7 @@ __device__ __forceinline__ void factor_column(const F l[B][B], const F inv[B],
   }
   solve_col<F, B>(l, inv, x);                    // s_lo[:, c]
   solve_col<F, B>(l, inv, y);                    // s_up[:, c]
-  cross_from_below<F, B>(E, m, ko, x, ln.before, cross);
+  cross_from_below<F, B, P>(E, m, ko, x, ln.before, cross);
 #pragma unroll
   for (int i = 0; i < B; ++i) {
     F er[B];
@@ -258,21 +298,20 @@ __device__ __forceinline__ void factor_column(const F l[B][B], const F inv[B],
   }
 }
 
-// Column ln.col of the right-hand-side half of pair ln.p: s_g and g_new,
+// Column c of the right-hand-side half of pair ln.p: s_g and g_new,
 // complete with the cross term of the pair before.
-template <typename F, int B, int R>
+template <typename F, int B, int R, int P>
 __device__ __forceinline__ void apply_column(const F l[B][B], const F inv[B],
                                              const Inputs<F>& in,
-                                             long long h, const Lane& ln,
-                                             F* gn, F* sg) {
+                                             long long h, const Lane<P>& ln,
+                                             int c, F* gn, F* sg) {
   const F *E = in.E, *G = in.G;
   const long long m = in.n, ke = in.ke, ko = in.ko, p = ln.p;
-  const int c = ln.col;
   F s[B], cross[B];
 #pragma unroll
   for (int i = 0; i < B; ++i) s[i] = G[(long long)(i * R + c) * m + ko];
   solve_col<F, B>(l, inv, s);                    // s_g[:, c]
-  cross_from_below<F, B>(E, m, ko, s, ln.before, cross);
+  cross_from_below<F, B, P>(E, m, ko, s, ln.before, cross);
 #pragma unroll
   for (int i = 0; i < B; ++i) {
     const F g = G[(long long)(i * R + c) * m + ke];
@@ -287,21 +326,22 @@ __device__ __forceinline__ void apply_column(const F l[B][B], const F inv[B],
   }
 }
 
-// First chain slot of the block's pairs (the halo pair's even block).
+// First chain slot of the block's P pairs (the halo pair's even block).
+template <int P>
 __device__ __forceinline__ long long first_slot() {
-  return 2 * ((long long)blockIdx.x * kNew - 1);
+  return 2 * ((long long)blockIdx.x * (P - 1) - 1);
 }
 
-// Stage the block's 2 * kLanes chain slots of the b x b arrays D, E (either
-// may be null) and of the b x R array G (R > 0) into tile, with a block of
-// THREADS threads.  The caller synchronises the block before reading.
-template <typename F, int B, int R, int THREADS>
+// Stage the block's 2 P chain slots of the b x b arrays D, E (either may be
+// null) and of the b x R array G (R > 0) into tile, with a block of THREADS
+// threads.  The caller synchronises the block before reading.
+template <typename F, int B, int R, int THREADS, int P>
 __device__ __forceinline__ Inputs<F> staged(const F* D, const F* E,
                                             const F* G, long long h,
-                                            const Lane& ln, F* tile) {
-  constexpr int kSlots = 2 * kLanes;
-  const long long s0 = first_slot();
-  Inputs<F> in{nullptr, nullptr, nullptr, kSlots, ln.lane, kLanes + ln.lane};
+                                            const Lane<P>& ln, F* tile) {
+  constexpr int kSlots = 2 * P;
+  const long long s0 = first_slot<P>();
+  Inputs<F> in{nullptr, nullptr, nullptr, kSlots, ln.lane, P + ln.lane};
   if (D) {
     stage<F, B * B, kSlots, THREADS, true>(D, 2 * h, s0, tile);
     in.D = tile;
@@ -321,9 +361,9 @@ __device__ __forceinline__ Inputs<F> staged(const F* D, const F* E,
 
 // Column ln.col of the lower factor in l, with zeros above the diagonal, to
 // lo.
-template <typename F, int B>
+template <typename F, int B, int P>
 __device__ __forceinline__ void store_factor(const F l[B][B], long long h,
-                                             const Lane& ln, F* lo) {
+                                             const Lane<P>& ln, F* lo) {
   if (!ln.store) return;
 #pragma unroll
   for (int i = 0; i < B; ++i) {
@@ -336,33 +376,51 @@ __device__ __forceinline__ void store_factor(const F l[B][B], long long h,
 
 // ---- kernels ---------------------------------------------------------------
 
-// Warps of an apply block: one per right-hand-side column, and at least
-// four to stage the inputs; a power of two, so that a block stages whole
-// rows of every tile in each pass.
+// Warps of an apply block: one per right-hand-side column up to eight,
+// and at least four to stage the inputs; a power of two, so that a block
+// stages whole rows of every tile in each pass where it can.
 template <int R>
 constexpr int kApplyWarps = R <= 4 ? 4 : 8;
 
-// Elements of dynamic shared memory a block of each pair pass stages: the
-// level's D and E (b b rows each) and G (b r rows) at 2 * kLanes slots, the
-// stored factor at kLanes.
-constexpr int factor_tile(int b) { return 2 * b * b * 2 * kLanes; }
-constexpr int level_tile(int b, int r) {
-  return factor_tile(b) + b * r * 2 * kLanes;
+// Elements of dynamic shared memory a block of each pair pass stages, for
+// P pairs: the level's D and E (b b rows each) and G (b r rows) at 2 P
+// slots, the stored factor at P.
+__host__ __device__ constexpr int factor_tile(int b, int p) {
+  return 2 * b * b * 2 * p;
 }
-constexpr int apply_tile(int b, int r) {
-  return b * b * kLanes + b * b * 2 * kLanes + b * r * 2 * kLanes;
+__host__ __device__ constexpr int level_tile(int b, int r, int p) {
+  return factor_tile(b, p) + b * r * 2 * p;
+}
+__host__ __device__ constexpr int apply_tile(int b, int r, int p) {
+  return b * b * p + b * b * 2 * p + b * r * 2 * p;
 }
 
-// Kernel #4's pair pass: the G-independent half of a level, b warps a block.
-// Also stores the lower factor with zeros above the diagonal to lo.
+// The pairs P of a block whose tiles take `elems32` elements at P = 32: 32
+// where they fit in a block's shared memory, else 16.
+template <typename F>
+__host__ __device__ constexpr int pairs_for(int elems32) {
+  return (size_t)elems32 * sizeof(F) <= kMaxSmem ? 32 : 16;
+}
 template <typename F, int B>
-__global__ void __launch_bounds__(B * kLanes)
+constexpr int kFactorPairs = pairs_for<F>(factor_tile(B, 32));
+template <typename F, int B, int R>
+constexpr int kLevelPairs = pairs_for<F>(level_tile(B, R, 32));
+template <typename F, int B, int R>
+constexpr int kApplyPairs = pairs_for<F>(apply_tile(B, R, 32));
+
+// Kernel #4's pair pass: the G-independent half of a level, b column
+// groups of P pairs a block.  Also stores the lower factor with zeros above
+// the diagonal to lo.
+template <typename F, int B, int P>
+__global__ void __launch_bounds__(whole_warps(B * P))
 factor_pairs(const F* D, const F* E, F* dn, F* en, F* su, F* sl, F* lo,
              long long h) {
-  const Lane ln(h);
-  const Inputs<F> in = staged<F, B, 0, B * kLanes>(D, E, nullptr, h, ln,
-                                                   dynamic_smem<F>());
+  static_assert(factor_tile(B, P) * sizeof(F) <= kMaxSmem, "shared memory");
+  const Lane<P> ln(h);
+  const Inputs<F> in = staged<F, B, 0, whole_warps(B * P), P>(
+      D, E, nullptr, h, ln, dynamic_smem<F>());
   __syncthreads();
+  if (ln.col >= B) return;                   // the half-warp with no column
   F l[B][B], inv[B];
   ld_lower<F, B>(in.D, in.n, in.ko, l);
   chol_inv<F, B>(l, inv);
@@ -370,42 +428,48 @@ factor_pairs(const F* D, const F* E, F* dn, F* en, F* su, F* sl, F* lo,
   factor_column<F, B>(l, inv, in, h, ln, dn, en, su, sl);
 }
 
-// Kernel #5's pair pass: reduce G through the stored factor lo; every warp
-// of the block stages, the first r take a right-hand-side column each.
-template <typename F, int B, int R>
-__global__ void __launch_bounds__(kApplyWarps<R> * kLanes)
+// Kernel #5's pair pass: reduce G through the stored factor lo; every
+// thread of the block stages, and the column groups of P pairs take the
+// right-hand-side columns in turn.
+template <typename F, int B, int R, int P>
+__global__ void __launch_bounds__(kApplyWarps<R> * 32)
 apply_pairs(const F* lo, const F* E, const F* G, F* gn, F* sg, long long h) {
-  constexpr int kThreads = kApplyWarps<R> * kLanes;
-  const Lane ln(h);
+  constexpr int kThreads = kApplyWarps<R> * 32;
+  static_assert(apply_tile(B, R, P) * sizeof(F) <= kMaxSmem, "shared memory");
+  const Lane<P> ln(h);
   F* lt = dynamic_smem<F>();
-  stage<F, B * B, kLanes, kThreads, false, B>(lo, h, first_slot() / 2, lt);
-  const Inputs<F> in = staged<F, B, R, kThreads>(nullptr, E, G, h, ln,
-                                                 lt + B * B * kLanes);
+  stage<F, B * B, P, kThreads, false, B>(lo, h, first_slot<P>() / 2, lt);
+  const Inputs<F> in = staged<F, B, R, kThreads, P>(nullptr, E, G, h, ln,
+                                                    lt + B * B * P);
   __syncthreads();
   if (ln.col >= R) return;
   F l[B][B], inv[B];
-  ld_lower<F, B>(lt, kLanes, ln.lane, l);
+  ld_lower<F, B>(lt, P, ln.lane, l);
 #pragma unroll
   for (int i = 0; i < B; ++i) inv[i] = kkt::Num<F>::rcp(l[i][i]);
-  apply_column<F, B, R>(l, inv, in, h, ln, gn, sg);
+  for (int c = ln.col; c < R; c += kThreads / P)
+    apply_column<F, B, R>(l, inv, in, h, ln, c, gn, sg);
 }
 
 // Kernel #3's pair pass: both halves with the factor kept in registers, b
-// warps a block; the first r warps also take a right-hand-side column.
-template <typename F, int B, int R>
-__global__ void __launch_bounds__(B * kLanes)
+// column groups of P pairs a block; the column groups also take the
+// right-hand-side columns in turn.
+template <typename F, int B, int R, int P>
+__global__ void __launch_bounds__(whole_warps(B * P))
 level_pairs(const F* D, const F* E, const F* G, F* dn, F* en, F* gn, F* su,
             F* sl, F* sg, long long h) {
-  static_assert(R <= B, "a warp per right-hand-side column");
-  const Lane ln(h);
-  const Inputs<F> in = staged<F, B, R, B * kLanes>(D, E, G, h, ln,
-                                                   dynamic_smem<F>());
+  static_assert(level_tile(B, R, P) * sizeof(F) <= kMaxSmem, "shared memory");
+  const Lane<P> ln(h);
+  const Inputs<F> in = staged<F, B, R, whole_warps(B * P), P>(
+      D, E, G, h, ln, dynamic_smem<F>());
   __syncthreads();
+  if (ln.col >= B) return;                   // the half-warp with no column
   F l[B][B], inv[B];
   ld_lower<F, B>(in.D, in.n, in.ko, l);
   chol_inv<F, B>(l, inv);
   factor_column<F, B>(l, inv, in, h, ln, dn, en, su, sl);
-  if (ln.col < R) apply_column<F, B, R>(l, inv, in, h, ln, gn, sg);
+  for (int c = ln.col; c < R; c += B)
+    apply_column<F, B, R>(l, inv, in, h, ln, c, gn, sg);
 }
 
 // ---- kernel #6: the back-substitution ----------------------------------------
@@ -422,7 +486,7 @@ level_pairs(const F* D, const F* E, const F* G, F* dn, F* en, F* gn, F* su,
 //   backsub_pairs  each bigger level in a launch of its own: a block of b
 //                  warps on kLanes neighbouring pairs stages x_even of those
 //                  pairs and of the next one (x_right of its last pair) in
-//                  shared memory.
+//                  dynamic shared memory (backsub_tile).
 //
 // In both, thread (row i, pair p) sits in warp i of its group of b warps and
 // on lane p % kLanes: it loads its rows of s_up, s_lo and s_g (neighbouring
@@ -443,7 +507,10 @@ inline long long backsub_offset(int rows, long long h0, long long h) {
   return 2LL * rows * (h0 - 2 * h);
 }
 
-constexpr int kSmallThreads = 512;            // the block of backsub_small
+// The block of backsub_small: whole groups of b warps, at most 512 threads
+// (512 at b = 1, 2, 4, 8, 16).
+template <int B>
+constexpr int kSmallThreads = 512 / (kLanes * B) * (kLanes * B);
 constexpr long long kMaxSmallPairs = 256;     // pairs of its largest level
 constexpr int kMaxSmall = 9;                  // levels it can walk: 1 .. 256
 
@@ -496,6 +563,11 @@ struct BacksubRow {
   }
 };
 
+// Elements of backsub_pairs' tile: x_even of the block's pairs and the next.
+__host__ __device__ constexpr int backsub_tile(int b, int r) {
+  return b * r * (kLanes + 1);
+}
+
 // One level of more than the sweep's h_small pairs: x_even (b, r, h), s_up,
 // s_lo (b, b, h), s_g (b, r, h) -> X (b, r, 2h).
 template <typename F, int B, int R>
@@ -503,7 +575,7 @@ __global__ void __launch_bounds__(B * kLanes)
 backsub_pairs(const F* xe, const F* su, const F* sl, const F* sg, F* X,
               long long h) {
   constexpr int kSlots = kLanes + 1;          // the block's pairs and the next
-  __shared__ F tile[B * R * kSlots];
+  F* tile = dynamic_smem<F>();
   const int lane = threadIdx.x % kLanes, i = threadIdx.x / kLanes;
   const long long p0 = (long long)blockIdx.x * kLanes, p = p0 + lane;
   BacksubRow<F, B, R> row;
@@ -547,15 +619,15 @@ inline size_t small_bytes(long long h_last) {
 // A thread loads its rows of the next step's s_up, s_lo and s_g before it
 // waits, so the loads of one level overlap the algebra of the one before.
 template <typename F, int B, int R>
-__global__ void __launch_bounds__(kSmallThreads)
+__global__ void __launch_bounds__(kSmallThreads<B>)
 backsub_small(SmallLevels<F> lv) {
-  constexpr int kPairs = kSmallThreads / B;
+  constexpr int kThreads = kSmallThreads<B>, kPairs = kThreads / B;
   static_assert(kPairs % kLanes == 0, "whole groups of b warps");
   F* buf[2] = {dynamic_smem<F>(),
                dynamic_smem<F>() + (long long)B * R * lv.h[lv.n - 1]};
   const int lane = threadIdx.x % kLanes, i = (threadIdx.x / kLanes) % B;
   const int q = (threadIdx.x / (kLanes * B)) * kLanes + lane;
-  for (int e = threadIdx.x; e < B * R * lv.h[0]; e += kSmallThreads)
+  for (int e = threadIdx.x; e < B * R * lv.h[0]; e += kThreads)
     buf[0][e] = lv.xt[e];
   BacksubRow<F, B, R> row, next;
   if (q < lv.h[0]) row.load(lv.su[0], lv.sl[0], lv.sg[0], lv.h[0], q, i);

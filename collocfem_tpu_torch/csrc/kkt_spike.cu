@@ -31,36 +31,29 @@
 // over 2T blocks (a log-depth reduction is the next step), and the loads
 // are per lane, not coalesced.
 //
-// Build:
+// Build (one instance per shape; collocfem_tpu_torch/ops/_build.py does this
+// at first use of the shape):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-//        -Xcompiler -fPIC -o libkkt_spike.so kkt_spike.cu
-// (collocfem_tpu_torch/ops/_build.py does this at first use).
+//        -Xcompiler -fPIC -DCF_B=8 -DCF_R=3 -DCF_KKT=1 \
+//        -o kkt_spike-b8-r3.so kkt_spike.cu
+// CF_B is the block size b (1..16), CF_R the right-hand-side count r (for
+// the KKT solve r = 1 + nq, the group [gx | B]), CF_KKT selects kernel #1
+// (1) or kernel #2 (0).  The lane group is group_width(b) lanes: 1, 2, 4, 8
+// or 16, the lanes b..W-1 idle (kkt_spike_kernels.cuh).
 
 #include <cuda_runtime.h>
 
 #include "kkt_spike_kernels.cuh"
 
-// The shapes the library is compiled for.  The headline Van der Pol
-// estimation (nx = 2, degree 4, two parameters) is b = 8, nq = 2; Duffing
-// (config 2, three parameters) b = 8, nq = 3; the aircraft model (config 4,
-// five parameters) b = 8, nq = 5.  The chain solves (config 5's concatenated
-// chain, KKT refinement, nq = 0) take r = 1 + nq = 3 or a single
-// right-hand side.  The optimal-control problems carry [x; u] at a node: the
-// pendulum swing-up (config 3, nx = 2, nu = 1, degree 4) is b = 12 with no
-// parameter (the chain solve at r = 1), its free-time form b = 12 with the
-// horizon as the one parameter (nq = 1).  The moving-horizon estimator's
-// window (Van der Pol, nx = 2, degree 3, no parameter) is b = 6 at r = 1,
-// on an 8-lane group with lanes 6 and 7 idle.  The element-chain sharded
-// solve (parallel/spike.py) solves each shard's interior against [G | U |
-// V]: r = (1 + nq) + 2 b = 19 at the headline's b = 8, nq = 2.
-#define KKT_SHAPES(X) X(8, 2) X(8, 3) X(8, 5) X(12, 1) /* (b, nq), KKT */
-#define CHAIN_SHAPES(X) \
-  X(6, 1) X(8, 1) X(8, 3) X(8, 19) X(12, 1) /* (b, r), chain */
+#if !defined(CF_B) || !defined(CF_R) || !defined(CF_KKT)
+#error "build with -DCF_B=<b> -DCF_R=<r> -DCF_KKT=<0|1> (ops/_build.py)"
+#endif
+static_assert(CF_B >= 1 && CF_B <= 16, "block sizes 1..16");
+static_assert(CF_R >= (CF_KKT ? 2 : 1), "kernel #1 needs nq >= 1");
 
 namespace {
 
-constexpr int kTileThreads = 32;   // one warp: four tiles of b = 6 or 8
-                                   // (8-lane groups), two of b = 12 (16)
+constexpr int kTileThreads = 32;   // one warp: 32 / W tiles (W = 1 .. 16)
 constexpr int kComposeThreads = 256;
 
 template <typename F, int B, int R, bool KKT>
@@ -93,100 +86,60 @@ bool bad_plan(long long K, int T, int L) {
   return K < 1 || T < 1 || L < 3 || (long long)T * L < K;
 }
 
-template <typename F>
-int dispatch_kkt(const F* D, const F* E, const F* G, const F* inv,
-                 const F* cg, F* dx, F* t, F* scratch, int b, int nq,
-                 long long K, int T, int L, void* stream) {
-  if (bad_plan(K, T, L)) return cudaErrorInvalidValue;
-#define KKT_RUN(Bv, NQv)                                                  \
-  if (b == Bv && nq == NQv)                                               \
-    return run<F, Bv, NQv + 1, true>(                                     \
-        kkt::carve<F, Bv, NQv + 1>(D, E, G, inv, cg, dx, t, nullptr,      \
-                                   scratch, K, T, L),                     \
-        static_cast<cudaStream_t>(stream));
-  KKT_SHAPES(KKT_RUN)
-#undef KKT_RUN
-  return cudaErrorInvalidValue;
-}
-
-template <typename F>
-int dispatch_chain(const F* D, const F* E, const F* G, F* X, F* scratch,
-                   int b, int r, long long K, int T, int L, void* stream) {
-  if (bad_plan(K, T, L)) return cudaErrorInvalidValue;
-#define CHAIN_RUN(Bv, Rv)                                                 \
-  if (b == Bv && r == Rv)                                                 \
-    return run<F, Bv, Rv, false>(                                         \
-        kkt::carve<F, Bv, Rv>(D, E, G, nullptr, nullptr, nullptr, nullptr, \
-                              X, scratch, K, T, L),                       \
-        static_cast<cudaStream_t>(stream));
-  CHAIN_SHAPES(CHAIN_RUN)
-#undef CHAIN_RUN
-  return cudaErrorInvalidValue;
-}
+// Whether this instance is the one asked for: (b, r) its shape.
+bool is_shape(int b, int r) { return b == CF_B && r == CF_R; }
 
 }  // namespace
 
 extern "C" {
 
-int kkt_spike_supported(int b, int nq) {
-#define KKT_MATCH(Bv, NQv) if (b == Bv && nq == NQv) return 1;
-  KKT_SHAPES(KKT_MATCH)
-#undef KKT_MATCH
-  return 0;
-}
+#if CF_KKT
+
+int kkt_spike_supported(int b, int nq) { return is_shape(b, nq + 1); }
 
 long long kkt_spike_scratch_elems(int b, int nq, int T, int L) {
-#define KKT_SIZE(Bv, NQv) \
-  if (b == Bv && nq == NQv) return kkt::scratch_elems<Bv, NQv + 1>(T, L);
-  KKT_SHAPES(KKT_SIZE)
-#undef KKT_SIZE
-  return -1;
+  return is_shape(b, nq + 1) ? kkt::scratch_elems<CF_B, CF_R>(T, L) : -1;
 }
 
 // Returns 0 on success or the cudaError_t of the first failed launch.
-int kkt_spike_f32(const float* D, const float* E, const float* G,
-                  const float* inv, const float* cg, float* dx, float* t,
-                  float* scratch, int b, int nq, long long K, int T, int L,
-                  void* stream) {
-  return dispatch_kkt<float>(D, E, G, inv, cg, dx, t, scratch, b, nq, K, T,
-                             L, stream);
-}
+#define KKT_ENTRY(NAME, F)                                                  \
+  int NAME(const F* D, const F* E, const F* G, const F* inv, const F* cg,  \
+           F* dx, F* t, F* scratch, int b, int nq, long long K, int T,      \
+           int L, void* stream) {                                           \
+    if (!is_shape(b, nq + 1) || bad_plan(K, T, L))                          \
+      return cudaErrorInvalidValue;                                         \
+    return run<F, CF_B, CF_R, true>(                                        \
+        kkt::carve<F, CF_B, CF_R>(D, E, G, inv, cg, dx, t, nullptr,         \
+                                  scratch, K, T, L),                        \
+        static_cast<cudaStream_t>(stream));                                 \
+  }
+KKT_ENTRY(kkt_spike_f32, float)
+KKT_ENTRY(kkt_spike_f64, double)
+#undef KKT_ENTRY
 
-int kkt_spike_f64(const double* D, const double* E, const double* G,
-                  const double* inv, const double* cg, double* dx, double* t,
-                  double* scratch, int b, int nq, long long K, int T, int L,
-                  void* stream) {
-  return dispatch_kkt<double>(D, E, G, inv, cg, dx, t, scratch, b, nq, K, T,
-                              L, stream);
-}
+#else
 
-int spike_chain_supported(int b, int r) {
-#define CHAIN_MATCH(Bv, Rv) if (b == Bv && r == Rv) return 1;
-  CHAIN_SHAPES(CHAIN_MATCH)
-#undef CHAIN_MATCH
-  return 0;
-}
+int spike_chain_supported(int b, int r) { return is_shape(b, r); }
 
 long long spike_chain_scratch_elems(int b, int r, int T, int L) {
-#define CHAIN_SIZE(Bv, Rv) \
-  if (b == Bv && r == Rv) return kkt::scratch_elems<Bv, Rv>(T, L);
-  CHAIN_SHAPES(CHAIN_SIZE)
-#undef CHAIN_SIZE
-  return -1;
+  return is_shape(b, r) ? kkt::scratch_elems<CF_B, CF_R>(T, L) : -1;
 }
 
 // X (b, r, K) with A X = G; returns 0 or the first failed launch's error.
-int spike_chain_f32(const float* D, const float* E, const float* G, float* X,
-                    float* scratch, int b, int r, long long K, int T, int L,
-                    void* stream) {
-  return dispatch_chain<float>(D, E, G, X, scratch, b, r, K, T, L, stream);
-}
+#define CHAIN_ENTRY(NAME, F)                                                \
+  int NAME(const F* D, const F* E, const F* G, F* X, F* scratch, int b,    \
+           int r, long long K, int T, int L, void* stream) {                \
+    if (!is_shape(b, r) || bad_plan(K, T, L)) return cudaErrorInvalidValue; \
+    return run<F, CF_B, CF_R, false>(                                       \
+        kkt::carve<F, CF_B, CF_R>(D, E, G, nullptr, nullptr, nullptr,       \
+                                  nullptr, X, scratch, K, T, L),            \
+        static_cast<cudaStream_t>(stream));                                 \
+  }
+CHAIN_ENTRY(spike_chain_f32, float)
+CHAIN_ENTRY(spike_chain_f64, double)
+#undef CHAIN_ENTRY
 
-int spike_chain_f64(const double* D, const double* E, const double* G,
-                    double* X, double* scratch, int b, int r, long long K,
-                    int T, int L, void* stream) {
-  return dispatch_chain<double>(D, E, G, X, scratch, b, r, K, T, L, stream);
-}
+#endif
 
 const char* kkt_spike_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

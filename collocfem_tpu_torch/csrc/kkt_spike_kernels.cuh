@@ -36,8 +36,8 @@
 //
 // Lane layout of phases 1-3: a group is W neighbouring lanes of a warp, W
 // the next power of two at or above b (group_width: W = b = 8, four tiles
-// to a warp; b = 6 also takes W = 8; b = 12 takes W = 16, two tiles to a
-// warp), and lane i < b owns
+// to a warp; b = 6 also takes W = 8; b = 9..16 take W = 16, two tiles to a
+// warp; b = 1 is one lane, 32 tiles to a warp), and lane i < b owns
 // row i of every b x b block and of every b x N right-hand side the group
 // carries (the factor,
 // the reduced RHS y with C = r + b columns, the backward-sweep state x with
@@ -213,7 +213,7 @@ __device__ __forceinline__ void chol_solve(const F l[B][B], F x[B][N]) {
 // emit a plain shuffle, with no convergence bookkeeping around it.
 template <int W>
 struct Group {
-  static_assert(W >= 2 && W <= 32 && (W & (W - 1)) == 0,
+  static_assert(W >= 1 && W <= 32 && (W & (W - 1)) == 0,
                 "a group is a power-of-two slice of a warp");
   unsigned mask;
   int lane;

@@ -12,18 +12,21 @@
 //   x_{K-1} = (L L^T)^-1 y_{K-1},  x_k = (L_k L_k^T)^-1 (y_k - E_k x_{k+1}),
 // which overwrites X block by block.  K is a runtime argument.
 //
-// Lane layout: the SPIKE core's (kkt_spike_kernels.cuh).  A group of b
-// neighbouring lanes carries one chain, lane i owning row i of every block,
-// and the 8 x 8 algebra is its row-per-lane functions (chol_rows,
-// chol_solve_rows, sub_mm_rows, rhs_minus_rows), with rows exchanged by
-// __shfl_sync under the whole warp's constant mask: every group of a warp
-// runs every step, and a group past the last chain works on the last chain
-// again and stores nothing.  A lane reads its rows of D, G and E and its
-// column of E (the row of E^T) from the block-major arrays, those of the
-// next step before the algebra of this one.  A factor is stored as in the
-// SPIKE core, the lane's row of L and then its column below the diagonal:
-// lf is (n_exp, K, b, 2b), and the backward sweep reads both without a
-// transpose.  Pivots are clamped at tiny, as in the plain version.
+// Lane layout: the SPIKE core's (kkt_spike_kernels.cuh).  A group of W =
+// group_width(b) neighbouring lanes (1, 2, 4, 8 or 16) carries one chain,
+// lane i < b owning row i of every block, and the b x b algebra is its
+// row-per-lane functions (chol_rows, chol_solve_rows, sub_mm_rows,
+// rhs_minus_rows), with rows exchanged by __shfl_sync under the whole
+// warp's constant mask: every group of a warp runs every step, and a group
+// past the last chain works on the last chain again and stores nothing.
+// Lanes b..W-1 of a group load row b - 1's entries, join every shuffle and
+// store nothing, as in the SPIKE core.  A lane reads its rows of D, G and E
+// and its column of E (the row of E^T) from the block-major arrays, those
+// of the next step before the algebra of this one.  A factor is stored as
+// in the SPIKE core, the lane's row of L and then its column below the
+// diagonal: lf is (n_exp, K, b, 2b), and the backward sweep reads both
+// without a transpose.  Pivots are clamped at tiny, as in the plain
+// version.
 
 #pragma once
 
@@ -31,20 +34,24 @@
 
 namespace thomas {
 
-constexpr int kThreads = 64;   // two warps: eight chains a block at b = 8
+// Threads of a block: eight chains, and at least two warps (64 threads, as
+// at b = 8, up to b = 8; 128 at b = 9..16).
+template <int B>
+constexpr int kThreads =
+    kkt::group_width(B) <= 8 ? 64 : 8 * kkt::group_width(B);
 
 template <typename F, int B, int R>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads<B>)
 batched_thomas(const F* D, const F* E, const F* G, F* X, F* lf,
                long long n_exp, int K) {
   using namespace kkt;
-  static_assert(32 % B == 0, "whole groups in a warp");
+  constexpr int W = group_width(B);
   const long long thread = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if ((thread - threadIdx.x % 32) / B >= n_exp) return;   // the whole warp
-  const Group<B> g(0xffffffffu);
-  const int i = g.lane;
-  const bool live = thread / B < n_exp;
-  const long long e = live ? thread / B : n_exp - 1;
+  if ((thread - threadIdx.x % 32) / W >= n_exp) return;   // the whole warp
+  const GroupOf<B> g(0xffffffffu);
+  const int i = row_of<B>(g.lane);
+  const bool live = thread / W < n_exp && g.lane < B;
+  const long long e = thread / W < n_exp ? thread / W : n_exp - 1;
   const F* d = D + e * K * B * B;
   const F* c = E + e * K * B * B;
   const F* gr = G + e * K * B * R;

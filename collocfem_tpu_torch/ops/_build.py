@@ -1,11 +1,17 @@
 """Build the package's CUDA sources at first use and load them with ctypes.
 
-Each library ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into a shared object with a plain C interface, in
-``collocfem_tpu_torch/build/``, under a name keyed on a hash of every file in
-``csrc/`` and the compiler flags.  A later process with the same sources
-loads the existing file.  :func:`load_all` runs one ``nvcc`` per library, all
-started together.
+A kernel library is compiled once per shape, as Pallas traces a kernel once
+per shape: an :class:`Instance` is a library (``kkt_spike``, ``spike_chain``,
+``thomas`` or ``cr``) at one block size b and one right-hand-side count r,
+and ``nvcc`` compiles its source in ``csrc/`` for Hopper (``sm_90a``) with
+the shape as defines (``-DCF_B=<b> -DCF_R=<r>``) into a shared object with a
+plain C interface, ``collocfem_tpu_torch/build/<lib>-b<b>-r<r>-<digest>.so``.
+The digest is a hash of every file in ``csrc/`` and the compiler flags, so a
+later process with the same sources loads the existing file.  ctypes loads
+each instance under its own handle (``RTLD_LOCAL``), so the instances' equal
+symbol names stay apart.  :func:`prebuild` runs one ``nvcc`` per missing
+instance, as many at once as the machine has cores; :func:`load` builds one
+instance if needed and loads it.
 """
 
 from __future__ import annotations
@@ -30,6 +36,14 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# Library -> (its source in csrc/, the defines that select it there).
+LIBRARIES = {
+    "kkt_spike": ("kkt_spike.cu", ("-DCF_KKT=1",)),    # kernel #1, r = 1 + nq
+    "spike_chain": ("kkt_spike.cu", ("-DCF_KKT=0",)),  # kernel #2
+    "thomas": ("thomas.cu", ()),                       # kernel #7
+    "cr": ("cr.cu", ()),   # r = 0: kernel #4; r >= 1: kernels #3, #5, #6
+}
+MAX_BLOCK = 16   # the largest block size any library is built for
 
 
 def count_launches(fn, shape, n: int = 1) -> None:
@@ -108,6 +122,39 @@ def counts_held():
 
 
 @dataclasses.dataclass(frozen=True)
+class Instance:
+    """One library compiled for one shape: block size ``b`` and ``r``
+    right-hand sides (for ``kkt_spike`` r = 1 + nq, the group [gx | B]; for
+    ``cr`` r = 0 is the factor kernel, which needs only b)."""
+
+    lib: str
+    b: int
+    r: int
+
+    def __post_init__(self):
+        if self.lib not in LIBRARIES:
+            raise ValueError(f"unknown library {self.lib!r}")
+
+    @property
+    def name(self) -> str:
+        return f"{self.lib}-b{self.b}-r{self.r}"
+
+    @property
+    def source(self) -> Path:
+        return CSRC / LIBRARIES[self.lib][0]
+
+    @property
+    def defines(self) -> tuple[str, ...]:
+        return (f"-DCF_B={self.b}", f"-DCF_R={self.r}",
+                *LIBRARIES[self.lib][1])
+
+    def paths(self) -> tuple[Path, Path]:
+        """(the shared object, the log of its nvcc run beside it)."""
+        so = BUILD_DIR / f"{self.name}-{digest()}.so"
+        return so, so.with_suffix(".log")
+
+
+@dataclasses.dataclass(frozen=True)
 class Built:
     lib: ctypes.CDLL
     path: Path
@@ -125,7 +172,9 @@ def _nvcc() -> str:
     return found
 
 
-def _digest() -> str:
+def digest() -> str:
+    """Hash of the compiler flags :data:`NVCC_FLAGS` and every file in
+    ``csrc/``."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sorted(CSRC.iterdir()):
         h.update(src.name.encode())
@@ -133,57 +182,68 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def _paths(name: str) -> tuple[Path, Path]:
-    so = BUILD_DIR / f"{name}-{_digest()}.so"
-    return so, so.with_suffix(".log")
-
-
-def _compile_one(name: str) -> float:
-    """Run nvcc on ``csrc/<name>.cu``; returns its wall in seconds."""
-    so, log = _paths(name)
+def _compile_one(inst: Instance) -> float:
+    """Run nvcc on the instance's source; returns its wall in seconds."""
+    so, log = inst.paths()
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        [_nvcc(), *NVCC_FLAGS, *inst.defines, "-o", str(tmp),
+         str(inst.source)],
         capture_output=True, text=True, check=False)
     seconds = time.perf_counter() - t0
     log.write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr[-4000:]}")
+        raise RuntimeError(f"nvcc failed on {inst.name}:\n"
+                           f"{proc.stderr[-4000:]}")
     os.replace(tmp, so)
     return seconds
 
 
-def _compile(names) -> dict[str, float]:
-    """Compile the libraries whose shared object is missing, one nvcc each,
-    all at once; returns each one's build wall in seconds."""
-    todo = [n for n in names if not _paths(n)[0].exists()]
+def prebuild(instances) -> dict[Instance, float]:
+    """Compile the instances whose shared object is missing, one nvcc each,
+    as many at once as the machine has cores, the largest shapes first.
+    Returns each compiled instance's build wall in seconds; raises, naming
+    every instance that failed, once all have run."""
+    todo = sorted({i for i in instances if not i.paths()[0].exists()},
+                  key=lambda i: (-i.b * (i.b + i.r), i.name))
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with ThreadPoolExecutor(len(todo)) as pool:
-        return dict(zip(todo, pool.map(_compile_one, todo)))
+    workers = min(len(todo), os.cpu_count() or 1)
+    with ThreadPoolExecutor(workers) as pool:
+        futures = {inst: pool.submit(_compile_one, inst) for inst in todo}
+    walls, failed = {}, []
+    for inst, future in futures.items():
+        try:
+            walls[inst] = future.result()
+        except RuntimeError as err:
+            failed.append(str(err))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return walls
 
 
-_LOADED: dict[str, Built] = {}
+_LOADED: dict[Instance, Built] = {}
 
 
-def load_all(names) -> dict[str, Built]:
-    """Compile the missing libraries concurrently and load every one."""
-    seconds = _compile([n for n in names if n not in _LOADED])
-    for name in names:
-        if name not in _LOADED:
-            so, log = _paths(name)
-            _LOADED[name] = Built(
+def load_all(instances) -> dict[Instance, Built]:
+    """Compile the missing instances concurrently and load every one."""
+    instances = list(dict.fromkeys(instances))
+    seconds = prebuild([i for i in instances if i not in _LOADED])
+    for inst in instances:
+        if inst not in _LOADED:
+            so, log = inst.paths()
+            _LOADED[inst] = Built(
                 lib=ctypes.CDLL(str(so)), path=so,
-                seconds=seconds.get(name, 0.0),
+                seconds=seconds.get(inst, 0.0),
                 log=log.read_text() if log.exists() else "")
-    return {name: _LOADED[name] for name in names}
+    return {inst: _LOADED[inst] for inst in instances}
 
 
-def load(name: str) -> Built:
-    """Compile ``csrc/<name>.cu`` if needed and load it."""
-    return load_all([name])[name]
+def load(inst: Instance) -> Built:
+    """Compile the instance if needed and load it."""
+    return load_all([inst])[inst]
 
 
 def check_operands(operands, contiguous=None) -> None:

@@ -26,7 +26,10 @@ tensor it launches the kernel of ``csrc/cr.cu`` or raises.  Each function
 counts its calls in a plain integer attribute (``.launches``); a sweep adds
 its number of levels to the count of its per-level wrapper.  A kernel
 wrapper also counts its launches at each (b, r) in ``.shapes`` ((b,) for
-kernel #4, which takes no right-hand side).
+kernel #4, which takes no right-hand side).  The library is built for each
+shape at its first use (``ops._build``): kernel #4 at (b, r = 0), kernels
+#3, #5 and #6 at (b, r), for 1 <= b <= 16 and 1 <= r <= 17; a shape outside
+that range raises ValueError before any launch.
 """
 
 from __future__ import annotations
@@ -208,15 +211,43 @@ for _fn in (cr_level_ref, cr_level_factor_ref, cr_level_apply_ref,
 BACKSUB_SMALL_PAIRS = 64
 
 
+MAX_RHS = 17    # r = 1 + nq at nq = 16
+# The shared memory a block may have on the card (227 KB): what
+# backsub_small's two buffers of its largest level may take.
+MAX_SMEM_BYTES = 232448
+
+
+def kernel_supports(block_size: int, nrhs: int) -> bool:
+    """Whether the CR kernels take (block size, r): 1 <= b <= 16 and 1 <= r
+    <= 17; ``nrhs=0`` asks for the factor kernel alone, which needs only the
+    block size."""
+    return 1 <= block_size <= _build.MAX_BLOCK and 0 <= nrhs <= MAX_RHS
+
+
+def instance(block_size: int, nrhs: int) -> _build.Instance:
+    """The library instance at (block size, r) (r = 0: the factor kernel);
+    raises ValueError, naming the range, for a shape the kernels do not
+    take."""
+    if not kernel_supports(block_size, nrhs):
+        raise ValueError(
+            f"the CR kernels take 1 <= b <= {_build.MAX_BLOCK} and 1 <= r <= "
+            f"{MAX_RHS} (r = 0: the factor kernel), not b={block_size}, "
+            f"r={nrhs}")
+    return _build.Instance("cr", block_size, nrhs)
+
+
 @functools.cache
-def _library() -> ctypes.CDLL:
-    lib = _build.load("cr").lib
+def _library(b: int, r: int) -> ctypes.CDLL:
+    """The instance at (b, r), built at its first use and loaded: r = 0
+    holds ``cr_factor_sweep_*``, r >= 1 ``cr_apply_sweep_*``,
+    ``cr_backsub_sweep_*`` and ``cr_level_*``."""
+    lib = _build.load(instance(b, r)).lib
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    signatures = {"cr_factor_sweep": [ptr] * 3 + [i32, i64, i32, ptr],
-                  "cr_apply_sweep": [ptr] * 4 + [i32, i32, i64, i32, ptr],
-                  "cr_backsub_sweep": [ptr] * 6 + [i32, i32, i64, i32, i64,
-                                                   ptr],
-                  "cr_level": [ptr] * 9 + [i32, i32, i64, ptr]}
+    signatures = {"cr_factor_sweep": [ptr] * 3 + [i32, i64, i32, ptr]} \
+        if r == 0 else {
+            "cr_apply_sweep": [ptr] * 4 + [i32, i32, i64, i32, ptr],
+            "cr_backsub_sweep": [ptr] * 6 + [i32, i32, i64, i32, i64, ptr],
+            "cr_level": [ptr] * 9 + [i32, i32, i64, ptr]}
     for name, argtypes in signatures.items():
         for suffix in ("_f32", "_f64"):
             fn = getattr(lib, name + suffix)
@@ -228,22 +259,32 @@ def _library() -> ctypes.CDLL:
     lib.cr_device_launches.restype = ctypes.c_ulonglong
     lib.cr_error_string.argtypes = [i32]
     lib.cr_error_string.restype = ctypes.c_char_p
+    if not lib.cr_supported(b, r):
+        raise RuntimeError(f"the library loaded for cr-b{b}-r{r} is "
+                           "another instance")
     return lib
 
 
-def kernel_supports(block_size: int, nrhs: int) -> bool:
-    """Whether the CR kernels are compiled for (block size, r); ``nrhs=0``
-    asks for the factor kernel alone, which needs only the block size."""
-    return bool(_library().cr_supported(block_size, nrhs))
-
-
 def device_launches() -> int:
-    """Kernel launches the CR library has made since it was loaded."""
-    return int(_library().cr_device_launches())
+    """Kernel launches the CR library's loaded instances have made since
+    each was loaded."""
+    return sum(int(_library(i.b, i.r).cr_device_launches())
+               for i in list(_build._LOADED) if i.lib == "cr")
 
 
-def _launch(name, dtype, device, *args):
-    lib = _library()
+def backsub_small_pairs(block_size: int, nrhs: int, itemsize: int) -> int:
+    """The largest level (in pairs) that the back-substitution sweep's
+    one-launch walk takes: BACKSUB_SMALL_PAIRS, halved until its two
+    buffers of x_even fit in a block's shared memory."""
+    small = BACKSUB_SMALL_PAIRS
+    while small and 2 * block_size * nrhs * small * itemsize > MAX_SMEM_BYTES:
+        small //= 2
+    return small
+
+
+def _launch(name, dtype, device, b, r, *args):
+    """Call entry ``name`` of the instance (b, r) for ``dtype``."""
+    lib = _library(b, r)
     fn = getattr(lib, name + ("_f32" if dtype == torch.float32 else "_f64"))
     with torch.cuda.device(device):
         rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
@@ -264,10 +305,9 @@ def _on_card(x) -> bool:
 
 def _level_shape(Ds, nrhs):
     b, _, m = Ds.shape
+    instance(b, nrhs)
     if m < 2 or m % 2:
         raise ValueError(f"a CR level needs an even chain length, not {m}")
-    if not kernel_supports(b, nrhs):
-        raise ValueError(f"the CR kernels are not built for b={b}, r={nrhs}")
     return b, m // 2
 
 
@@ -406,7 +446,7 @@ def _factor_levels(Ds, Es, levels):
     _build.check_operands([("Ds", Ds, (b, b, m)), ("Es", Es, (b, b, m))])
     b, h0 = _level_shape(Ds, 0)
     ws = Ds.new_empty(sweep_layout(5, b * b, h0, levels)[1])
-    _launch("cr_factor_sweep", Ds.dtype, Ds.device, Ds.data_ptr(),
+    _launch("cr_factor_sweep", Ds.dtype, Ds.device, b, 0, Ds.data_ptr(),
             Es.data_ptr(), ws.data_ptr(), b, h0, levels)
     _build.count_launches(cr_level_factor, (b,), levels)
     facs = FactorLevels(ws, b, h0, levels, Es)
@@ -435,7 +475,7 @@ def _apply_levels(facs, Gs):
     b, h0 = _level_shape(Gs, r)
     ws = Gs.new_empty(sweep_layout(2, b * r, h0, levels)[1])
     pointers = ctypes.c_void_p * levels
-    _launch("cr_apply_sweep", Gs.dtype, Gs.device, pointers(*lo),
+    _launch("cr_apply_sweep", Gs.dtype, Gs.device, b, r, pointers(*lo),
             pointers(*E), Gs.data_ptr(), ws.data_ptr(), b, r, h0, levels)
     _build.count_launches(cr_level_apply, (b, r), levels)
     g_new, s_g = (SweepArrays(ws, 2, (b, r), h0, levels, a) for a in range(2))
@@ -444,7 +484,9 @@ def _apply_levels(facs, Gs):
 
 def _backsub_levels(X, s_up, s_lo, s_g, small=BACKSUB_SMALL_PAIRS):
     """Kernel #6 through every level on CUDA tensors, one library call: the
-    tail's X (b, r, h) -> (b, r, 2 h0), h0 = h << (levels - 1)."""
+    tail's X (b, r, h) -> (b, r, 2 h0), h0 = h << (levels - 1).  The levels
+    of at most ``small`` pairs, and at most what fits in a block's shared
+    memory (:func:`backsub_small_pairs`), run in one launch."""
     b, r, m = X.shape
     levels = len(s_g)
     h0 = m << (levels - 1)
@@ -462,12 +504,12 @@ def _backsub_levels(X, s_up, s_lo, s_g, small=BACKSUB_SMALL_PAIRS):
             operands += [(f"{name}[{lv}]", a, (*rows, h0 >> lv))
                          for lv, a in enumerate(arrays)]
     _build.check_operands(operands)
-    if not kernel_supports(b, r):
-        raise ValueError(f"the CR kernels are not built for b={b}, r={r}")
+    instance(b, r)
+    small = min(small, backsub_small_pairs(b, r, X.element_size()))
     out = X.new_empty((b, r, 2 * h0))
     ws = X.new_empty(backsub_layout(b * r, h0, levels)[1])
     pointers = ctypes.c_void_p * levels
-    _launch("cr_backsub_sweep", X.dtype, X.device, X.data_ptr(),
+    _launch("cr_backsub_sweep", X.dtype, X.device, b, r, X.data_ptr(),
             *(pointers(*_pointers(a)) for a in (s_up, s_lo, s_g)),
             out.data_ptr(), ws.data_ptr(), b, r, h0, levels, small)
     _build.count_launches(cr_backsub, (b, r), levels)
@@ -558,7 +600,7 @@ def cr_level(Ds, Es, Gs):
     b, h = _level_shape(Ds, r)
     dn, en, su, sl = (Ds.new_empty((b, b, h)) for _ in range(4))
     gn, sg = (Ds.new_empty((b, r, h)) for _ in range(2))
-    _launch("cr_level", Ds.dtype, Ds.device,
+    _launch("cr_level", Ds.dtype, Ds.device, b, r,
             *(x.data_ptr() for x in (Ds, Es, Gs, dn, en, gn, su, sl, sg)),
             b, r, h)
     _build.count_launches(cr_level, (b, r))

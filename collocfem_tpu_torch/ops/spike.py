@@ -13,7 +13,13 @@ the CUDA library ``csrc/kkt_spike.cu`` and share one SPIKE core:
 
 On a CPU tensor each wrapper calls its plain version
 (:func:`kkt_solve_spike_fused_ref`, :func:`blocktri_solve_spike_fused_ref`);
-on a CUDA tensor it launches the kernel or raises.  Each function counts its
+on a CUDA tensor it launches the kernel or raises.  The library is built
+for each shape at its first use (``ops._build``): kernel #1 for any block
+size 1 <= b <= 16 and 1 <= nq <= 16 (the instance ``kkt_spike`` at r = 1 +
+nq), kernel #2 for 1 <= b <= 16 and 1 <= r <= 1 + 16 + 2 b (the sharded
+interior's [G | U | V], ``parallel/spike.py``; the instance
+``spike_chain``).  A shape outside that range raises ValueError before any
+launch.  Each function counts its
 calls in a plain integer attribute (``.launches``) so that a run can show
 which path it took; a kernel wrapper also counts its launches at each (b,
 nq or r) in ``.shapes``.
@@ -53,37 +59,65 @@ def _plan(K: int, T: int | None = None) -> tuple[int, int]:
     return -(-K // L), L
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = _build.load("kkt_spike").lib
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for name in ("kkt_spike_f32", "kkt_spike_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ptr] * 8 + [i32, i32, i64, i32, i32, ptr]
-        fn.restype = i32
-    for name in ("spike_chain_f32", "spike_chain_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ptr] * 5 + [i32, i32, i64, i32, i32, ptr]
-        fn.restype = i32
-    for name in ("kkt_spike_supported", "spike_chain_supported"):
-        getattr(lib, name).argtypes = [i32, i32]
-        getattr(lib, name).restype = i32
-    for name in ("kkt_spike_scratch_elems", "spike_chain_scratch_elems"):
-        getattr(lib, name).argtypes = [i32, i32, i32, i32]
-        getattr(lib, name).restype = i64
-    lib.kkt_spike_error_string.argtypes = [i32]
-    lib.kkt_spike_error_string.restype = ctypes.c_char_p
-    return lib
+MAX_NQ = 16    # the parameters of kernel #1's unrolled Schur solve
 
 
 def kernel_supports(block_size: int, nq: int) -> bool:
-    """Whether the fused KKT kernel is compiled for this (block size, nq)."""
-    return bool(_library().kkt_spike_supported(block_size, nq))
+    """Whether the fused KKT kernel takes (block size, nq): 1 <= b <= 16,
+    1 <= nq <= 16."""
+    return 1 <= block_size <= _build.MAX_BLOCK and 1 <= nq <= MAX_NQ
 
 
 def chain_kernel_supports(block_size: int, nrhs: int) -> bool:
-    """Whether the plain chain kernel is compiled for this (block size, r)."""
-    return bool(_library().spike_chain_supported(block_size, nrhs))
+    """Whether the plain chain kernel takes (block size, r): 1 <= b <= 16,
+    1 <= r <= 1 + 16 + 2 b (the sharded interior's [G | U | V] at nq =
+    16)."""
+    return (1 <= block_size <= _build.MAX_BLOCK
+            and 1 <= nrhs <= 1 + MAX_NQ + 2 * block_size)
+
+
+def kkt_instance(block_size: int, nq: int) -> _build.Instance:
+    """The library instance of kernel #1 at (block size, nq); raises
+    ValueError, naming the range, for a shape the kernel does not take."""
+    if not kernel_supports(block_size, nq):
+        raise ValueError(
+            f"kernel #1 takes 1 <= b <= {_build.MAX_BLOCK} and 1 <= nq <= "
+            f"{MAX_NQ}, not b={block_size}, nq={nq}")
+    return _build.Instance("kkt_spike", block_size, 1 + nq)
+
+
+def chain_instance(block_size: int, nrhs: int) -> _build.Instance:
+    """The library instance of kernel #2 at (block size, r); raises
+    ValueError, naming the range, for a shape the kernel does not take."""
+    if not chain_kernel_supports(block_size, nrhs):
+        raise ValueError(
+            f"kernel #2 takes 1 <= b <= {_build.MAX_BLOCK} and 1 <= r <= 1 + "
+            f"{MAX_NQ} + 2 b, not b={block_size}, r={nrhs}")
+    return _build.Instance("spike_chain", block_size, nrhs)
+
+
+@functools.cache
+def _library(inst: _build.Instance) -> ctypes.CDLL:
+    """The instance ``inst`` (``kkt_spike`` or ``spike_chain``), built at its
+    first use and loaded."""
+    cdll = _build.load(inst).lib
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    kkt = inst.lib == "kkt_spike"
+    for suffix in ("_f32", "_f64"):
+        fn = getattr(cdll, inst.lib + suffix)
+        fn.argtypes = [ptr] * (8 if kkt else 5) + [i32, i32, i64, i32, i32,
+                                                   ptr]
+        fn.restype = i32
+    supported = getattr(cdll, inst.lib + "_supported")
+    supported.argtypes, supported.restype = [i32, i32], i32
+    elems = getattr(cdll, inst.lib + "_scratch_elems")
+    elems.argtypes, elems.restype = [i32, i32, i32, i32], i64
+    cdll.kkt_spike_error_string.argtypes = [i32]
+    cdll.kkt_spike_error_string.restype = ctypes.c_char_p
+    if not supported(inst.b, inst.r - kkt):      # (b, nq) for kernel #1
+        raise RuntimeError(f"the library loaded for {inst.name} is another "
+                           "instance")
+    return cdll
 
 
 def kkt_solve_spike_fused_ref(D, E, B, gx, C, gp, lam, damp_scale=None):
@@ -97,15 +131,15 @@ def kkt_solve_spike_fused_ref(D, E, B, gx, C, gp, lam, damp_scale=None):
 _build.register(kkt_solve_spike_fused_ref, shapes=False)
 
 
-def _check(D, E, B, gx, C, gp):
+def _check(D, E, B, gx, C, gp) -> _build.Instance:
+    """Check the operands; returns kernel #1's instance at their shape."""
     b, _, K = D.shape
     nq = B.shape[1]
     _build.check_operands(
         [("D", D, (b, b, K)), ("E", E, (b, b, K)), ("B", B, (b, nq, K)),
          ("gx", gx, (b, K)), ("C", C, (nq, nq)), ("gp", gp, (nq,))],
         contiguous=("D", "E"))
-    if nq < 1 or not kernel_supports(b, nq):
-        raise ValueError(f"the kernel is not built for b={b}, nq={nq}")
+    return kkt_instance(b, nq)
 
 
 def kkt_solve_spike_fused(D, E, B, gx, C, gp, lam, damp_scale=None):
@@ -121,7 +155,7 @@ def kkt_solve_spike_fused(D, E, B, gx, C, gp, lam, damp_scale=None):
         return kkt_solve_spike_fused_ref(D, E, B, gx, C, gp, lam, damp_scale)
     if D.device.type != "cuda":
         raise ValueError(f"no kernel for tensors on {D.device}")
-    _check(D, E, B, gx, C, gp)
+    inst = _check(D, E, B, gx, C, gp)
     b, _, K = D.shape
     nq = B.shape[1]
     lam_abs, dmax, inv, c_damped, inv_sp = damping_scales(D, C, lam,
@@ -130,7 +164,7 @@ def kkt_solve_spike_fused(D, E, B, gx, C, gp, lam, damp_scale=None):
     cg = torch.cat([c_damped * inv_sp[:, None] * inv_sp[None, :],
                     (gp * inv_sp)[:, None]], dim=1)
     T, L = _plan(K)
-    lib = _library()
+    lib = _library(inst)
     scratch = D.new_empty(lib.kkt_spike_scratch_elems(b, nq, T, L))
     dx = D.new_empty((b, K))
     t = D.new_empty((nq,))
@@ -181,10 +215,8 @@ def blocktri_solve_spike_fused(Ds, Es, Gs):
     r = Gs.shape[1]
     _build.check_operands([("Ds", Ds, (b, b, K)), ("Es", Es, (b, b, K)),
                            ("Gs", Gs, (b, r, K))])
-    if not chain_kernel_supports(b, r):
-        raise ValueError(f"the chain kernel is not built for b={b}, r={r}")
+    lib = _library(chain_instance(b, r))
     T, L = _plan(K)
-    lib = _library()
     scratch = Ds.new_empty(lib.spike_chain_scratch_elems(b, r, T, L))
     X = Ds.new_empty((b, r, K))
     fn = lib.spike_chain_f32 if Ds.dtype == torch.float32 else \

@@ -9,7 +9,10 @@ block-Cholesky forward sweep and back-substitution.
 ``csrc/thomas.cu`` on a CUDA tensor (or raises) and calls
 :func:`batched_thomas_solve_ref`, the plain version, on a CPU tensor.  Each
 counts its calls in a plain integer attribute (``.launches``); the kernel
-wrapper also counts its launches at each (b, r) in ``.shapes``.
+wrapper also counts its launches at each (b, r) in ``.shapes``.  The kernel
+is built for each (b, r) at its first use (``ops._build``), for 1 <= b <= 16
+and 1 <= r <= 17; a shape outside that range raises ValueError before any
+launch.
 """
 
 from __future__ import annotations
@@ -23,9 +26,29 @@ from collocfem_tpu_torch.ops import _build
 from collocfem_tpu_torch.ops import smallblocks as sb
 
 
+MAX_RHS = 17    # r = 1 + nq at nq = 16
+
+
+def kernel_supports(block_size: int, nrhs: int) -> bool:
+    """Whether the kernel takes (block size, r): 1 <= b <= 16, 1 <= r <=
+    17."""
+    return 1 <= block_size <= _build.MAX_BLOCK and 1 <= nrhs <= MAX_RHS
+
+
+def instance(block_size: int, nrhs: int) -> _build.Instance:
+    """The library instance at (block size, r); raises ValueError, naming
+    the range, for a shape the kernel does not take."""
+    if not kernel_supports(block_size, nrhs):
+        raise ValueError(
+            f"kernel #7 takes 1 <= b <= {_build.MAX_BLOCK} and 1 <= r <= "
+            f"{MAX_RHS}, not b={block_size}, r={nrhs}")
+    return _build.Instance("thomas", block_size, nrhs)
+
+
 @functools.cache
-def _library() -> ctypes.CDLL:
-    lib = _build.load("thomas").lib
+def _library(b: int, r: int) -> ctypes.CDLL:
+    """The instance at (b, r), built at its first use and loaded."""
+    lib = _build.load(instance(b, r)).lib
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for name in ("thomas_f32", "thomas_f64"):
         fn = getattr(lib, name)
@@ -35,12 +58,10 @@ def _library() -> ctypes.CDLL:
     lib.thomas_supported.restype = i32
     lib.thomas_error_string.argtypes = [i32]
     lib.thomas_error_string.restype = ctypes.c_char_p
+    if not lib.thomas_supported(b, r):
+        raise RuntimeError(f"the library loaded for thomas-b{b}-r{r} is "
+                           "another instance")
     return lib
-
-
-def kernel_supports(block_size: int, nrhs: int) -> bool:
-    """Whether the CUDA library is compiled for this (block size, r)."""
-    return bool(_library().thomas_supported(block_size, nrhs))
 
 
 def batched_thomas_solve_ref(D, E, G):
@@ -78,10 +99,10 @@ def batched_thomas_solve(D, E, G):
     _build.check_operands([("D", D, (n_exp, k, b, b)),
                            ("E", E, (n_exp, k, b, b)),
                            ("G", G, (n_exp, k, b, r))])
-    if n_exp < 1 or k < 1 or not kernel_supports(b, r):
-        raise ValueError(f"the kernel is not built for b={b}, r={r} "
-                         f"(n_exp={n_exp}, K={k})")
-    lib = _library()
+    if n_exp < 1 or k < 1:
+        raise ValueError(f"kernel #7 needs n_exp >= 1 and K >= 1, not "
+                         f"n_exp={n_exp}, K={k}")
+    lib = _library(b, r)
     X = G.new_empty(G.shape)
     lf = D.new_empty((n_exp, k, b, 2 * b))      # each lane's row and column
     fn = lib.thomas_f32 if D.dtype == torch.float32 else lib.thomas_f64

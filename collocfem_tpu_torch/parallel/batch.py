@@ -75,6 +75,17 @@ def concat_chain_solver():
     return blocktri_solve_spike_fused
 
 
+def _load_chain_kernel(problem, layout):
+    """Build and load the layout's chain kernel at the problem's shape (b,
+    r = 1 + nq) when the solver is made, not inside a CUDA-graph capture;
+    raises ValueError for a shape outside the kernel's range."""
+    from collocfem_tpu_torch.ops import _build, spike, thomas
+
+    b, r = problem.mesh.degree * problem.nv, 1 + problem.model.nq
+    _build.load(spike.chain_instance(b, r) if layout == "soa"
+                else thomas.instance(b, r))
+
+
 def batch_cost(problem, z: BatchDecision, data_batch, p_prior, p_w,
                dp_axis=None):
     """float64 total cost over the batch plus the shared parameter prior;
@@ -270,6 +281,9 @@ def make_multi_experiment_solver(problem, options: SolverOptions =
         layout = "blocks" if chain_solver is not None else "soa"
     if layout not in ("soa", "blocks"):
         raise ValueError(f"unknown layout {layout!r}")
+    if torch.device(problem.device).type == "cuda" and (
+            layout == "soa" or chain_solver is None):
+        _load_chain_kernel(problem, layout)
 
     if layout == "soa":
         chain_solve = concat_chain_solver()

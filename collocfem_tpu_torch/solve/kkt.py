@@ -32,49 +32,58 @@ def resolve_auto_method(block_size: int, nq: int, device,
     """'auto' method policy: the SPIKE CUDA kernels on a CUDA device, the
     plain cyclic reduction on the CPU.
 
-    The gate is the kernels' own limit: each is compiled for a fixed set of
-    shapes.  ``refine == 0`` with ``nq > 0`` needs the fused KKT kernel at
-    (block size, nq); refinement and ``nq == 0`` need the chain kernel at
-    (block size, 1 + nq) and (block size, 1).  A shape outside that set
-    raises on the card rather than quietly running the plain solve there.
+    On the card the gate is the kernels' range: ``refine == 0`` with
+    ``nq > 0`` needs the fused KKT kernel at (block size, nq) (1 <= b <= 16,
+    1 <= nq <= 16); refinement and ``nq == 0`` need the chain kernel at
+    (block size, 1 + nq) and (block size, 1).  A shape outside the range
+    raises ValueError, naming it, rather than quietly running the plain
+    solve there.  Nothing is built here (:func:`resolve_method` builds).
     """
     if torch.device(device).type != "cuda":
         return "cr"
-    from collocfem_tpu_torch.ops.spike import (chain_kernel_supports,
-                                               kernel_supports)
-
-    if nq > 0 and refine == 0:
-        ok, what = kernel_supports(block_size, nq), f"nq={nq}"
-    else:
-        ok = all(chain_kernel_supports(block_size, r) for r in {1, 1 + nq})
-        what = f"r in {{1, {1 + nq}}}"
-    if not ok:
-        raise ValueError(
-            f"the SPIKE kernels are not built for block size {block_size} "
-            f"with {what}; add the shape to csrc/kkt_spike.cu")
+    _spike_instances(block_size, nq, refine)
     return "spike"
 
 
 def require_cr_shapes(block_size: int, nq: int, device, refine: int = 0):
-    """On a CUDA device, raise unless the CR kernels are compiled for every
-    right-hand-side count the KKT solve gives them: r = 1 + nq for
-    [gx | B] and r = 1 for refinement passes or nq = 0."""
+    """On a CUDA device, raise ValueError, naming the range, unless the CR
+    kernels take every right-hand-side count the KKT solve gives them: r =
+    1 + nq for [gx | B] and r = 1 for refinement passes or nq = 0 (1 <= b
+    <= 16, 1 <= r <= 17).  Nothing is built here."""
     if torch.device(device).type != "cuda":
         return
-    from collocfem_tpu_torch.ops.cr import kernel_supports
+    _cr_instances(block_size, nq, refine)
 
-    counts = {1 + nq} | ({1} if refine or nq == 0 else set())
-    missing = sorted(r for r in counts if not kernel_supports(block_size, r))
-    if missing:
-        raise ValueError(
-            f"the CR kernels are not built for block size {block_size} with "
-            f"r in {missing}; add the shape to csrc/cr.cu")
+
+def _spike_instances(block_size, nq, refine):
+    """The SPIKE library instances a KKT solve at (block size, nq) runs:
+    kernel #1 at nq for ``refine == 0`` with ``nq > 0``, else kernel #2 at
+    r = 1 + nq and r = 1.  Raises ValueError outside the kernels' range."""
+    from collocfem_tpu_torch.ops import spike
+
+    if nq > 0 and refine == 0:
+        return [spike.kkt_instance(block_size, nq)]
+    return [spike.chain_instance(block_size, r) for r in sorted({1, 1 + nq})]
+
+
+def _cr_instances(block_size, nq, refine):
+    """The CR library instances a KKT solve at (block size, nq) runs: the
+    factor kernel (r = 0) and the right-hand-side kernels at r = 1 + nq
+    (and r = 1 for refinement passes or nq = 0).  Raises ValueError outside
+    the kernels' range."""
+    from collocfem_tpu_torch.ops import cr
+
+    counts = {0, 1 + nq} | ({1} if refine or nq == 0 else set())
+    return [cr.instance(block_size, r) for r in sorted(counts)]
 
 
 def resolve_method(problem, method: str, refine: int = 0) -> str:
     """The solvers' method policy for ``problem``: 'auto' through
-    :func:`resolve_auto_method`; 'cr' checks the CR kernels' shapes on the
-    card (:func:`require_cr_shapes`); 'cr_dw' is not ported."""
+    :func:`resolve_auto_method`; 'cr' checks the CR kernels' range on the
+    card (:func:`require_cr_shapes`); 'cr_dw' is not ported.  On a CUDA
+    device it also builds and loads every kernel instance the solve will
+    run (``ops._build``), at the solver's construction, so that no nvcc run
+    and no library load happens inside a CUDA-graph capture."""
     if method == "cr_dw":
         raise NotImplementedError(
             "method='cr_dw' is not ported: float64 takes the place of the "
@@ -82,11 +91,15 @@ def resolve_method(problem, method: str, refine: int = 0) -> str:
     block_size = problem.mesh.degree * problem.nv
     nq = problem.model.nq
     if method == "auto":
-        return resolve_auto_method(block_size, nq, problem.device, refine)
-    if method not in ("spike", "cr"):
+        method = resolve_auto_method(block_size, nq, problem.device, refine)
+    elif method not in ("spike", "cr"):
         raise ValueError(f"unknown method {method!r}")
-    if method == "cr":
-        require_cr_shapes(block_size, nq, problem.device, refine)
+    if torch.device(problem.device).type == "cuda":
+        from collocfem_tpu_torch.ops import _build
+
+        instances = (_spike_instances if method == "spike" else
+                     _cr_instances)(block_size, nq, refine)
+        _build.load_all(instances)
     return method
 
 

@@ -238,9 +238,10 @@ def host_pieces(dev, record):
         "factor sweep": lambda: cr.cr_factor_sweep(Ds, Es, bt.TAIL),
         "apply sweep": lambda: cr.cr_apply_sweep(facs, Gs),
         "library call, 12 levels": lambda: cr._launch(
-            "cr_factor_sweep", Ds.dtype, dev, *pointers, b, h0, levels),
+            "cr_factor_sweep", Ds.dtype, dev, b, 0, *pointers, b, h0,
+            levels),
         "library call, 1 level": lambda: cr._launch(
-            "cr_factor_sweep", Ds.dtype, dev, *pointers, b, h0, 1),
+            "cr_factor_sweep", Ds.dtype, dev, b, 0, *pointers, b, h0, 1),
         "views of 12 levels": lambda: [
             cr._level_views(ws, start, 5, (b, b), h0 >> lv)
             for lv, start in enumerate(starts)],
@@ -292,11 +293,12 @@ def main() -> int:
                           text=True, check=True).stdout.strip()
     record = {"card": card}
     print(f"card {card}", flush=True)
-    built = _build.load("cr")
-    print(f"built cr in {built.seconds:.1f} s", flush=True)
-    for ln in built.log.splitlines():
-        if "registers" in ln or "spill" in ln or "Compiling" in ln:
-            print("  " + ln.strip())
+    built = _build.load_all([cr.instance(8, r) for r in (0, 2, 3)])
+    for inst, b in built.items():
+        print(f"built {inst.name} in {b.seconds:.1f} s", flush=True)
+        for ln in b.log.splitlines():
+            if "registers" in ln or "spill" in ln or "Compiling" in ln:
+                print("  " + ln.strip())
     sweeps(dev, record)
     host_pieces(dev, record)
     if args.solves:

@@ -220,8 +220,10 @@ def main() -> int:
                           text=True, check=True).stdout.strip()
     record = {"card": card}
     print(f"card {card}", flush=True)
-    built = _build.load("kkt_spike")
-    print(f"built kkt_spike in {built.seconds:.1f} s", flush=True)
+    built = _build.load_all([spike.kkt_instance(8, 2),
+                             spike.chain_instance(8, 3)])
+    for inst, b in built.items():
+        print(f"built {inst.name} in {b.seconds:.1f} s", flush=True)
     sweep(dev, record)
     if args.solves:
         solves(dev, record)

@@ -30,7 +30,8 @@ def _close(got, want, rtol):
                                    atol=rtol * float(np.abs(w).max()))
 
 
-@pytest.fixture(scope="module", params=[(8, 3), (4, 1)], ids=str)
+@pytest.fixture(scope="module", params=[(8, 3), (4, 1), (2, 2), (4, 3)],
+                ids=str)
 def level(request):
     """One level's inputs at m = 64 (torch and JAX) and the JAX kernels'
     outputs, each computed once."""
@@ -107,6 +108,24 @@ def test_chain_solves_match_jax(k):
     # A vector right-hand side (K, b) comes back as a vector.
     x1 = bt.blocktri_solve_cr(aos[0], aos[1], aos[2][..., 0])
     _close([x1], [want[..., 0]], 1e-9)
+
+
+@pytest.mark.parametrize("b,r", [(2, 2), (4, 3), (12, 1), (16, 1),
+                                 (16, 17)])
+def test_chain_solves_match_jax_at_other_block_sizes(b, r):
+    """The port's CR chain solves (the plain walk the CR kernels are held
+    against, and blocktri_solve_cr) at the block sizes the card now runs
+    (config 3's 12, the split actuator's 16 up to r = 17) against the JAX
+    package's plain block Thomas solve, blocktri_solve_scan (its CR and the
+    Pallas levels' interpret mode take minutes to compile at b = 16):
+    within 1e-9."""
+    D, E, G = random_chain(130, b, r, seed=b + r)
+    aos = [a.permute(2, 0, 1).contiguous() for a in (D, E, G)]
+    want = np.asarray(jax_bt.blocktri_solve_scan(
+        *(jnp.asarray(a.numpy()) for a in aos)))
+    got = [bt.blocktri_cr_factor_soa(D, E)(G).permute(2, 0, 1),
+           bt.blocktri_solve_cr(*aos)]
+    _close(got, [want] * len(got), 1e-9)
 
 
 @pytest.mark.parametrize("k", [1, 2, 9, 130])

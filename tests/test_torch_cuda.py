@@ -117,14 +117,20 @@ def test_kernel_is_deterministic(cuda_device):
 
 @pytest.mark.cuda
 def test_kernel_rejects_what_it_does_not_take(cuda_device):
+    """Kernel #1 refuses a non-contiguous D and, before any launch, a shape
+    outside its range (b = 17, nq = 17), with the range in the message."""
     sys_ = random_kkt_system(9, 8, 2, seed=0, device=cuda_device)
     args = (sys_.B, sys_.gx, sys_.C, sys_.gp, 1e-3)
     with pytest.raises(ValueError, match="contiguous"):
         spike.kkt_solve_spike_fused(sys_.D.transpose(0, 1), sys_.E, *args)
-    with pytest.raises(ValueError, match="not built"):
-        other = random_kkt_system(9, 8, 4, seed=0, device=cuda_device)
-        spike.kkt_solve_spike_fused(*other[:2], other.B, other.gx, other.C,
-                                    other.gp, 1e-3)
+    launches = spike.kkt_solve_spike_fused.launches
+    for b, nq in ((8, 17), (17, 2)):
+        other = random_kkt_system(9, b, nq, seed=0, device=cuda_device)
+        with pytest.raises(ValueError, match=r"1 <= b <= 16 and 1 <= nq <= "
+                                             r"16"):
+            spike.kkt_solve_spike_fused(*other[:2], other.B, other.gx,
+                                        other.C, other.gp, 1e-3)
+    assert spike.kkt_solve_spike_fused.launches == launches
 
 
 @pytest.mark.cuda
@@ -198,14 +204,22 @@ def test_refined_kkt_runs_the_chain_kernel(cuda_device, nq, refine):
 
 @pytest.mark.cuda
 def test_chain_kernels_reject_what_they_do_not_take(cuda_device):
-    D, E, G = random_chain(9, 8, 2, seed=0, device=cuda_device)
-    with pytest.raises(ValueError, match="not built"):
+    """Kernels #2 and #7 refuse, before any launch, a shape outside their
+    range (#2: r past 1 + 16 + 2 b, b = 17; #7: r = 18, b = 17), with the
+    range in the message, and kernel #2 a non-contiguous G."""
+    D, E, G = random_chain(9, 8, 34, seed=0, device=cuda_device)
+    with pytest.raises(ValueError, match=r"1 <= r <= 1 \+ 16 \+ 2 b"):
         spike.blocktri_solve_spike_fused(D, E, G)
     with pytest.raises(ValueError, match="contiguous"):
         spike.blocktri_solve_spike_fused(D, E, G[:, :1])
-    D, E, G = random_chain_batch(4, 3, 8, 2, seed=0, device=cuda_device)
-    with pytest.raises(ValueError, match="not built"):
-        thomas.batched_thomas_solve(D, E, G)
+    D, E, G = random_chain(9, 17, 1, seed=0, device=cuda_device)
+    with pytest.raises(ValueError, match=r"1 <= b <= 16"):
+        spike.blocktri_solve_spike_fused(D, E, G)
+    for b, r in ((8, 18), (17, 3)):
+        D, E, G = random_chain_batch(4, 3, b, r, seed=0, device=cuda_device)
+        with pytest.raises(ValueError, match=r"1 <= b <= 16 and 1 <= r <= "
+                                             r"17"):
+            thomas.batched_thomas_solve(D, E, G)
 
 
 def _launches(fns):
@@ -311,7 +325,10 @@ def _hold_backsub_sweep(Ds, Es, Gs, tail):
     levels, h0 = len(facs), Ds.shape[-1] // 2
     before, n0 = cr.cr_backsub.launches, cr.device_launches()
     got = cr.cr_backsub_sweep(X, s_up, s_lo, s_g)
-    assert cr.device_launches() - n0 == cr.backsub_sweep_launches(h0, levels)
+    small = cr.backsub_small_pairs(Ds.shape[0], Gs.shape[1],
+                                   Gs.element_size())
+    assert cr.device_launches() - n0 == cr.backsub_sweep_launches(h0, levels,
+                                                                  small)
     assert cr.cr_backsub.launches - before == levels
     per_level = X
     for lv in reversed(range(levels)):
@@ -403,15 +420,19 @@ def test_cr_sweep_on_a_tail_launches_nothing(cuda_device):
 
 @pytest.mark.cuda
 def test_cr_kernels_reject_what_they_do_not_take(cuda_device):
-    D, E, G = random_chain(16, 8, 5, seed=0, device=cuda_device)
-    with pytest.raises(ValueError, match="not built"):
+    """The CR kernels refuse, before any launch, r = 18 and b = 17, with the
+    range in the message, an odd chain and a non-contiguous D."""
+    D, E, G = random_chain(16, 8, 18, seed=0, device=cuda_device)
+    before = _launches(CR_KERNELS)
+    with pytest.raises(ValueError, match=r"1 <= b <= 16 and 1 <= r <= 17"):
         cr.cr_level(D, E, G)
     (_, _), fac = cr.cr_level_factor(D, E)
-    with pytest.raises(ValueError, match="not built"):
+    with pytest.raises(ValueError, match=r"1 <= b <= 16 and 1 <= r <= 17"):
         cr.cr_level_apply(fac, G)
-    D3, E3, _ = random_chain(16, 3, 1, seed=0, device=cuda_device)
-    with pytest.raises(ValueError, match="not built"):
-        cr.cr_level_factor(D3, E3)
+    D17, E17, _ = random_chain(16, 17, 1, seed=0, device=cuda_device)
+    with pytest.raises(ValueError, match=r"1 <= b <= 16"):
+        cr.cr_level_factor(D17, E17)
+    assert _launches(CR_KERNELS) == [before[0], before[1] + 1, *before[2:]]
     with pytest.raises(ValueError, match="even"):
         cr.cr_level_factor(D[..., :15].contiguous(), E[..., :15].contiguous())
     with pytest.raises(ValueError, match="contiguous"):
@@ -567,6 +588,202 @@ def test_plain_versions_launch_no_kernel(cuda_device):
     assert _launches(KERNELS) == before
 
 
+# ---- every block size (per-shape builds, ops/_build.py) ---------------------
+
+# The block sizes of the CR sweep: the powers of two, odd b (3: a block of
+# 96 threads; backsub_small of 480), the MHE window's 6, config 3's 12 and
+# the split actuator's 16 (float64 tiles of 16 pairs).
+CR_BLOCKS = [1, 2, 3, 4, 6, 12, 16]
+# The instances the sweeps below and the range-edge test run, built at once.
+SWEEP_INSTANCES = (
+    [spike.kkt_instance(b, 2) for b in range(1, 17)]
+    + [spike.chain_instance(b, r) for b in range(1, 17) for r in (1, 3)]
+    + [thomas.instance(b, 3) for b in range(1, 17)]
+    + [cr.instance(b, r) for b in CR_BLOCKS for r in (0, 1, 3)]
+    + [spike.kkt_instance(16, 16), spike.chain_instance(16, 49),
+       spike.chain_instance(1, 19), thomas.instance(16, 17),
+       thomas.instance(1, 17), cr.instance(16, 17), cr.instance(13, 0),
+       cr.instance(13, 17), cr.instance(1, 17)])
+
+
+@pytest.fixture(scope="module")
+def sweep_built():
+    """Every instance of SWEEP_INSTANCES, built concurrently
+    (``_build.prebuild``) and loaded."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernel has no CPU mode)")
+    from collocfem_tpu_torch.ops import _build
+
+    _build.load_all(SWEEP_INSTANCES)
+
+
+def _hold(dtype, got, want, residual):
+    """Phase 2's bars: float64 relative difference <= 1e-9; float32 the
+    kernel's residual at most 10x the plain version's."""
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    if dtype == torch.float64:
+        assert rel_err(got, want) <= 1e-9
+    else:
+        assert residual(got) <= 10 * residual(want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", range(1, 17))
+def test_kkt_kernel_at_every_block_size(cuda_device, sweep_built, b):
+    """Kernel #1 at (b, nq = 2) for every 1 <= b <= 16 (lane groups of 1,
+    2, 4, 8 and 16, lanes b..W-1 idle) on seeded systems, K at the tile
+    plan's edges and 1,000, against its plain version at phase 2's bars;
+    each call one launch counted at (b, 2)."""
+    for dtype, k in itertools.product((torch.float64, torch.float32),
+                                      EDGES + [1000]):
+        s = random_kkt_system(k, b, 2, seed=k + b, dtype=dtype,
+                              device=cuda_device)
+        before = spike.kkt_solve_spike_fused.shapes.get((b, 2), 0)
+        got, want = _solve_both(s, 1e-3, None)
+        assert spike.kkt_solve_spike_fused.shapes[(b, 2)] == before + 1
+        assert all(bool(torch.isfinite(g).all()) for g in got[:2])
+        if dtype == torch.float64:
+            assert rel_err(got[0], want[0]) <= 1e-9
+            assert rel_err(got[1], want[1]) <= 1e-9
+        else:
+            assert kkt_residual(s, got[0], got[1], 1e-3, got[2]) <= \
+                10 * kkt_residual(s, want[0], want[1], 1e-3, want[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", range(1, 17))
+def test_chain_kernel_at_every_block_size(cuda_device, sweep_built, b):
+    """Kernel #2 at (b, 1) and (b, 3) for every 1 <= b <= 16, on seeded
+    chains with zero couplings every 11 blocks, K at the tile plan's edges
+    and 1,000, against its plain version at phase 2's bars."""
+    for dtype, k, r in itertools.product((torch.float64, torch.float32),
+                                         EDGES + [1000], (1, 3)):
+        D, E, G = random_chain(k, b, r, seed=k + r + b, boundary=11,
+                               dtype=dtype, device=cuda_device)
+        launches = spike.blocktri_solve_spike_fused.launches
+        got = spike.blocktri_solve_spike_fused(D, E, G)
+        assert spike.blocktri_solve_spike_fused.launches == launches + 1
+        _hold(dtype, got, spike.blocktri_solve_spike_fused_ref(D, E, G),
+              lambda X: chain_residual(D, E, G, X))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", range(1, 17))
+def test_thomas_kernel_at_every_block_size(cuda_device, sweep_built, b):
+    """Kernel #7 at (b, 3) for every 1 <= b <= 16 (a group of
+    group_width(b) lanes a chain), on batches that leave a ragged last warp
+    and block, against its plain version at phase 2's bars."""
+    for dtype, n_exp, k in itertools.product(
+            (torch.float64, torch.float32), (1, 5, 1000), (1, 2, 11)):
+        D, E, G = random_chain_batch(n_exp, k, b, 3, seed=n_exp + k + b,
+                                     dtype=dtype, device=cuda_device)
+        launches = thomas.batched_thomas_solve.launches
+        got = thomas.batched_thomas_solve(D, E, G)
+        assert thomas.batched_thomas_solve.launches == launches + 1
+        _hold(dtype, got, thomas.batched_thomas_solve_ref(D, E, G),
+              lambda X: batch_residual(D, E, G, X))
+
+
+def _hold_cr_at(b, r, dtype, device):
+    """Kernels #3-#6 at (b, r): one level on both sides of a pass block's
+    31 (or 15) stored pairs, the sweeps of a whole solve, each against its
+    plain version (``testing.level_bar``; whole solves at phase 2's bars)."""
+    for m in (2, 32, 64, 66, 1000):
+        D, E, G = random_chain(m, b, r, seed=m + r + b, dtype=dtype,
+                               device=device)
+        for name, outs in cr_level_comparison(D, E, G).items():
+            torch.cuda.synchronize()
+            ok, worst = level_bar(*outs)
+            assert ok, (name, b, r, m, dtype, worst)
+    for k in (17, 1000):
+        D, E, G = random_chain(k, b, r, seed=k + r + b, dtype=dtype,
+                               device=device)
+        Ds, Es = bt._pad_pow2_soa(D, E)
+        _hold_backsub_sweep(Ds, Es, bt._pad_rhs(G, Ds.shape[-1]), bt.TAIL)
+        _hold(dtype, bt.blocktri_cr_factor_soa(D, E)(G),
+              bt.blocktri_cr_factor_plain(D, E)(G),
+              lambda X: chain_residual(D, E, G, X))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", CR_BLOCKS)
+def test_cr_kernels_at_other_block_sizes(cuda_device, sweep_built, b):
+    """Kernels #3-#6 at b in CR_BLOCKS with r = 1 and 3 (_hold_cr_at)."""
+    for dtype, r in itertools.product((torch.float64, torch.float32), (1, 3)):
+        _hold_cr_at(b, r, dtype, cuda_device)
+
+
+@pytest.mark.cuda
+def test_kernels_at_the_range_edges(cuda_device, sweep_built):
+    """The largest shapes of each range and the smallest block size at the
+    largest r: #1 at (16, nq = 16), #2 at (16, 49) and (1, 19), #7 at (16,
+    17) and (1, 17), #3-#6 at (16, 17), (13, 17) (tiles of 16 pairs, a
+    half-warp with no column) and (1, 17), against their plain versions at
+    phase 2's bars."""
+    for dtype in (torch.float64, torch.float32):
+        for k in (9, 97):
+            s = random_kkt_system(k, 16, 16, seed=k, dtype=dtype,
+                                  device=cuda_device)
+            got, want = _solve_both(s, 1e-3, None)
+            if dtype == torch.float64:
+                assert rel_err(got[0], want[0]) <= 1e-9
+                assert rel_err(got[1], want[1]) <= 1e-9
+            else:
+                assert kkt_residual(s, got[0], got[1], 1e-3, got[2]) <= \
+                    10 * kkt_residual(s, want[0], want[1], 1e-3, want[2])
+            for b, r in ((16, 49), (1, 19)):
+                D, E, G = random_chain(k, b, r, seed=k + r, dtype=dtype,
+                                       device=cuda_device)
+                _hold(dtype, spike.blocktri_solve_spike_fused(D, E, G),
+                      spike.blocktri_solve_spike_fused_ref(D, E, G),
+                      lambda X: chain_residual(D, E, G, X))
+        for b in (16, 1):
+            D, E, G = random_chain_batch(37, 5, b, 17, seed=b, dtype=dtype,
+                                         device=cuda_device)
+            _hold(dtype, thomas.batched_thomas_solve(D, E, G),
+                  thomas.batched_thomas_solve_ref(D, E, G),
+                  lambda X: batch_residual(D, E, G, X))
+        for b in (16, 13, 1):
+            _hold_cr_at(b, 17, dtype, cuda_device)
+
+
+@pytest.mark.cuda
+def test_captured_solver_builds_a_new_shape_at_construction(
+        cuda_device, tmp_path, monkeypatch):
+    """make_gn_solver on Van der Pol at degree 3 (b = 6, nq = 2: kernel #1's
+    instance (6, r = 3)), with an empty build directory: making the solver
+    builds and loads the instance, before any call and so outside the
+    CUDA-graph capture; the captured solve then equals solve.eager bit for
+    bit with the same launches, kernel #1 at (6, 2) once per iteration."""
+    from collocfem_tpu_torch.headline import build_headline_problem
+    from collocfem_tpu_torch.models import VanDerPol
+    from collocfem_tpu_torch.ops import _build
+    from collocfem_tpu_torch.problem import EstimationProblem
+    from collocfem_tpu_torch.solve.newton import SolverOptions, make_gn_solver
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_LOADED", {})
+    spike._library.cache_clear()
+    try:
+        inst = spike.kkt_instance(6, 2)
+        mesh, t, y, u = build_headline_problem(50, degree=3)
+        prob = EstimationProblem.build(VanDerPol(), mesh, t,
+                                       defect_weight=100.0,
+                                       device=cuda_device,
+                                       dtype=torch.float64)
+        data = prob.pack_data(y, t, u_nodes=u)
+        z0 = prob.initial_guess_from_data(t, y, p0=[0.5, 0.5])
+        assert not inst.paths()[0].exists()
+        solve = make_gn_solver(prob, SolverOptions(maxiter=8, gtol=0.0))
+        assert inst.paths()[0].exists() and inst in _build._LOADED
+        before = spike.kkt_solve_spike_fused.shapes.get((6, 2), 0)
+        _hold_captured(solve, z0, data)
+        assert spike.kkt_solve_spike_fused.shapes[(6, 2)] == before + 3 * 8
+    finally:
+        spike._library.cache_clear()
+
+
 # ---- the optimal-control block size b = 12 ----------------------------------
 
 
@@ -670,34 +887,64 @@ def test_block_size_8_results_unchanged(cuda_device):
     assert b8_digests(cuda_device) == B8_DIGESTS
 
 
+def _ocp_on_the_card_and_the_cpu(build, options, kernels):
+    """The OCP solve of ``build(device)`` on the card and on the CPU in
+    float64: on the card the launch counts of KERNELS must be ``kernels(st)``
+    and no plain version runs.  Returns [(V, objective), card then CPU]."""
+    from collocfem_tpu_torch.solve.auglag import make_ocp_solver
+
+    plain = (spike.kkt_solve_spike_fused_ref,
+             spike.blocktri_solve_spike_fused_ref,
+             thomas.batched_thomas_solve_ref, cr.cr_level_ref,
+             cr.cr_level_factor_ref, cr.cr_level_apply_ref, cr.cr_backsub_ref)
+    runs = []
+    for device in (torch.device("cuda"), "cpu"):
+        prob = build(device)
+        before, before_plain = _launches(KERNELS), _launches(plain)
+        z, st = make_ocp_solver(prob, options)(prob.initial_guess())
+        if device != "cpu":
+            torch.cuda.synchronize()
+            ran = [a - b for a, b in zip(_launches(KERNELS), before)]
+            assert ran == kernels(st)
+            assert _launches(plain) == before_plain
+            assert float(st.cviol) < 1e-8
+        runs.append((z.V.cpu(), float(st.objective)))
+    return runs
+
+
 @pytest.mark.cuda
-def test_ocp_shapes_not_built_raise(cuda_device):
-    """On the card, method='cr' at b = 12 (the CR library is built for b =
-    8 only) and 'auto' at b = 16 (the split-actuator model, nu = 2) raise
-    ValueError instead of running a plain version."""
+def test_ocp_shapes_run_on_the_card(cuda_device):
+    """The two optimal-control shapes that the card could not run before
+    per-shape builds: config 3 (N = 25, b = 12) with method='cr' (kernels
+    #4-#6 at b = 12, once per inner LM iteration, a sweep of 2 levels
+    each) and the split-actuator model of tests/test_ocp.py (nu = 2, b =
+    16, N = 4) on 'auto' (kernel #2 at (16, 1) once per inner iteration),
+    each in float64 against the same solve on the CPU: the objective within
+    1e-9 (relative) and V within 1e-6, the card-against-CPU bar of config
+    3's 'auto' test below (the inner solves' rounding moves the AL
+    iterates: V lands 4.1e-9 from the CPU's on 'cr', NVIDIA H100 80GB
+    HBM3)."""
     from collocfem_tpu_torch import configs
-    from collocfem_tpu_torch.model import Model
-    from collocfem_tpu_torch.ocp import OptimalControlProblem
-    from collocfem_tpu_torch.ops.mesh import uniform_mesh
-    from collocfem_tpu_torch.solve.auglag import (ALBarrierOptions,
-                                                  make_ocp_solver)
+    from collocfem_tpu_torch.solve.auglag import ALBarrierOptions
 
-    prob, _ = configs.build_config3_problem(25, dtype=torch.float64,
-                                            device=cuda_device)
-    with pytest.raises(ValueError, match="CR kernels are not built"):
-        make_ocp_solver(prob, ALBarrierOptions(method="cr"))
+    def levels(st):
+        n = int(st.history[:, 4].sum())
+        lv = cr.sweep_levels(32, bt.TAIL)              # K = 26 padded to 32
+        return [0, n * lv, n * lv, n * lv, 0, 0, 0]
 
-    class TwoInputs(Model):
-        nx, nu, nq = 2, 2, 0
-
-        def f(self, x, u, p, t):
-            return torch.stack([x[1], u[0] + u[1]])
-
-    wide = OptimalControlProblem.build(
-        TwoInputs(), uniform_mesh(0.0, 1.0, 4, 4), x0=[0.0, 0.0],
-        xf=[1.0, 0.0], dtype=torch.float64, device=cuda_device)
-    with pytest.raises(ValueError, match="not built for block size 16"):
-        make_ocp_solver(wide, ALBarrierOptions())
+    cases = (
+        (lambda dev: configs.build_config3_problem(
+            25, dtype=torch.float64, device=dev)[0],
+         ALBarrierOptions(method="cr"), levels),
+        (lambda dev: configs.build_split_actuator_problem(
+            4, dtype=torch.float64, device=dev)[0],
+         ALBarrierOptions(n_outer=16),
+         lambda st: [0, 0, 0, 0, 0, int(st.history[:, 4].sum()), 0]))
+    for build, options, kernels in cases:
+        (v_card, obj_card), (v_cpu, obj_cpu) = _ocp_on_the_card_and_the_cpu(
+            build, options, kernels)
+        assert abs(obj_card - obj_cpu) <= 1e-9 * abs(obj_cpu)
+        assert float((v_card - v_cpu).abs().max()) <= 1e-6
 
 
 @pytest.mark.cuda

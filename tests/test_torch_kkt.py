@@ -78,6 +78,34 @@ def test_plain_fused_kkt_matches_pallas_interpret():
                                    atol=1e-10 * float(np.abs(w).max()))
 
 
+def test_plain_fused_kkt_matches_pallas_interpret_at_block_size_2():
+    """The same at b = 2, nq = 1 (K = 7, 2 tiles), where the card's lane
+    group is 2 lanes: rtol 1e-10 (float64)."""
+    arrays = _kkt_arrays(7, 2, 1, seed=2)
+    want = jax_kkt_spike_fused(*_jax(arrays), 1e-2, tiles=2, interpret=True)
+    got = spike.kkt_solve_spike_fused_ref(*arrays, 1e-2)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-10,
+                                   atol=1e-10 * float(np.abs(w).max()))
+
+
+@pytest.mark.parametrize("b,nq,k", [(2, 2, 33), (4, 2, 41), (9, 1, 17),
+                                    (16, 1, 21)])
+def test_plain_fused_kkt_matches_jax_at_other_block_sizes(b, nq, k):
+    """kkt_solve_spike_fused_ref against JAX solve_kkt_soa(spike=False) at
+    the block sizes the card now runs (b = 4: degree-2 Van der Pol; b = 9:
+    the free-time OCP at degree 3; b = 16, the split actuator's), where the
+    Pallas kernel's interpret mode takes minutes: rtol 1e-10 (float64)."""
+    arrays = _kkt_arrays(k, b, nq, seed=k + b)
+    D, E, B, gx, C, gp = _jax(arrays)
+    want = jax_solve_kkt_soa(JaxSystem(D, E, B, C, gx, gp), 1e-3,
+                             with_dmax=True)
+    got = spike.kkt_solve_spike_fused_ref(*arrays, 1e-3)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-10,
+                                   atol=1e-10 * float(np.abs(w).max()))
+
+
 def test_wrapper_dispatch():
     """A CPU tensor goes to the plain version; a tensor on a device with no
     kernel raises instead of falling back."""

@@ -410,3 +410,31 @@ def test_free_time_matches_jax(free_time_jax, method):
     tf = float(ftm.final_time(z.p))
     assert 2.0 - 1e-3 < tf < 2.0 * 1.06
     assert float(st.gviol) <= 1e-10
+
+
+@pytest.fixture(scope="module")
+def free_time_degree3_jax():
+    jprob, jftm = jax_free_time_ocp(JaxDoubleIntegrator(), 8, 3,
+                                    x0=[0.0, 0.0], xf=[1.0, 0.0], tf_ref=3.0,
+                                    time_weight=1.0)
+    out = _jax_run(jprob, JaxOptions(n_outer=16, method="cr"))
+    return out, float(jftm.final_time(jnp.asarray(out[1])))
+
+
+def test_free_time_at_degree_3_matches_jax(free_time_degree3_jax):
+    """The minimum-time double integrator at tests/test_ocp_time.py:61's
+    degree 3 (N = 8; [x; u] at 3 nodes an element and the horizon as the
+    one parameter: b = 9, nq = 1, kernel #1 at (9, 1) on the card), 16
+    outer rounds on 'spike' (its plain version here): tolerances of
+    _hold_solve, and tf and the objective within 1e-9 (relative) of the
+    JAX package's float64 run."""
+    jax_out, jax_tf = free_time_degree3_jax
+    prob, ftm = free_time_ocp(configs.DoubleIntegrator(), 8, 3,
+                              x0=[0.0, 0.0], xf=[1.0, 0.0], tf_ref=3.0,
+                              time_weight=1.0, dtype=F64, device="cpu")
+    assert prob.mesh.degree * prob.nv == 9 and ftm.nq == 1
+    z, st = _hold_solve(prob, jax_out, ALBarrierOptions(n_outer=16,
+                                                        method="spike"),
+                        "spike")
+    _close(float(ftm.final_time(z.p)), jax_tf, 1e-9)
+    _close(st.objective, jax_out[3].objective, 1e-9)

@@ -32,6 +32,39 @@ def test_plain_matches_pallas_interpret(shape, tile_e):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-9, atol=1e-9)
 
 
+# The block sizes the card's kernel now runs at b < 8: lane groups of 2
+# and 4 (b = 3 leaves one lane idle).
+@pytest.mark.parametrize("shape,tile_e", [((3, 4, 2, 2), 2),
+                                          ((5, 3, 3, 3), 2),
+                                          ((4, 5, 4, 3), 4)])
+def test_plain_matches_pallas_interpret_at_small_block_sizes(shape, tile_e):
+    """rtol 1e-9, as at b = 8."""
+    args = random_chain_batch(*shape, seed=sum(shape))
+    want = np.asarray(jax_batched_thomas(
+        *(jnp.asarray(a.numpy()) for a in args), tile_e=tile_e,
+        interpret=True))
+    got = thomas.batched_thomas_solve_ref(*args)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("b,r", [(16, 1), (16, 17), (9, 2)])
+def test_plain_matches_jax_scan_at_large_block_sizes(b, r):
+    """At b = 9 and 16 (the Pallas kernel's interpret mode takes most of a
+    minute there) against the JAX package's plain block Thomas solve,
+    blocktri_solve_scan, chain by chain: rtol 1e-9."""
+    from collocfem_tpu.solve.blocktri import blocktri_solve_scan
+
+    D, E, G = random_chain_batch(3, 6, b, r, seed=b + r)
+    got = thomas.batched_thomas_solve_ref(D, E, G).numpy()
+    for e in range(D.shape[0]):
+        Ee = E[e].clone()
+        Ee[-1] = 0.0
+        want = np.asarray(blocktri_solve_scan(
+            *(jnp.asarray(a.numpy()) for a in (D[e], Ee, G[e]))))
+        np.testing.assert_allclose(got[e], want, rtol=1e-9,
+                                   atol=1e-9 * float(np.abs(want).max()))
+
+
 @pytest.mark.parametrize("k", [1, 2, 11])
 def test_plain_solves_each_chain(k):
     """A X = G per experiment, E[:, K-1] ignored: residual <= 1e-12 x |G|."""
