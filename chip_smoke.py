@@ -167,13 +167,21 @@ Phases, each printing its own line; any failure raises and exits non-zero:
      final covariance within 2e-6; (d) tests/test_kalman_parity.py's
      full-rule smoother problem (N = 59): converged, the MAP path within
      1.5e-3 of the numpy RTS smoother; (e) examples/pem_kalman.py (Duffing,
-     400 samples): the EKF NLL and its gradient at p0 and at the JAX
-     package's PEM optimum within 1e-9 (relative; at the optimum, where the
-     gradient is rounding noise of ~2e-11, absolute at 1e-11),
-     smoother_initial_guess
-     there within 1e-8, the MAP polish (kernel #1 at (8, 3)) converged with
-     p within 1e-6 and parameter_std (kernels #3, #6) within 1e-6 of the
-     JAX package's;
+     400 samples) end to end from p0: the EKF NLL and its gradient through
+     the captured scan (kalman/scan.py) at p0 within 1e-9 (relative) of the
+     JAX package's; over the first 100 samples the captured scan
+     bit-identical to the same scan uncaptured and within 1e-12 of the
+     tape-recording loop, each within 1e-9 of JAX's; the PEM (run_lbfgs
+     from p0, one replayed value and gradient an evaluation, torch.profiler
+     over 40 samples) with p within 1e-6 and the
+     NLL within 1e-9 of the JAX package's optimum; the NLL there within
+     1e-9 and its gradient, rounding noise of ~2e-11, within 1e-11
+     absolute; the UKF NLL and its gradient at p0 within 1e-9;
+     smoother_initial_guess at the port's optimum within 1e-8, the MAP
+     polish (kernel #1 at (8, 3)) converged with p within 1e-6 and
+     parameter_std (kernels #3, #6) within 1e-6 of the JAX package's; then
+     #1 at the polish's shape and #3-#6 at parameter_std's, held to their
+     plain versions and timed (_pem_shapes);
  14. the multi-rank tier (parallel/; _phase14): one world of 4 gloo ranks
      sharing the card (collocfem_tpu_torch.testing.run_world: the rank
      workers live in the package, so the spawned children import it and not
@@ -748,10 +756,11 @@ MHE_JAX_COV = ((0.00038851490178060615, 0.00037059510721289116),
                (0.00037059510721289116, 0.24637606115308516))
 # Phase 13 (e): examples/pem_kalman.py, the JAX package's float64 run on the
 # CPU: the EKF NLL and its gradient at p0 and at the PEM optimum (18 L-BFGS
-# iterations), the smoother warm start V0 at that optimum (every 50th of its
-# 801 nodes, the sum of its entries and of their squares), the MAP polish's
-# p (converged in 12 iterations) and parameter_std, produced from the root
-# of the repo by
+# iterations), the UKF NLL and its gradient at p0, the EKF NLL and its
+# gradient over the first 100 samples at p0, the smoother warm start V0 at
+# that optimum (every 50th of its 801 nodes, the sum of its entries and of
+# their squares), the MAP polish's p (converged in 12 iterations) and
+# parameter_std, produced from the root of the repo by
 #   JAX_PLATFORMS=cpu python - <<'EOF'
 #   import sys; sys.path[:0] = [".", "examples"]
 #   import jax; jax.config.update("jax_enable_x64", True)
@@ -759,7 +768,7 @@ MHE_JAX_COV = ((0.00038851490178060615, 0.00037059510721289116),
 #   import numpy as np
 #   from pem_kalman import (GAMMA, MEAS_NOISE, OMEGA, PROC_NOISE, TF,
 #                           simulate_sde)
-#   from collocfem_tpu.kalman import (make_ekf_nll, run_lbfgs,
+#   from collocfem_tpu.kalman import (make_ekf_nll, make_ukf_nll, run_lbfgs,
 #                                     smoother_initial_guess)
 #   from collocfem_tpu.models import Duffing
 #   from collocfem_tpu.ops.mesh import uniform_mesh
@@ -782,6 +791,13 @@ MHE_JAX_COV = ((0.00038851490178060615, 0.00037059510721289116),
 #       v, g = jax.jit(jax.value_and_grad(nll))(p)
 #       print(repr(np.asarray(p).tolist()), repr(float(v)),
 #             repr(np.asarray(g).tolist()))
+#   unll = make_ukf_nll(model, t_meas, y, R, Qc, m0, P0, substeps=4)
+#   v, g = jax.jit(jax.value_and_grad(unll))(p0)
+#   print(repr(float(v)), repr(np.asarray(g).tolist()))
+#   nll100 = make_ekf_nll(model, t_meas[:100], y[:100], R, Qc, m0, P0,
+#                         substeps=4)
+#   v, g = jax.jit(jax.value_and_grad(nll100))(p0)
+#   print(repr(float(v)), repr(np.asarray(g).tolist()))
 #   prob = EstimationProblem.build(model, uniform_mesh(0.0, TF, 200, 4),
 #                                  t_meas, defect_weight=1.0 / PROC_NOISE)
 #   data = prob.pack_data(y, t_meas, meas_weight=1.0 / MEAS_NOISE,
@@ -807,6 +823,16 @@ PEM_JAX_OPT = (1.0114232502436258, 5.0020321609471985, 0.18893252321379087)
 PEM_JAX_NLL_OPT = (-1220.9262145370647,
                    (-5.971195760068326e-12, 5.909148170779588e-12,
                     -2.2683431522008135e-11))
+PEM_PREFIX = 100
+# The eager loop's EKF NLL-and-gradient and smoother_initial_guess before the
+# filters became captured scans, in s (H100 80GB HBM3, 700 W).
+PEM_EAGER_S = (28.9, 15.5)
+PEM_JAX_NLL_P0_PREFIX = (17742.39766740401,
+                         (-7356.735296331002, -7524.770696588967,
+                          4.430024268736528))
+PEM_JAX_UKF_P0 = (115935.24072142856,
+                  (-40663.37746928187, -49559.43523110624,
+                   1456.3544849597672))
 PEM_JAX_V0_EVERY_50 = (
     (0.9989534590756789, 0.11850282167989676),
     (0.9628485918225264, -0.47049497717544553),
@@ -3307,25 +3333,25 @@ def _serving(dev, card, record):
     (8, 1)): the estimates and the final covariance within 2e-6 of the
     port's own kalman_filter on the card.  (d) tests/test_kalman_parity.py's
     full-rule smoother problem: converged, the MAP path within 1.5e-3 of
-    the numpy RTS smoother.  (e) examples/pem_kalman.py: the EKF NLL and its
-    gradient at p0 and at the JAX package's PEM optimum, the smoother warm
-    start there, the MAP polish (kernel #1 at (8, 3)) and parameter_std
-    (kernels #3 and #6) against the JAX package's.  Returns the
-    launches."""
+    the numpy RTS smoother.  (e) examples/pem_kalman.py from p0: the EKF
+    NLL and its gradient through the captured scan against the uncaptured
+    scan, the tape-recording loop and the JAX package's; the PEM from p0;
+    the NLL at the JAX package's optimum; the UKF NLL at p0; the smoother
+    warm start at the port's optimum, the MAP polish (kernel #1 at (8, 3))
+    and parameter_std (kernels #3 and #6) against the JAX package's.
+    Returns the launches."""
     import numpy as np
     import torch
 
     from collocfem_tpu_torch import kalman
     from collocfem_tpu_torch.mhe import MovingHorizonEstimator
-    from collocfem_tpu_torch.models import Duffing, LinearSystem
+    from collocfem_tpu_torch.models import LinearSystem
     from collocfem_tpu_torch.ops.basis import make_basis
-    from collocfem_tpu_torch.ops.mesh import (Mesh, interpolate_trajectory,
-                                              uniform_mesh)
+    from collocfem_tpu_torch.ops.mesh import Mesh, interpolate_trajectory
     from collocfem_tpu_torch.problem import EstimationProblem
-    from collocfem_tpu_torch.solve.covariance import parameter_std
     from collocfem_tpu_torch.solve.newton import SolverOptions, make_gn_solver
 
-    chain, kkt = "blocktri_solve_spike_fused", "kkt_solve_spike_fused"
+    chain = "blocktri_solve_spike_fused"
     launches = {}
     rec = record.setdefault("serving", {})
 
@@ -3474,7 +3500,25 @@ def _serving(dev, card, record):
                               iterations=counts[chain], wall_s=wall,
                               eager_wall_s=eager_wall, first_call_s=first)
 
-    # ---- (e): the Kalman/PEM pipeline, float64 -----------------------------
+    _pem_pipeline(dev, card, rec, keep, launches)
+    return launches
+
+
+def _pem_pipeline(dev, card, rec, keep, launches):
+    """Phase 13 (e), examples/pem_kalman.py end to end from p0 (see
+    _serving); ``keep`` records the MAP polish's launches into
+    ``launches``."""
+    import numpy as np
+    import torch
+
+    from collocfem_tpu_torch import kalman
+    from collocfem_tpu_torch.models import Duffing
+    from collocfem_tpu_torch.ops.mesh import uniform_mesh
+    from collocfem_tpu_torch.problem import EstimationProblem
+    from collocfem_tpu_torch.solve.covariance import parameter_std
+    from collocfem_tpu_torch.solve.newton import SolverOptions, make_gn_solver
+
+    f64, kkt = torch.float64, "kkt_solve_spike_fused"
     tag = "phase 13 (e): Kalman/PEM pipeline float64"
     t_meas, y = _pem_data()
     model = Duffing(gamma=PEM_GAMMA, omega=PEM_OMEGA)
@@ -3484,47 +3528,139 @@ def _serving(dev, card, record):
     nll = kalman.make_ekf_nll(model, t_meas, y, R, Qc, m0, P0, substeps=4,
                               device=dev)
     r = {}
-    for key, p, (ref_v, ref_g) in (("p0", PEM_P0, PEM_JAX_NLL_P0),
-                                   ("optimum", PEM_JAX_OPT, PEM_JAX_NLL_OPT)):
-        x = torch.tensor(p, dtype=f64, device=dev, requires_grad=True)
 
-        def value_and_grad():
-            x.grad = None
-            v = nll(x)
-            v.backward()
-            return v.detach()
-        _reset_counts()
-        v, wall = _timed(value_and_grad)
-        _expect_only(*_counts(), {}, f"{tag} NLL")
-        v, g = float(v), x.grad.cpu().numpy()
-        d_v = abs(v - ref_v) / abs(ref_v)
-        ref_g = np.asarray(ref_g)
-        if key == "p0":
-            d_g = float(np.abs(g - ref_g).max() / np.abs(ref_g).max())
-            g_bar = "relative to max |g_JAX|"
-        else:
-            # At the optimum the gradient is rounding noise (~2e-11): held
-            # absolutely, at 1e-11 (the H100 read 9.6e-13).
-            d_g = float(np.abs(g - ref_g).max())
-            g_bar = "absolute"
-        r[key] = dict(nll=v, grad=g.tolist(), nll_vs_jax=d_v,
-                      grad_vs_jax=d_g, wall_s=wall)
-        g_tol = 1e-9 if key == "p0" else 1e-11
-        print(f"{tag}: EKF NLL at the {key} {v!r} (|rel diff to JAX| "
-              f"{d_v:.3e} <= 1e-9), gradient {g.tolist()} (max diff "
-              f"{g_bar} {d_g:.3e} <= {g_tol:g}); one NLL-and-gradient "
-              f"evaluation {wall:.3f} s on {card}")
-        if not (d_v <= 1e-9 and d_g <= g_tol):
-            raise RuntimeError(f"{tag}: the NLL at the {key} disagrees")
-    # The launches of an NLL-and-gradient evaluation, by torch.profiler on
-    # the first 40 of the 400 samples (the filter loop is the same at every
-    # sample).
+    def value_and_grad(fn, p):
+        x = torch.tensor(p, dtype=f64, device=dev, requires_grad=True)
+        v = fn(x)
+        return v.detach(), torch.autograd.grad(v, x)[0]
+
+    def vs_jax(v, g, ref, absolute=False):
+        """|rel diff| of the value, and of the gradient relative to max
+        |g_JAX| (absolute where the JAX gradient is rounding noise)."""
+        ref_g = np.asarray(ref[1])
+        d_g = float(np.abs(g.cpu().numpy() - ref_g).max())
+        return (abs(float(v) - ref[0]) / abs(ref[0]),
+                d_g if absolute else d_g / float(np.abs(ref_g).max()))
+
+    # At p0 over the whole record: the first call (it captures the EKF step
+    # and its VJP) and a replay.  No kernel of the seven runs in the filter.
+    _reset_counts()
+    (v, g), first = _timed(lambda: value_and_grad(nll, PEM_P0))
+    (v2, g2), wall = _timed(lambda: value_and_grad(nll, PEM_P0))
+    _expect_only(*_counts(), {}, f"{tag} NLL")
+    replayed = torch.equal(v, v2) and torch.equal(g, g2)
+    d_jax = vs_jax(v, g, PEM_JAX_NLL_P0)
+    print(f"{tag}: EKF NLL-and-gradient at p0 (400 samples, 4 RK4 "
+          f"substeps) through the captured scan: {float(v)!r}, gradient "
+          f"{g.tolist()}, against JAX {d_jax[0]:.3e} / {d_jax[1]:.3e} (<= "
+          f"1e-9), a replay bit-identical {'ok' if replayed else 'FAIL'}; "
+          f"wall {wall:.3f} s (first call, with the captures, {first:.3f} "
+          f"s; the eager loop before the scan: {PEM_EAGER_S[0]} s) on "
+          f"{card}")
+    r["p0"] = dict(nll=float(v), grad=g.tolist(), nll_vs_jax=d_jax[0],
+                   grad_vs_jax=d_jax[1], wall_s=wall, first_call_s=first)
+    if not (replayed and max(d_jax) <= 1e-9):
+        raise RuntimeError(f"{tag}: the NLL at p0 disagrees")
+
+    # The same scan uncaptured and the tape-recording loop launch every op
+    # from the host (tens of seconds each over the whole record), so they
+    # run on the first PEM_PREFIX samples: captured =
+    # uncaptured bit for bit, the loop within 1e-12, each within 1e-9 of the
+    # JAX package's NLL of that prefix.
+    nll_pre = kalman.make_ekf_nll(model, t_meas[:PEM_PREFIX], y[:PEM_PREFIX],
+                                  R, Qc, m0, P0, substeps=4, device=dev)
+    _reset_counts()
+    (v, g), pre_first = _timed(lambda: value_and_grad(nll_pre, PEM_P0))
+    (ve, ge), eager_wall = _timed(lambda: value_and_grad(nll_pre.eager,
+                                                         PEM_P0))
+    (vp, gp), plain_wall = _timed(lambda: value_and_grad(nll_pre.plain,
+                                                         PEM_P0))
+    _expect_only(*_counts(), {}, f"{tag} NLL of the prefix")
+    same = torch.equal(v, ve) and torch.equal(g, ge)
+    d_plain = (abs(float(v - vp)) / abs(float(vp)),
+               float((g - gp).abs().max() / gp.abs().max()))
+    d_pre = [vs_jax(a_, b_, PEM_JAX_NLL_P0_PREFIX)
+             for a_, b_ in ((v, g), (vp, gp))]
+    print(f"{tag}: the first {PEM_PREFIX} samples at p0: captured = "
+          f"uncaptured scan bit for bit (value and gradient) "
+          f"{'ok' if same else 'FAIL'}; the tape-recording loop within "
+          f"{d_plain[0]:.3e} / {d_plain[1]:.3e} (<= 1e-12); against JAX (<= "
+          f"1e-9): scan {d_pre[0][0]:.3e} / {d_pre[0][1]:.3e}, loop "
+          f"{d_pre[1][0]:.3e} / {d_pre[1][1]:.3e}; wall captured (first "
+          f"call) {pre_first:.3f} s, uncaptured {eager_wall:.3f} s, loop "
+          f"{plain_wall:.3f} s")
+    r["p0_prefix"] = dict(samples=PEM_PREFIX, captured_equals_eager=same,
+                          plain_vs_scan=d_plain, scan_vs_jax=d_pre[0],
+                          plain_vs_jax=d_pre[1], first_call_s=pre_first,
+                          eager_wall_s=eager_wall, plain_wall_s=plain_wall)
+    if not (same and max(d_plain) <= 1e-12 and max(d_pre[0] + d_pre[1])
+            <= 1e-9):
+        raise RuntimeError(f"{tag}: the NLL of the prefix disagrees")
+    # torch.profiler takes minutes to process the whole record's ~1.6 M
+    # kernels: profile 40 samples.
     nll40 = kalman.make_ekf_nll(model, t_meas[:40], y[:40], R, Qc, m0, P0,
                                 substeps=4, device=dev)
-    x40 = torch.tensor(PEM_P0, dtype=f64, device=dev, requires_grad=True)
-    run40 = lambda: torch.autograd.grad(nll40(x40), x40)
+    run40 = lambda: value_and_grad(nll40, PEM_P0)
+    run40()
     r["profile_40_samples"] = _profile_run(
-        "EKF NLL and gradient, 40 samples", run40, _timed(run40)[1])
+        "EKF NLL and gradient, 40 samples, captured", run40,
+        _timed(run40)[1])
+
+    # The PEM from p0, as the example runs it, every evaluation one replayed
+    # value and gradient.
+    evals = []
+
+    def counted(x):
+        evals.append(1)
+        return nll(x)
+
+    _reset_counts()
+    (p_pem, (val, gnorm, its)), pem_wall = _timed(lambda: kalman.run_lbfgs(
+        counted, PEM_P0, maxiter=150, device=dev))
+    _expect_only(*_counts(), {}, f"{tag} PEM")
+    p_pem = p_pem.tolist()
+    d_pem = _p_dev(p_pem, PEM_JAX_OPT)
+    d_val = abs(float(val) - PEM_JAX_NLL_OPT[0]) / abs(PEM_JAX_NLL_OPT[0])
+    print(f"{tag}: PEM from p0 = {PEM_P0}: run_lbfgs(maxiter=150) took {its} "
+          f"L-BFGS iterations and {len(evals)} NLL-and-gradient evaluations "
+          f"(the JAX package: 18 iterations), |grad| {float(gnorm):.3e}; p = "
+          f"{p_pem}, |p - p_JAX|/|p_JAX| {d_pem:.3e} (<= 1e-6), NLL "
+          f"{float(val)!r}, |rel diff to JAX| {d_val:.3e} (<= 1e-9); wall "
+          f"{pem_wall:.3f} s")
+    r["pem"] = dict(p=p_pem, p_vs_jax=d_pem, nll=float(val),
+                    nll_vs_jax=d_val, grad_norm=float(gnorm), iterations=its,
+                    evaluations=len(evals), wall_s=pem_wall)
+    if not (d_pem <= 1e-6 and d_val <= 1e-9):
+        raise RuntimeError(f"{tag}: the PEM optimum disagrees")
+
+    # At the JAX package's optimum, where the gradient is rounding noise
+    # (~2e-11): held absolutely, at 1e-11.
+    (v, g), wall = _timed(lambda: value_and_grad(nll, PEM_JAX_OPT))
+    d_opt = vs_jax(v, g, PEM_JAX_NLL_OPT, absolute=True)
+    print(f"{tag}: EKF NLL at the JAX optimum {float(v)!r} (|rel diff to "
+          f"JAX| {d_opt[0]:.3e} <= 1e-9), gradient {g.tolist()} (max diff "
+          f"absolute {d_opt[1]:.3e} <= 1e-11); captured {wall:.3f} s")
+    r["optimum"] = dict(nll=float(v), grad=g.tolist(), nll_vs_jax=d_opt[0],
+                        grad_vs_jax=d_opt[1], wall_s=wall)
+    if not (d_opt[0] <= 1e-9 and d_opt[1] <= 1e-11):
+        raise RuntimeError(f"{tag}: the NLL at the optimum disagrees")
+
+    # The UKF NLL at p0 through its captured scan.
+    unll = kalman.make_ukf_nll(model, t_meas, y, R, Qc, m0, P0, substeps=4,
+                               device=dev)
+    _reset_counts()
+    _, ufirst = _timed(lambda: value_and_grad(unll, PEM_P0))
+    (v, g), uwall = _timed(lambda: value_and_grad(unll, PEM_P0))
+    _expect_only(*_counts(), {}, f"{tag} UKF NLL")
+    d_ukf = vs_jax(v, g, PEM_JAX_UKF_P0)
+    print(f"{tag}: UKF NLL at p0 {float(v)!r}, gradient {g.tolist()}; "
+          f"against JAX {d_ukf[0]:.3e} / {d_ukf[1]:.3e} (<= 1e-9); captured "
+          f"{uwall:.3f} s (first call {ufirst:.3f} s)")
+    r["ukf_p0"] = dict(nll=float(v), grad=g.tolist(), nll_vs_jax=d_ukf[0],
+                       grad_vs_jax=d_ukf[1], wall_s=uwall,
+                       first_call_s=ufirst)
+    if max(d_ukf) > 1e-9:
+        raise RuntimeError(f"{tag}: the UKF NLL at p0 disagrees")
 
     mesh = uniform_mesh(0.0, PEM_TF, 200, 4)
     prob = EstimationProblem.build(model, mesh, t_meas,
@@ -3532,19 +3668,24 @@ def _serving(dev, card, record):
                                    device=dev, dtype=f64)
     data = prob.pack_data(y, t_meas, meas_weight=1.0 / PEM_MEAS_NOISE,
                           p_prior=[0.0, 0.0, 0.0], p_weight=1e-3)
+    # The rest of the path from the port's own PEM optimum: the captured
+    # EKF and smoother scans, then the MAP polish.
     z0, wall = _timed(lambda: kalman.smoother_initial_guess(
-        prob, t_meas, y, np.asarray(PEM_JAX_OPT), R=R, Qc=Qc, m0=m0, P0=P0))
+        prob, t_meas, y, np.asarray(p_pem), R=R, Qc=Qc, m0=m0, P0=P0))
     V0 = z0.V.cpu().numpy()
     d_v0 = max(float(np.abs(V0[::50] - np.asarray(PEM_JAX_V0_EVERY_50)).max()),
                abs(float(V0.sum()) - PEM_JAX_V0_SUMS[0]) / abs(
                    PEM_JAX_V0_SUMS[0]),
                abs(float((V0**2).sum()) - PEM_JAX_V0_SUMS[1])
                / PEM_JAX_V0_SUMS[1])
-    print(f"{tag}: smoother_initial_guess at the JAX optimum: max diff of "
-          f"V0 at every 50th node and of its sums to JAX {d_v0:.3e} "
-          f"(<= 1e-8); wall {wall:.3f} s")
-    solve = make_gn_solver(prob, SolverOptions(maxiter=60, gtol=1e-6,
-                                               xtol=1e-10))
+    print(f"{tag}: smoother_initial_guess at the port's PEM optimum (the "
+          f"JAX package's at its own): max diff of V0 at every 50th node and "
+          f"of its sums to JAX {d_v0:.3e} (<= 1e-8); wall {wall:.3f} s (the "
+          f"captured EKF and smoother scans; eager before the scan: "
+          f"{PEM_EAGER_S[1]} s)")
+    r["smoother_wall_s"] = wall
+    options = SolverOptions(maxiter=60, gtol=1e-6, xtol=1e-10)
+    solve = make_gn_solver(prob, options)
     (z, st), first, counts = _counted(
         f"{tag} MAP polish", lambda: solve(z0, data),
         lambda out: {kkt: int(out[1].iterations)})
@@ -3578,7 +3719,84 @@ def _serving(dev, card, record):
     if not (d_v0 <= 1e-8 and bool(st.converged) and d_p <= 1e-6
             and d_sd <= 1e-6):
         raise RuntimeError(f"{tag}: a gate failed")
-    return launches
+    r["kernels_at_this_problem"] = _pem_shapes(prob, z0, z, data,
+                                               options.lam0, card)
+
+
+def _pem_shapes(prob, z0, z, data, lam, card):
+    """Kernel #1 at the MAP polish's shape and kernels #3-#6 at
+    parameter_std's, on examples/pem_kalman.py's problem (N = 200, degree 4,
+    nq = 3: K = 201 blocks of b = 8), the float64 systems and the same cast
+    to float32: #1 on the polish's damped KKT system at its initial guess
+    z0 (dimensionless damping ``lam``) against its plain version by CUDA
+    events, its device time by phase, its bound and the dense solve;
+    #3-#6 on parameter_std's chain A X = B (r = nq) at the MAP solution z,
+    every level and the sweeps held to their plain versions, timed with
+    their bounds (#3 per level and #6 a sweep, as parameter_std calls
+    them).  Returns the records."""
+    import torch
+
+    from collocfem_tpu_torch.ops import spike
+    from collocfem_tpu_torch.ops.assemble import assemble_gn, assemble_gn_soa
+    from collocfem_tpu_torch.solve import blocktri as bt
+    from collocfem_tpu_torch.solve.kkt import damping_scales
+    from collocfem_tpu_torch.tools.spike_tiles import _split
+
+    kkt64 = assemble_gn_soa(prob, z0, data)
+    chain = assemble_gn(prob, z, data)
+    Ds, Es = bt._pad_pow2_soa(chain.D.permute(1, 2, 0),
+                              chain.E.permute(1, 2, 0))
+    Bs = bt._pad_rhs(chain.B.permute(1, 2, 0), Ds.shape[-1]).contiguous()
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[1]
+        sys_ = type(kkt64)(*(t.to(dtype) for t in kkt64))
+        K, nq = sys_.num_blocks, sys_.C.shape[0]
+        label = f"kernel #1 PEM MAP polish {name} K={K} nq={nq}"
+        err = _compare(sys_, lam, None, label)
+        call = (sys_.D, sys_.E, sys_.B, sys_.gx, sys_.C, sys_.gp, lam)
+        k_ms = _cuda_ms(lambda: spike.kkt_solve_spike_fused(*call), 20)
+        p_ms = _cuda_ms(lambda: spike.kkt_solve_spike_fused_ref(*call), 3)
+        split = _split(lambda: spike.kkt_solve_spike_fused(*call))
+        dx, dp, _ = spike.kkt_solve_spike_fused(*call)
+        lib_ms, shape, lib_rel = _dense_solve(
+            sys_, damping_scales(sys_.D, sys_.C, lam)[0],
+            torch.cat([dx.T.reshape(-1), dp]))
+        bound = _kkt_bound(K, nq)
+        rec = dict(K=K, nq=nq, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                   device_us=split, device_us_total=sum(split.values()),
+                   library_ms=lib_ms, library_rel_diff=lib_rel,
+                   bound_ms=bound[0], bound_by=bound[1])
+        print(f"  {label}: kernel {k_ms:.3f} ms/call ("
+              f"{sum(split.values()):.1f} us on the device: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+              + f"), plain {p_ms:.3f} ms/call; torch.linalg.solve on the dense"
+              f" damped KKT matrix {shape} (TF32 off) {lib_ms:.3f} ms/call "
+              f"(rel diff to the kernel {lib_rel:.2e}); float32 bound "
+              f"{bound[0] * 1e3:.3f} us ({bound[1]}) on {card}")
+
+        padded = tuple(a.to(dtype) for a in (Ds, Es, Bs, Bs))
+        r = padded[2].shape[1]
+        clabel = f"CR parameter_std chain {name} K={K} r={r}"
+        levels, tail = _cr_levels(*padded)
+        for i, (D, E, G, B, *_) in enumerate(levels):
+            _hold_cr(f"{clabel} level {i}", dtype, D, E, G, B)
+        facs, s_gs, x_tail = _hold_cr_sweeps(
+            clabel, levels, tail, *_cr_levels(*(a.double() for a in padded)))
+        _hold_backsub_sweep(clabel, facs, s_gs, x_tail)
+        ms, _ = _cr_times(levels, facs, s_gs, x_tail)
+        bounds = _cr_bounds(levels, r, r)
+        rec["cr"] = dict(levels=len(levels),
+                         ms={k: v[0] for k, v in ms.items()},
+                         plain_ms={k: v[1] for k, v in ms.items()},
+                         bound_ms={k: v[0] for k, v in bounds.items()},
+                         bound_by={k: v[1] for k, v in bounds.items()})
+        for k, (k_ms, p_ms) in ms.items():
+            print(f"  {clabel} {k}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} "
+                  f"ms per solve ({len(levels)} levels); float32 bound "
+                  f"{bounds[k][0] * 1e3:.3f} us ({bounds[k][1]})")
+        out[name] = rec
+    return out
 
 
 def _steps(mhe, state, ys, k0, n):

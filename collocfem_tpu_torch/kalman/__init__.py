@@ -1,17 +1,21 @@
 """Kalman filtering / smoothing subpackage.
 
 Counterpart of ``collocfem_tpu/kalman/``: every filter and smoother is a
-loop over time on tensors (the JAX package's ``lax.scan``s), the
+step function run over time by :class:`Scan` (the JAX package's
+``lax.scan``s; on a CUDA device a CUDA graph of one step replayed once a
+sample, and of its VJP once a sample backwards; on the CPU a loop), the
 float32-safe path is a QR-based square-root form, and the innovations
 negative log-likelihood (prediction-error method) is differentiable by
 autograd for ML parameter estimation.
 
 Public API:
+  Scan                               - captured scan (scan)
   van_loan, discretize_lti           - exact LTI discretization (disc)
   kalman_filter, rts_smoother        - linear KF / RTS      (filtering)
   ekf_filter, ukf_filter, cd_smoother- continuous-discrete EKF/UKF + RTS
   sqrt_kalman_filter, sqrt_rts_smoother - square-root forms  (sqrt)
-  make_ekf_nll, make_ukf_nll, run_lbfgs - PEM / ML estimation (pem)
+  make_ekf_nll, make_ukf_nll, run_lbfgs - PEM / ML estimation (pem;
+                                       the NLLs are ScanNLL objects)
   smoother_initial_guess             - warm start for EstimationProblem
 """
 
@@ -26,17 +30,21 @@ from collocfem_tpu_torch.kalman.filtering import (
 )
 from collocfem_tpu_torch.kalman.initialize import smoother_initial_guess
 from collocfem_tpu_torch.kalman.pem import (
+    ScanNLL,
     make_ekf_nll,
     make_lti_nll,
     make_ukf_nll,
     run_lbfgs,
 )
+from collocfem_tpu_torch.kalman.scan import Scan
 from collocfem_tpu_torch.kalman.sqrt import (
     sqrt_kalman_filter,
     sqrt_rts_smoother,
 )
 
 __all__ = [
+    "Scan",
+    "ScanNLL",
     "van_loan",
     "discretize_lti",
     "FilterResult",

@@ -1,9 +1,11 @@
-"""Kalman filters and fixed-interval smoothers as loops over time.
+"""Kalman filters and fixed-interval smoothers as scans over time.
 
 Counterpart of ``collocfem_tpu/kalman/filtering.py``, whose recursions are
-``lax.scan``s: here each is a Python loop over the samples on tensors, with
-the measurement mask applied by ``torch.where``, so nothing reads a value
-back to the host.  Linear KF (exact, for LTI + Van Loan discretization) and
+``lax.scan``s: here each is a step function run by
+:class:`collocfem_tpu_torch.kalman.scan.Scan`, which on a CUDA device
+replays the step as a CUDA graph once per sample (and its VJP once per
+sample backwards) and on the CPU runs it in a loop.  The measurement mask
+is applied by ``torch.where``, so nothing reads a value back to the host.  Linear KF (exact, for LTI + Van Loan discretization) and
 continuous-discrete EKF/UKF for nonlinear
 :class:`collocfem_tpu_torch.model.Model` dynamics (mean/covariance
 integrated by fixed-substep RK4 between irregular sample times).
@@ -20,7 +22,10 @@ Every filter computes on its required ``device=`` and in the dtype of its
 measurements ``y`` (float64 when ``y`` is not a tensor).  Arrays and numbers
 are placed there; a tensor that lies on another device raises, so no
 argument is copied between the host and the card behind the caller's back.
-All of it is differentiable by autograd.
+All of it is differentiable by autograd.  A filter or smoother call makes a
+new :class:`Scan`, so on a CUDA device it captures its step at that call;
+the likelihoods of :mod:`collocfem_tpu_torch.kalman.pem` keep theirs and
+replay it at every evaluation.
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 from torch.func import jacfwd, vmap
+
+from collocfem_tpu_torch.kalman.scan import Scan
 
 
 class FilterResult(NamedTuple):
@@ -75,11 +82,17 @@ def _sym(P):
     return 0.5 * (P + P.mT)
 
 
+
+
 def _cho_solve(L, b):
-    """S^-1 b for S = L L^T, b (n,) or (n, k)."""
-    if b.ndim == 1:
-        return torch.cholesky_solve(b[:, None], L)[:, 0]
-    return torch.cholesky_solve(b, L)
+    """S^-1 b for S = L L^T, b (n,) or (n, k), as two triangular solves:
+    the form the captured MHE step already runs on the card, where
+    ``torch.cholesky_solve`` has not been shown to capture."""
+    col = b.ndim == 1
+    b = b[:, None] if col else b
+    x = torch.linalg.solve_triangular(
+        L.mT, torch.linalg.solve_triangular(L, b, upper=False), upper=True)
+    return x[:, 0] if col else x
 
 
 def _innovation(e, S, L, K, m_p, P_p, mask):
@@ -113,9 +126,31 @@ def _mask(mask, T, like):
         if mask is None else _on(mask, like)
 
 
-def _stack(steps):
-    """Per-step tuples -> a tuple of stacked tensors."""
-    return tuple(torch.stack(col) for col in zip(*steps))
+def _filter_result(carry, ys) -> FilterResult:
+    """A filter scan's outputs: its per-step (m_f, P_f, m_p, P_p, C, ll)."""
+    del carry
+    m_f, P_f, m_p, P_p, C, ll = ys
+    return FilterResult(m_f, P_f, m_p, P_p, C, torch.sum(ll))
+
+
+def _kf_step(carry, x, consts):
+    del consts
+    m, P = carry
+    A_k, Q_k, H_k, R_k, y_k, mk = x
+    m_p = A_k @ m
+    P_p = _sym(A_k @ P @ A_k.T + Q_k)
+    C_k = P @ A_k.T
+    m_f, P_f, ll = _update(m_p, P_p, H_k, R_k, y_k, mk)
+    return (m_f, P_f), (m_f, P_f, m_p, P_p, C_k, ll)
+
+
+def _kf_inputs(Ad, Qd, H, R, y, m0, P0, mask, device):
+    """The linear filter's (carry0, xs, consts) on ``device``."""
+    y = _placed(y, device)
+    T = y.shape[0]
+    xs = (_on(Ad, y), _on(Qd, y), _bcast_time(H, T, y), _bcast_time(R, T, y),
+          y, _mask(mask, T, y))
+    return (_on(m0, y), _on(P0, y)), xs, ()
 
 
 def kalman_filter(Ad, Qd, H, R, y, m0, P0, mask=None, *,
@@ -128,28 +163,32 @@ def kalman_filter(Ad, Qd, H, R, y, m0, P0, mask=None, *,
     leading T axis.  ``mask`` (T,) in {0,1} skips the update (and its
     loglik term) where 0.  Runs on ``device``.
     """
-    y = _placed(y, device)
-    T = y.shape[0]
-    Ad, Qd = _on(Ad, y), _on(Qd, y)
-    H, R = _bcast_time(H, T, y), _bcast_time(R, T, y)
-    mask = _mask(mask, T, y)
-    m, P = _on(m0, y), _on(P0, y)
-    steps = []
     # Step 0 consumes (Ad[0], Qd[0]) = (I, 0): m_p[0] = m0, P_p[0] = P0.
-    for k in range(T):
-        A_k = Ad[k]
-        m_p = A_k @ m
-        P_p = _sym(A_k @ P @ A_k.T + Qd[k])
-        C_k = P @ A_k.T
-        m, P, ll = _update(m_p, P_p, H[k], R[k], y[k], mask[k])
-        steps.append((m, P, m_p, P_p, C_k, ll))
-    m_f, P_f, m_p, P_p, C, ll = _stack(steps)
-    return FilterResult(m_f, P_f, m_p, P_p, C, torch.sum(ll))
+    return _filter_result(*Scan(_kf_step)(
+        *_kf_inputs(Ad, Qd, H, R, y, m0, P0, mask, device)))
 
 
 def rts_smoother(res: FilterResult):
     """Fixed-interval smoother for any FilterResult. Alias of cd_smoother."""
     return cd_smoother(res)
+
+
+def _smoother_step(carry, x, consts):
+    del consts
+    ms_next, Ps_next = carry
+    m_f, P_f, m_p1, P_p1, C1 = x
+    G = _cho_solve(_chol(P_p1), C1.T).T     # C1 @ P_p1^-1
+    ms = m_f + G @ (ms_next - m_p1)
+    Ps = _sym(P_f + G @ (Ps_next - P_p1) @ G.T)
+    return (ms, Ps), (ms, Ps)
+
+
+def _smoother_inputs(res: FilterResult):
+    """(carry0, xs, consts) of the backward pass: x[k] pairs step k's
+    posterior with step k+1's prediction and cross-covariance."""
+    xs = (res.mean_f[:-1], res.cov_f[:-1], res.mean_p[1:], res.cov_p[1:],
+          res.crosscov[1:])
+    return (res.mean_f[-1], res.cov_f[-1]), xs, ()
 
 
 def cd_smoother(res: FilterResult):
@@ -160,20 +199,13 @@ def cd_smoother(res: FilterResult):
     gain is G_k = crosscov[k+1] @ cov_p[k+1]^{-1} in every case (for the
     linear/EKF filters crosscov = P_f Phi^T, recovering classic RTS; for
     the UKF it is the sigma-point cross-covariance, giving the unscented
-    RTS smoother).
+    RTS smoother).  A reverse scan over the T - 1 earlier steps.
     """
-    T = res.mean_f.shape[0]
-    ms, Ps = res.mean_f[-1], res.cov_f[-1]
-    out = [(ms, Ps)]
-    # Step k pairs step k's posterior with step k+1's prediction/crosscov.
-    for k in range(T - 2, -1, -1):
-        m_p1, P_p1 = res.mean_p[k + 1], res.cov_p[k + 1]
-        G = _cho_solve(_chol(P_p1), res.crosscov[k + 1].T).T
-        ms = res.mean_f[k] + G @ (ms - m_p1)
-        Ps = _sym(res.cov_f[k] + G @ (Ps - P_p1) @ G.T)
-        out.append((ms, Ps))
-    ms, Ps = _stack(out[::-1])
-    return ms, Ps
+    if res.mean_f.shape[0] == 1:
+        return res.mean_f.clone(), res.cov_f.clone()
+    _, (ms, Ps) = Scan(_smoother_step)(*_smoother_inputs(res), reverse=True)
+    return (torch.cat([ms, res.mean_f[-1:]]),
+            torch.cat([Ps, res.cov_f[-1:]]))
 
 
 # ---------------------------------------------------------------------------
@@ -182,18 +214,18 @@ def cd_smoother(res: FilterResult):
 
 
 def _prep_nonlinear(model, p, ts, ys, u, R, mask, device):
+    """The per-sample inputs xs = (ys, u, u_prev, t_left, ts, dts, R,
+    mask) of a continuous-discrete filter, and p, on ``device``."""
     ys = _placed(ys, device)
     T = ys.shape[0]
     ts = _on(ts, ys)
     u = ys.new_zeros((T, model.nu)) if u is None else _on(u, ys)
-    R = _bcast_time(R, T, ys)
-    mask = _mask(mask, T, ys)
-    p = _on(p, ys)
     dts = torch.diff(ts, prepend=ts[:1])      # dts[0] = 0
     # Zero-order hold: the input acting on (ts[k-1], ts[k]] is u[k-1].
     u_prev = torch.roll(u, 1, dims=0)
-    t_left = ts - dts
-    return ys, T, ts, u, u_prev, t_left, dts, R, mask, p
+    xs = (ys, u, u_prev, ts - dts, ts, dts, _bcast_time(R, T, ys),
+          _mask(mask, T, ys))
+    return xs, _on(p, ys)
 
 
 def _rk4(ode, state, uu, t0, h):
@@ -207,6 +239,43 @@ def _rk4(ode, state, uu, t0, h):
                  for s, a, b, c, d in zip(state, k1, k2, k3, k4))
 
 
+def _ekf_step(model, substeps: int):
+    """The EKF's step; ``substeps`` RK4 steps an interval (a static)."""
+    fjac = jacfwd(model.f, argnums=0)
+
+    def step(carry, x, consts):
+        m, P = carry
+        y_k, u_k, uprev_k, tl_k, t_k, dt_k, R_k, mk = x
+        p, Qc = consts
+        hfun = lambda xx, uu, tt: model.h(xx, uu, p, tt)
+
+        def moment_ode(state, uu, tt):
+            m_, P_, Phi = state
+            A = fjac(m_, uu, p, tt)
+            return model.f(m_, uu, p, tt), A @ P_ + P_ @ A.T + Qc, A @ Phi
+
+        h = dt_k / substeps
+        st = (m, P, torch.eye(model.nx, dtype=m.dtype, device=m.device))
+        for i in range(substeps):
+            st = _rk4(moment_ode, st, uprev_k, tl_k + i * h, h)
+        m_p, P_p, Phi = st
+        P_p = _sym(P_p)
+        C_k = P @ Phi.T
+        H_k = jacfwd(hfun, argnums=0)(m_p, u_k, t_k)
+        e_bias = hfun(m_p, u_k, t_k) - H_k @ m_p
+        m_f, P_f, ll = _update(m_p, P_p, H_k, R_k, y_k - e_bias, mk)
+        return (m_f, P_f), (m_f, P_f, m_p, P_p, C_k, ll)
+
+    return step
+
+
+def _ekf_inputs(model, p, ts, ys, R, Qc, m0, P0, u, mask, device):
+    """The EKF's (carry0, xs, consts) on ``device``."""
+    xs, p = _prep_nonlinear(model, p, ts, ys, u, R, mask, device)
+    y = xs[0]
+    return (_on(m0, y), _on(P0, y)), xs, (p, _on(Qc, y))
+
+
 def ekf_filter(model, p, ts, ys, R, Qc, m0, P0, u=None, substeps: int = 4,
                mask=None, *, device) -> FilterResult:
     """Continuous-discrete extended Kalman filter for a Model.
@@ -217,35 +286,8 @@ def ekf_filter(model, p, ts, ys, R, Qc, m0, P0, u=None, substeps: int = 4,
     RK4 steps.  Update linearizes h at the predicted mean.  Qc is the
     continuous process-noise density (nx, nx).  Runs on ``device``.
     """
-    ys, T, ts, u, u_prev, t_left, dts, R, mask, p = _prep_nonlinear(
-        model, p, ts, ys, u, R, mask, device)
-    Qc = _on(Qc, ys)
-    eye = torch.eye(model.nx, dtype=ys.dtype, device=ys.device)
-    fjac = jacfwd(model.f, argnums=0)
-    hfun = lambda x, uu, tt: model.h(x, uu, p, tt)
-    hjac = jacfwd(hfun, argnums=0)
-
-    def moment_ode(state, uu, tt):
-        m, P, Phi = state
-        A = fjac(m, uu, p, tt)
-        return model.f(m, uu, p, tt), A @ P + P @ A.T + Qc, A @ Phi
-
-    m, P = _on(m0, ys), _on(P0, ys)
-    steps = []
-    for k in range(T):
-        h = dts[k] / substeps
-        st = (m, P, eye)
-        for i in range(substeps):
-            st = _rk4(moment_ode, st, u_prev[k], t_left[k] + i * h, h)
-        m_p, P_p, Phi = st
-        P_p = _sym(P_p)
-        C_k = P @ Phi.T
-        H_k = hjac(m_p, u[k], ts[k])
-        e_bias = hfun(m_p, u[k], ts[k]) - H_k @ m_p
-        m, P, ll = _update(m_p, P_p, H_k, R[k], ys[k] - e_bias, mask[k])
-        steps.append((m, P, m_p, P_p, C_k, ll))
-    m_f, P_f, m_p, P_p, C, ll = _stack(steps)
-    return FilterResult(m_f, P_f, m_p, P_p, C, torch.sum(ll))
+    return _filter_result(*Scan(_ekf_step(model, substeps))(
+        *_ekf_inputs(model, p, ts, ys, R, Qc, m0, P0, u, mask, device)))
 
 
 # ---------------------------------------------------------------------------
@@ -262,8 +304,12 @@ def _sigma_points(m, P, lam):
     return torch.cat([m[None, :], m + S, m - S], dim=0)
 
 
+def _ut_lambda(nx, alpha, kappa) -> float:
+    return alpha * alpha * (nx + kappa) - nx
+
+
 def _ut_weights(nx, alpha, beta, kappa, like):
-    lam = alpha * alpha * (nx + kappa) - nx
+    lam = _ut_lambda(nx, alpha, kappa)
     wm = torch.full((2 * nx + 1,), 1.0 / (2 * (nx + lam)), dtype=like.dtype,
                     device=like.device)
     wm[0] = lam / (nx + lam)
@@ -274,6 +320,58 @@ def _ut_weights(nx, alpha, beta, kappa, like):
 
 def _wcov(wc, dX, dY):
     return torch.einsum("i,ij,ik->jk", wc, dX, dY)
+
+
+def _ukf_step(model, substeps: int, lam: float):
+    """The UKF's step; ``substeps`` and the UT's ``lam`` are statics."""
+    fjac = jacfwd(model.f, argnums=0)
+    fv = vmap(model.f, in_dims=(0, None, None, None))
+
+    def step(carry, x, consts):
+        m, P = carry
+        y_k, u_k, uprev_k, tl_k, t_k, dt_k, R_k, mk = x
+        p, Qc, wm, wc = consts
+        hv = vmap(lambda xx, uu, tt: model.h(xx, uu, p, tt),
+                  in_dims=(0, None, None))
+
+        def ode(state, uu, tt):
+            X, Qd = state
+            A = fjac(wm @ X, uu, p, tt)
+            return fv(X, uu, p, tt), A @ Qd + Qd @ A.T + Qc
+
+        h = dt_k / substeps
+        X0 = _sigma_points(m, P, lam)
+        st = (X0, torch.zeros_like(P))
+        for i in range(substeps):
+            st = _rk4(ode, st, uprev_k, tl_k + i * h, h)
+        X1, Qd = st
+        m_p = wm @ X1
+        dX1 = X1 - m_p
+        P_p = _sym(_wcov(wc, dX1, dX1) + Qd)
+        C_k = _wcov(wc, X0 - m, dX1)
+
+        # Measurement UT on a fresh sigma set at the prediction.
+        Xm = _sigma_points(m_p, P_p, lam)
+        Y = hv(Xm, u_k, t_k)
+        yhat = wm @ Y
+        dY = Y - yhat
+        S = _wcov(wc, dY, dY) + R_k
+        Pxy = _wcov(wc, Xm - m_p, dY)
+        L = _chol(S)
+        K = _cho_solve(L, Pxy.T).T
+        m_f, P_f, ll = _innovation(y_k - yhat, S, L, K, m_p, P_p, mk)
+        return (m_f, P_f), (m_f, P_f, m_p, P_p, C_k, ll)
+
+    return step
+
+
+def _ukf_inputs(model, p, ts, ys, R, Qc, m0, P0, u, mask, alpha, beta,
+                kappa, device):
+    """The UKF's (carry0, xs, consts) on ``device``."""
+    xs, p = _prep_nonlinear(model, p, ts, ys, u, R, mask, device)
+    y = xs[0]
+    _, wm, wc = _ut_weights(model.nx, alpha, beta, kappa, y)
+    return (_on(m0, y), _on(P0, y)), xs, (p, _on(Qc, y), wm, wc)
 
 
 def ukf_filter(model, p, ts, ys, R, Qc, m0, P0, u=None, substeps: int = 4,
@@ -288,44 +386,7 @@ def ukf_filter(model, p, ts, ys, R, Qc, m0, P0, u=None, substeps: int = 4,
     cross-covariance makes :func:`cd_smoother` the unscented RTS smoother.
     Runs on ``device``.
     """
-    ys, T, ts, u, u_prev, t_left, dts, R, mask, p = _prep_nonlinear(
-        model, p, ts, ys, u, R, mask, device)
-    Qc = _on(Qc, ys)
-    nx = model.nx
-    lam, wm, wc = _ut_weights(nx, alpha, beta, kappa, ys)
-    fjac = jacfwd(model.f, argnums=0)
-    fv = vmap(model.f, in_dims=(0, None, None, None))
-    hv = vmap(lambda x, uu, tt: model.h(x, uu, p, tt), in_dims=(0, None, None))
-
-    def ode(state, uu, tt):
-        X, Qd = state
-        A = fjac(wm @ X, uu, p, tt)
-        return fv(X, uu, p, tt), A @ Qd + Qd @ A.T + Qc
-
-    m, P = _on(m0, ys), _on(P0, ys)
-    steps = []
-    for k in range(T):
-        h = dts[k] / substeps
-        X0 = _sigma_points(m, P, lam)
-        st = (X0, torch.zeros_like(P))
-        for i in range(substeps):
-            st = _rk4(ode, st, u_prev[k], t_left[k] + i * h, h)
-        X1, Qd = st
-        m_p = wm @ X1
-        dX1 = X1 - m_p
-        P_p = _sym(_wcov(wc, dX1, dX1) + Qd)
-        C_k = _wcov(wc, X0 - m, dX1)
-
-        # Measurement UT on a fresh sigma set at the prediction.
-        Xm = _sigma_points(m_p, P_p, lam)
-        Y = hv(Xm, u[k], ts[k])
-        yhat = wm @ Y
-        dY = Y - yhat
-        S = _wcov(wc, dY, dY) + R[k]
-        Pxy = _wcov(wc, Xm - m_p, dY)
-        L = _chol(S)
-        K = _cho_solve(L, Pxy.T).T
-        m, P, ll = _innovation(ys[k] - yhat, S, L, K, m_p, P_p, mask[k])
-        steps.append((m, P, m_p, P_p, C_k, ll))
-    m_f, P_f, m_p, P_p, C, ll = _stack(steps)
-    return FilterResult(m_f, P_f, m_p, P_p, C, torch.sum(ll))
+    step = _ukf_step(model, substeps, _ut_lambda(model.nx, alpha, kappa))
+    return _filter_result(*Scan(step)(*_ukf_inputs(
+        model, p, ts, ys, R, Qc, m0, P0, u, mask, alpha, beta, kappa,
+        device)))

@@ -25,10 +25,12 @@ def smoother_initial_guess(problem, t_meas, y, p0, R, Qc, m0=None, P0=None,
 
     The filter runs at ``p0`` over the measurement grid (inputs, if any,
     interpolated from the mesh nodes) on the problem's device and in its
-    dtype; the smoothed means are then interpolated to the collocation node
-    times.  ``R`` (ny, ny) and ``Qc`` (nx, nx) set measurement/process
-    noise; defaults for the prior are m0 = measured channels at the first
-    sample (zeros elsewhere) and P0 = 4 max(1, max |y|)^2 I.
+    dtype (the filter and smoother scans captured on a CUDA device); the
+    smoothed means come to the host once and are interpolated there
+    (``np.interp``) to the collocation node times.  ``R`` (ny, ny) and
+    ``Qc`` (nx, nx) set measurement/process noise; defaults for the prior
+    are m0 = measured channels at the first sample (zeros elsewhere) and
+    P0 = 4 max(1, max |y|)^2 I.
     """
     model = problem.model
     t_meas = np.asarray(t_meas, dtype=np.float64)

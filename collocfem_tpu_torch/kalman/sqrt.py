@@ -8,9 +8,11 @@ uses the all-PSD Joseph form
 
     P_s = G P_s' G^T + (I - G A) P_f (I - G A)^T + G Q G^T
 
-so the smoothed square root is again a single stacked QR.  Loops over time
-on tensors, on the filter's ``device=`` and in the dtype of ``y`` (see
-:mod:`collocfem_tpu_torch.kalman.filtering`).
+so the smoothed square root is again a single stacked QR.  Both are scans
+over time (:class:`collocfem_tpu_torch.kalman.scan.Scan`: captured on a
+CUDA device), on the filter's ``device=`` and in the dtype of ``y`` (see
+:mod:`collocfem_tpu_torch.kalman.filtering`).  The QR is a Householder
+triangularization in tensor operations (:func:`_qr_r`).
 """
 
 from __future__ import annotations
@@ -24,10 +26,10 @@ from collocfem_tpu_torch.kalman.filtering import (
     _bcast_time,
     _chol,
     _mask,
-    _placed,
     _on,
-    _stack,
+    _placed,
 )
+from collocfem_tpu_torch.kalman.scan import Scan
 
 
 class SqrtFilterResult(NamedTuple):
@@ -58,13 +60,67 @@ def _tri_pos(Rm):
 
 
 def _qr_r(pre):
-    """Upper factor of a tall pre-array, diagonal made nonnegative."""
-    return _tri_pos(torch.linalg.qr(pre, mode="r").R)
+    """Upper factor R (n, n) of a tall pre-array (m, n), diagonal made
+    nonnegative, by n Householder reflections in tensor operations.
+
+    In place of ``torch.linalg.qr(pre, mode="r")``, which has no derivative
+    (it drops Q) and whose cuSOLVER call has not been shown to capture in a
+    CUDA graph.  R is unique for a pre-array of full column rank, so this is
+    the same factor; a zero column reflects nothing.
+    """
+    rows, B = [], pre
+    for j in range(pre.shape[-1]):
+        x = B[:, 0]
+        one = torch.ones_like(x[0])
+        s = torch.where(x[0] < 0, -one, one)
+        v = torch.cat([x[:1] + s * torch.linalg.vector_norm(x), x[1:]])
+        vv = v @ v
+        beta = torch.where(vv > 0, 2.0 / torch.where(vv > 0, vv, one),
+                           0.0 * one)
+        B = B - beta * torch.outer(v, v @ B)     # (I - beta v v^T) B
+        rows.append(torch.cat([B.new_zeros(j), B[0]]))
+        B = B[1:, 1:]
+    return _tri_pos(torch.stack(rows))
 
 
 def _lower_solve(S, b):
     """S^-1 b for lower-triangular S, b (n,)."""
     return torch.linalg.solve_triangular(S, b[:, None], upper=False)[:, 0]
+
+
+def _sqrt_kf_step(carry, x, consts):
+    del consts
+    m, S = carry
+    A_k, Qs_k, H_k, Rs_k, y_k, mk = x
+    ny, nx = H_k.shape
+    # Predict: S_p from QR of [[(A S)^T], [Qs^T]].
+    S_p = _qr_r(torch.cat([(A_k @ S).T, Qs_k.T], dim=0)).T
+    m_p = A_k @ m
+    # Update: one triangularization of the (ny+nx) pre-array
+    # [[Rs^T, 0], [S_p^T H^T, S_p^T]].
+    pre = torch.cat([torch.cat([Rs_k.T, S_p.new_zeros((ny, nx))], dim=1),
+                     torch.cat([S_p.T @ H_k.T, S_p.T], dim=1)], dim=0)
+    post = _qr_r(pre)
+    S_y = post[:ny, :ny].T                  # innovation sqrt (lower)
+    Kbar = post[:ny, ny:].T                 # K @ S_y
+    ew = _lower_solve(S_y, y_k - H_k @ m_p)
+    on = mk != 0
+    m_f = torch.where(on, m_p + Kbar @ ew, m_p)
+    S_f = torch.where(on, post[ny:, ny:].T, S_p)
+    ll = -0.5 * (ew @ ew + 2.0 * torch.sum(torch.log(torch.diagonal(S_y)))
+                 + ny * math.log(2.0 * math.pi))
+    return (m_f, S_f), (m_f, S_f, m_p, S_p,
+                        torch.where(on, ll, torch.zeros_like(ll)))
+
+
+def _sqrt_kf_inputs(Ad, Qd, H, R, y, m0, P0, mask, device):
+    """The square-root filter's (carry0, xs, consts) on ``device``; the
+    square roots of Qd (eigh) and R are taken outside the scan."""
+    y = _placed(y, device)
+    T = y.shape[0]
+    xs = (_on(Ad, y), psd_sqrt(_on(Qd, y)), _bcast_time(H, T, y),
+          _chol(_bcast_time(R, T, y)), y, _mask(mask, T, y))
+    return (_on(m0, y), _chol(_on(P0, y))), xs, ()
 
 
 def sqrt_kalman_filter(Ad, Qd, H, R, y, m0, P0, mask=None, *,
@@ -73,66 +129,47 @@ def sqrt_kalman_filter(Ad, Qd, H, R, y, m0, P0, mask=None, *,
 
     Qd may be singular (a PSD sqrt is taken via eigh); R must be PD.
     """
-    y = _placed(y, device)
-    T, ny = y.shape
-    Hb = _bcast_time(H, T, y)
-    R_sq = _chol(_bcast_time(R, T, y))
-    mask = _mask(mask, T, y)
-    Ad = _on(Ad, y)
-    Q_sq = psd_sqrt(_on(Qd, y))
-    m = _on(m0, y)
-    S = _chol(_on(P0, y))
-    nx = m.shape[0]
-    steps = []
-    for k in range(T):
-        A_k, H_k = Ad[k], Hb[k]
-        # Predict: S_p from QR of [[(A S)^T], [Qs^T]].
-        S_p = _qr_r(torch.cat([(A_k @ S).T, Q_sq[k].T], dim=0)).T
-        m_p = A_k @ m
-        # Update: one triangularization of the (ny+nx) pre-array.
-        pre = y.new_zeros((ny + nx, ny + nx))
-        pre[:ny, :ny] = R_sq[k].T
-        pre[ny:, :ny] = S_p.T @ H_k.T
-        pre[ny:, ny:] = S_p.T
-        post = _qr_r(pre)
-        S_y = post[:ny, :ny].T              # innovation sqrt (lower)
-        Kbar = post[:ny, ny:].T             # K @ S_y
-        ew = _lower_solve(S_y, y[k] - H_k @ m_p)
-        on = mask[k] != 0
-        m = torch.where(on, m_p + Kbar @ ew, m_p)
-        S = torch.where(on, post[ny:, ny:].T, S_p)
-        ll = -0.5 * (ew @ ew + 2.0 * torch.sum(torch.log(torch.diagonal(S_y)))
-                     + ny * math.log(2.0 * math.pi))
-        steps.append((m, S, m_p, S_p, torch.where(on, ll,
-                                                  torch.zeros_like(ll))))
-    m_f, S_f, m_p, S_p, ll = _stack(steps)
+    _, (m_f, S_f, m_p, S_p, ll) = Scan(_sqrt_kf_step)(
+        *_sqrt_kf_inputs(Ad, Qd, H, R, y, m0, P0, mask, device))
     return SqrtFilterResult(m_f, S_f, m_p, S_p, torch.sum(ll))
+
+
+def _sqrt_smoother_step(carry, x, consts):
+    del consts
+    ms_next, Ss_next = carry
+    m_f, S_f, A1, Qs1, m_p1, S_p1 = x
+    P_f = S_f @ S_f.T
+    # G^T = P_p^{-1} A P_f via two triangular solves on S_p.
+    t1 = torch.linalg.solve_triangular(S_p1, A1 @ P_f, upper=False)
+    G = torch.linalg.solve_triangular(S_p1.T, t1, upper=True).T
+    ms = m_f + G @ (ms_next - m_p1)
+    eye = torch.eye(m_f.shape[0], dtype=m_f.dtype, device=m_f.device)
+    pre = torch.cat([(G @ Ss_next).T, ((eye - G @ A1) @ S_f).T,
+                     (G @ Qs1).T], dim=0)
+    Ss = _qr_r(pre).T
+    return (ms, Ss), (ms, Ss)
+
+
+def _sqrt_smoother_inputs(res: SqrtFilterResult, Ad, Qd):
+    """(carry0, xs, consts) of the square-root backward pass, where ``res``
+    lies."""
+    like = res.mean_f
+    Ad, Q_sq = _on(Ad, like), psd_sqrt(_on(Qd, like))
+    xs = (res.mean_f[:-1], res.S_f[:-1], Ad[1:], Q_sq[1:], res.mean_p[1:],
+          res.S_p[1:])
+    return (res.mean_f[-1], res.S_f[-1]), xs, ()
 
 
 def sqrt_rts_smoother(res: SqrtFilterResult, Ad, Qd):
     """Square-root RTS pass. Returns smoothed (means (T,nx), S (T,nx,nx)).
 
     Needs the same per-step (Ad, Qd) passed to the forward filter, and runs
-    where ``res`` lies; the smoother gain is built from triangular solves against S_p (no inverse,
-    no covariance differencing).
+    where ``res`` lies; the smoother gain is built from triangular solves
+    against S_p (no inverse, no covariance differencing).  A reverse scan.
     """
-    like = res.mean_f
-    Ad = _on(Ad, like)
-    Q_sq = psd_sqrt(_on(Qd, like))
-    T, nx = like.shape
-    eye = torch.eye(nx, dtype=like.dtype, device=like.device)
-    ms, Ss = res.mean_f[-1], res.S_f[-1]
-    out = [(ms, Ss)]
-    for k in range(T - 2, -1, -1):
-        S_f, A1, S_p1 = res.S_f[k], Ad[k + 1], res.S_p[k + 1]
-        P_f = S_f @ S_f.T
-        # G^T = P_p^{-1} A P_f via two triangular solves on S_p.
-        t1 = torch.linalg.solve_triangular(S_p1, A1 @ P_f, upper=False)
-        G = torch.linalg.solve_triangular(S_p1.T, t1, upper=True).T
-        ms = res.mean_f[k] + G @ (ms - res.mean_p[k + 1])
-        pre = torch.cat([(G @ Ss).T, ((eye - G @ A1) @ S_f).T,
-                         (G @ Q_sq[k + 1]).T], dim=0)
-        Ss = _qr_r(pre).T
-        out.append((ms, Ss))
-    ms, Ss = _stack(out[::-1])
-    return ms, Ss
+    if res.mean_f.shape[0] == 1:
+        return res.mean_f.clone(), res.S_f.clone()
+    _, (ms, Ss) = Scan(_sqrt_smoother_step)(
+        *_sqrt_smoother_inputs(res, Ad, Qd), reverse=True)
+    return (torch.cat([ms, res.mean_f[-1:]]),
+            torch.cat([Ss, res.S_f[-1:]]))

@@ -1285,3 +1285,158 @@ def test_sp_solve_on_the_card_matches_one_rank(cuda_device, tmp_path):
     for r in outs:
         assert r["counts"] == {"blocktri_solve_spike_fused":
                                (20, {(8, 19): 10, (8, 3): 10})}
+
+
+# ---- the Kalman tier's captured scans (kalman/scan.py) ------------------------
+
+
+def _kalman_scans(device, T=30):
+    """{name: (Scan, (carry0, xs, consts), reverse)} for every filter and
+    smoother of the Kalman tier on seeded inputs: the linear and
+    square-root filters and their smoothers (reverse scans) on a damped
+    oscillator, the EKF and UKF on examples/pem_kalman.py's Duffing model
+    with 2 RK4 substeps."""
+    import numpy as np
+
+    from collocfem_tpu_torch.kalman import filtering as kf
+    from collocfem_tpu_torch.kalman import sqrt as ks
+    from collocfem_tpu_torch.kalman.disc import discretize_lti
+    from collocfem_tpu_torch.kalman.scan import Scan
+    from collocfem_tpu_torch.models import Duffing
+
+    rng = np.random.default_rng(21)
+    f64 = dict(dtype=torch.float64, device=device)
+    ts = np.cumsum(0.05 + 0.1 * rng.random(T))
+    A = torch.tensor([[0.0, 1.0], [-4.0, -0.4]], **f64)
+    Qc = torch.tensor([[0.0, 0.0], [0.0, 0.15**2]], **f64)
+    Ad, Qd = discretize_lti(A, Qc, np.diff(ts, prepend=ts[:1]))
+    H, R = np.array([[1.0, 0.0]]), np.array([[0.05**2]])
+    y = np.cos(2.0 * ts)[:, None] + 0.05 * rng.standard_normal((T, 1))
+    mask = (np.arange(T) % 4 != 1).astype(float)
+    lin = (Ad, Qd, H, R, y, [0.8, 0.2], 4.0 * np.eye(2), mask, device)
+    model = Duffing(gamma=8.0, omega=0.5)
+    nl = (model, [0.5, 1.0, 0.5], ts, y, [[1e-4]], np.diag([1e-8, 0.05**2]),
+          [y[0, 0], 0.0], np.diag([0.1, 4.0]), None, mask)
+    res = kf.kalman_filter(*lin[:7], mask=mask, device=device)
+    sq = ks.sqrt_kalman_filter(*lin[:7], mask=mask, device=device)
+    return {
+        "kf": (Scan(kf._kf_step), kf._kf_inputs(*lin), False),
+        "rts": (Scan(kf._smoother_step), kf._smoother_inputs(res), True),
+        "sqrt kf": (Scan(ks._sqrt_kf_step), ks._sqrt_kf_inputs(*lin), False),
+        "sqrt rts": (Scan(ks._sqrt_smoother_step),
+                     ks._sqrt_smoother_inputs(sq, Ad, Qd), True),
+        "ekf": (Scan(kf._ekf_step(model, 2)),
+                kf._ekf_inputs(*nl, device), False),
+        "ukf": (Scan(kf._ukf_step(model, 2, kf._ut_lambda(2, 1.0, 0.0))),
+                kf._ukf_inputs(*nl, 1.0, 2.0, 0.0, device), False),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["kf", "rts", "sqrt kf", "sqrt rts", "ekf",
+                                  "ukf"])
+def test_captured_kalman_scan_matches_uncaptured(cuda_device, name):
+    """Each filter and smoother: the captured scan (its forward graph
+    replayed T times, its backward graph T times) equals the same step
+    bodies run uncaptured, bit for bit, in every output and in the gradient
+    of a weighted sum of them with respect to every input."""
+    from torch.utils._pytree import tree_flatten, tree_unflatten
+
+    from collocfem_tpu_torch.testing import bit_equal
+
+    scan, args, reverse = _kalman_scans(cuda_device)[name]
+    leaves, spec = tree_flatten(args)
+
+    def run(fn):
+        xs = [x.detach().clone().requires_grad_(True) for x in leaves]
+        out = fn(*tree_unflatten(xs, spec), reverse=reverse)
+        outs = tree_flatten(out)[0]
+        loss = sum((o * (1.0 + 0.1 * i)).sum() for i, o in enumerate(outs))
+        grads = torch.autograd.grad(loss, xs, allow_unused=True)
+        return [o.detach() for o in outs], [g for g in grads
+                                            if g is not None]
+
+    got, want = run(scan), run(scan.eager)
+    torch.cuda.synchronize()
+    assert bit_equal(got, want) and got[1]
+    assert all(bool(torch.isfinite(o).all()) for o in got[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["lti", "ekf", "ukf"])
+def test_captured_nll_captures_once_per_key(cuda_device, kind, monkeypatch):
+    """A likelihood captures its forward and backward graphs at its first
+    evaluation and replays them at every later one (new p, no new graph);
+    each captured value and gradient equals the uncaptured scan's bit for
+    bit and the tape-recording loop's within 1e-12."""
+    import numpy as np
+
+    from collocfem_tpu_torch import kalman
+    from collocfem_tpu_torch.models import Duffing
+
+    graphs = []
+
+    class Counted(torch.cuda.CUDAGraph):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            graphs.append(self)
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Counted)
+    rng = np.random.default_rng(22)
+    ts = np.linspace(0.05, 2.0, 30)
+    y = np.cos(1.3 * ts)[:, None] + 0.01 * rng.standard_normal((30, 1))
+    if kind == "lti":
+        def build(p):
+            z, one = torch.zeros_like(p[0]), torch.ones_like(p[0])
+            A = torch.stack([torch.stack([z, one]), torch.stack([-p[0],
+                                                                -p[1]])])
+            f = lambda m: torch.as_tensor(m, dtype=p.dtype, device=p.device)
+            return (A, f([[0.0, 0.0], [0.0, 0.02]]), f([[1.0, 0.0]]),
+                    f([[1e-4]]), f([y[0, 0], 0.0]), f(np.eye(2)))
+        nll, p0 = kalman.make_lti_nll(build, ts, y, device=cuda_device), \
+            [3.0, 1.0]
+    else:
+        make = getattr(kalman, f"make_{kind}_nll")
+        nll = make(Duffing(gamma=8.0, omega=0.5), ts, y, [[1e-4]],
+                   np.diag([1e-8, 0.05**2]), [y[0, 0], 0.0],
+                   np.diag([0.1, 4.0]), substeps=2, device=cuda_device)
+        p0 = [0.5, 1.0, 0.5]
+
+    def value_and_grad(fn, p):
+        x = torch.tensor(p, dtype=torch.float64, device=cuda_device,
+                         requires_grad=True)
+        v = fn(x)
+        return v.detach(), torch.autograd.grad(v, x)[0]
+
+    for p in (p0, [1.1 * v for v in p0], [0.9 * v for v in p0]):
+        v, g = value_and_grad(nll, p)
+        assert len(graphs) == 2
+        ev, eg = value_and_grad(nll.eager, p)
+        pv, pg = value_and_grad(nll.plain, p)
+        torch.cuda.synchronize()
+        assert torch.equal(v, ev) and torch.equal(g, eg)
+        assert float((v - pv).abs()) <= 1e-12 * float(pv.abs())
+        assert float((g - pg).abs().max()) <= 1e-12 * float(pg.abs().max())
+    # One captured plan and the uncaptured one.
+    assert sorted(key[0] for key in nll.scan._plans) == [False, True]
+
+
+@pytest.mark.cuda
+def test_a_failing_scan_capture_raises(cuda_device):
+    """A step that reads a value back to the host cannot be captured: the
+    scan raises, keeps no plan, and runs no loop in its place."""
+    from collocfem_tpu_torch.kalman.scan import Scan
+
+    def step(carry, x, consts):
+        return (carry[0] * x[0].item(),), carry[0].sum()
+
+    s = Scan(step)
+    xs = (torch.arange(1.0, 5.0, dtype=torch.float64, device=cuda_device),)
+    c0 = (torch.ones(2, dtype=torch.float64, device=cuda_device),)
+    with pytest.raises(RuntimeError):
+        s(c0, xs)
+    torch.cuda.synchronize()
+    assert not s._plans
+    (c, ), ys = s.eager(c0, xs)
+    assert c.tolist() == [24.0, 24.0] and ys.tolist() == [2.0, 2.0, 4.0,
+                                                          12.0]

@@ -209,7 +209,9 @@ def test_run_lbfgs_reaches_the_jax_optimum():
     """tests/test_kalman.py's PEM problem (T = 400, regular grid): the
     optimum within 1e-5 of the JAX package's L-BFGS optimum, the NLL within
     1e-8 (relative), and the stats contract (value, gradient norm,
-    iterations)."""
+    iterations).  Every evaluation runs through the NLL's one scan plan (the
+    step bodies that a CUDA device replays), whose value at the optimum is
+    the tape-recording loop's within 1e-12."""
     rng = np.random.default_rng(5)
     ts, y, _, _ = _problem(rng, T=400, irregular=False)
     jnll = jk.make_lti_nll(_lti_build(jnp), ts, y)
@@ -218,10 +220,12 @@ def test_run_lbfgs_reaches_the_jax_optimum():
     nll = tk.make_lti_nll(_lti_build(torch), ts, y, device="cpu")
     p, (val, gnorm, it) = tk.run_lbfgs(nll, _t([3.0, 1.0]), maxiter=200,
                                        device="cpu")
+    assert isinstance(nll, tk.ScanNLL) and len(nll.scan._plans) == 1
     _close(p, jp, 1e-5)
     np.testing.assert_allclose(float(val), float(jval), rtol=1e-8)
     assert float(gnorm) <= 1e-8 and 0 < it < 200
     np.testing.assert_allclose(float(val), float(nll(p)), rtol=1e-15)
+    np.testing.assert_allclose(float(val), float(nll.plain(p)), rtol=1e-12)
 
 
 def test_run_lbfgs_evaluates_each_point_once():
@@ -244,6 +248,58 @@ def test_run_lbfgs_evaluates_each_point_once():
         for j in range(i):
             assert not torch.equal(points[i], points[j])
     assert float(val) == float(nll(p))
+
+
+def test_run_lbfgs_shortens_a_step_that_raises_the_value():
+    """Rosenbrock's function from (-1.2, 1), whose first trial step raises
+    the value: the strong-Wolfe search shortens it (it has 25 evaluations
+    a step) and L-BFGS reaches (1, 1) with ||g|| <= 1e-8, each point
+    evaluated once."""
+    points = []
+
+    def rosenbrock(x):
+        points.append(x.detach().clone())
+        return (1 - x[0]) ** 2 + 100 * (x[1] - x[0] ** 2) ** 2
+
+    p, (val, gnorm, it) = tk.run_lbfgs(rosenbrock, [-1.2, 1.0], maxiter=200,
+                                       device="cpu")
+    _close(p, [1.0, 1.0], 1e-8)
+    assert float(gnorm) <= 1e-8 and 0 < it < 200 and float(val) < 1e-16
+    assert len({tuple(q.tolist()) for q in points}) == len(points)
+
+
+class _FlooredValue(torch.autograd.Function):
+    """d0^2 + 10 d1^2 + d0^4 (d = x - 1) with its value held at 1e-3 or
+    above, as a likelihood's rounding hides decreases near its minimum,
+    and its gradient exact."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        d = x - 1.0
+        return torch.clamp(d[0] ** 2 + 10 * d[1] ** 2 + d[0] ** 4, min=1e-3)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        d = x - 1.0
+        return g * torch.stack([2 * d[0] + 4 * d[0] ** 3, 20 * d[1]])
+
+
+def test_run_lbfgs_stops_where_no_step_is_found():
+    """Where the value hides every decrease, an iteration's line search
+    leaves x where it was: run_lbfgs stops after it instead of repeating it
+    until maxiter, and reports the gradient norm it could not bring below
+    gtol (the run one iteration shorter ends at the same x)."""
+    fun = _FlooredValue.apply
+    p, (val, gnorm, it) = tk.run_lbfgs(fun, [3.0, -2.0], maxiter=100,
+                                       device="cpu")
+    assert 1 < it < 100 and float(gnorm) > 1e-8
+    _close(p, [1.0, 1.0], 1e-2)
+    assert float(val) == float(fun(p))
+    p2, (_, _, it2) = tk.run_lbfgs(fun, [3.0, -2.0], maxiter=it - 1,
+                                   device="cpu")
+    assert it2 == it - 1 and torch.equal(p2, p)
 
 
 def test_kalman_tier_runs_on_its_device_and_copies_nothing():
