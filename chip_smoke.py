@@ -147,12 +147,15 @@ Phases, each printing its own line; any failure raises and exits non-zero:
      b = 12, nq = 1: kernel #1 once per inner iteration), float64: tf
      within 1e-6 of the JAX package's, 2 sqrt(d) - 1e-3 < tf < 1.06 x 2
      sqrt(d), g <= 1e-10;
- 12. estimation under constraints, float64: (a) the aircraft problem with
+ 12. estimation under constraints, float64, each solver's whole barrier
+     homotopy replayed from CUDA graphs: (a) the aircraft problem with
      examples/constrained_estimation.py's damping spec (kernel #1 at (8,
      5)): p within 1e-6 of the JAX package's, g_param(p) <= 0; (b)
      tests/test_bounds.py's active parameter bound on Van der Pol at degree
      4 (kernel #1 at (8, 2)) and at the test's own degree 2 (kernel #1 at
-     (4, 2)): p within 1e-6 of the JAX package's;
+     (4, 2)): p within 1e-6 of the JAX package's.  Each case runs captured
+     (first call and a replay) and eagerly, once each: bit-identical, the
+     same launches; the walls, the first call's and the idle shares;
  13. the serving path and the Kalman tier (_serving): (a)
      examples/mhe_online.py's moving-horizon estimator (Van der Pol,
      horizon 12, degree 3: kernel #2 at (6, 1)) over its 240-sample stream
@@ -228,9 +231,10 @@ steps (``step_eager``) in both dtypes, and phase 7 for the ladder
 (``ConvergedLadder.eager``).  A phase line's wall is the captured one, with
 the eager wall beside it; phases 3, 5 and 7 also profile one captured run
 (device time, and the idle share of the captured and of the eager wall).
-Phases 10-12 run eagerly: their solvers (solve/auglag.py, bounds.py,
-constrained.py) are not captured; so do phase 14's sharded solves (their
-collectives are not captured).
+Phase 12 does the same with the interior-point drivers (solve/bounds.py,
+constrained.py: the barrier homotopy captured), and profiles each case.
+Phases 10-11 run eagerly: their solver (solve/auglag.py) is not captured;
+so do phase 14's sharded solves (their collectives are not captured).
 
 The second-to-last lines are the card's name and power limit and a JSON
 object describing every kernel of the path (its numbers at the headline's
@@ -2542,8 +2546,16 @@ def _constrained_estimation(dev, card, record):
     (b) tests/test_bounds.py's active parameter bound on Van der Pol, on 60
     elements of degree 4 (kernel #1 at (8, 2)) and of the test's own
     degree 2 (kernel #1 at (4, 2)): p within 1e-6 of the JAX package's.
-    Kernel #1 launches once per inner LM iteration, no plain version.
-    Returns the launches."""
+    Each solver replays its whole barrier homotopy from CUDA graphs
+    (solve.bounds.barrier_homotopy).  Each case runs three times on the same
+    inputs, each counted: the captured first call (warm-up, capture and
+    replays), a second captured call and ``solve.eager`` once; each launches
+    kernel #1 once per inner LM iteration of its run (the sum of history[:,
+    3]) at the case's shape and no plain version, the three give the same
+    launches, and the second call and the eager run give the first call's
+    z and every stats field bit for bit.  Prints the three walls and the
+    idle share of the captured and of the eager wall (one more captured run
+    under torch.profiler).  Returns the first calls' launches."""
     import torch
 
     from collocfem_tpu_torch import configs
@@ -2552,6 +2564,7 @@ def _constrained_estimation(dev, card, record):
                                            make_bounded_solver, make_bounds,
                                            make_constrained_solver,
                                            project_interior)
+    from collocfem_tpu_torch.testing import bit_equal
 
     kkt = "kkt_solve_spike_fused"
     launches = {}
@@ -2577,26 +2590,44 @@ def _constrained_estimation(dev, card, record):
             ("(b) Van der Pol degree 2, mu <= 0.8", bounded[2], (4, 2),
              BOUNDED_VDP2_JAX_F64)):
         tag = f"phase 12 {part}"
-        (z, st), wall, counts = _counted(
-            tag, lambda: solve(*args),
-            lambda out: {kkt: int(out[1].history[:, 3].sum())})
-        if LAST_SHAPES[kkt] != {shape: counts[kkt]}:
-            raise RuntimeError(f"{tag}: launches by shape {LAST_SHAPES[kkt]}")
+        runs = {}
+        for name, run in (("first call", lambda: solve(*args)),
+                          ("captured", lambda: solve(*args)),
+                          ("eager", lambda: solve.eager(*args))):
+            runs[name] = _counted(
+                f"{tag} {name}", run,
+                lambda out: {kkt: int(out[1].history[:, 3].sum())})
+            if LAST_SHAPES[kkt] != {shape: runs[name][2][kkt]}:
+                raise RuntimeError(f"{tag} {name}: launches by shape "
+                                   f"{LAST_SHAPES[kkt]}")
+            if name == "first call":
+                _keep_shapes(runs[name][2])
+        (z, st), first_wall, counts = runs["first call"]
+        wall, eager_wall = runs["captured"][1], runs["eager"][1]
+        same = (all(bit_equal(runs[n][0], (z, st))
+                    for n in ("captured", "eager"))
+                and all(runs[n][2] == counts for n in runs))
         launches[kkt] = launches.get(kkt, 0) + counts[kkt]
-        _keep_shapes(counts)
         p = z.p.tolist()
         d_p = _p_dev(p, ref)
         extra = ""
-        ok = d_p <= 1e-6
+        ok = d_p <= 1e-6 and same
         if part.startswith("(a)"):
             g = float(configs.zeta_constraint(z.p)[0])
             extra = f", g_param(p) {g:.3e} (<= 0)"
             ok = ok and g <= 0
-        record[f"phase12 {part}"] = dict(p=p, p_vs_jax=d_p, wall_s=wall,
-                                         launches=counts[kkt])
         print(f"{tag}: p={p}, |p - p_JAX|/|p_JAX| {d_p:.3e} (<= 1e-6){extra},"
               f" {counts[kkt]} inner LM iterations = kernel #1 launches at "
-              f"{shape}, no plain call; wall {wall:.4f} s on {card}")
+              f"{shape} in each run, no plain call; captured and eager "
+              f"bit-identical (z, cost, grad_norm, mu, history) with the "
+              f"same launches {'ok' if same else 'FAIL'}; wall captured "
+              f"{wall:.4f} s (first call, with the capture, "
+              f"{first_wall:.4f} s), eager {eager_wall:.4f} s on {card}")
+        prof = _profile_captured(tag, lambda: solve(*args), wall, eager_wall)
+        record[f"phase12 {part}"] = dict(
+            p=p, p_vs_jax=d_p, wall_s=wall, first_call_s=first_wall,
+            eager_wall_s=eager_wall, launches=counts[kkt],
+            bit_identical=same, profile=prof)
         if not ok:
             raise RuntimeError(f"{tag}: a gate failed")
     return launches

@@ -106,19 +106,29 @@ def _amax_abs(x):
     return x.abs().max() if x.numel() else x.new_zeros(())
 
 
-def first_feasible_alpha(alpha0, max_backtrack: int, infeasible):
+def backtrack_halvings(max_backtrack: int, dtype, device):
+    """The (max_backtrack + 1,) factors 2^-j of :func:`first_feasible_alpha`.
+    Building them copies from the host, so a solver builds them once."""
+    return torch.tensor([0.5**j for j in range(max_backtrack + 1)],
+                        dtype=dtype, device=device)
+
+
+def first_feasible_alpha(alpha0, halvings, infeasible):
     """alpha0 halved until ``infeasible(alpha)`` is False, at most
-    ``max_backtrack`` times: the JAX package's ``while_loop``, as one
-    batched test of the max_backtrack + 1 candidates alpha0 2^-j.  The
-    first feasible candidate wins; when none of the first max_backtrack is
-    feasible, the last one is taken, feasible or not.  ``infeasible`` maps
-    (J,) candidates to (J,) flags.  No host synchronisation."""
-    halvings = torch.tensor([0.5**j for j in range(max_backtrack + 1)],
-                            dtype=alpha0.dtype, device=alpha0.device)
+    max_backtrack times: the JAX package's ``while_loop``, as one batched
+    test of the max_backtrack + 1 candidates alpha0 2^-j (``halvings``, from
+    :func:`backtrack_halvings`).  The first feasible candidate wins; when
+    none of the first max_backtrack is feasible, the last one is taken,
+    feasible or not.  ``infeasible`` maps (J,) candidates to (J,) flags.  No
+    copy from the host and no read to it, so a CUDA graph can capture it:
+    the last flag is set by a fill (``stop[-1] = True`` copies a host
+    scalar) and the winner picked by ``index_select`` (indexing by a 0-d
+    tensor reads the index back)."""
     alphas = alpha0 * halvings
-    stop = ~infeasible(alphas)
-    stop[-1] = True
-    return alphas[torch.argmax(stop.to(torch.int32))]
+    feasible = ~infeasible(alphas)
+    stop = torch.cat([feasible[:-1], feasible.new_ones(1)])
+    first = torch.argmax(stop.to(torch.int32)).reshape(1)
+    return alphas.index_select(0, first).reshape(())
 
 
 def make_ocp_solver(problem, options: ALBarrierOptions = ALBarrierOptions()):
@@ -140,6 +150,7 @@ def make_ocp_solver(problem, options: ALBarrierOptions = ALBarrierOptions()):
     num_nodes = problem.num_nodes
     dtype = problem.dtype
     scalar = lambda v: torch.as_tensor(v, dtype=dtype, device=problem.device)
+    halvings = backtrack_halvings(opt.max_backtrack, dtype, problem.device)
 
     # -- element residual in AL least-squares form ---------------------------
     def elem_res(ve_flat, p, lam_e, sqrt_rho, width, times, cscale, qscale):
@@ -289,7 +300,7 @@ def make_ocp_solver(problem, options: ALBarrierOptions = ALBarrierOptions()):
                 Decision(V=z.V + a * dV, p=z.p + a * dp)))(alphas)
             return (g_try >= 0).flatten(1).any(dim=1)
 
-        return first_feasible_alpha(alpha0, opt.max_backtrack, infeasible)
+        return first_feasible_alpha(alpha0, halvings, infeasible)
 
     # -- inner damped GN loop -------------------------------------------------
     def inner_solve(z, mult, rho, mu, lam_lm):

@@ -15,6 +15,12 @@ blocks (one slot per collocation node) and to the corner C, so the step
 solve is the estimation KKT solve.  The merit is the float64
 ``problem.cost`` (in place of the JAX package's double-word ``cost_dw``)
 plus the barrier, summed in float64.
+
+Where the JAX package jits the whole homotopy (``fori_loop`` over the outer
+iterations, ``while_loop`` inside), the port replays it from CUDA graphs on
+a CUDA device (:func:`barrier_homotopy`, shared with
+``solve.constrained``; :class:`~collocfem_tpu_torch.solve.graph.
+CapturedOuterLoop`), and keeps the eager loop as ``solve.eager``.
 """
 
 from __future__ import annotations
@@ -32,12 +38,16 @@ from collocfem_tpu_torch.ops.assemble import (
     node_block_scatter_soa,
 )
 from collocfem_tpu_torch.problem import Decision
+from collocfem_tpu_torch.solve.graph import CapturedOuterLoop
 from collocfem_tpu_torch.solve.kkt import resolve_method, solve_kkt_soa
 from collocfem_tpu_torch.solve.lm_core import (
     LMAux,
     fused_quadforms,
     grad_inf_norm,
+    lm_constants,
+    lm_init,
     lm_loop,
+    lm_step,
 )
 
 BOUNDS_HISTORY_COLS = ("cost", "grad_norm", "mu", "inner_iters")
@@ -137,13 +147,99 @@ def pre_barrier_dmax(sys):
         sys.C.shape[0] else dmax
 
 
+class BarrierCarry(NamedTuple):
+    """The outer carry of the barrier homotopy (:func:`barrier_homotopy`)."""
+
+    z: Decision
+    mu: torch.Tensor       # () barrier parameter of the next subproblem
+    lam: torch.Tensor      # () the next inner solve's warm-start damping
+    history: torch.Tensor  # (n_outer, 4) per-outer table
+    o: torch.Tensor        # () int64 index of the next outer iteration
+
+
+def barrier_homotopy(problem, opt, merit, trial, finish):
+    """The interior-point drivers' outer loop, captured: n_outer barrier
+    subproblems, each an inner gain-mode LM solve warm-started at the last
+    one's damping (clamped to 1e3) with gtol = max(0.1 mu, opt.gtol), then
+    mu <- max(mu mu_factor, mu_min).
+
+    ``merit(z, data, mu)`` is the float64 merit, ``trial(data, mu)`` the
+    inner LM's trial function and ``finish(z, data, mu, history)`` what the
+    solve returns.  Returns a :class:`solve.graph.CapturedOuterLoop` of
+    (z0, data) whose ``.eager`` is the Python loop over ``lm_loop``.  The
+    initial mu, lam and history, and the inner solves' constants, are made
+    here, once; the captured functions copy nothing from the host."""
+    dtype, device = problem.dtype, problem.device
+    scalar = lambda v, dt=dtype: torch.as_tensor(v, dtype=dt, device=device)
+    mu0, lam0, o0 = scalar(opt.mu0), scalar(opt.lam0), scalar(0, torch.int64)
+    hist0 = torch.zeros((opt.n_outer, len(BOUNDS_HISTORY_COLS)), dtype=dtype,
+                        device=device)
+    consts = lm_constants(opt.lam0, maxiter=opt.inner_maxiter, dtype=dtype,
+                          device=device)
+    eps = torch.finfo(dtype).eps
+    lm_args = dict(xtol=1e-15, lam_min=opt.lam_min, lam_max=opt.lam_max)
+
+    def inner_gtol(mu):
+        return torch.clamp(0.1 * mu, min=opt.gtol)
+
+    def row(st, data, mu):
+        return torch.stack([problem.cost(st.z, data).to(dtype), st.gnorm, mu,
+                            st.it.to(dtype)])
+
+    def next_mu(mu):
+        return torch.clamp(mu * opt.mu_factor, min=opt.mu_min)
+
+    def prelude(z0, data):
+        return BarrierCarry(z=z0, mu=mu0, lam=lam0, history=hist0, o=o0)
+
+    def begin(carry, z0, data):
+        st = lm_init(carry.z, (), merit(carry.z, data, carry.mu),
+                     consts._replace(lam=torch.clamp(carry.lam, min=eps)))
+        return st, inner_gtol(carry.mu)
+
+    def step(inner, carry, z0, data):
+        st, gtol = inner
+        return lm_step(st, trial(data, carry.mu), gtol=gtol, **lm_args), gtol
+
+    def end(inner, carry, z0, data):
+        # A lam-railed inner exit leaves lam at lam_max; the next barrier
+        # subproblem is a new landscape, so the warm start is clamped.
+        st = inner[0]
+        return BarrierCarry(
+            z=st.z, mu=next_mu(carry.mu), lam=torch.clamp(st.lam, max=1e3),
+            history=carry.history.index_copy(
+                0, carry.o.reshape(1), row(st, data, carry.mu)[None]),
+            o=carry.o + 1)
+
+    def finish_carry(carry, z0, data):
+        return finish(carry.z, data, carry.mu, carry.history)
+
+    def eager(z0, data):
+        """The same outer functions around the eager inner loop."""
+        carry = prelude(z0, data)
+        for _ in range(opt.n_outer):
+            st = lm_loop(carry.z, (), merit(carry.z, data, carry.mu),
+                         trial(data, carry.mu), maxiter=opt.inner_maxiter,
+                         lam0=carry.lam, gtol=inner_gtol(carry.mu),
+                         dtype=dtype, **lm_args)
+            carry = end((st, None), carry, z0, data)
+        return finish_carry(carry, z0, data)
+
+    return CapturedOuterLoop(prelude, begin, step, end, finish_carry, eager,
+                             n_outer=opt.n_outer, maxiter=opt.inner_maxiter)
+
+
 def make_bounded_solver(problem, b: Bounds,
                         options: BoundedOptions = BoundedOptions()):
     """Build ``solve(z0, data) -> (z, BoundedStats)``.
 
     ``z0`` must be strictly inside the bounds (use :func:`project_interior`).
     The solution approaches active bounds to within O(mu_min / multiplier);
-    inactive-bound problems reproduce the unconstrained GN solution.
+    inactive-bound problems reproduce the unconstrained GN solution.  On a
+    CUDA device a call replays the whole homotopy from CUDA graphs
+    (:func:`barrier_homotopy`, captured at the first call of each input
+    shape); on the CPU it runs the eager loop, which ``solve.eager(z0,
+    data)`` runs on any device with the same result bit for bit.
     """
     opt = options
     method = resolve_method(problem, opt.method)
@@ -219,10 +315,10 @@ def make_bounded_solver(problem, b: Bounds,
         a = torch.minimum(a, limit(sx_hi, dx, mx_hi))
         return torch.clamp(a, max=1.0)
 
-    def inner_solve(z, data, mu, lam_lm):
-        """One barrier subproblem through the shared LM loop (gain mode);
-        the step is fraction-to-boundary clipped and alpha enters the
-        predicted decrease."""
+    def trial(data, mu):
+        """The inner LM's trial function on the barrier subproblem at mu
+        (gain mode): the step is fraction-to-boundary clipped and alpha
+        enters the predicted decrease."""
 
         def trial_fn(z, carry, lam):
             sys_est = assemble_gn_soa(problem, z, data)
@@ -240,31 +336,13 @@ def make_bounded_solver(problem, b: Bounds,
                         step_norm=alpha * torch.sqrt(snorm2), alpha=alpha)
             return z_try, carry, merit(z_try, data, mu), aux
 
-        st = lm_loop(
-            z, (), merit(z, data, mu), trial_fn,
-            maxiter=opt.inner_maxiter, lam0=lam_lm,
-            gtol=torch.clamp(0.1 * mu, min=opt.gtol), xtol=1e-15,
-            lam_min=opt.lam_min, lam_max=opt.lam_max, dtype=dtype)
-        return st.z, st.lam, st.it, st.gnorm
+        return trial_fn
 
-    def solve(z0: Decision, data):
-        z = z0
-        mu = torch.as_tensor(opt.mu0, dtype=dtype, device=device)
-        lam_lm = torch.as_tensor(opt.lam0, dtype=dtype, device=device)
-        hist = torch.zeros((opt.n_outer, len(BOUNDS_HISTORY_COLS)),
-                           dtype=dtype, device=device)
-        for o in range(opt.n_outer):
-            z, lam_lm, inner_it, gnorm = inner_solve(z, data, mu, lam_lm)
-            # A lam-railed inner exit leaves lam at lam_max; the next barrier
-            # subproblem is a new landscape, so the warm start is clamped.
-            lam_lm = torch.clamp(lam_lm, max=1e3)
-            hist[o] = torch.stack([problem.cost(z, data).to(dtype), gnorm,
-                                   mu, inner_it.to(dtype)])
-            mu = torch.clamp(mu * opt.mu_factor, min=opt.mu_min)
+    def finish(z, data, mu, hist):
         return z, BoundedStats(cost=problem.cost(z, data),
                                grad_norm=hist[-1, 1], mu=mu, history=hist)
 
-    return solve
+    return barrier_homotopy(problem, opt, merit, trial, finish)
 
 
 def bounded_gauss_newton(problem, z0, data, b: Bounds,

@@ -18,7 +18,9 @@ The barrier's Gauss-Newton Hessian is per-node PSD and every node belongs to
 one chain block, so the KKT keeps its block-tridiagonal + arrowhead
 structure and the step solve is the estimation KKT solve.  The merit is the
 float64 ``problem.cost`` plus the barrier, summed in float64 (in place of
-the JAX package's double-word ``cost_dw``).
+the JAX package's double-word ``cost_dw``).  The outer loop is
+``solve.bounds.barrier_homotopy``'s: on a CUDA device it replays from CUDA
+graphs, and ``solve.eager`` runs it eagerly.
 """
 
 from __future__ import annotations
@@ -38,15 +40,18 @@ from collocfem_tpu_torch.ops.assemble import (
 from collocfem_tpu_torch.problem import Decision
 from collocfem_tpu_torch.solve.auglag import (
     _barrier_value,
+    backtrack_halvings,
     first_feasible_alpha,
 )
-from collocfem_tpu_torch.solve.bounds import pre_barrier_dmax
+from collocfem_tpu_torch.solve.bounds import (
+    barrier_homotopy,
+    pre_barrier_dmax,
+)
 from collocfem_tpu_torch.solve.kkt import resolve_method, solve_kkt_soa
 from collocfem_tpu_torch.solve.lm_core import (
     LMAux,
     fused_quadforms,
     grad_inf_norm,
-    lm_loop,
 )
 
 CONSTRAINED_HISTORY_COLS = ("cost", "grad_norm", "mu", "inner_iters")
@@ -90,7 +95,9 @@ def make_constrained_solver(problem,
     ``g_param(p)`` when given (a torch function (nq,) -> (m,) that works
     under ``torch.func.vmap`` and ``jacfwd``).  ``z0`` must be strictly
     feasible: the barrier merit is +inf outside, so an infeasible start
-    takes no step.
+    takes no step.  On a CUDA device a call replays the whole homotopy from
+    CUDA graphs (``solve.bounds.barrier_homotopy``); ``solve.eager(z0,
+    data)`` runs the eager loop, with the same result bit for bit.
     """
     opt = options
     method = resolve_method(problem, opt.method)
@@ -109,6 +116,7 @@ def make_constrained_solver(problem,
             "no constraints: model.ng == 0 and g_param is None; use the "
             "unconstrained solver (solve.newton) instead")
     node_times = torch.as_tensor(mesh.node_times, dtype=dtype, device=device)
+    halvings = backtrack_halvings(opt.max_backtrack, dtype, device)
 
     def u_nodes(data):
         """(M, nu) input at the global nodes from the per-element table
@@ -196,9 +204,12 @@ def make_constrained_solver(problem,
                 Decision(V=z.V + a * dV, p=z.p + a * dp), data))(alphas)
             return (g_try >= 0).any(dim=1)
 
-        return first_feasible_alpha(alpha0, opt.max_backtrack, infeasible)
+        return first_feasible_alpha(alpha0, halvings, infeasible)
 
-    def inner_solve(z, data, mu, lam_lm):
+    def trial(data, mu):
+        """The inner LM's trial function on the barrier subproblem at mu
+        (gain mode), with the line search above."""
+
         def trial_fn(z, carry, lam):
             derivs = barrier_derivs(z, data)
             sys_est = assemble_gn_soa(problem, z, data)
@@ -219,33 +230,14 @@ def make_constrained_solver(problem,
                         step_norm=alpha * torch.sqrt(snorm2), alpha=alpha)
             return z_try, carry, merit(z_try, data, mu), aux
 
-        st = lm_loop(
-            z, (), merit(z, data, mu), trial_fn,
-            maxiter=opt.inner_maxiter, lam0=lam_lm,
-            gtol=torch.clamp(0.1 * mu, min=opt.gtol), xtol=1e-15,
-            lam_min=opt.lam_min, lam_max=opt.lam_max, dtype=dtype)
-        return st.z, st.lam, st.it, st.gnorm
+        return trial_fn
 
-    def solve(z0: Decision, data):
-        z = z0
-        mu = torch.as_tensor(opt.mu0, dtype=dtype, device=device)
-        lam_lm = torch.as_tensor(opt.lam0, dtype=dtype, device=device)
-        hist = torch.zeros((opt.n_outer, len(CONSTRAINED_HISTORY_COLS)),
-                           dtype=dtype, device=device)
-        for o in range(opt.n_outer):
-            z, lam_lm, inner_it, gnorm = inner_solve(z, data, mu, lam_lm)
-            # lam-railed inner exits leave lam at lam_max; the next (smaller
-            # mu) subproblem is a new landscape, so the warm start is
-            # clamped.
-            lam_lm = torch.clamp(lam_lm, max=1e3)
-            hist[o] = torch.stack([problem.cost(z, data).to(dtype), gnorm,
-                                   mu, inner_it.to(dtype)])
-            mu = torch.clamp(mu * opt.mu_factor, min=opt.mu_min)
+    def finish(z, data, mu, hist):
         return z, ConstrainedStats(
             cost=problem.cost(z, data), grad_norm=hist[-1, 1],
             gviol=all_g(z, data).max(), mu=hist[-1, 2], history=hist)
 
-    return solve
+    return barrier_homotopy(problem, opt, merit, trial, finish)
 
 
 def constrained_gauss_newton(problem, z0, data,

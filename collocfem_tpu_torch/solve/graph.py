@@ -2,10 +2,12 @@
 
 The JAX package runs each solve as one compiled device program: ``@jax.jit``
 on ``make_gn_solver``'s ``solve`` over the ``lax.while_loop`` of its LM core,
-``jax.jit(solve)`` in ``make_multi_experiment_solver``, and the jitted MHE
-step.  On a CUDA device the port captures the same work as CUDA graphs and
-replays them, so that a solve's kernels leave the device's queue back to
-back instead of one Python launch at a time.
+``jax.jit(solve)`` in ``make_multi_experiment_solver``, the jitted MHE
+step, and the jitted interior-point drivers of ``solve/bounds.py`` and
+``solve/constrained.py`` (a ``lax.fori_loop`` of barrier subproblems).  On
+a CUDA device the port captures the same work as CUDA graphs and replays
+them, so that a solve's kernels leave the device's queue back to back
+instead of one Python launch at a time.
 
 A graph captures a plain function that reads static input buffers and
 writes static output buffers.  :class:`CapturedSolve` wraps a solve given as
@@ -33,6 +35,10 @@ is ``lm_core.lm_loop``'s schedule, so a call's iteration count, history and
 kernel launches are the eager loop's.  Its outputs are clones: a later call
 never overwrites an earlier result.  :class:`CapturedFunction` is the
 one-graph form, for a step's work before its solve (the MHE's arrival cost).
+:class:`CapturedOuterLoop` is the form of an outer loop around inner LM
+solves (the barrier homotopy of ``make_bounded_solver`` and
+``make_constrained_solver``): five graphs on one plan, the outer carry and
+the inner state in buffers, replayed on the eager loop's schedule.
 
 The kernel wrappers count their launches in Python, which a replay does not
 run.  So the warm-up and the capture count nothing
@@ -265,3 +271,78 @@ class CapturedFunction(_Captured):
         plan.load(leaves)
         plan.run_body()
         return plan.out
+
+
+class CapturedOuterLoop(_Captured):
+    """An outer loop of inner LM solves that replays CUDA graphs on a CUDA
+    device: the interior-point drivers' barrier homotopy, each outer
+    iteration one inner solve.
+
+    Five functions of static buffers, each captured as one graph:
+
+      * ``prelude(*inputs) -> carry``: the outer carry at the start (for
+        the drivers: z, the barrier parameter, the warm-start damping, the
+        history and the outer index as a device counter);
+      * ``begin(carry, *inputs) -> inner``: the inner solve's initial
+        state, a pair (:class:`~lm_core.LMState`, what the steps read
+        besides the carry, e.g. the inner gtol);
+      * ``step(inner, carry, *inputs) -> inner``: one ``lm_core.lm_step``;
+      * ``end(inner, carry, *inputs) -> carry``: the outer update after an
+        inner solve;
+      * ``finish(carry, *inputs) -> outputs``: what the solve returns.
+
+    A call replays the prelude; then ``n_outer`` times: begin, up to
+    ``maxiter`` steps, each after a read of the inner state's ``done`` on
+    the host that stops the inner solve, and end; then finish.  That is the
+    eager loop's schedule (``lm_core.lm_loop`` with a tolerance set, inside
+    a Python loop over the outer iterations): the host reads the values the
+    eager loop reads, so the iteration counts, histories and launches are
+    the eager loop's.  The outputs are clones.
+    """
+
+    def __init__(self, prelude, begin, step, end, finish, eager, *,
+                 n_outer: int, maxiter: int):
+        super().__init__(eager)
+        self.prelude, self.begin, self.step = prelude, begin, step
+        self.end, self.finish = end, finish
+        self.n_outer, self.maxiter = n_outer, maxiter
+
+    def _make_plan(self, leaves, spec, capture):
+        plan = _Plan(leaves, spec, capture)
+        plan.load(leaves)
+        args = plan.args
+
+        def warm():
+            carry = self.prelude(*args)
+            inner = self.begin(carry, *args)
+            if capture:
+                inner = self.step(inner, carry, *args)
+                carry = self.end(inner, carry, *args)
+            return carry, inner, self.finish(carry, *args)
+
+        plan.carry, plan.inner, plan.out = tree_map(_like,
+                                                    plan.warm_up(warm))
+        plan.run_prelude = plan.graph(
+            lambda: _write(plan.carry, self.prelude(*args)))
+        plan.run_begin = plan.graph(
+            lambda: _write(plan.inner, self.begin(plan.carry, *args)))
+        plan.run_step = plan.graph(lambda: _write(
+            plan.inner, self.step(plan.inner, plan.carry, *args)))
+        plan.run_end = plan.graph(lambda: _write(
+            plan.carry, self.end(plan.inner, plan.carry, *args)))
+        plan.run_finish = plan.graph(
+            lambda: _write(plan.out, self.finish(plan.carry, *args)))
+        return plan
+
+    def _run(self, plan, leaves):
+        plan.load(leaves)
+        plan.run_prelude()
+        for _ in range(self.n_outer):
+            plan.run_begin()
+            for _ in range(self.maxiter):
+                if bool(plan.inner[0].done):
+                    break
+                plan.run_step()
+            plan.run_end()
+        plan.run_finish()
+        return tree_map(_clone, plan.out)

@@ -22,11 +22,14 @@ carry), and it makes no copy from the host and no read to it, so a CUDA graph
 can capture it (``solve.graph``).  Once ``done`` is set every later iteration
 leaves the state as it is, which reproduces the JAX ``while_loop`` exit
 exactly.  :func:`lm_init` makes the initial state from constants that
-:func:`lm_constants` builds once.  :func:`lm_loop` runs them eagerly, a
-Python loop over device tensors; the solvers of ``solve.newton`` and
-``parallel.batch`` replay them from CUDA graphs on a CUDA device.  The host
-reads ``done`` only when a tolerance is non-zero (:func:`stops_early`), to
-stop early; the fixed-work path never synchronises.
+:func:`lm_constants` builds once (an outer loop's inner solve replaces their
+lam with its warm start, on the device).  :func:`lm_loop` runs them
+eagerly, a Python loop over device tensors; the solvers of
+``solve.newton`` and ``parallel.batch`` and the interior-point drivers of
+``solve.bounds`` and ``solve.constrained`` replay them from CUDA graphs on
+a CUDA device.  The host reads ``done`` only when a tolerance is non-zero
+(:func:`stops_early`), to stop early; the fixed-work path never
+synchronises.
 """
 
 from __future__ import annotations

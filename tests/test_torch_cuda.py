@@ -1234,6 +1234,92 @@ def test_a_failing_capture_raises(cuda_device):
     assert _build.snapshot() == before
 
 
+def _barrier_driver(kind, method, device):
+    """make_bounded_solver on tests/test_bounds.py's active parameter bound
+    (Van der Pol, 60 elements of degree 2: kernel #1 at (4, 2) on 'auto')
+    or make_constrained_solver with the cap ||p||^2 <= 1.2 on the same
+    problem, float64; (solve, z0, data)."""
+    from collocfem_tpu_torch import configs
+    from collocfem_tpu_torch.solve import (BoundedOptions,
+                                           ConstrainedOptions,
+                                           make_bounded_solver, make_bounds,
+                                           make_constrained_solver,
+                                           project_interior)
+
+    prob, z0, data = configs.build_bounded_vdp_problem(
+        2, dtype=torch.float64, device=device)
+    opts = dict(n_outer=6, inner_maxiter=30, method=method)
+    if kind == "bounded":
+        b = make_bounds(prob, p_lo=[0.0, None], p_hi=[configs.MU_CAP, None])
+        return (make_bounded_solver(prob, b, BoundedOptions(**opts)),
+                project_interior(z0, b), data)
+    return (make_constrained_solver(
+        prob, ConstrainedOptions(**opts),
+        g_param=lambda p: torch.atleast_1d(torch.dot(p, p) - 1.2)), z0, data)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind, method", [("bounded", "auto"),
+                                          ("constrained", "auto"),
+                                          ("bounded", "cr")])
+def test_captured_barrier_driver_matches_eager(cuda_device, kind, method):
+    """The interior-point drivers replay their whole barrier homotopy from
+    CUDA graphs (prelude, begin, step, end, finish): the first call and a
+    second one equal solve.eager bit for bit, with the same launches per
+    call (kernel #1 on 'auto', #4-#6 on 'cr')."""
+    solve, z0, data = _barrier_driver(kind, method, cuda_device)
+    z, st = _hold_captured(solve, z0, data)
+    assert len(solve._plans) == 1
+    assert float(st.history[:, 3].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_captured_barrier_driver_captures_once(cuda_device):
+    """A second call of the same key (another z0) replays the first call's
+    plan, captures nothing new, leaves the first call's outputs as they
+    were and shares no storage with them."""
+    from collocfem_tpu_torch.testing import bit_equal
+    from torch.utils._pytree import tree_flatten, tree_map
+
+    solve, z0, data = _barrier_driver("constrained", "auto", cuda_device)
+    first = solve(z0, data)
+    plan = next(iter(solve._plans.values()))
+    kept = tree_map(torch.clone, first)
+    second = solve(z0._replace(p=z0.p * 0.99), data)
+    torch.cuda.synchronize()
+    assert list(solve._plans.values()) == [plan]
+    assert bit_equal(first, kept) and not torch.equal(first[0].p,
+                                                      second[0].p)
+    for a, b in zip(tree_flatten(first)[0], tree_flatten(second)[0]):
+        assert a.data_ptr() != b.data_ptr()
+    assert bit_equal(second, solve.eager(z0._replace(p=z0.p * 0.99), data))
+
+
+@pytest.mark.cuda
+def test_a_failing_outer_capture_raises(cuda_device):
+    """An outer loop whose step reads a value back to the host cannot be
+    captured: the call raises, runs nothing eagerly in its place, keeps no
+    plan and leaves the launch counts as they were."""
+    from collocfem_tpu_torch.ops import _build
+    from collocfem_tpu_torch.solve.graph import CapturedOuterLoop
+
+    eager_calls = []
+
+    def step(inner, carry, x):
+        return (inner[0], carry + x * carry.sum().item())
+
+    loop = CapturedOuterLoop(
+        lambda x: 2.0 * x, lambda carry, x: (carry, carry), step,
+        lambda inner, carry, x: inner[1], lambda carry, x: carry,
+        lambda x: eager_calls.append(x), n_outer=2, maxiter=3)
+    before = _build.snapshot()
+    with pytest.raises(RuntimeError):
+        loop(torch.ones(3, device=cuda_device))
+    torch.cuda.synchronize()
+    assert not eager_calls and not loop._plans
+    assert _build.snapshot() == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", EDGES + [2498, 4998])
 def test_chain_kernel_at_r19_matches_plain(cuda_device, k):

@@ -252,8 +252,8 @@ def test_run_lbfgs_evaluates_each_point_once():
 
 def test_run_lbfgs_shortens_a_step_that_raises_the_value():
     """Rosenbrock's function from (-1.2, 1), whose first trial step raises
-    the value: the strong-Wolfe search shortens it (it has 25 evaluations
-    a step) and L-BFGS reaches (1, 1) with ||g|| <= 1e-8, each point
+    the value: the line search shortens it (it has 20 trials a step) and
+    L-BFGS reaches (1, 1) with ||g|| <= 1e-8, each point
     evaluated once."""
     points = []
 
@@ -266,6 +266,43 @@ def test_run_lbfgs_shortens_a_step_that_raises_the_value():
     _close(p, [1.0, 1.0], 1e-8)
     assert float(gnorm) <= 1e-8 and 0 < it < 200 and float(val) < 1e-16
     assert len({tuple(q.tolist()) for q in points}) == len(points)
+
+
+@pytest.mark.parametrize("x0", [[-1.2, 1.0], [2.0, -1.0], [0.0, 0.0]])
+def test_run_lbfgs_searches_lines_as_the_jax_package_does(x0):
+    """Rosenbrock's function, whose line searches bracket and zoom: the
+    port's search picks optax's step sizes, so the run takes the JAX
+    package's iteration count to gtol 1e-8 and lands within 1e-9 of its x."""
+    rosenbrock = lambda x: (1 - x[0]) ** 2 + 100 * (x[1] - x[0] ** 2) ** 2
+    jx, (_, jgnorm, jit) = jk.run_lbfgs(jax.jit(rosenbrock), jnp.array(x0),
+                                        maxiter=200)
+    p, (_, gnorm, it) = tk.run_lbfgs(rosenbrock, x0, maxiter=200,
+                                     device="cpu")
+    assert it == int(jit) < 200
+    np.testing.assert_allclose(p.numpy(), np.asarray(jx), rtol=0, atol=1e-9)
+    np.testing.assert_allclose(float(gnorm), float(jgnorm), rtol=1e-6)
+
+
+@pytest.mark.parametrize("gtol", [1e-2, 1e-6, 1e-10])
+def test_run_lbfgs_stops_as_the_jax_package_does(gtol):
+    """The JAX package's stop rule on f = 1/2 sum d_i (x_i - 1)^2, d = (1,
+    2, 3, 5, 8), from x0 = 0 in float64: an iteration tests the gradient
+    at the point it starts from and still takes its step, so the run takes
+    JAX's iteration count, lands within 1e-9 of JAX's x and reports the
+    same gradient norm (the last pre-step one) and the value at x."""
+    d = np.array([1.0, 2.0, 3.0, 5.0, 8.0])
+    jd, td = jnp.asarray(d), _t(d)
+    jx, (jval, jgnorm, jit) = jk.run_lbfgs(
+        jax.jit(lambda x: 0.5 * jnp.sum(jd * (x - 1.0) ** 2)),
+        jnp.zeros(5), maxiter=100, gtol=gtol)
+    fun = lambda x: 0.5 * torch.sum(td * (x - 1.0) ** 2)
+    x, (val, gnorm, it) = tk.run_lbfgs(fun, np.zeros(5), maxiter=100,
+                                       gtol=gtol, device="cpu")
+    assert it == int(jit) < 100
+    np.testing.assert_allclose(x.numpy(), np.asarray(jx), rtol=0, atol=1e-9)
+    assert float(gnorm) <= gtol
+    np.testing.assert_allclose(float(gnorm), float(jgnorm), rtol=1e-6)
+    assert float(val) == float(fun(x))
 
 
 class _FlooredValue(torch.autograd.Function):
@@ -286,20 +323,71 @@ class _FlooredValue(torch.autograd.Function):
         return g * torch.stack([2 * d[0] + 4 * d[0] ** 3, 20 * d[1]])
 
 
-def test_run_lbfgs_stops_where_no_step_is_found():
-    """Where the value hides every decrease, an iteration's line search
-    leaves x where it was: run_lbfgs stops after it instead of repeating it
-    until maxiter, and reports the gradient norm it could not bring below
-    gtol (the run one iteration shorter ends at the same x)."""
+@jax.custom_vjp
+def _jax_floored_value(x):
+    d = x - 1.0
+    return jnp.maximum(d[0] ** 2 + 10 * d[1] ** 2 + d[0] ** 4, 1e-3)
+
+
+def _jax_floored_fwd(x):
+    return _jax_floored_value(x), x
+
+
+def _jax_floored_bwd(x, g):
+    d = x - 1.0
+    return (g * jnp.stack([2 * d[0] + 4 * d[0] ** 3, 20 * d[1]]),)
+
+
+_jax_floored_value.defvjp(_jax_floored_fwd, _jax_floored_bwd)
+
+
+def test_run_lbfgs_crosses_a_floored_value_as_the_jax_package_does():
+    """Where the value sits at its floor and hides every decrease, the
+    line search still takes a step that meets the approximate decrease
+    condition, as optax's does: from (3, -2) the run reaches (1, 1) by
+    gtol with the JAX package's iteration count, x and gradient norm."""
+    jx, (_, jgnorm, jit) = jk.run_lbfgs(
+        jax.jit(_jax_floored_value), jnp.array([3.0, -2.0]), maxiter=100)
     fun = _FlooredValue.apply
     p, (val, gnorm, it) = tk.run_lbfgs(fun, [3.0, -2.0], maxiter=100,
+                                       device="cpu")
+    assert it == int(jit) < 100 and float(gnorm) <= 1e-8
+    np.testing.assert_allclose(p.numpy(), np.asarray(jx), rtol=0, atol=1e-9)
+    np.testing.assert_allclose(float(gnorm), float(jgnorm), rtol=1e-6)
+    _close(p, [1.0, 1.0], 1e-2)
+    assert float(val) == float(fun(p)) == 1e-3
+
+
+def _walled(xp, inf):
+    """d0^2 + 10 d1^2 + d0^4 (d = x - 1) where x0 <= 0.995 and inf beyond,
+    as a likelihood that is not defined past its domain's edge: the
+    minimum in the domain lies on the edge, where the gradient is not 0."""
+    return lambda x: xp.where(
+        x[0] <= 0.995,
+        (x[0] - 1.0) ** 2 + 10 * (x[1] - 1.0) ** 2 + (x[0] - 1.0) ** 4, inf)
+
+
+def test_run_lbfgs_stops_where_no_step_is_found():
+    """Where every trial step leaves the function's domain, an iteration's
+    line search leaves x where it was: run_lbfgs stops after it instead of
+    repeating it until maxiter, as the JAX package does, and reports the
+    gradient norm it could not bring below gtol (the run one iteration
+    shorter ends at the same x, and the JAX package's run to maxiter ends
+    there too)."""
+    fun = _walled(torch, torch.inf)
+    p, (val, gnorm, it) = tk.run_lbfgs(fun, [-1.0, -2.0], maxiter=100,
                                        device="cpu")
     assert 1 < it < 100 and float(gnorm) > 1e-8
     _close(p, [1.0, 1.0], 1e-2)
     assert float(val) == float(fun(p))
-    p2, (_, _, it2) = tk.run_lbfgs(fun, [3.0, -2.0], maxiter=it - 1,
+    p2, (_, _, it2) = tk.run_lbfgs(fun, [-1.0, -2.0], maxiter=it - 1,
                                    device="cpu")
     assert it2 == it - 1 and torch.equal(p2, p)
+    jx, (_, jgnorm, jit) = jk.run_lbfgs(jax.jit(_walled(jnp, jnp.inf)),
+                                        jnp.array([-1.0, -2.0]), maxiter=100)
+    assert int(jit) == 100
+    np.testing.assert_allclose(p.numpy(), np.asarray(jx), rtol=0, atol=1e-9)
+    np.testing.assert_allclose(float(gnorm), float(jgnorm), rtol=1e-6)
 
 
 def test_kalman_tier_runs_on_its_device_and_copies_nothing():

@@ -54,6 +54,7 @@ from collocfem_tpu_torch.ops.residual import defect_residual_all
 from collocfem_tpu_torch.problem import Decision
 from collocfem_tpu_torch.solve.auglag import (
     ALBarrierOptions,
+    backtrack_halvings,
     first_feasible_alpha,
     make_ocp_solver,
 )
@@ -299,7 +300,8 @@ def test_batched_line_search_matches_while_loop(first_feasible):
         cond, lambda c: (c[0] * 0.5, c[1] + 1),
         (jnp.asarray(alpha0), jnp.asarray(0, jnp.int32)))
     got = first_feasible_alpha(
-        torch.as_tensor(alpha0, dtype=F64), max_backtrack,
+        torch.as_tensor(alpha0, dtype=F64),
+        backtrack_halvings(max_backtrack, F64, "cpu"),
         lambda a: (torch.stack([a - thresh, -a], dim=1) >= 0).any(dim=1))
     assert float(got) == float(want)
 
