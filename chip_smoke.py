@@ -139,14 +139,18 @@ Phases, each printing its own line; any failure raises and exits non-zero:
      within 1% of (a)'s; (c) N = 500 in float64 and float32 with the same
      gates but u's (1e-5 there: C3_U_GATE), started from (a)'s / (b)'s N =
      25 solution (the nested protocol of docs/guide.md: a cold start at N =
-     500 lands in an infeasible basin, the JAX package's too).  Each run launches kernel #2
-     at (12, 1) exactly once per inner LM iteration and no plain version;
-     best-of-2 walls, and for float32 a torch.profiler breakdown with the
-     device idle share;
+     500 lands in an infeasible basin, the JAX package's too).  The solver
+     replays its whole AL homotopy from CUDA graphs.  Each case runs
+     captured (first call and a replay) and eagerly, once each:
+     bit-identical (z and every OCPStats field), each run launching kernel
+     #2 at (12, 1) exactly once per inner LM iteration and no plain
+     version; the three walls, and a torch.profiler breakdown of one more
+     captured run with the device idle share of the captured and of the
+     eager wall;
  11. the free-time OCP of examples/min_time_ocp.py (N = 16, n_outer 16,
      b = 12, nq = 1: kernel #1 once per inner iteration), float64: tf
      within 1e-6 of the JAX package's, 2 sqrt(d) - 1e-3 < tf < 1.06 x 2
-     sqrt(d), g <= 1e-10;
+     sqrt(d), g <= 1e-10; captured and eager as in phase 10;
  12. estimation under constraints, float64, each solver's whole barrier
      homotopy replayed from CUDA graphs: (a) the aircraft problem with
      examples/constrained_estimation.py's damping spec (kernel #1 at (8,
@@ -231,10 +235,10 @@ steps (``step_eager``) in both dtypes, and phase 7 for the ladder
 (``ConvergedLadder.eager``).  A phase line's wall is the captured one, with
 the eager wall beside it; phases 3, 5 and 7 also profile one captured run
 (device time, and the idle share of the captured and of the eager wall).
-Phase 12 does the same with the interior-point drivers (solve/bounds.py,
-constrained.py: the barrier homotopy captured), and profiles each case.
-Phases 10-11 run eagerly: their solver (solve/auglag.py) is not captured;
-so do phase 14's sharded solves (their collectives are not captured).
+Phases 10-12 do the same with the constrained drivers (solve/auglag.py:
+the AL homotopy captured; solve/bounds.py, constrained.py: the barrier
+homotopy captured), and profile each case.  Phase 14's sharded solves run
+eagerly (their collectives are not captured).
 
 The second-to-last lines are the card's name and power limit and a JSON
 object describing every kernel of the path (its numbers at the headline's
@@ -2412,14 +2416,55 @@ def _profile_run(label, run, best_wall):
                 idle_share=idle, top_us=top)
 
 
+def _captured_and_eager(tag, solve, args, kernel, shape, iters):
+    """Run the captured ``solve`` on ``args`` twice (the first call: warm-up,
+    capture and replays; then a replay) and ``solve.eager`` once, each
+    counted: each must launch ``kernel`` ``iters(result)`` times, all at
+    ``shape``, and no plain version.  The first call's launches join the
+    main path's.  Returns (the first call's result, its counts, {run:
+    wall}, whether the three runs launched alike and the replay and the
+    eager run gave the first call's result bit for bit: z and every stats
+    field, by torch.equal on their bit patterns)."""
+    from collocfem_tpu_torch.testing import bit_equal
+
+    runs = {}
+    for name, run in (("first call", lambda: solve(*args)),
+                      ("captured", lambda: solve(*args)),
+                      ("eager", lambda: solve.eager(*args))):
+        runs[name] = _counted(f"{tag} {name}", run,
+                              lambda out: {kernel: iters(out)})
+        if LAST_SHAPES[kernel] != {shape: runs[name][2][kernel]}:
+            raise RuntimeError(f"{tag} {name}: launches by shape "
+                               f"{LAST_SHAPES[kernel]}, expected {shape}")
+        if name == "first call":
+            _keep_shapes(runs[name][2])
+    out, _, counts = runs["first call"]
+    same = (all(bit_equal(runs[n][0], out) for n in ("captured", "eager"))
+            and all(runs[n][2] == counts for n in runs))
+    return out, counts, {n: r[1] for n, r in runs.items()}, same
+
+
+def _three_walls(walls, same, card):
+    """The three walls of _captured_and_eager and its verdict, for a phase
+    line."""
+    return (f"captured and eager bit-identical with the same launches "
+            f"{'ok' if same else 'FAIL'}; wall captured "
+            f"{walls['captured']:.4f} s (first call, with the capture, "
+            f"{walls['first call']:.4f} s), eager {walls['eager']:.4f} s on "
+            f"{card}")
+
+
 def _ocp_solves(dev, card, record):
     """Phase 10, config 3 (the pendulum swing-up) through
     make_ocp_solver(prob, ALBarrierOptions()) on 'auto', and phase 11, the
     free-time OCP of examples/min_time_ocp.py (N = 16, n_outer 16), float64.
-    Every run launches its SPIKE kernel (#2 at (12, 1) for config 3, #1 at
-    (12, 1) for the free-time OCP) exactly once per inner LM iteration (the
-    sum of the history's inner_iters) and no plain version.  Returns the
-    launches."""
+    Each solver replays its whole AL homotopy from CUDA graphs.  Each case
+    runs captured twice and eagerly once (_captured_and_eager): each run
+    launches its SPIKE kernel (#2 at (12, 1) for config 3, #1 at (12, 1)
+    for the free-time OCP) exactly once per inner LM iteration (the sum of
+    the history's inner_iters) and no plain version, and the three agree
+    bit for bit.  Prints the walls and profiles one more captured run.
+    Returns the first calls' launches."""
     import torch
 
     from collocfem_tpu_torch import configs
@@ -2427,20 +2472,17 @@ def _ocp_solves(dev, card, record):
                                                   make_ocp_solver)
 
     launches = {}
+    inner = lambda out: int(out[1].history[:, 4].sum())
 
-    def counted(label, run, kernel):
-        """run() -> (z, stats of every solve): once per inner iteration of
-        every solve."""
-        (z, stats), wall, counts = _counted(
-            label, run, lambda out: {kernel: sum(
-                int(st.history[:, 4].sum()) for st in out[1])})
-        for k, v in counts.items():
-            launches[k] = launches.get(k, 0) + v
-        _keep_shapes(counts)
-        if LAST_SHAPES[kernel] != {(12, 1): counts[kernel]}:
-            raise RuntimeError(f"{label}: launches by shape "
-                               f"{LAST_SHAPES[kernel]}, expected (12, 1)")
-        return z, stats[-1], wall, counts[kernel]
+    def three_runs(tag, solve, z0, kernel):
+        (z, st), counts, walls, same = _captured_and_eager(
+            tag, solve, (z0,), kernel, (12, 1), inner)
+        launches[kernel] = launches.get(kernel, 0) + counts[kernel]
+        return z, st, counts[kernel], walls, same
+
+    def profile(tag, solve, z0, walls):
+        return _profile_captured(tag, lambda: solve(z0), walls["captured"],
+                                 walls["eager"])
 
     rec = record.setdefault("config3", {})
     chain = "blocktri_solve_spike_fused"
@@ -2456,28 +2498,21 @@ def _ocp_solves(dev, card, record):
             # The nested protocol: from the N = 25 solution of (a) / (b).
             z0 = configs.config3_warm_start(*coarse[dtype], prob)
         solve = make_ocp_solver(prob, ALBarrierOptions())
-
-        def run():
-            z, st = solve(z0)
-            return z, (st,)
-        z, st, wall, n_launch = counted(tag, run, chain)
+        z, st, n_launch, walls, same = three_runs(tag, solve, z0, chain)
         if n == configs.ELEMENTS3:
             coarse[dtype] = (prob, z)
-        # Best of 2 (the counted run and one more): the whole script has to
-        # stay well inside its time limit on a slow host.
-        walls = [wall, _timed(run)[1]]
         x, u = z.V[:, :2].double(), z.V[:, 2].double()
         obj, cviol, gviol = (float(st.objective), float(st.cviol),
                              float(st.gviol))
         umax = float(u.abs().max())
         r = dict(objective=obj, cviol=cviol, gviol=gviol, max_abs_u=umax,
-                 inner_iters=n_launch, launches=n_launch, walls_s=walls,
-                 wall_s=min(walls))
+                 inner_iters=n_launch, launches=n_launch,
+                 wall_s=walls["captured"], first_call_s=walls["first call"],
+                 eager_wall_s=walls["eager"], bit_identical=same)
         print(f"{tag}: objective {obj:.10f}, cviol {cviol:.3e}, gviol "
               f"{gviol:.3e}, max|u| {umax:.8f}, {n_launch} inner LM "
-              f"iterations = kernel #2 launches at (12, 1), no plain call; "
-              f"best of 2 wall {min(walls):.4f} s (the counted run and one "
-              f"more: {', '.join(f'{w:.4f}' for w in walls)}) on {card}")
+              f"iterations = kernel #2 launches at (12, 1) in each run, no "
+              f"plain call; " + _three_walls(walls, same, card))
         if dtype == torch.float64:
             ref_obj, ref_u = C3_JAX_F64[n]
             nodes = torch.linspace(0, 4 * n, 11).long()
@@ -2505,37 +2540,35 @@ def _ocp_solves(dev, card, record):
             print(f"  |objective / float64's - 1| {rel:.3e} (<= 0.01)")
             ok = gviol < 0 and cviol <= 1e-3 and rel <= 0.01
         rec[f"N={n} {name}"] = r
-        if not ok:
+        if not (ok and same):
             raise RuntimeError(f"{tag}: a gate failed")
-        if dtype == torch.float32:
-            r["profile"] = _profile_run(f"config 3 N={n} float32", run,
-                                        min(walls))
+        r["profile"] = profile(f"config 3 N={n} {name}", solve, z0, walls)
         del prob, z0, solve, z, st
 
     prob, ftm, z0 = configs.build_min_time_problem(dtype=torch.float64,
                                                    device=dev)
     solve = make_ocp_solver(prob, ALBarrierOptions(**configs.MIN_TIME_OPTIONS))
     tag = "phase 11: free-time OCP float64"
-
-    def run():
-        z, st = solve(z0)
-        return z, (st,)
-    z, st, wall, n_launch = counted(tag, run, "kkt_solve_spike_fused")
+    z, st, n_launch, walls, same = three_runs(tag, solve, z0,
+                                              "kkt_solve_spike_fused")
     tf = float(ftm.final_time(z.p))
     t_star = 2.0 * math.sqrt(configs.DIST / configs.U_MAX_MT)
     d_tf = abs(tf - MIN_TIME_JAX_TF)
     gviol = float(st.gviol)
-    record["free_time"] = dict(tf=tf, tf_vs_jax=d_tf, gviol=gviol,
-                               cviol=float(st.cviol), launches=n_launch,
-                               wall_s=wall)
+    r = record["free_time"] = dict(
+        tf=tf, tf_vs_jax=d_tf, gviol=gviol, cviol=float(st.cviol),
+        launches=n_launch, wall_s=walls["captured"],
+        first_call_s=walls["first call"], eager_wall_s=walls["eager"],
+        bit_identical=same)
     print(f"{tag} (N={configs.ELEMENTS_MT}, b=12, nq=1): tf {tf:.10f} "
           f"(bang-bang {t_star}), |tf - tf_JAX| {d_tf:.3e} (<= 1e-6), gviol "
           f"{gviol:.3e} (<= 1e-10), {n_launch} inner LM iterations = kernel "
-          f"#1 launches at (12, 1), no plain call; wall {wall:.4f} s on "
-          f"{card}")
+          f"#1 launches at (12, 1) in each run, no plain call; "
+          + _three_walls(walls, same, card))
     if not (d_tf <= 1e-6 and t_star - 1e-3 < tf < 1.06 * t_star
-            and gviol <= 1e-10):
+            and gviol <= 1e-10 and same):
         raise RuntimeError(f"{tag}: a gate failed")
+    r["profile"] = profile(tag, solve, z0, walls)
     return launches
 
 
@@ -2547,15 +2580,13 @@ def _constrained_estimation(dev, card, record):
     elements of degree 4 (kernel #1 at (8, 2)) and of the test's own
     degree 2 (kernel #1 at (4, 2)): p within 1e-6 of the JAX package's.
     Each solver replays its whole barrier homotopy from CUDA graphs
-    (solve.bounds.barrier_homotopy).  Each case runs three times on the same
-    inputs, each counted: the captured first call (warm-up, capture and
-    replays), a second captured call and ``solve.eager`` once; each launches
-    kernel #1 once per inner LM iteration of its run (the sum of history[:,
-    3]) at the case's shape and no plain version, the three give the same
-    launches, and the second call and the eager run give the first call's
-    z and every stats field bit for bit.  Prints the three walls and the
-    idle share of the captured and of the eager wall (one more captured run
-    under torch.profiler).  Returns the first calls' launches."""
+    (solve.bounds.barrier_homotopy).  Each case runs captured twice and
+    eagerly once (_captured_and_eager): each run launches kernel #1 once
+    per inner LM iteration (the sum of history[:, 3]) at the case's shape
+    and no plain version, and the three agree bit for bit.  Prints the
+    three walls and the idle share of the captured and of the eager wall
+    (one more captured run under torch.profiler).  Returns the first calls'
+    launches."""
     import torch
 
     from collocfem_tpu_torch import configs
@@ -2564,7 +2595,6 @@ def _constrained_estimation(dev, card, record):
                                            make_bounded_solver, make_bounds,
                                            make_constrained_solver,
                                            project_interior)
-    from collocfem_tpu_torch.testing import bit_equal
 
     kkt = "kkt_solve_spike_fused"
     launches = {}
@@ -2590,23 +2620,11 @@ def _constrained_estimation(dev, card, record):
             ("(b) Van der Pol degree 2, mu <= 0.8", bounded[2], (4, 2),
              BOUNDED_VDP2_JAX_F64)):
         tag = f"phase 12 {part}"
-        runs = {}
-        for name, run in (("first call", lambda: solve(*args)),
-                          ("captured", lambda: solve(*args)),
-                          ("eager", lambda: solve.eager(*args))):
-            runs[name] = _counted(
-                f"{tag} {name}", run,
-                lambda out: {kkt: int(out[1].history[:, 3].sum())})
-            if LAST_SHAPES[kkt] != {shape: runs[name][2][kkt]}:
-                raise RuntimeError(f"{tag} {name}: launches by shape "
-                                   f"{LAST_SHAPES[kkt]}")
-            if name == "first call":
-                _keep_shapes(runs[name][2])
-        (z, st), first_wall, counts = runs["first call"]
-        wall, eager_wall = runs["captured"][1], runs["eager"][1]
-        same = (all(bit_equal(runs[n][0], (z, st))
-                    for n in ("captured", "eager"))
-                and all(runs[n][2] == counts for n in runs))
+        (z, st), counts, walls, same = _captured_and_eager(
+            tag, solve, args, kkt, shape,
+            lambda out: int(out[1].history[:, 3].sum()))
+        first_wall, wall = walls["first call"], walls["captured"]
+        eager_wall = walls["eager"]
         launches[kkt] = launches.get(kkt, 0) + counts[kkt]
         p = z.p.tolist()
         d_p = _p_dev(p, ref)
@@ -2618,11 +2636,8 @@ def _constrained_estimation(dev, card, record):
             ok = ok and g <= 0
         print(f"{tag}: p={p}, |p - p_JAX|/|p_JAX| {d_p:.3e} (<= 1e-6){extra},"
               f" {counts[kkt]} inner LM iterations = kernel #1 launches at "
-              f"{shape} in each run, no plain call; captured and eager "
-              f"bit-identical (z, cost, grad_norm, mu, history) with the "
-              f"same launches {'ok' if same else 'FAIL'}; wall captured "
-              f"{wall:.4f} s (first call, with the capture, "
-              f"{first_wall:.4f} s), eager {eager_wall:.4f} s on {card}")
+              f"{shape} in each run, no plain call; "
+              + _three_walls(walls, same, card))
         prof = _profile_captured(tag, lambda: solve(*args), wall, eager_wall)
         record[f"phase12 {part}"] = dict(
             p=p, p_vs_jax=d_p, wall_s=wall, first_call_s=first_wall,

@@ -23,6 +23,12 @@ ported).  The merit is float64 in place of the JAX package's double-word
 barrier are summed in float64.  On a CUDA device 'auto' runs the SPIKE
 kernels (kernel #2 at nq = 0, kernel #1 with parameters); on the CPU, the
 plain cyclic reduction.
+
+Where the JAX package jits the whole homotopy (``fori_loop`` over the outer
+rounds, ``while_loop`` inside), the port replays it from CUDA graphs on a
+CUDA device (:class:`~collocfem_tpu_torch.solve.graph.CapturedOuterLoop`,
+the outer carry an :class:`ALCarry`), and keeps the eager loop as
+``solve.eager``.
 """
 
 from __future__ import annotations
@@ -41,12 +47,16 @@ from collocfem_tpu_torch.ops.assemble import (
     scatter_gn_blocks_soa,
 )
 from collocfem_tpu_torch.problem import Decision
+from collocfem_tpu_torch.solve.graph import CapturedOuterLoop
 from collocfem_tpu_torch.solve.kkt import resolve_method, solve_kkt_soa
 from collocfem_tpu_torch.solve.lm_core import (
     LMAux,
     fused_quadforms,
     grad_inf_norm,
+    lm_constants,
+    lm_init,
     lm_loop,
+    lm_step,
 )
 
 OUTER_HISTORY_COLS = (
@@ -91,6 +101,19 @@ class OCPStats(NamedTuple):
     history: torch.Tensor    # (n_outer, 6) per-outer-iteration table
     multipliers: Any         # final equality multipliers (Multipliers)
     mu: torch.Tensor         # () final barrier parameter (nu_i = mu / -g_i)
+
+
+class ALCarry(NamedTuple):
+    """The outer carry of the AL homotopy (:func:`make_ocp_solver`)."""
+
+    z: Decision
+    mult: Any              # equality multipliers (Multipliers)
+    rho: torch.Tensor      # () penalty of the next subproblem
+    mu: torch.Tensor       # () barrier parameter of the next subproblem
+    lam: torch.Tensor      # () the next inner solve's warm-start damping
+    cviol: torch.Tensor    # () max |c| after the last round (inf at first)
+    history: torch.Tensor  # (n_outer, 6) per-outer table
+    o: torch.Tensor        # () int64 index of the next outer round
 
 
 def _barrier_value(g, mu):
@@ -138,7 +161,10 @@ def make_ocp_solver(problem, options: ALBarrierOptions = ALBarrierOptions()):
     iteration would solve at z.
 
     ``z0`` must be strictly feasible for the path constraints (g(z0) < 0 at
-    every node); use ``problem.initial_guess()``.
+    every node); use ``problem.initial_guess()``.  On a CUDA device a call
+    replays the whole homotopy from CUDA graphs (captured at the first call
+    of each input shape); on the CPU it runs the eager loop, which
+    ``solve.eager(z0)`` runs on any device with the same result bit for bit.
     """
     opt = options
     method = resolve_method(problem, opt.method)
@@ -148,9 +174,22 @@ def make_ocp_solver(problem, options: ALBarrierOptions = ALBarrierOptions()):
     ng, ne = model.ng, model.ne
     k = n + 1
     num_nodes = problem.num_nodes
-    dtype = problem.dtype
-    scalar = lambda v: torch.as_tensor(v, dtype=dtype, device=problem.device)
-    halvings = backtrack_halvings(opt.max_backtrack, dtype, problem.device)
+    dtype, device = problem.dtype, problem.device
+    # Every constant is made here, once: a copy from the host inside a
+    # captured function is what a CUDA graph capture refuses.
+    scalar = lambda v, dt=dtype: torch.as_tensor(v, dtype=dt, device=device)
+    halvings = backtrack_halvings(opt.max_backtrack, dtype, device)
+    rho0, mu0, lam0 = scalar(opt.rho0), scalar(opt.mu0), scalar(opt.lam0)
+    inf, neg_inf = scalar(math.inf), scalar(-math.inf)
+    o0 = scalar(0, torch.int64)
+    hist0 = torch.zeros((opt.n_outer, len(OUTER_HISTORY_COLS)), dtype=dtype,
+                        device=device)
+    mult0 = problem.zero_multipliers()
+    consts = lm_constants(opt.lam0, maxiter=opt.inner_maxiter, dtype=dtype,
+                          device=device)
+    eps = torch.finfo(dtype).eps
+    lm_args = dict(xtol=1e-15, lam_min=opt.lam_min, lam_max=opt.lam_max,
+                   accept_mode="decrease")
 
     # -- element residual in AL least-squares form ---------------------------
     def elem_res(ve_flat, p, lam_e, sqrt_rho, width, times, cscale, qscale):
@@ -292,8 +331,7 @@ def make_ocp_solver(problem, options: ALBarrierOptions = ALBarrierOptions()):
         ratio = torch.where(
             dgdir > 0, opt.ftb * (-gvals) / torch.clamp(dgdir, min=1e-300),
             torch.full_like(gvals, math.inf))
-        alpha0 = torch.clamp(ratio.min() if ratio.numel()
-                             else scalar(math.inf), max=1.0)
+        alpha0 = torch.clamp(ratio.min() if ratio.numel() else inf, max=1.0)
 
         def infeasible(alphas):
             g_try = vmap(lambda a: problem.path_constraints(
@@ -303,11 +341,11 @@ def make_ocp_solver(problem, options: ALBarrierOptions = ALBarrierOptions()):
         return first_feasible_alpha(alpha0, halvings, infeasible)
 
     # -- inner damped GN loop -------------------------------------------------
-    def inner_solve(z, mult, rho, mu, lam_lm):
-        """One AL/barrier subproblem through the shared LM loop: plain
-        decrease acceptance on the float64 merit, the fixed damping ladder;
-        the step is fraction-to-boundary and feasibility clipped, and alpha
-        enters the predicted decrease."""
+    def trial(mult, rho, mu):
+        """The inner LM's trial function on the AL/barrier subproblem at
+        (mult, rho, mu), in decrease mode on the float64 merit with the
+        fixed damping ladder: the step is fraction-to-boundary and
+        feasibility clipped, and alpha enters the predicted decrease."""
 
         def trial_fn(z, carry, lam):
             sys, gvals, jgv, jgp = assemble(z, mult, rho, mu)
@@ -323,50 +361,78 @@ def make_ocp_solver(problem, options: ALBarrierOptions = ALBarrierOptions()):
                         step_norm=alpha * torch.sqrt(snorm2), alpha=alpha)
             return z_try, carry, merit(z_try, mult, rho, mu), aux
 
+        return trial_fn
+
+    def inner_gtol(mu):
         # The inner tolerance loosens with mu: no point polishing a barrier
         # subproblem below its own bias.
-        gtol_eff = torch.clamp(0.1 * mu, min=opt.gtol)
-        st = lm_loop(
-            z, (), merit(z, mult, rho, mu), trial_fn,
-            maxiter=opt.inner_maxiter, lam0=lam_lm, gtol=gtol_eff,
-            xtol=1e-15, lam_min=opt.lam_min, lam_max=opt.lam_max,
-            dtype=dtype, accept_mode="decrease")
-        return st.z, torch.clamp(st.lam, max=1e3), st.it, st.gnorm
+        return torch.clamp(0.1 * mu, min=opt.gtol)
 
-    # -- outer AL loop ---------------------------------------------------------
-    def solve(z0: Decision):
-        z, mult = z0, problem.zero_multipliers()
-        rho, mu, lam_lm = scalar(opt.rho0), scalar(opt.mu0), scalar(opt.lam0)
-        cviol_prev = scalar(math.inf)
-        hist = torch.zeros((opt.n_outer, len(OUTER_HISTORY_COLS)),
-                           dtype=dtype, device=problem.device)
-        for o in range(opt.n_outer):
-            z, lam_lm, inner_it, gnorm = inner_solve(z, mult, rho, mu, lam_lm)
-            c = problem.constraints(z)
-            cviol = torch.stack([_amax_abs(c.defect), _amax_abs(c.b0),
-                                 _amax_abs(c.bf),
-                                 _amax_abs(c.path_eq)]).max()
-            mult = tree_map(lambda l, ci: l + rho * ci, mult, c)
-            hist[o] = torch.stack([problem.objective(z), cviol, mu, rho,
-                                   inner_it.to(dtype), gnorm])
-            rho = torch.where(cviol > opt.cviol_ratio * cviol_prev,
-                              torch.clamp(rho * opt.rho_up, max=opt.rho_max),
-                              rho)
-            mu = torch.clamp(mu * opt.mu_factor, min=opt.mu_min)
-            cviol_prev = cviol
-        g = problem.path_constraints(z)
-        stats = OCPStats(
-            objective=problem.objective(z), cviol=cviol_prev,
-            gviol=g.max() if g.numel() else scalar(-math.inf),
-            grad_norm=hist[-1, 5], history=hist, multipliers=mult, mu=mu)
-        return z, stats
+    # -- outer AL loop: the five functions CapturedOuterLoop captures ---------
+    def prelude(z0):
+        return ALCarry(z=z0, mult=mult0, rho=rho0, mu=mu0, lam=lam0,
+                       cviol=inf, history=hist0, o=o0)
+
+    def begin(carry, z0):
+        st = lm_init(carry.z, (),
+                     merit(carry.z, carry.mult, carry.rho, carry.mu),
+                     consts._replace(lam=torch.clamp(carry.lam, min=eps)))
+        return st, inner_gtol(carry.mu)
+
+    def step(inner, carry, z0):
+        st, gtol = inner
+        return lm_step(st, trial(carry.mult, carry.rho, carry.mu), gtol=gtol,
+                       **lm_args), gtol
+
+    def end(inner, carry, z0):
+        """Multipliers by the old rho, the history row (the old mu and
+        rho), then rho if ||c|| stalled, then mu; the warm start is the
+        inner solve's damping clamped to 1e3."""
+        st = inner[0]
+        z, rho = st.z, carry.rho
+        c = problem.constraints(z)
+        cviol = torch.stack([_amax_abs(c.defect), _amax_abs(c.b0),
+                             _amax_abs(c.bf), _amax_abs(c.path_eq)]).max()
+        row = torch.stack([problem.objective(z), cviol, carry.mu, rho,
+                           st.it.to(dtype), st.gnorm])
+        return ALCarry(
+            z=z, mult=tree_map(lambda l, ci: l + rho * ci, carry.mult, c),
+            rho=torch.where(cviol > opt.cviol_ratio * carry.cviol,
+                            torch.clamp(rho * opt.rho_up, max=opt.rho_max),
+                            rho),
+            mu=torch.clamp(carry.mu * opt.mu_factor, min=opt.mu_min),
+            lam=torch.clamp(st.lam, max=1e3), cviol=cviol,
+            history=carry.history.index_copy(0, carry.o.reshape(1),
+                                             row[None]),
+            o=carry.o + 1)
+
+    def finish(carry, z0):
+        g = problem.path_constraints(carry.z)
+        return carry.z, OCPStats(
+            objective=problem.objective(carry.z), cviol=carry.cviol,
+            gviol=g.max() if g.numel() else neg_inf,
+            grad_norm=carry.history[-1, 5], history=carry.history,
+            multipliers=carry.mult, mu=carry.mu)
+
+    def eager(z0):
+        """The same outer functions around the eager inner loop."""
+        carry = prelude(z0)
+        for _ in range(opt.n_outer):
+            st = lm_loop(carry.z, (),
+                         merit(carry.z, carry.mult, carry.rho, carry.mu),
+                         trial(carry.mult, carry.rho, carry.mu),
+                         maxiter=opt.inner_maxiter, lam0=carry.lam,
+                         gtol=inner_gtol(carry.mu), dtype=dtype, **lm_args)
+            carry = end((st, None), carry, z0)
+        return finish(carry, z0)
 
     def first_system(z):
         """The undamped KKT system of the first subproblem at ``z`` (zero
         multipliers, rho0, mu0): what its first inner iteration solves."""
-        return assemble(z, problem.zero_multipliers(), scalar(opt.rho0),
-                        scalar(opt.mu0))[0]
+        return assemble(z, mult0, rho0, mu0)[0]
 
+    solve = CapturedOuterLoop(prelude, begin, step, end, finish, eager,
+                              n_outer=opt.n_outer, maxiter=opt.inner_maxiter)
     solve.first_system = first_system
     return solve
 

@@ -3,8 +3,10 @@
 The JAX package runs each solve as one compiled device program: ``@jax.jit``
 on ``make_gn_solver``'s ``solve`` over the ``lax.while_loop`` of its LM core,
 ``jax.jit(solve)`` in ``make_multi_experiment_solver``, the jitted MHE
-step, and the jitted interior-point drivers of ``solve/bounds.py`` and
-``solve/constrained.py`` (a ``lax.fori_loop`` of barrier subproblems).  On
+step, the jitted interior-point drivers of ``solve/bounds.py`` and
+``solve/constrained.py`` (a ``lax.fori_loop`` of barrier subproblems) and
+the jitted AL + barrier OCP solver of ``solve/auglag.py``
+(``make_ocp_solver``: a ``lax.fori_loop`` of AL subproblems).  On
 a CUDA device the port captures the same work as CUDA graphs and replays
 them, so that a solve's kernels leave the device's queue back to back
 instead of one Python launch at a time.
@@ -37,8 +39,9 @@ never overwrites an earlier result.  :class:`CapturedFunction` is the
 one-graph form, for a step's work before its solve (the MHE's arrival cost).
 :class:`CapturedOuterLoop` is the form of an outer loop around inner LM
 solves (the barrier homotopy of ``make_bounded_solver`` and
-``make_constrained_solver``): five graphs on one plan, the outer carry and
-the inner state in buffers, replayed on the eager loop's schedule.
+``make_constrained_solver``, the AL homotopy of ``make_ocp_solver``): five
+graphs on one plan, the outer carry and the inner state in buffers,
+replayed on the eager loop's schedule.
 
 The kernel wrappers count their launches in Python, which a replay does not
 run.  So the warm-up and the capture count nothing
@@ -275,14 +278,15 @@ class CapturedFunction(_Captured):
 
 class CapturedOuterLoop(_Captured):
     """An outer loop of inner LM solves that replays CUDA graphs on a CUDA
-    device: the interior-point drivers' barrier homotopy, each outer
-    iteration one inner solve.
+    device: the interior-point drivers' barrier homotopy and the OCP
+    solver's AL homotopy, each outer iteration one inner solve.
 
     Five functions of static buffers, each captured as one graph:
 
       * ``prelude(*inputs) -> carry``: the outer carry at the start (for
         the drivers: z, the barrier parameter, the warm-start damping, the
-        history and the outer index as a device counter);
+        history and the outer index as a device counter; for the OCP
+        solver also the multipliers, the penalty and the last violation);
       * ``begin(carry, *inputs) -> inner``: the inner solve's initial
         state, a pair (:class:`~lm_core.LMState`, what the steps read
         besides the carry, e.g. the inner gtol);

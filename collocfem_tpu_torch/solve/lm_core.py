@@ -25,9 +25,9 @@ exactly.  :func:`lm_init` makes the initial state from constants that
 :func:`lm_constants` builds once (an outer loop's inner solve replaces their
 lam with its warm start, on the device).  :func:`lm_loop` runs them
 eagerly, a Python loop over device tensors; the solvers of
-``solve.newton`` and ``parallel.batch`` and the interior-point drivers of
-``solve.bounds`` and ``solve.constrained`` replay them from CUDA graphs on
-a CUDA device.  The host reads ``done`` only when a tolerance is non-zero
+``solve.newton`` and ``parallel.batch``, the interior-point drivers of
+``solve.bounds`` and ``solve.constrained`` and the OCP solver of
+``solve.auglag`` replay them from CUDA graphs on a CUDA device.  The host reads ``done`` only when a tolerance is non-zero
 (:func:`stops_early`), to stop early; the fixed-work path never
 synchronises.
 """

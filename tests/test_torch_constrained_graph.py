@@ -155,22 +155,27 @@ def test_a_second_call_leaves_the_first_result_alone():
 class _NoHostTraffic(TorchDispatchMode):
     """Raise at a read to the host (``.item()``, ``bool(t)``, indexing by a
     0-d tensor), at a tensor of one or more dimensions made from host data
-    (``torch.tensor`` of a list), and at a copy from a 0-d tensor made from
-    a Python number into a tensor of its size (``t[i] = True``: on a CUDA
-    device a copy from the host).  Such a number filled into a larger
-    tensor (``t[i, :] = 1.0``) passes: on a CUDA device that is a fill."""
+    (``torch.tensor`` of a list), and at any use but a fill of a 0-d tensor
+    made from a Python number (``torch.as_tensor(x, device=...)`` or ``t[i]
+    = True``: on a CUDA device a copy from the host).  Such a number filled
+    into a larger tensor (``t[i, :] = 1.0``) passes: on a CUDA device that
+    is a fill."""
 
     def __init__(self):
         super().__init__()
         self._lifted = {}
 
+    def _is_lifted(self, x):
+        return torch.is_tensor(x) and self._lifted.get(
+            id(x), lambda: None)() is x
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if (func is torch.ops.aten._local_scalar_dense.default
                 or (func is torch.ops.aten.lift_fresh.default
                     and args[0].dim() > 0)
-                or (func is torch.ops.aten.copy_.default
-                    and self._lifted.get(id(args[1]), lambda: None)()
-                    is args[1])):
+                or (func is not torch.ops.aten.fill_.Tensor
+                    and any(map(self._is_lifted,
+                                tree_flatten((args, kwargs))[0])))):
             raise RuntimeError(f"{func} inside a captured function")
         out = func(*args, **(kwargs or {}))
         if func is torch.ops.aten.lift_fresh.default:

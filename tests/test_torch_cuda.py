@@ -1295,6 +1295,68 @@ def test_captured_barrier_driver_captures_once(cuda_device):
     assert bit_equal(second, solve.eager(z0._replace(p=z0.p * 0.99), data))
 
 
+def _ocp_driver(case, method, dtype, device):
+    """make_ocp_solver on config 3 (N = 25: #2 at (12, 1) on 'auto', #4-#6
+    at b = 12 on 'cr') or on the free-time OCP of examples/min_time_ocp.py
+    (N = 16: #1 at (12, 1)); (solve, z0)."""
+    from collocfem_tpu_torch import configs
+    from collocfem_tpu_torch.solve.auglag import (ALBarrierOptions,
+                                                  make_ocp_solver)
+
+    if case == "config 3":
+        prob, z0 = configs.build_config3_problem(25, dtype=dtype,
+                                                 device=device)
+        return make_ocp_solver(prob, ALBarrierOptions(method=method)), z0
+    prob, _, z0 = configs.build_min_time_problem(dtype=dtype, device=device)
+    return make_ocp_solver(prob, ALBarrierOptions(
+        **configs.MIN_TIME_OPTIONS, method=method)), z0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case, method, dtype", [
+    ("config 3", "auto", torch.float64), ("config 3", "auto", torch.float32),
+    ("config 3", "cr", torch.float64), ("free time", "auto", torch.float64)])
+def test_captured_ocp_driver_matches_eager(cuda_device, case, method, dtype):
+    """make_ocp_solver replays its whole AL homotopy from CUDA graphs
+    (prelude, begin, step, end, finish): the first call and a second one
+    equal solve.eager bit for bit (z and every OCPStats field), with the
+    same launches per call; on 'auto' the SPIKE kernel once per inner LM
+    iteration."""
+    solve, z0 = _ocp_driver(case, method, dtype, cuda_device)
+    before = _launches(KERNELS)
+    z, st = _hold_captured(solve, z0)
+    assert len(solve._plans) == 1
+    inner = int(st.history[:, 4].sum())
+    assert inner > 0
+    if method == "auto":          # three calls: first, second, eager
+        ran = [a - b for a, b in zip(_launches(KERNELS), before)]
+        kernel = 5 if case == "config 3" else 4
+        assert ran == [3 * inner if i == kernel else 0 for i in range(7)]
+
+
+@pytest.mark.cuda
+def test_captured_ocp_driver_captures_once(cuda_device):
+    """A second call of the same key (another z0) replays the first call's
+    plan, captures nothing new, leaves the first call's outputs as they
+    were, shares no storage with them and equals solve.eager."""
+    from collocfem_tpu_torch.testing import bit_equal
+    from torch.utils._pytree import tree_flatten, tree_map
+
+    solve, z0 = _ocp_driver("free time", "auto", torch.float64, cuda_device)
+    first = solve(z0)
+    plan = next(iter(solve._plans.values()))
+    kept = tree_map(torch.clone, first)
+    z1 = z0._replace(V=z0.V * 0.9)
+    second = solve(z1)
+    torch.cuda.synchronize()
+    assert list(solve._plans.values()) == [plan]
+    assert bit_equal(first, kept) and not torch.equal(first[0].V,
+                                                      second[0].V)
+    for a, b in zip(tree_flatten(first)[0], tree_flatten(second)[0]):
+        assert a.data_ptr() != b.data_ptr() or not a.numel()
+    assert bit_equal(second, solve.eager(z1))
+
+
 @pytest.mark.cuda
 def test_a_failing_outer_capture_raises(cuda_device):
     """An outer loop whose step reads a value back to the host cannot be
