@@ -144,9 +144,9 @@ Phases, each printing its own line; any failure raises and exits non-zero:
      captured (first call and a replay) and eagerly, once each:
      bit-identical (z and every OCPStats field), each run launching kernel
      #2 at (12, 1) exactly once per inner LM iteration and no plain
-     version; the three walls, and a torch.profiler breakdown of one more
-     captured run with the device idle share of the captured and of the
-     eager wall;
+     version; the three walls, and for (a) a torch.profiler breakdown of
+     one more eager run with the device idle share of the captured and of
+     the eager wall (_profile_loop);
  11. the free-time OCP of examples/min_time_ocp.py (N = 16, n_outer 16,
      b = 12, nq = 1: kernel #1 once per inner iteration), float64: tf
      within 1e-6 of the JAX package's, 2 sqrt(d) - 1e-3 < tf < 1.06 x 2
@@ -159,7 +159,8 @@ Phases, each printing its own line; any failure raises and exits non-zero:
      4 (kernel #1 at (8, 2)) and at the test's own degree 2 (kernel #1 at
      (4, 2)): p within 1e-6 of the JAX package's.  Each case runs captured
      (first call and a replay) and eagerly, once each: bit-identical, the
-     same launches; the walls, the first call's and the idle shares;
+     same launches; the walls, the first call's and, for (a), the idle
+     shares;
  13. the serving path and the Kalman tier (_serving): (a)
      examples/mhe_online.py's moving-horizon estimator (Van der Pol,
      horizon 12, degree 3: kernel #2 at (6, 1)) over its 240-sample stream
@@ -237,8 +238,25 @@ the eager wall beside it; phases 3, 5 and 7 also profile one captured run
 (device time, and the idle share of the captured and of the eager wall).
 Phases 10-12 do the same with the constrained drivers (solve/auglag.py:
 the AL homotopy captured; solve/bounds.py, constrained.py: the barrier
-homotopy captured), and profile each case.  Phase 14's sharded solves run
+homotopy captured).  Phase 14's sharded solves run
 eagerly (their collectives are not captured).
+
+A solve with a tolerance runs its LM loop on the device: one graph whose
+WHILE conditional node repeats the captured step while ~done & (it <
+maxiter) (csrc/graph_loop.cu), so the host reads nothing during the solve.
+Every converging captured solve of phases 4, 6, 8 (d), (e), 9 (d), (e),
+10-12 and 13 (d), (e) counts the reads to the host of its first call
+(solve.graph.HostReads: .item(), bool(t), a copy to the CPU) and raises
+unless there are none; phase 13 (a), (b) counts them over the 20 captured
+MHE steps it holds to step_eager.  Phases 4, 6 and 10-12 print each
+converging solve's captured wall beside the parent's (PARENT: PERF.md §5's
+figures, from runs in which every LM iteration read done); phase 13 prints
+the MHE step's median, p90 and idle share in both dtypes beside
+PARENT_MHE.  torch.profiler does not trace the kernels inside a conditional
+node, so a loop graph's idle share takes the device time of the same
+kernels from a profiled eager run (_profile_loop): phase 10 (a), 11, 12 (a)
+and 20 MHE steps in each dtype.  The steps a loop ran are counted on the device
+and added to the launch counts when they are read (ops/_build.settle).
 
 The second-to-last lines are the card's name and power limit and a JSON
 object describing every kernel of the path (its numbers at the headline's
@@ -864,6 +882,53 @@ PEM_JAX_MAP_P = (1.0054724173860383, 5.012419019090712, 0.19522483319732653)
 PEM_JAX_STD = (0.08683179825030315, 0.07437388508049603, 0.02937604351618655)
 
 
+# The captured figures PERF.md §5 recorded before converging solves decided
+# their exits on the device (NVIDIA H100 80GB HBM3, 700.00 W), printed
+# beside this run's: (wall s, idle share of the captured wall or None where
+# it was not measured).  Those solves read ``done`` on the host before every
+# LM iteration; this run's read nothing.
+PARENT = {
+    "phase 4": (0.1063, None),
+    "phase 6": (0.1417, None),
+    "phase 10 (a): config 3 N=25 float64": (0.3028, 0.132),
+    "phase 10 (b): config 3 N=25 float32": (0.3311, 0.167),
+    "phase 10 (c): config 3 N=500 float64": (0.7838, 0.073),
+    "phase 10 (c): config 3 N=500 float32": (0.5051, 0.105),
+    "phase 11: free-time OCP float64": (0.2265, 0.135),
+    "phase 12 (a) aircraft, zeta >= 0.6": (0.316, 0.084),
+    "phase 12 (b) Van der Pol degree 4, mu <= 0.8": (0.229, 0.186),
+    "phase 12 (b) Van der Pol degree 2, mu <= 0.8": (0.200, 0.188),
+}
+# The MHE step's figures from the same source: (median ms, p90 ms, idle
+# share over 20 captured steps or None).
+PARENT_MHE = {"float64": (3.452, 8.026, 0.276), "float32": (8.144, 8.992,
+                                                            None)}
+
+
+def _beside_parent(tag, wall, idle):
+    """Print a converging solve's captured wall and idle share (None: not
+    measured) beside the parent's (PARENT)."""
+    p_wall, p_idle = PARENT[tag]
+    na = lambda v: "not measured" if v is None else f"{v:.3f}"
+    print(f"  {tag}: captured wall {wall:.4f} s, idle share {na(idle)}; "
+          f"the parent's (PERF.md §5) {p_wall} s, idle {na(p_idle)}")
+
+
+def _no_reads(label, fn):
+    """fn() with its reads to the host counted (solve.graph.HostReads on
+    the card); prints them and raises unless there are none: a converging
+    captured solve decides its loop exits on the device.  Returns fn()."""
+    from collocfem_tpu_torch.solve.graph import HostReads
+
+    with HostReads("cuda") as reads:
+        out = fn()
+    print(f"  {label}: host reads during the call {reads.count} (gate 0)")
+    if reads.count:
+        raise RuntimeError(f"{label}: {reads.count} host reads during the "
+                           "call, first at\n" + reads.where[0])
+    return out
+
+
 def _card() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -974,6 +1039,9 @@ def _wrappers():
 
 
 def _reset_counts():
+    from collocfem_tpu_torch.ops import _build
+
+    _build.settle()      # the steps of device loops run before the reset
     for kernel, plain in _wrappers().values():
         kernel.launches = plain.launches = 0
         kernel.shapes = {}
@@ -981,7 +1049,11 @@ def _reset_counts():
 
 def _counts():
     """({kernel name: launches}, calls of all plain versions together).
-    Also takes each kernel's launches by shape into LAST_SHAPES."""
+    Also takes each kernel's launches by shape into LAST_SHAPES.  Settles
+    the steps that device loops ran (one read of each loop's counter)."""
+    from collocfem_tpu_torch.ops import _build
+
+    _build.settle()
     w = _wrappers()
     LAST_SHAPES.clear()
     LAST_SHAPES.update({name: dict(k.shapes) for name, (k, _) in w.items()})
@@ -1404,6 +1476,24 @@ def _profile_captured(label, run, wall, eager_wall):
     return prof
 
 
+def _profile_loop(label, eager_run, wall, eager_wall):
+    """The device idle share of a converging captured solve's ``wall``,
+    with the device time of its kernels from one profiled eager run
+    (``eager_run``): the same kernels, less the loop's one-thread condition
+    kernel and the captured steps' copies into the state buffers.
+    torch.profiler does not trace the kernels inside a conditional node's
+    body: on the card it dropped most of them or summed more device time
+    than the wall, and once ended in an illegal address.  Also the idle
+    share of the eager wall."""
+    prof = _profile_run(f"{label} eager (the kernels of the captured run)",
+                        eager_run, eager_wall)
+    prof["eager_idle_share"] = prof["idle_share"]
+    prof["idle_share"] = 1 - prof["device_ms"] / 1e3 / wall
+    print(f"    idle share of the captured wall {prof['idle_share']:.3f} "
+          f"(the eager run's device time)")
+    return prof
+
+
 def _vs_eager(label, solve, args, got):
     """Run the captured ``solve`` once more (a replay) and ``solve.eager``
     once on ``args``; raise unless both give ``got``, the captured solve's
@@ -1761,11 +1851,14 @@ def _prebuild_set():
     were compiled for as fixed lists before per-shape builds: kernel #1 at
     (b, nq) (8, 2), (8, 3), (8, 5), (12, 1); #2 at (b, r) (6, 1), (8, 1),
     (8, 3), (8, 19), (12, 1); #7 at (8, 3); the CR kernels at b = 8 (the
-    factor kernel, r = 0, and r = 1, 2, 3, 4, 6)."""
+    factor kernel, r = 0, and r = 1, 2, 3, 4, 6); and csrc/graph_loop.cu,
+    the converging solves' WHILE loop (solve/graph.py)."""
     from collocfem_tpu_torch.ops import cr, spike, thomas
+    from collocfem_tpu_torch.solve.graph import LOOP_INSTANCE
 
-    return ([spike.kkt_instance(b, nq) for b, nq in ((8, 2), (8, 3), (8, 5),
-                                                     (12, 1))]
+    return ([LOOP_INSTANCE]
+            + [spike.kkt_instance(b, nq) for b, nq in ((8, 2), (8, 3), (8, 5),
+                                                       (12, 1))]
             + [spike.chain_instance(b, r) for b, r in
                ((6, 1), (8, 1), (8, 3), (8, 19), (12, 1))]
             + [thomas.instance(8, 3)]
@@ -2198,8 +2291,10 @@ def _config_phase(num, cname, build, fixed, converged, truth, jax_p,
              {k: maxiter * n_levels for k in CR_NAMES[1:]}, jax_p["fixed"]),
             ("(d)", dict(converged), only_kkt, jax_p["converged"])):
         solve = make_gn_solver(prob, SolverOptions(**opts))
-        (z, st), first, counts = _counted(f"{tag} {part}",
-                                          lambda: solve(z0, data), want)
+        run = (lambda: solve(z0, data)) if part != "(d)" else (
+            lambda: _no_reads(f"{tag} (d) first call",
+                              lambda: solve(z0, data)))
+        (z, st), first, counts = _counted(f"{tag} {part}", run, want)
         add(counts)
         p, dev_p = z.p.tolist(), _p_dev(z.p.tolist(), ref)
         print(f"{tag} {part} float64 {opts}: {int(st.iterations)} "
@@ -2227,15 +2322,18 @@ def _config_phase(num, cname, build, fixed, converged, truth, jax_p,
         opts = SolverOptions(**converged, irls_delta=2.0)
         solve = make_irls_solver(prob, opts, n_rounds=4)
         out, first, counts = _counted(
-            f"{tag} (e)", lambda: solve(z0, data),
+            f"{tag} (e)", lambda: _no_reads(f"{tag} (e) first call",
+                                            lambda: solve(z0, data)),
             lambda out: {kkt: sum(int(r.iterations) for r in out[1])})
         z, rounds, _ = out
         st = rounds[-1]
     else:
         solve = make_gn_solver(prob, SolverOptions(**converged,
                                                    hessian="newton"))
-        out, first, counts = _counted(f"{tag} (e)",
-                                      lambda: solve(z0, data), only_kkt)
+        out, first, counts = _counted(
+            f"{tag} (e)", lambda: _no_reads(f"{tag} (e) first call",
+                                            lambda: solve(z0, data)),
+            only_kkt)
         z, st = out
         rounds = (st,)
         if not bool(st.converged):
@@ -2428,7 +2526,8 @@ def _captured_and_eager(tag, solve, args, kernel, shape, iters):
     from collocfem_tpu_torch.testing import bit_equal
 
     runs = {}
-    for name, run in (("first call", lambda: solve(*args)),
+    for name, run in (("first call", lambda: _no_reads(
+            f"{tag} first call", lambda: solve(*args))),
                       ("captured", lambda: solve(*args)),
                       ("eager", lambda: solve.eager(*args))):
         runs[name] = _counted(f"{tag} {name}", run,
@@ -2480,9 +2579,14 @@ def _ocp_solves(dev, card, record):
         launches[kernel] = launches.get(kernel, 0) + counts[kernel]
         return z, st, counts[kernel], walls, same
 
-    def profile(tag, solve, z0, walls):
-        return _profile_captured(tag, lambda: solve(z0), walls["captured"],
-                                 walls["eager"])
+    def profile(tag, solve, z0, walls, measure):
+        """The idle share (with ``measure``: _profile_loop) beside the
+        parent's figures."""
+        prof = (_profile_loop(tag, lambda: solve.eager(z0), walls["captured"],
+                              walls["eager"]) if measure else None)
+        _beside_parent(tag, walls["captured"],
+                       prof and prof["idle_share"])
+        return prof
 
     rec = record.setdefault("config3", {})
     chain = "blocktri_solve_spike_fused"
@@ -2542,7 +2646,7 @@ def _ocp_solves(dev, card, record):
         rec[f"N={n} {name}"] = r
         if not (ok and same):
             raise RuntimeError(f"{tag}: a gate failed")
-        r["profile"] = profile(f"config 3 N={n} {name}", solve, z0, walls)
+        r["profile"] = profile(tag, solve, z0, walls, part == "(a)")
         del prob, z0, solve, z, st
 
     prob, ftm, z0 = configs.build_min_time_problem(dtype=torch.float64,
@@ -2568,7 +2672,7 @@ def _ocp_solves(dev, card, record):
     if not (d_tf <= 1e-6 and t_star - 1e-3 < tf < 1.06 * t_star
             and gviol <= 1e-10 and same):
         raise RuntimeError(f"{tag}: a gate failed")
-    r["profile"] = profile(tag, solve, z0, walls)
+    r["profile"] = profile(tag, solve, z0, walls, True)
     return launches
 
 
@@ -2638,7 +2742,9 @@ def _constrained_estimation(dev, card, record):
               f" {counts[kkt]} inner LM iterations = kernel #1 launches at "
               f"{shape} in each run, no plain call; "
               + _three_walls(walls, same, card))
-        prof = _profile_captured(tag, lambda: solve(*args), wall, eager_wall)
+        prof = (_profile_loop(tag, lambda: solve.eager(*args), wall,
+                              eager_wall) if part.startswith("(a)") else None)
+        _beside_parent(tag, wall, prof and prof["idle_share"])
         record[f"phase12 {part}"] = dict(
             p=p, p_vs_jax=d_p, wall_s=wall, first_call_s=first_wall,
             eager_wall_s=eager_wall, launches=counts[kkt],
@@ -3253,21 +3359,28 @@ def _mhe_vs_eager(tag, mhe, ys, walls, n=20):
 
     from collocfem_tpu_torch.testing import bit_equal
 
+    from collocfem_tpu_torch.solve.graph import HostReads
+
     a = b = mhe.init(ys[:MHE_HORIZON], m0=[1.5, 0.5], P0=np.eye(2))
-    eager_walls, ok = [], True
+    eager_walls, ok, reads = [], True, 0
     for k in range(MHE_HORIZON, MHE_HORIZON + n):
-        a, est_a = mhe.step(a, ys[k])
+        with HostReads("cuda") as r:
+            a, est_a = mhe.step(a, ys[k])
+        reads += r.count
         (b, est_b), wall = _timed(lambda: mhe.step_eager(b, ys[k]))
         eager_walls.append(wall)
         ok = ok and bit_equal((a.z, a.m, a.P, a.y, a.u, est_a),
                               (b.z, b.m, b.P, b.y, b.u, est_b))
     print(f"  {tag}: {n} steps captured and eager bit-identical (z, m, P, "
-          f"y, u, estimate) {'ok' if ok else 'FAIL'}; captured "
-          f"{_walls_line(walls)}; eager {_walls_line(eager_walls)}")
+          f"y, u, estimate) {'ok' if ok else 'FAIL'}; host reads in the {n} "
+          f"captured steps {reads} (gate 0); captured {_walls_line(walls)}; "
+          f"eager {_walls_line(eager_walls)}")
     if not ok:
         raise RuntimeError(f"{tag}: the captured step differs from "
                            "step_eager")
-    return dict(eager_walls_s=eager_walls)
+    if reads:
+        raise RuntimeError(f"{tag}: {reads} host reads in the captured steps")
+    return dict(eager_walls_s=eager_walls, host_reads=reads)
 
 
 def _walls_line(walls):
@@ -3448,14 +3561,6 @@ def _serving(dev, card, record):
                   f"{d_cov:.3e} (<= 1e-6)")
             ok = len(ests) == 229 and d_est <= 1e-6 and d_cov <= 1e-6
             f64_ests = ests
-            # The device idle share over the first 20 steps: one unprofiled
-            # run for the wall, one profiled.
-            first = mhe.init(ys[:MHE_HORIZON], m0=[1.5, 0.5], P0=np.eye(2))
-            run20 = lambda: _steps(mhe, first, ys, MHE_HORIZON, 20)
-            wall20 = _timed(run20)[1]
-            r["profile_20_steps"] = _profile_run(
-                "MHE serving float64, 20 steps", run20, wall20)
-            r["wall_20_steps_s"] = wall20
         else:
             dev_a = float(np.abs(ests - f64_ests).max())
             r["max_dev_from_float64"] = dev_a
@@ -3463,6 +3568,23 @@ def _serving(dev, card, record):
                   f"position < {3 * MHE_SIG_V} and velocity < 0.1, every "
                   "estimate finite")
             ok = (r["finite"] and rmse[0] < 3 * MHE_SIG_V and rmse[1] < 0.1)
+        # The device idle share over the first 20 steps: one unprofiled run
+        # for the wall, one profiled.
+        first = mhe.init(ys[:MHE_HORIZON], m0=[1.5, 0.5], P0=np.eye(2))
+        run20 = lambda: _steps(mhe, first, ys, MHE_HORIZON, 20)
+        eager20 = lambda: _steps(mhe, first, ys, MHE_HORIZON, 20, eager=True)
+        wall20 = _timed(run20)[1]
+        r["profile_20_steps"] = _profile_loop(
+            f"MHE serving {name}, 20 steps", eager20, wall20,
+            _timed(eager20)[1])
+        r["wall_20_steps_s"] = wall20
+        w = np.asarray(walls) * 1e3
+        med, p90, idle = PARENT_MHE[name]
+        print(f"  {tag}: per-step median {np.median(w):.3f} ms, p90 "
+              f"{np.percentile(w, 90):.3f} ms, idle share over 20 steps "
+              f"{r['profile_20_steps']['idle_share']:.3f}; the parent's "
+              f"(PERF.md §5) {med} ms, {p90} ms, idle "
+              f"{'not measured' if idle is None else idle}")
         r["vs_eager_20_steps"] = _mhe_vs_eager(tag, mhe, ys, walls)
         rec[f"{part} {name}"] = r
         if not ok:
@@ -3530,7 +3652,7 @@ def _serving(dev, card, record):
     solve = make_gn_solver(prob, SolverOptions(maxiter=30, gtol=1e-8,
                                                xtol=1e-12))
     (z, st), first, counts = _counted(
-        tag, lambda: solve(z0, data),
+        tag, lambda: _no_reads(f"{tag} first call", lambda: solve(z0, data)),
         lambda out: {chain: int(out[1].iterations)})
     keep(tag, counts, 0, {chain: counts[chain]}, (8, 1))
     x_map = interpolate_trajectory(mesh, z.V, t_meas).cpu().numpy()
@@ -3733,7 +3855,8 @@ def _pem_pipeline(dev, card, rec, keep, launches):
     options = SolverOptions(maxiter=60, gtol=1e-6, xtol=1e-10)
     solve = make_gn_solver(prob, options)
     (z, st), first, counts = _counted(
-        f"{tag} MAP polish", lambda: solve(z0, data),
+        f"{tag} MAP polish", lambda: _no_reads(
+            f"{tag} MAP polish first call", lambda: solve(z0, data)),
         lambda out: {kkt: int(out[1].iterations)})
     keep(f"{tag} MAP polish", counts, 0, {kkt: counts[kkt]}, (8, 3))
     n_map = counts[kkt]
@@ -3845,10 +3968,12 @@ def _pem_shapes(prob, z0, z, data, lam, card):
     return out
 
 
-def _steps(mhe, state, ys, k0, n):
-    """``n`` steps from ``state`` on ys[k0:k0 + n]; returns the state."""
+def _steps(mhe, state, ys, k0, n, eager=False):
+    """``n`` steps (``step_eager`` ones with ``eager``) from ``state`` on
+    ys[k0:k0 + n]; returns the state."""
+    step = mhe.step_eager if eager else mhe.step
     for k in range(k0, k0 + n):
-        state, _ = mhe.step(state, ys[k])
+        state, _ = step(state, ys[k])
     return state
 
 
@@ -4090,7 +4215,8 @@ def main() -> int:
     prob, data, z0 = _headline(torch.float64, dev)
     solve = make_gn_solver(prob, SolverOptions(maxiter=60, gtol=1e-10,
                                                xtol=1e-12))
-    (z, stats), first = _timed(lambda: solve(z0, data))
+    (z, stats), first = _timed(lambda: _no_reads(
+        "phase 4 first call", lambda: solve(z0, data)))
     p = z.p.tolist()
     p_err = max(abs(v - 1.0) for v in p)
     its = int(stats.iterations)
@@ -4100,6 +4226,7 @@ def main() -> int:
     if not p_err < 1e-4:
         raise RuntimeError("the float64 solve did not reach ||p - 1|| < 1e-4")
     wall, eager_wall = _vs_eager("phase 4", solve, (z0, data), (z, stats))
+    _beside_parent("phase 4", wall, None)
     record.update(f64_wall_s=wall, f64_eager_wall_s=eager_wall,
                   f64_first_call_s=first, f64_iterations=its, f64_p=p,
                   f64_p_err=p_err, f64_converged=bool(stats.converged))
@@ -4146,7 +4273,8 @@ def main() -> int:
     solve = make_multi_experiment_solver(prob, SolverOptions(**C5_CONVERGED),
                                          layout="soa")
     c5_args = (z0, data, p_prior, p_w)
-    (z, stats), first = _timed(lambda: solve(*c5_args))
+    (z, stats), first = _timed(lambda: _no_reads(
+        "phase 6 first call", lambda: solve(*c5_args)))
     p = z.p.tolist()
     p_dev = _p_dev(p, P_JAX_F64)
     its = int(stats.iterations)
@@ -4158,6 +4286,7 @@ def main() -> int:
         raise RuntimeError("config 5 float64 p disagrees with the JAX "
                            "package's")
     wall, eager_wall = _vs_eager("phase 6", solve, c5_args, (z, stats))
+    _beside_parent("phase 6", wall, None)
     record.update(config5_f64_wall_s=wall, config5_f64_eager_wall_s=eager_wall,
                   config5_f64_first_call_s=first, config5_f64_iterations=its,
                   config5_f64_p=p, config5_f64_p_vs_jax=p_dev)

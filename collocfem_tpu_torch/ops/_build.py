@@ -42,6 +42,7 @@ LIBRARIES = {
     "spike_chain": ("kkt_spike.cu", ("-DCF_KKT=0",)),  # kernel #2
     "thomas": ("thomas.cu", ()),                       # kernel #7
     "cr": ("cr.cu", ()),   # r = 0: kernel #4; r >= 1: kernels #3, #5, #6
+    "graph_loop": ("graph_loop.cu", ()),   # solve/graph.py's loop; b = r = 0
 }
 MAX_BLOCK = 16   # the largest block size any library is built for
 
@@ -68,10 +69,16 @@ def register(fn, shapes: bool) -> None:
     COUNTED.append(fn)
 
 
-def snapshot() -> dict:
-    """Every counted function's counts: {fn: (launches, {shape: n})}."""
+def _snapshot() -> dict:
     return {fn: (fn.launches, dict(getattr(fn, "shapes", {})))
             for fn in COUNTED}
+
+
+def snapshot() -> dict:
+    """Every counted function's counts, settled (:func:`settle`): {fn:
+    (launches, {shape: n})}."""
+    settle()
+    return _snapshot()
 
 
 def restore(snap: dict) -> None:
@@ -97,13 +104,43 @@ def difference(before: dict, after: dict) -> dict:
     return out
 
 
-def add_counts(share: dict) -> None:
-    """Add ``share`` (:func:`difference`) to the counts: what a captured
-    CUDA graph's replay launches, which no wrapper counts."""
+def add_counts(share: dict, times: int = 1) -> None:
+    """Add ``times`` x ``share`` (:func:`difference`) to the counts: what
+    a captured CUDA graph's replays launch, which no wrapper counts."""
     for fn, (launches, shapes) in share.items():
-        fn.launches += launches
+        fn.launches += times * launches
         for shape, n in shapes.items():
-            fn.shapes[shape] = fn.shapes.get(shape, 0) + n
+            fn.shapes[shape] = fn.shapes.get(shape, 0) + times * n
+
+
+class Tally:
+    """The steps of a loop that runs on the device, counted there: a 0-d
+    int64 ``counter`` the loop adds its steps to, one step's ``share`` of
+    the counts (:func:`difference`), and the steps already counted."""
+
+    def __init__(self, counter: torch.Tensor, share: dict):
+        self.counter, self.share, self.taken = counter, share, 0
+
+
+# The tallies whose loop ran since the last settle (held until then, so a
+# solver that is gone by then still counts).
+_PENDING: dict = {}
+
+
+def pending(tally: Tally) -> None:
+    """Mark ``tally``'s loop as run: the next :func:`settle` counts it."""
+    _PENDING[id(tally)] = tally
+
+
+def settle() -> None:
+    """Add the launches of the steps that device loops ran since the last
+    settle: one read of each such loop's counter to the host, made when the
+    counts are read (:func:`snapshot`), not while a solve runs."""
+    for tally in _PENDING.values():
+        steps = int(tally.counter)
+        add_counts(tally.share, steps - tally.taken)
+        tally.taken = steps
+    _PENDING.clear()
 
 
 @contextlib.contextmanager
@@ -112,11 +149,11 @@ def counts_held():
     dict that holds, once the block has ended, the counts the block made
     (:func:`difference`): a CUDA graph's warm-up and capture count nothing,
     and its replays add this share."""
-    before = snapshot()
+    before = _snapshot()
     share = {}
     try:
         yield share
-        share.update(difference(before, snapshot()))
+        share.update(difference(before, _snapshot()))
     finally:
         restore(before)
 

@@ -46,6 +46,7 @@ from collocfem_tpu_torch.solve.covariance import (
 from collocfem_tpu_torch.solve.newton import (
     SolverOptions,
     SolveStats,
+    gauss_newton,
     make_gn_solver,
     make_irls_solver,
 )
@@ -83,6 +84,7 @@ __all__ = [
     "trajectory_std",
     "SolverOptions",
     "SolveStats",
+    "gauss_newton",
     "make_gn_solver",
     "make_irls_solver",
 ]

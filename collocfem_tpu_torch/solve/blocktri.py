@@ -10,8 +10,9 @@ the damped Gauss-Newton system keeps every Schur complement SPD.
     :mod:`collocfem_tpu_torch.ops.cr` on a CUDA device (#4 factor, #5
     apply and #6 back-substitution, each a whole sweep in one call of the
     library) and their plain versions on the CPU, and the last 8 blocks
-    finish with a block Cholesky (Thomas) tail.  This is the TPU's
-    level schedule: Pallas levels while the chain has >= 16 and > 8 blocks.
+    finish with a block Cholesky (Thomas) tail, factored densely.  This is
+    the TPU's level schedule: Pallas levels while the chain has >= 16 and >
+    8 blocks.
     :func:`blocktri_cr_factor` is its block-major wrapper.
   * :func:`blocktri_cr_factor_plain`: the same schedule on the plain level
     math alone, on any device.  The plain versions of kernels #1 and #2 run
@@ -42,6 +43,8 @@ from collocfem_tpu_torch.ops import smallblocks_soa as soa
 # power of two, so "more than 8 blocks" is the TPU's condition for a Pallas
 # level, ">= pallas_min (16) and > tail (8)" (solve/blocktri.py:364, 493).
 TAIL = 8
+# The kernels' tail factors its dense matrix in panels of this many columns.
+TAIL_PANEL = 32
 
 
 class _Levels(NamedTuple):
@@ -49,14 +52,8 @@ class _Levels(NamedTuple):
     apply_sweep: object
     level: object
     backsub_sweep: object
-
-
-# On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it runs
-# its plain version.
-_KERNELS = _Levels(cr.cr_factor_sweep, cr.cr_apply_sweep, cr.cr_level,
-                   cr.cr_backsub_sweep)
-_PLAIN = _Levels(cr.factor_sweep_plain, cr.apply_sweep_plain, cr.level_plain,
-                 cr.backsub_sweep_plain)
+    tail_factor: object
+    tail_solve: object
 
 
 def _pad_pow2_soa(Ds, Es):
@@ -80,11 +77,11 @@ def _pad_rhs(Gs, kp):
     return torch.cat([Gs, Gs.new_zeros(b, r, kp - k0)], dim=-1)
 
 
-def _tail_factor(Ds, Es):
+def _dense_tail_factor(Ds, Es):
     """Cholesky factor of the dense (m b, m b) matrix of an m-block chain,
     m <= TAIL.  A banded Cholesky has no fill outside the band, so this is
     the block Cholesky (Thomas) factorisation of the tail, in a few large
-    ops instead of 2m sequential block steps."""
+    ops instead of 2m sequential block steps.  The plain versions' tail."""
     b, _, m = Ds.shape
     A = Ds.new_zeros(m * b, m * b)
     for i in range(m):
@@ -97,11 +94,59 @@ def _tail_factor(Ds, Es):
     return torch.linalg.cholesky_ex(A).L
 
 
-def _tail_solve(L, Gs):
-    """X (b, r, m) with A X = G for the tail factored by _tail_factor."""
+def _dense_tail_solve(L, Gs):
+    """X (b, r, m) with A X = G for the tail factored by
+    _dense_tail_factor."""
     b, r, m = Gs.shape
     g = Gs.permute(2, 0, 1).reshape(m * b, r)
     return torch.cholesky_solve(g, L).reshape(m, b, r).permute(1, 2, 0)
+
+
+def _tail_factor(Ds, Es):
+    """The kernels' tail: the Cholesky factor of the dense (m b, m b)
+    matrix of an m-block chain, m <= TAIL, right-looking in panels of
+    TAIL_PANEL columns (one panel at m b <= 32, then the same factor as
+    :func:`_dense_tail_factor`'s).  cuSOLVER factors a wider matrix on its
+    blocked path, whose inner cuBLAS, inside a CUDA-graph capture, made
+    memory-allocation nodes (config 3 on 'cr', m b = 96), which the body of
+    a conditional node (``solve.graph``'s loops) refuses."""
+    b, _, m = Ds.shape
+    n = m * b
+    A = Ds.new_zeros(m, b, m, b)
+    i = torch.arange(m, device=Ds.device)
+    A[i, :, i, :] = Ds.permute(2, 0, 1)
+    A[i[:-1], :, i[1:], :] = Es[..., :m - 1].permute(2, 0, 1)
+    A[i[1:], :, i[:-1], :] = Es[..., :m - 1].permute(2, 1, 0)
+    A = A.reshape(n, n)
+    for j in range(0, n, TAIL_PANEL):
+        e = min(j + TAIL_PANEL, n)
+        ljj = torch.linalg.cholesky_ex(A[j:e, j:e]).L
+        A[j:e, j:e] = ljj
+        if e < n:
+            lrj = torch.linalg.solve_triangular(ljj, A[e:, j:e].T,
+                                                upper=False).T
+            A[e:, j:e] = lrj
+            A[e:, e:] -= lrj @ lrj.T
+    return torch.tril(A)
+
+
+def _tail_solve(L, Gs):
+    """X (b, r, m) with A X = G for the tail factored by _tail_factor: the
+    two triangular solves."""
+    b, r, m = Gs.shape
+    g = Gs.permute(2, 0, 1).reshape(m * b, r)
+    y = torch.linalg.solve_triangular(L, g, upper=False)
+    x = torch.linalg.solve_triangular(L.T, y, upper=True)
+    return x.reshape(m, b, r).permute(1, 2, 0)
+
+
+# On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it runs
+# its plain version.
+_KERNELS = _Levels(cr.cr_factor_sweep, cr.cr_apply_sweep, cr.cr_level,
+                   cr.cr_backsub_sweep, _tail_factor, _tail_solve)
+_PLAIN = _Levels(cr.factor_sweep_plain, cr.apply_sweep_plain, cr.level_plain,
+                 cr.backsub_sweep_plain, _dense_tail_factor,
+                 _dense_tail_solve)
 
 
 def _cr_factor(Ds, Es, levels: _Levels):
@@ -109,12 +154,12 @@ def _cr_factor(Ds, Es, levels: _Levels):
     Ds, Es = _pad_pow2_soa(Ds, Es)
     kp = Ds.shape[-1]
     (Ds, Es), facs = levels.factor_sweep(Ds, Es, TAIL)
-    l_tail = _tail_factor(Ds, Es)
+    tail = levels.tail_factor(Ds, Es)
     s_up, s_lo = cr.factor_columns(facs)
 
     def apply(Gs):
         Gs, s_gs = levels.apply_sweep(facs, _pad_rhs(Gs, kp))
-        X = _tail_solve(l_tail, Gs).contiguous()
+        X = levels.tail_solve(tail, Gs).contiguous()
         return levels.backsub_sweep(X, s_up, s_lo, s_gs)[..., :k0]
 
     return apply
@@ -165,7 +210,7 @@ def _solve_cr(D, E, G, levels: _Levels):
         (Ds, Es, Gs), sol = levels.level(Ds, Es, Gs)
         for arrays, a in zip((s_up, s_lo, s_g), sol):
             arrays.append(a)
-    X = _tail_solve(_tail_factor(Ds, Es), Gs).contiguous()
+    X = levels.tail_solve(levels.tail_factor(Ds, Es), Gs).contiguous()
     X = levels.backsub_sweep(X, s_up, s_lo, s_g)[..., :k0].permute(2, 0, 1)
     return X[..., 0] if squeeze else X
 

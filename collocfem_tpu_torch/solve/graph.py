@@ -9,7 +9,8 @@ the jitted AL + barrier OCP solver of ``solve/auglag.py``
 (``make_ocp_solver``: a ``lax.fori_loop`` of AL subproblems).  On
 a CUDA device the port captures the same work as CUDA graphs and replays
 them, so that a solve's kernels leave the device's queue back to back
-instead of one Python launch at a time.
+instead of one Python launch at a time, and the device decides when an LM
+loop stops.
 
 A graph captures a plain function that reads static input buffers and
 writes static output buffers.  :class:`CapturedSolve` wraps a solve given as
@@ -25,42 +26,59 @@ It keeps one :class:`_Plan` per key: the inputs' pytree structure and each
 tensor's shape, dtype, device and broadcast dimensions (a new key captures
 anew, as ``jit`` retraces on a new shape).  A plan holds static input buffers
 (each call copies its inputs into them with ``copy_``), state buffers
-allocated outside both graphs, and two graphs sharing one memory pool: the
+allocated outside every graph, and graphs sharing one memory pool: the
 *prelude* (prelude, its state copied into the state buffers) and the
 *iteration* (one step from the state buffers, written back into them in
 place).  The first call of a key warms up on a side stream (one prelude and
 one step, which builds the kernels and creates the cuBLAS and cuSOLVER
-handles), then captures.  A call replays the prelude once and the iteration
-up to ``maxiter`` times: back to back at fixed work (every tolerance 0), or
-with one read of ``done`` before each replay when a tolerance is set.  That
-is ``lm_core.lm_loop``'s schedule, so a call's iteration count, history and
-kernel launches are the eager loop's.  Its outputs are clones: a later call
-never overwrites an earlier result.  :class:`CapturedFunction` is the
-one-graph form, for a step's work before its solve (the MHE's arrival cost).
+handles), then captures.  At fixed work (every tolerance 0) a call replays
+the prelude once and the iteration ``maxiter`` times, back to back.  With a
+tolerance set the iteration is the body of a WHILE conditional node
+(:meth:`_Plan.loop`, built by ``csrc/graph_loop.cu``): the device tests
+``~done & (it < maxiter)`` before each step, ``lax.while_loop``'s
+condition, and one launch runs the whole loop, so the host reads nothing
+during the solve.  ``lm_core.lm_step`` leaves a finished state as it is, so
+either schedule gives ``lm_core.lm_loop``'s iteration count, history and
+result bit for bit.  The outputs are clones: a later call never overwrites
+an earlier result.  :class:`CapturedFunction` is the one-graph form, for a
+step's work before its solve (the MHE's arrival cost).
 :class:`CapturedOuterLoop` is the form of an outer loop around inner LM
 solves (the barrier homotopy of ``make_bounded_solver`` and
-``make_constrained_solver``, the AL homotopy of ``make_ocp_solver``): five
-graphs on one plan, the outer carry and the inner state in buffers,
-replayed on the eager loop's schedule.
+``make_constrained_solver``, the AL homotopy of ``make_ocp_solver``): a
+prelude, a *round* (begin, the inner loop on a WHILE node, end) replayed
+once per outer iteration, and a finish.
 
 The kernel wrappers count their launches in Python, which a replay does not
 run.  So the warm-up and the capture count nothing
-(``ops._build.counts_held``), and every replay adds its graph's share of the
-counts (``ops._build.add_counts``).
+(``ops._build.counts_held``), every replay adds its graph's share of the
+counts (``ops._build.add_counts``), and a loop graph adds the number of
+steps it ran to a counter on the device, which ``ops._build.settle`` reads
+when the counts are read (``ops._build.snapshot``), not during the solve.
 
 A capture or a replay that fails raises: nothing falls back to the eager
-loop.  On the CPU a call runs the eager function.  ``stepwise`` runs the
-captured functions there in replay order on the static buffers, with no
-graph, which is how the CPU tests hold the captured path against the eager
-loop bit for bit.  ``.eager`` is the eager function on any device.
+loop or to a host-read loop.  On the CPU a call runs the eager function.
+``stepwise`` runs the captured functions there in replay order on the static
+buffers, with no graph, which is how the CPU tests hold the captured path
+against the eager loop bit for bit; it runs a loop's step ``maxiter`` times
+with no read of ``done``, a step after ``done`` leaving the state as it is,
+and counts the steps as the device does.  ``.eager`` is the eager function
+on any device.  :class:`HostReads` counts the reads to the host of a block.
 """
 
 from __future__ import annotations
 
+import ctypes
+import gc
+import traceback
+import weakref
+
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from collocfem_tpu_torch.ops import _build
+
+LOOP_INSTANCE = _build.Instance("graph_loop", 0, 0)
 
 
 def _device(leaves) -> torch.device:
@@ -147,21 +165,161 @@ class _Plan:
             current.wait_stream(self._stream)
             return out
 
+    def _capture(self, body, keep: bool = False):
+        """(``body`` captured into a CUDA graph, its share of the counts);
+        with ``keep`` the graph is left uninstantiated, for
+        :meth:`loop`."""
+        g = torch.cuda.CUDAGraph(keep_graph=keep)
+        # No garbage collection inside the capture (torch.cuda.graph
+        # collects before it): a plan freed there would destroy its graphs
+        # mid-capture, which invalidates the capture.
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with _build.counts_held() as share:
+                with torch.cuda.graph(g, pool=self._pool,
+                                      stream=self._stream):
+                    body()
+        finally:
+            if collecting:
+                gc.enable()
+        return g, share
+
     def graph(self, body):
         """Capture ``body`` into a CUDA graph; returns a function that
         replays it and adds its launches to the counts."""
         if not self.capture:
             return body
-        g = torch.cuda.CUDAGraph()
-        with _build.counts_held() as share:
-            with torch.cuda.graph(g, pool=self._pool, stream=self._stream):
-                body()
+        g, share = self._capture(body)
 
         def replay():
             g.replay()
             _build.add_counts(share)
 
         return replay
+
+    def loop(self, step, state, maxiter: int, before=None, after=None):
+        """A function that runs ``before``, then ``step`` while ``~done &
+        (it < maxiter)`` of ``state`` (the :class:`~lm_core.LMState` of
+        static buffers that ``step`` writes in place), then ``after``.
+
+        On a CUDA device the three are captured (uninstantiated) and cloned
+        into one graph around a WHILE conditional node (``csrc/
+        graph_loop.cu``); a call is one launch of it, and the device, not
+        the host, reads ``done``.  ``before`` and ``after`` add their
+        shares of the counts per call; the graph adds the steps it ran to
+        the device counter ``self.steps`` (``self.tally``), which
+        :func:`_build.settle` reads.  On the CPU the three run through
+        :meth:`graph` and the step runs ``maxiter`` times, with no read of
+        ``done``: a step after ``done`` leaves the state as it is
+        (``lm_core.lm_step``'s ``keep``), so the result is the loop's, and
+        the counts take one step's share per step the state counted
+        (``it``), as on the device.
+        """
+        if state.done.dtype != torch.bool or state.it.dtype != torch.int64:
+            raise ValueError("the loop reads a bool done and an int64 it")
+        self.steps = torch.zeros((), dtype=torch.int64,
+                                 device=state.it.device)
+        self.tally = None
+
+        def count_steps():
+            if after is not None:
+                after()
+            self.steps.add_(state.it)
+
+        if not self.capture:
+            return self._cpu_loop(
+                self.graph(step), maxiter,
+                None if before is None else self.graph(before),
+                self.graph(count_steps))
+        (g_before, before_share), (g_step, step_share), (g_after,
+                                                         after_share) = (
+            (None, {}) if before is None else self._capture(before, keep=True),
+            self._capture(step, keep=True),
+            self._capture(count_steps, keep=True))
+        lib = _loop_library()
+        graph, execu, stage = ctypes.c_void_p(), ctypes.c_void_p(), \
+            ctypes.c_int()
+        device = state.it.device
+        with torch.cuda.device(device):
+            rc = lib.graph_loop_build(
+                g_before.raw_cuda_graph() if g_before else None,
+                g_step.raw_cuda_graph(), g_after.raw_cuda_graph(),
+                state.done.data_ptr(), state.it.data_ptr(), maxiter,
+                ctypes.byref(graph), ctypes.byref(execu), ctypes.byref(stage))
+        if rc != 0:
+            names = {3: "before", 6: "step", 8: "after"}
+            failed = dict(before=g_before, step=g_step, after=g_after).get(
+                names.get(stage.value))
+            where = ""
+            if failed is not None:
+                buf = ctypes.create_string_buffer(1 << 14)
+                lib.graph_loop_describe(failed.raw_cuda_graph(), buf,
+                                        len(buf))
+                where = (f"; the {names[stage.value]} graph's nodes that are "
+                         f"not kernels:\n{buf.value.decode()}")
+            raise RuntimeError(
+                f"the loop graph failed at stage {stage.value}: "
+                + lib.graph_loop_error_string(rc).decode() + where)
+        self.loop_nodes = {
+            name: lib.graph_loop_node_count(g.raw_cuda_graph())
+            for name, g in (("before", g_before), ("step", g_step),
+                            ("after", g_after)) if g is not None}
+        # The captured graphs stay alive with the plan: their memory in the
+        # pool is what the loop graph's clones of them use.
+        self._loop = (g_before, g_step, g_after)
+        # Destroyed with the plan; at exit the process frees them.
+        weakref.finalize(self, lib.graph_loop_destroy, graph,
+                         execu).atexit = False
+        self.tally = _build.Tally(self.steps, step_share)
+
+        def run():
+            with torch.cuda.device(device):
+                rc = lib.graph_loop_launch(
+                    execu, torch.cuda.current_stream(device).cuda_stream)
+            if rc != 0:
+                raise RuntimeError("the loop graph's launch failed: "
+                                   + lib.graph_loop_error_string(rc).decode())
+            _build.add_counts(before_share)
+            _build.add_counts(after_share)
+            _build.pending(self.tally)
+
+        return run
+
+    def _cpu_loop(self, step, maxiter, before, after):
+        def run():
+            if before is not None:
+                before()
+            for _ in range(maxiter):
+                with _build.counts_held() as share:
+                    step()
+                if self.tally is None:
+                    self.tally = _build.Tally(self.steps, share)
+            after()
+            if self.tally is not None:
+                _build.pending(self.tally)
+
+        return run
+
+
+def _loop_library():
+    """``csrc/graph_loop.cu``, built at its first use and loaded."""
+    lib = _build.load(LOOP_INSTANCE).lib
+    ptr = ctypes.c_void_p
+    lib.graph_loop_build.argtypes = [ptr, ptr, ptr, ptr, ptr,
+                                     ctypes.c_longlong, ptr, ptr, ptr]
+    lib.graph_loop_build.restype = ctypes.c_int
+    lib.graph_loop_launch.argtypes = [ptr, ptr]
+    lib.graph_loop_launch.restype = ctypes.c_int
+    lib.graph_loop_destroy.argtypes = [ptr, ptr]
+    lib.graph_loop_destroy.restype = None
+    lib.graph_loop_node_count.argtypes = [ptr]
+    lib.graph_loop_node_count.restype = ctypes.c_longlong
+    lib.graph_loop_describe.argtypes = [ptr, ctypes.c_char_p, ctypes.c_int]
+    lib.graph_loop_describe.restype = None
+    lib.graph_loop_error_string.argtypes = [ctypes.c_int]
+    lib.graph_loop_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 class _Captured:
@@ -211,8 +369,10 @@ class CapturedSolve(_Captured):
 
     ``solve(*inputs)`` returns ``finish`` of the final state, as clones;
     ``solve.eager(*inputs)`` is the eager loop that gives the same result.
-    ``maxiter`` bounds the iteration replays; with ``early_exit`` (a
-    tolerance is set) the host reads ``done`` before each one.
+    ``maxiter`` bounds the iterations.  With ``early_exit`` (a tolerance is
+    set) the iterations run on the device as one loop graph
+    (:meth:`_Plan.loop`) that stops at ``done``; without, the iteration
+    graph is replayed ``maxiter`` times.
     """
 
     def __init__(self, prelude, step, finish, eager, *, maxiter: int,
@@ -235,17 +395,26 @@ class CapturedSolve(_Captured):
         plan.state = tree_map(_like, plan.warm_up(warm))
         plan.run_prelude = plan.graph(
             lambda: _write(plan.state, self.prelude(*args)))
-        plan.run_step = plan.graph(
-            lambda: _write(plan.state, self.step(plan.state, *args)))
+
+        def step():
+            _write(plan.state, self.step(plan.state, *args))
+
+        if self.early_exit:
+            plan.run_loop = plan.loop(step, plan.state, self.maxiter)
+        else:
+            run_step = plan.graph(step)
+
+            def fixed_work():
+                for _ in range(self.maxiter):
+                    run_step()
+
+            plan.run_loop = fixed_work
         return plan
 
     def _run(self, plan, leaves):
         plan.load(leaves)
         plan.run_prelude()
-        for _ in range(self.maxiter):
-            if self.early_exit and bool(plan.state.done):
-                break
-            plan.run_step()
+        plan.run_loop()
         return tree_map(_clone, self.finish(plan.state))
 
 
@@ -281,7 +450,7 @@ class CapturedOuterLoop(_Captured):
     device: the interior-point drivers' barrier homotopy and the OCP
     solver's AL homotopy, each outer iteration one inner solve.
 
-    Five functions of static buffers, each captured as one graph:
+    Five functions of static buffers, each captured:
 
       * ``prelude(*inputs) -> carry``: the outer carry at the start (for
         the drivers: z, the barrier parameter, the warm-start damping, the
@@ -295,13 +464,14 @@ class CapturedOuterLoop(_Captured):
         inner solve;
       * ``finish(carry, *inputs) -> outputs``: what the solve returns.
 
-    A call replays the prelude; then ``n_outer`` times: begin, up to
-    ``maxiter`` steps, each after a read of the inner state's ``done`` on
-    the host that stops the inner solve, and end; then finish.  That is the
+    Begin, the steps and end make one *round* graph (:meth:`_Plan.loop`:
+    the steps on a WHILE node that stops at the inner state's ``done`` or
+    at ``maxiter`` steps).  A call replays the prelude, the round
+    ``n_outer`` times and the finish, and reads nothing to the host: the
     eager loop's schedule (``lm_core.lm_loop`` with a tolerance set, inside
-    a Python loop over the outer iterations): the host reads the values the
-    eager loop reads, so the iteration counts, histories and launches are
-    the eager loop's.  The outputs are clones.
+    a Python loop over the outer iterations) decided on the device, so the
+    iteration counts, histories and launches are the eager loop's.  The
+    outputs are clones.
     """
 
     def __init__(self, prelude, begin, step, end, finish, eager, *,
@@ -328,12 +498,13 @@ class CapturedOuterLoop(_Captured):
                                                     plan.warm_up(warm))
         plan.run_prelude = plan.graph(
             lambda: _write(plan.carry, self.prelude(*args)))
-        plan.run_begin = plan.graph(
-            lambda: _write(plan.inner, self.begin(plan.carry, *args)))
-        plan.run_step = plan.graph(lambda: _write(
-            plan.inner, self.step(plan.inner, plan.carry, *args)))
-        plan.run_end = plan.graph(lambda: _write(
-            plan.carry, self.end(plan.inner, plan.carry, *args)))
+        plan.run_round = plan.loop(
+            lambda: _write(plan.inner,
+                           self.step(plan.inner, plan.carry, *args)),
+            plan.inner[0], self.maxiter,
+            before=lambda: _write(plan.inner, self.begin(plan.carry, *args)),
+            after=lambda: _write(plan.carry,
+                                 self.end(plan.inner, plan.carry, *args)))
         plan.run_finish = plan.graph(
             lambda: _write(plan.out, self.finish(plan.carry, *args)))
         return plan
@@ -342,11 +513,41 @@ class CapturedOuterLoop(_Captured):
         plan.load(leaves)
         plan.run_prelude()
         for _ in range(self.n_outer):
-            plan.run_begin()
-            for _ in range(self.maxiter):
-                if bool(plan.inner[0].done):
-                    break
-                plan.run_step()
-            plan.run_end()
+            plan.run_round()
         plan.run_finish()
         return tree_map(_clone, plan.out)
+
+
+class HostReads(TorchDispatchMode):
+    """Count the reads to the host of a block: ``with HostReads() as reads:
+    solve(...)``, then ``reads.count``.  A read is ``aten._local_scalar_dense``
+    (``.item()``, ``bool(t)``, ``int(t)``, indexing by a 0-d tensor) of a
+    tensor on ``device`` (any device if None: on the CPU, what would be a
+    read on the card) or a copy of a CUDA tensor to the CPU; on a CUDA
+    device each makes the host wait for the device.  ``reads.where`` holds
+    the innermost frames of each read."""
+
+    def __init__(self, device=None):
+        super().__init__()
+        self.device = None if device is None else torch.device(device).type
+        self.count = 0
+        self.where = []
+
+    def _read(self):
+        self.count += 1
+        self.where.append("".join(traceback.format_stack(limit=8)[:-2]))
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if func is torch.ops.aten._local_scalar_dense.default:
+            if self.device in (None, args[0].device.type):
+                self._read()
+        elif func in (torch.ops.aten._to_copy.default,
+                      torch.ops.aten.copy_.default):
+            src = args[1] if func is torch.ops.aten.copy_.default else args[0]
+            dst = args[0] if func is torch.ops.aten.copy_.default else out
+            if (torch.is_tensor(src) and src.device.type == "cuda"
+                    and dst.device.type == "cpu"):
+                self._read()
+        return out

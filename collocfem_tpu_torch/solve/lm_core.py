@@ -27,9 +27,12 @@ lam with its warm start, on the device).  :func:`lm_loop` runs them
 eagerly, a Python loop over device tensors; the solvers of
 ``solve.newton`` and ``parallel.batch``, the interior-point drivers of
 ``solve.bounds`` and ``solve.constrained`` and the OCP solver of
-``solve.auglag`` replay them from CUDA graphs on a CUDA device.  The host reads ``done`` only when a tolerance is non-zero
+``solve.auglag`` replay them from CUDA graphs on a CUDA device.  The eager
+loop reads ``done`` on the host only when a tolerance is non-zero
 (:func:`stops_early`), to stop early; the fixed-work path never
-synchronises.
+synchronises.  The captured loops read nothing: with a tolerance the device
+tests ``~done & (it < maxiter)`` before each step (a WHILE conditional node,
+``solve.graph``), ``lax.while_loop``'s condition.
 """
 
 from __future__ import annotations
@@ -69,8 +72,9 @@ def _select(accept, new, old):
 
 
 def stops_early(gtol, ftol: float, xtol: float) -> bool:
-    """Whether a loop with these tolerances reads ``done`` on the host
-    before each iteration to stop early (a tensor gtol counts as set)."""
+    """Whether a loop with these tolerances stops early at ``done``: the
+    eager loop reads it on the host before each iteration, a captured one
+    on the device (a tensor gtol counts as set)."""
     return torch.is_tensor(gtol) or gtol > 0 or ftol > 0 or xtol > 0
 
 

@@ -177,6 +177,11 @@ def make_gn_solver(problem, options: SolverOptions = SolverOptions()):
     return captured_lm_solve(initial, trial, opt)
 
 
+def gauss_newton(problem, z0, data, options: SolverOptions = SolverOptions()):
+    """One-shot wrapper around :func:`make_gn_solver`: (z, SolveStats)."""
+    return make_gn_solver(problem, options)(z0, data)
+
+
 def make_irls_solver(problem, options: SolverOptions = SolverOptions(),
                      n_rounds: int = 4, inner_solver=None):
     """Huber-robust estimation: iteratively reweighted Gauss-Newton.

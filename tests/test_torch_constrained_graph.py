@@ -2,11 +2,13 @@
 ``solve.graph.CapturedOuterLoop``) on the CPU.
 
 On a CUDA device ``make_bounded_solver`` and ``make_constrained_solver``
-replay five CUDA graphs a call: the prelude (the outer carry), and for each
-barrier subproblem *begin* (the inner LM state), *step* (one ``lm_step``,
-after a read of ``done``) and *end* (the outer update); then *finish*.
-Here, with no card, ``solve.stepwise`` runs the same functions in replay
-order on the same static buffers, and every case below holds it bit for bit
+replay a prelude graph (the outer carry), for each barrier subproblem one
+round graph (*begin*, the inner LM state; *step*, one ``lm_step``, under a
+WHILE node on ``~done & (it < maxiter)``; *end*, the outer update), then a
+*finish* graph.  Here, with no card, ``solve.stepwise`` runs the same
+functions in replay order on the same static buffers (each inner step
+``inner_maxiter`` times, a step after ``done`` leaving the state as it is),
+and every case below holds it bit for bit
 (``testing.bit_equal``) against the eager loop, with the same launch counts:
 the bounded solver on an active parameter bound and on a state envelope,
 the constrained solver on node constraints (``model.g``) and on a parameter
@@ -181,6 +183,21 @@ class _NoHostTraffic(TorchDispatchMode):
         if func is torch.ops.aten.lift_fresh.default:
             self._lifted[id(out)] = weakref.ref(out)
         return out
+
+
+@pytest.mark.parametrize("case", ["parameter bound", "parameter constraint"])
+def test_a_converging_stepwise_solve_reads_nothing_to_the_host(case):
+    """A whole step-wise barrier homotopy makes no read to the host
+    (solve.graph.HostReads): no inner loop reads ``done``; the eager loop
+    reads it before every inner step."""
+    solve, z0, data, _ = _driver(case, "cr")
+    with graph.HostReads() as reads:
+        got = solve.stepwise(z0, data)
+    assert reads.count == 0
+    with graph.HostReads() as eager_reads:
+        want = solve.eager(z0, data)
+    assert bit_equal(got, want)
+    assert eager_reads.count >= int(got[1].history[:, 3].sum())
 
 
 @pytest.mark.parametrize("case", ["parameter bound", "node constraints"])

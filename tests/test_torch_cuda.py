@@ -223,6 +223,11 @@ def test_chain_kernels_reject_what_they_do_not_take(cuda_device):
 
 
 def _launches(fns):
+    """The launch counts of ``fns``, with the steps of every device loop
+    that ran so far settled in (``_build.settle``)."""
+    from collocfem_tpu_torch.ops import _build
+
+    _build.settle()
     return [f.launches for f in fns]
 
 
@@ -1365,20 +1370,234 @@ def test_a_failing_outer_capture_raises(cuda_device):
     from collocfem_tpu_torch.ops import _build
     from collocfem_tpu_torch.solve.graph import CapturedOuterLoop
 
+    from collocfem_tpu_torch.solve.lm_core import lm_constants, lm_init
+
     eager_calls = []
+    consts = lm_constants(1e-3, maxiter=3, dtype=torch.float32,
+                          device=cuda_device)
+
+    def begin(carry, x):
+        return lm_init((carry,), (), carry.sum().double(), consts), carry
 
     def step(inner, carry, x):
-        return (inner[0], carry + x * carry.sum().item())
+        st, y = inner
+        return st, y + x * carry.sum().item()
 
     loop = CapturedOuterLoop(
-        lambda x: 2.0 * x, lambda carry, x: (carry, carry), step,
-        lambda inner, carry, x: inner[1], lambda carry, x: carry,
-        lambda x: eager_calls.append(x), n_outer=2, maxiter=3)
+        lambda x: 2.0 * x, begin, step, lambda inner, carry, x: inner[1],
+        lambda carry, x: carry, lambda x: eager_calls.append(x), n_outer=2,
+        maxiter=3)
     before = _build.snapshot()
     with pytest.raises(RuntimeError):
         loop(torch.ones(3, device=cuda_device))
     torch.cuda.synchronize()
     assert not eager_calls and not loop._plans
+    assert _build.snapshot() == before
+
+
+def _reads_and_hold(solve, *args):
+    """_hold_captured, with the host reads of the first call and of the
+    replay counted (solve.graph.HostReads); returns (the captured result,
+    the reads of each call)."""
+    from collocfem_tpu_torch.solve.graph import HostReads
+
+    reads = []
+
+    def counted(*a):
+        with HostReads("cuda") as r:
+            out = solve(*a)
+        reads.append(r.count)
+        return out
+
+    counted.eager = solve.eager
+    return _hold_captured(counted, *args), reads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["gn", "mhe", "ocp", "barrier"])
+def test_converging_captured_solves_read_nothing_to_the_host(cuda_device,
+                                                             case):
+    """A captured solve with a tolerance runs its LM loop on the device (a
+    WHILE conditional node on ~done & (it < maxiter)): the first call
+    (warm-up, capture, launch) and a replay read nothing back to the host,
+    and equal solve.eager bit for bit with the same launches (the steps'
+    share settled from the device counter when the counts are read).
+    Cases: the headline at N = 40 to gtol, one MHE window solve, config 3
+    (N = 25, the AL homotopy) and the bounded Van der Pol (the barrier
+    homotopy), float64."""
+    from collocfem_tpu_torch.headline import headline_problem
+    from collocfem_tpu_torch.solve.newton import SolverOptions, make_gn_solver
+
+    if case == "gn":
+        prob, data, z0 = headline_problem(40, dtype=torch.float64,
+                                          device=cuda_device)
+        solve = make_gn_solver(prob, SolverOptions(**CAPTURED_CASES[
+            "early exit"]))
+        args = (z0, data)
+    elif case == "mhe":
+        import numpy as np
+
+        from collocfem_tpu_torch.testing import (MHE_HORIZON,
+                                                 mhe_online_stream)
+
+        mhe, _, ys = mhe_online_stream(torch.float64, cuda_device,
+                                       samples=MHE_HORIZON + 1)
+        seen = []
+        solver = mhe._solver
+        mhe._solver = lambda z0, data: seen.append((z0, data)) or solver(
+            z0, data)
+        mhe.step(mhe.init(ys[:MHE_HORIZON], m0=[1.5, 0.5], P0=np.eye(2)),
+                 ys[MHE_HORIZON])
+        solve, args = solver, seen[0]
+    elif case == "ocp":
+        solve, z0 = _ocp_driver("config 3", "auto", torch.float64,
+                                cuda_device)
+        args = (z0,)
+    else:
+        solve, z0, data = _barrier_driver("bounded", "auto", cuda_device)
+        args = (z0, data)
+    out, reads = _reads_and_hold(solve, *args)
+    assert reads == [0, 0]
+    its = (out[1].iterations if case in ("gn", "mhe")
+           else out[1].history[:, 4 if case == "ocp" else 3].sum())
+    assert int(its) > 0
+
+
+@pytest.mark.cuda
+def test_loop_graph_stops_at_done_and_at_maxiter(cuda_device):
+    """_Plan.loop on a toy state: the step adds 1 to it and sets done at
+    it = 5; with maxiter 8 the loop runs 5 steps, with maxiter 3 three, and
+    a state done from the start runs none.  The device counter takes the
+    steps, which the counts take at the next settle."""
+    from collocfem_tpu_torch.ops import _build
+    from collocfem_tpu_torch.solve import graph
+    from collocfem_tpu_torch.solve.lm_core import LMState
+    from torch.utils._pytree import tree_flatten
+
+    def fake(n):
+        _build.count_launches(fake, (1,), n)
+
+    _build.register(fake, shapes=True)
+    try:
+        for maxiter, start_done, want in ((8, False, 5), (3, False, 3),
+                                          (8, True, 0)):
+            x = torch.zeros(4, device=cuda_device)
+            plan = graph._Plan(*tree_flatten((x,)), capture=True)
+            it = torch.zeros((), dtype=torch.int64, device=cuda_device)
+            done = torch.zeros((), dtype=torch.bool, device=cuda_device)
+            acc = torch.zeros(4, device=cuda_device)
+            st = LMState(None, None, None, None, None, it, done, None, None)
+
+            def step():
+                fake(1)
+                acc.add_(1.0)
+                it.add_(1)
+                done.copy_(it >= 5)
+
+            run = plan.loop(step, st, maxiter)
+            done.fill_(start_done)
+            n0 = fake.launches
+            run()
+            torch.cuda.synchronize()
+            assert fake.launches == n0
+            _build.settle()
+            assert int(it) == want and float(acc[0]) == want
+            assert fake.launches == n0 + want
+            assert plan.loop_nodes["step"] > 0
+    finally:
+        _build.COUNTED[:] = [f for f in _build.COUNTED
+                             if f.__name__ != "fake"]
+
+
+@pytest.mark.cuda
+def test_loop_body_runs_the_step_path_ops(cuda_device):
+    """The kinds of work an LM step does, under the loop graph's WHILE node
+    (maxiter 1): kernel #2 through its wrapper, a cuBLAS product,
+    smallblocks.spd_solve, cuSOLVER's batched Cholesky (cholesky_ex) and an
+    index_copy, each written into a static buffer.  With done False the
+    body runs once and gives the eager results bit for bit (and kernel #2's
+    launch is counted at the settle); with done True it is skipped: every
+    buffer keeps its NaN fill and it stays 0."""
+    from collocfem_tpu_torch.ops import _build, smallblocks
+    from collocfem_tpu_torch.solve import graph
+    from collocfem_tpu_torch.solve.lm_core import LMState
+    from torch.utils._pytree import tree_flatten
+
+    f64 = torch.float64
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    rand = lambda *shape: torch.randn(*shape, generator=gen,
+                                      dtype=f64).to(cuda_device)
+    D, E, G = random_chain(12, 6, 1, seed=3, dtype=f64, device=cuda_device)
+    A, B, R, row = rand(64, 64), rand(64, 8), rand(30, 6, 2), rand(1, 8)
+    M = rand(30, 6, 6)
+    M = M @ M.transpose(1, 2) + 6 * torch.eye(6, dtype=f64,
+                                               device=cuda_device)
+    H = torch.zeros(5, 8, dtype=f64, device=cuda_device)
+    idx = torch.arange(2, 3, device=cuda_device)
+
+    def body():
+        return (spike.blocktri_solve_spike_fused(D, E, G), A @ B,
+                smallblocks.spd_solve(M, R), torch.linalg.cholesky_ex(M).L,
+                H.index_copy(0, idx, row))
+
+    want = body()
+    outs = [torch.empty_like(w) for w in want]
+    it = torch.zeros((), dtype=torch.int64, device=cuda_device)
+    done = torch.zeros((), dtype=torch.bool, device=cuda_device)
+
+    def step():
+        for o, v in zip(outs, body()):
+            o.copy_(v)
+        it.add_(1)
+
+    plan = graph._Plan(*tree_flatten((D,)), capture=True)
+    run = plan.loop(step, LMState(None, None, None, None, None, it, done,
+                                  None, None), 1)
+    for skip in (False, True):
+        for o in outs:
+            o.fill_(float("nan"))
+        it.zero_()
+        done.fill_(skip)
+        n0 = spike.blocktri_solve_spike_fused.launches
+        run()
+        torch.cuda.synchronize()
+        _build.settle()
+        assert int(it) == (0 if skip else 1)
+        assert spike.blocktri_solve_spike_fused.launches == n0 + (not skip)
+        if skip:
+            assert all(bool(torch.isnan(o).all()) for o in outs)
+        else:
+            assert all(torch.equal(o, w) for o, w in zip(outs, want))
+
+
+@pytest.mark.cuda
+def test_a_failing_loop_capture_raises(cuda_device):
+    """A converging solve whose step reads a value back to the host cannot
+    be captured into the loop graph: the call raises, runs nothing eagerly
+    in its place, keeps no plan and leaves the launch counts as they
+    were."""
+    from collocfem_tpu_torch.ops import _build
+    from collocfem_tpu_torch.solve.graph import CapturedSolve
+    from collocfem_tpu_torch.solve.lm_core import lm_constants, lm_init
+
+    eager_calls = []
+    consts = lm_constants(1e-3, maxiter=3, dtype=torch.float64,
+                          device=cuda_device)
+
+    def prelude(x):
+        return lm_init((x,), (), x.sum(), consts)
+
+    def step(st, x):
+        return st._replace(z=(st.z[0] * st.z[0].sum().item(),))
+
+    solve = CapturedSolve(prelude, step, lambda st: st.z,
+                          lambda x: eager_calls.append(x), maxiter=3,
+                          early_exit=True)
+    before = _build.snapshot()
+    with pytest.raises(RuntimeError):
+        solve(torch.ones(3, dtype=torch.float64, device=cuda_device))
+    torch.cuda.synchronize()
+    assert not eager_calls and not solve._plans
     assert _build.snapshot() == before
 
 

@@ -1,16 +1,22 @@
 """The captured solve path (``collocfem_tpu_torch.solve.graph``) on the CPU.
 
-On a CUDA device a solve replays two CUDA graphs: the prelude (assembly at
-z0 and the initial LM state) and one LM iteration, each reading and writing
-static buffers.  Here, with no card, ``solve.stepwise`` runs the same
-functions in replay order on the same static buffers (prelude, then
-``lm_step`` with the read of ``done``), and every case below holds it bit for
-bit (``torch.equal``) against the eager loop (``lm_core.lm_loop``): the
-headline, config 5 in both layouts, exact Newton, and ten MHE steps.  One
-case holds the step-wise run against the JAX package's ``make_gn_solver``.
-The launch-count accounting of the graphs (counts held through a warm-up and
-a capture, a graph's share added per replay) is unit-tested with a fake
-wrapper.
+On a CUDA device a solve replays CUDA graphs: the prelude (assembly at z0
+and the initial LM state) and the LM iterations, each reading and writing
+static buffers; at fixed work one iteration graph replayed maxiter times,
+with a tolerance one loop graph whose WHILE node runs the step until
+``done`` or maxiter.  Here, with no card, ``solve.stepwise`` runs the same
+functions in replay order on the same static buffers (the loop's step
+maxiter times, a step after ``done`` leaving the state as it is), and every
+case below holds it bit for bit (``torch.equal``) against the eager loop
+(``lm_core.lm_loop``): the headline at fixed work, to a tolerance and
+capped by maxiter, config 5 in both layouts at fixed work and to a
+tolerance, exact Newton, and ten MHE steps.  A converging step-wise solve
+reads nothing to the host, and its captured functions pass the dispatch
+mode that refuses what a capture refuses.  One case holds the step-wise run
+against the JAX package's ``make_gn_solver``.  The launch-count accounting
+of the graphs (counts held through a warm-up and a capture, a graph's share
+added per replay, a loop's steps tallied on the device and settled when the
+counts are read) is unit-tested with a fake wrapper.
 """
 
 import jax.numpy as jnp
@@ -18,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_constrained_graph import _NoHostTraffic
 from test_torch_newton import _carry, _vdp_data
 
 from collocfem_tpu.models import VanDerPol as JaxVanDerPol
@@ -32,6 +39,7 @@ from collocfem_tpu_torch.ops import _build, cr
 from collocfem_tpu_torch.ops.mesh import uniform_mesh
 from collocfem_tpu_torch.parallel.batch import make_multi_experiment_solver
 from collocfem_tpu_torch.problem import Decision, EstimationProblem
+from collocfem_tpu_torch.solve import graph
 from collocfem_tpu_torch.solve.newton import SolverOptions, make_gn_solver
 from collocfem_tpu_torch.testing import (MHE_HORIZON, bit_equal,
                                          mhe_online_stream)
@@ -40,6 +48,9 @@ F64 = torch.float64
 FIXED = dict(maxiter=15, gtol=0.0, ftol=0.0, xtol=0.0, lam0=3e-6,
              lam_max=1e30)
 EARLY = dict(maxiter=60, gtol=1e-10, xtol=1e-12)
+# A tolerance the loop does not reach in maxiter iterations: the loop graph
+# runs to its cap.
+CAPPED = dict(maxiter=4, gtol=1e-10, xtol=1e-12)
 
 
 def _assert_same(got, want):
@@ -60,19 +71,20 @@ def _stepwise_and_eager(solve, *args):
             _build.difference(mid, _build.snapshot()))
 
 
-@pytest.mark.parametrize("opts", [FIXED, EARLY], ids=["fixed", "early_exit"])
+@pytest.mark.parametrize("opts", [FIXED, EARLY, CAPPED],
+                         ids=["fixed", "early_exit", "capped"])
 def test_headline_stepwise_matches_eager(opts):
     """The headline at N = 40, float64: the step-wise replay order gives
     the eager loop's z and SolveStats bit for bit and the same launch
     counts (the plain CR versions on the CPU); the early-exit run stops
-    before maxiter."""
+    before maxiter, the capped one (a tolerance not reached) at it."""
     prob, data, z0 = headline_problem(40, dtype=F64, device="cpu")
     solve = make_gn_solver(prob, SolverOptions(**opts))
     got, want, counts, eager_counts = _stepwise_and_eager(solve, z0, data)
     _assert_same(got, want)
     assert counts == eager_counts and counts
     its = int(got[1].iterations)
-    assert its == opts["maxiter"] if opts is FIXED else its < opts["maxiter"]
+    assert its < opts["maxiter"] if opts is EARLY else its == opts["maxiter"]
     assert bool(got[1].converged) == (opts is EARLY)
     _assert_same(solve(z0, data), want)      # on the CPU: the eager loop
 
@@ -91,6 +103,24 @@ def test_config5_stepwise_matches_eager(layout):
     _assert_same(got, want)
     assert counts == eager_counts and counts
     assert float(got[1].cost) < 0.1 * float(got[1].history[0, 0])
+
+
+@pytest.mark.parametrize("layout", ["soa", "blocks"])
+def test_config5_converging_stepwise_matches_eager(layout):
+    """make_multi_experiment_solver with a tolerance (config 5 at 4
+    experiments x 10 elements, float64, chip_smoke.py's converged options):
+    the loop stops before maxiter, bit for bit the eager loop's, with the
+    same launch counts."""
+    prob, z0, data, p_prior, p_w = build_config5_problem(4, 10, dtype=F64,
+                                                         device="cpu")
+    solve = make_multi_experiment_solver(
+        prob, SolverOptions(maxiter=60, gtol=1e-10, xtol=1e-12, lam0=1e-6,
+                            lam_max=1e30), layout=layout)
+    got, want, counts, eager_counts = _stepwise_and_eager(
+        solve, z0, data, p_prior, p_w)
+    _assert_same(got, want)
+    assert counts == eager_counts and counts
+    assert int(got[1].iterations) < 60 and bool(got[1].converged)
 
 
 def test_newton_stepwise_matches_eager():
@@ -175,6 +205,116 @@ def test_a_second_call_leaves_the_first_result_alone():
     with pytest.raises(ValueError, match="meta"):
         solve.stepwise(*torch.utils._pytree.tree_map(
             lambda x: x.to("meta"), (z0, data)))
+
+
+def _mhe_window(device="cpu"):
+    """The estimator of examples/mhe_online.py and the (z0, data) of its
+    first step's window solve."""
+    mhe, _, ys = mhe_online_stream(F64, device, samples=MHE_HORIZON + 1)
+    seen, solver = [], mhe._solver
+    mhe._solver = lambda z0, data: seen.append((z0, data)) or solver(z0, data)
+    mhe.step(mhe.init(ys[:MHE_HORIZON], m0=[1.5, 0.5], P0=np.eye(2)),
+             ys[MHE_HORIZON])
+    mhe._solver = solver
+    return mhe, seen[0]
+
+
+def _converging(case):
+    """(solve, args) of a converging solve: the headline to gtol, config 5
+    to gtol, the MHE window solve."""
+    if case == "headline":
+        prob, data, z0 = headline_problem(40, dtype=F64, device="cpu")
+        return make_gn_solver(prob, SolverOptions(**EARLY)), (z0, data)
+    if case == "config 5":
+        prob, z0, data, p_prior, p_w = build_config5_problem(
+            4, 10, dtype=F64, device="cpu")
+        return make_multi_experiment_solver(
+            prob, SolverOptions(maxiter=60, gtol=1e-10, xtol=1e-12,
+                                lam0=1e-6, lam_max=1e30)), (z0, data,
+                                                            p_prior, p_w)
+    mhe, args = _mhe_window()
+    return mhe._solver, args
+
+
+@pytest.mark.parametrize("case", ["headline", "config 5", "mhe"])
+def test_a_converging_stepwise_solve_reads_nothing_to_the_host(case):
+    """A whole step-wise solve with a tolerance makes no read to the host
+    (solve.graph.HostReads counts every _local_scalar_dense: .item(),
+    bool(t), ...): the loop does not read done, and the steps' launch
+    counts wait in a device counter until the counts are read.  It stops
+    before maxiter and equals the eager loop, which reads done once an
+    iteration."""
+    solve, args = _converging(case)
+    with graph.HostReads() as reads:
+        got = solve.stepwise(*args)
+    assert reads.count == 0
+    with graph.HostReads() as eager_reads:
+        want = solve.eager(*args)
+    _assert_same(got, want)
+    its = int(got[1].iterations)
+    assert 0 < its < solve.maxiter
+    assert eager_reads.count >= its
+
+
+@pytest.mark.parametrize("case", ["headline", "config 5", "mhe"])
+def test_captured_functions_make_no_host_traffic(case, monkeypatch):
+    """Every function the graphs capture (the prelude, the step under the
+    WHILE node, the loop's tally) runs under _NoHostTraffic, which refuses
+    what a CUDA graph capture refuses, and gives the eager result."""
+    plain_graph = graph._Plan.graph
+
+    def guarded(plan, body):
+        def run():
+            with _NoHostTraffic():
+                body()
+        return plain_graph(plan, run)
+
+    monkeypatch.setattr(graph._Plan, "graph", guarded)
+    solve, args = _converging(case)
+    _assert_same(solve.stepwise(*args), solve.eager(*args))
+
+
+def test_device_tally_settles_when_counts_are_read():
+    """A loop's steps are counted on the device: a _build.Tally holds the
+    counter and one step's share; once marked pending the counts take share
+    x (counter - steps already taken) at settle, which snapshot() runs and
+    counts_held does not; a pending tally whose solver is gone still
+    counts."""
+    fake = _fake_wrapper()
+    try:
+        tally = _build.Tally(torch.zeros((), dtype=torch.int64),
+                             {fake: (2, {(8, 3): 2})})
+        tally.counter.add_(3)
+        _build.pending(tally)
+        assert fake.launches == 0
+        with _build.counts_held():
+            pass
+        assert fake.launches == 0
+        assert _build.snapshot()[fake] == (6, {(8, 3): 6})
+        tally.counter.add_(1)
+        _build.settle()
+        assert fake.launches == 6          # not pending: not read
+        _build.pending(tally)
+        del tally
+        _build.settle()
+        assert fake.launches == 8 and fake.shapes == {(8, 3): 8}
+        assert not _build._PENDING
+    finally:
+        _build.COUNTED[:] = [f for f in _build.COUNTED
+                             if f.__name__ != "fake"]
+
+
+def test_host_reads_counts_reads():
+    """HostReads counts .item(), bool() and int() of a tensor, and nothing
+    for work that stays on the device."""
+    x = torch.arange(4.0)
+    with graph.HostReads() as reads:
+        y = (x * 2).sum()
+        z = torch.where(y > 3, x, -x)
+    assert reads.count == 0
+    with graph.HostReads() as reads:
+        y.item(), bool(y > 3), int(z[1])
+    assert reads.count == 3
 
 
 def _fake_wrapper():

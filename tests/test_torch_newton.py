@@ -348,3 +348,33 @@ def test_irls_needs_a_threshold():
                                     dtype=torch.float64)
     with pytest.raises(ValueError, match="irls_delta"):
         make_irls_solver(tprob, SolverOptions())
+
+
+def test_gauss_newton_matches_jax():
+    """gauss_newton, the one-shot wrapper over make_gn_solver, against the
+    JAX package's on the N = 40 Van der Pol problem, float64, to
+    convergence: both converge, V and p within 1e-9 (relative) and the cost
+    within 1e-9.  It is exported as solve.gauss_newton, as the JAX package
+    exports it."""
+    from collocfem_tpu.solve import gauss_newton as jax_gauss_newton
+    from collocfem_tpu_torch import solve as tsolve
+
+    tf, t_meas, y, u_fn = _vdp_data()
+    jprob = JaxProblem.build(JaxVanDerPol(), jax_uniform_mesh(0.0, tf, 40, 4),
+                             t_meas, defect_weight=30.0)
+    tprob = EstimationProblem.build(VanDerPol(), uniform_mesh(0.0, tf, 40, 4),
+                                    t_meas, defect_weight=30.0, device="cpu",
+                                    dtype=torch.float64)
+    jdata = jprob.pack_data(y, t_meas,
+                            u_nodes=u_fn(jprob.mesh.elem_times)[..., None],
+                            meas_weight=1.0, p_prior=[1.0, 1.0], p_weight=1e-3)
+    jz0 = jprob.initial_guess_from_data(t_meas, y, p0=[2.0, 0.3])
+    tdata, tz0 = _carry(jdata, jz0)
+    opts = dict(maxiter=50, gtol=1e-9, xtol=1e-12)
+    jz, jst = jax_gauss_newton(jprob, jz0, jdata, JaxSolverOptions(**opts))
+    tz, tst = tsolve.gauss_newton(tprob, tz0, tdata, SolverOptions(**opts))
+    assert bool(jst.converged) and bool(tst.converged)
+    np.testing.assert_allclose(tz.p.numpy(), np.asarray(jz.p), rtol=1e-9)
+    np.testing.assert_allclose(tz.V.numpy(), np.asarray(jz.V), rtol=1e-9,
+                               atol=1e-9 * float(jnp.abs(jz.V).max()))
+    np.testing.assert_allclose(float(tst.cost), float(jst.cost), rtol=1e-9)

@@ -1,13 +1,15 @@
 """The AL + barrier OCP driver captured (``solve.auglag.make_ocp_solver`` on
 ``solve.graph.CapturedOuterLoop``) on the CPU.
 
-On a CUDA device ``make_ocp_solver`` replays five CUDA graphs a call: the
-prelude (the outer carry: z, the multipliers, rho, mu, the warm-start
-damping, the last violation, the history and the outer index), and for each
-AL round *begin* (the inner LM state), *step* (one decrease-mode
-``lm_step``, after a read of ``done``) and *end* (the multiplier, history,
-rho and mu updates); then *finish*.  Here, with no card, ``solve.stepwise``
-runs the same functions in replay order on the same static buffers, and
+On a CUDA device ``make_ocp_solver`` replays a prelude graph (the outer
+carry: z, the multipliers, rho, mu, the warm-start damping, the last
+violation, the history and the outer index), for each AL round one round
+graph (*begin*, the inner LM state; *step*, one decrease-mode ``lm_step``,
+under a WHILE node on ``~done & (it < maxiter)``; *end*, the multiplier,
+history, rho and mu updates), then a *finish* graph.  Here, with no card,
+``solve.stepwise`` runs the same functions in replay order on the same
+static buffers (each inner step ``inner_maxiter`` times, a step after
+``done`` leaving the state as it is), and
 every case below holds it bit for bit (``testing.bit_equal``) against the
 eager loop, with the same launch counts: config 3 (the pendulum swing-up)
 on 8 elements in both dtypes, the free-time double integrator of
@@ -136,6 +138,21 @@ def test_a_second_call_leaves_the_first_result_alone():
     for a, b in zip(tree_flatten(first)[0], tree_flatten(second)[0]):
         assert a.data_ptr() != b.data_ptr() or not a.numel()
     assert bit_equal(second, solve.eager(z0._replace(V=z0.V * 0.9)))
+
+
+def test_a_converging_stepwise_solve_reads_nothing_to_the_host():
+    """A whole step-wise AL homotopy (config 3, six rounds, the third and
+    fourth ending by gtol) makes no read to the host
+    (solve.graph.HostReads): no inner loop reads ``done``; the eager loop
+    reads it before every inner step."""
+    solve, z0, _ = _driver("config 3", "spike")
+    with graph.HostReads() as reads:
+        got = solve.stepwise(z0)
+    assert reads.count == 0
+    with graph.HostReads() as eager_reads:
+        want = solve.eager(z0)
+    assert bit_equal(got, want)
+    assert eager_reads.count >= int(got[1].history[:, 4].sum())
 
 
 @pytest.mark.parametrize("case", ["config 3", "free time", "split actuator"])
