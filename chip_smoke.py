@@ -193,11 +193,23 @@ Phases, each printing its own line; any failure raises and exits non-zero:
  14. the multi-rank tier (parallel/; _phase14): one world of 4 gloo ranks
      sharing the card (collocfem_tpu_torch.testing.run_world: the rank
      workers live in the package, so the spawned children import it and not
-     this script) and an NCCL world of one in this process; every case's
-     ranks must give the same bits.  (a) sp: make_sp_gn_solver on the
+     this script), each case run by the solver's ``.eager`` (a CUDA graph
+     cannot hold gloo's collectives), and an NCCL world of one in this
+     process (_nccl_world_of_one), whose solves replay CUDA graphs with
+     their collectives inside (a world of one launches no NCCL kernel: its
+     all-reduces leave device-to-device copies in the graphs at most):
+     each case's first call (its reads to the host gated: 0 at fixed work,
+     one a step and one at the exit to a tolerance), a replay and
+     ``.eager`` give the same bits and the same launches, printed with the
+     three walls and the idle share of the captured and of the eager wall.
+     Every case's ranks must give the same bits.  (a) sp: make_sp_gn_solver
+     on the
      headline at N = 9,999 (K = 10,000), 15 fixed-work LM iterations in
      float64 at sp = 1 (NCCL), 2 and 4: p within 1e-8 of the single-rank
      make_gn_solver's, V within 1e-6 (relative), the same accept history;
+     at sp = 1 (NCCL) also to gtol 1e-10 (the step graph replayed with a
+     read of done a step, the schedule of every sharded solve with a
+     tolerance): converged, p within 1e-8 of the single-rank solver's;
      float32 at sp = 4: the cost falls more than 10x, p finite; every rank
      launches kernel #2 once at (8, 19) and once at (8, 3) per iteration
      and no plain version.  (b) dp: config 5 at dp = 1 (NCCL), 2 and 4 in
@@ -238,8 +250,9 @@ the eager wall beside it; phases 3, 5 and 7 also profile one captured run
 (device time, and the idle share of the captured and of the eager wall).
 Phases 10-12 do the same with the constrained drivers (solve/auglag.py:
 the AL homotopy captured; solve/bounds.py, constrained.py: the barrier
-homotopy captured).  Phase 14's sharded solves run
-eagerly (their collectives are not captured).
+homotopy captured).  Phase 14's NCCL world of one does the same with the
+sharded solves (its all-reduces captured in the graphs); its gloo ranks
+run ``.eager``.
 
 A solve with a tolerance runs its LM loop on the device: one graph whose
 WHILE conditional node repeats the captured step while ~done & (it <
@@ -247,10 +260,12 @@ maxiter) (csrc/graph_loop.cu), so the host reads nothing during the solve.
 Every converging captured solve of phases 4, 6, 8 (d), (e), 9 (d), (e),
 10-12 and 13 (d), (e) counts the reads to the host of its first call
 (solve.graph.HostReads: .item(), bool(t), a copy to the CPU) and raises
-unless there are none; phase 13 (a), (b) counts them over the 20 captured
-MHE steps it holds to step_eager.  Phases 4, 6 and 10-12 print each
-converging solve's captured wall beside the parent's (PARENT: PERF.md §5's
-figures, from runs in which every LM iteration read done); phase 13 prints
+unless there are none (phase 14's sharded one: unless there is one a
+step and one at the exit, _reads_a_step); phase 13 (a), (b) counts
+them over the 20 captured MHE steps it holds to step_eager.  Phases 4, 6
+and 10-12 print each converging solve's captured wall beside the parent's
+(PARENT: PERF.md §5's figures, from runs in which every LM iteration read
+done); phase 13 prints
 the MHE step's median, p90 and idle share in both dtypes beside
 PARENT_MHE.  torch.profiler does not trace the kernels inside a conditional
 node, so a loop graph's idle share takes the device time of the same
@@ -926,6 +941,30 @@ def _no_reads(label, fn):
     if reads.count:
         raise RuntimeError(f"{label}: {reads.count} host reads during the "
                            "call, first at\n" + reads.where[0])
+    return out
+
+
+def _reads_a_step(label, fn, options, reads):
+    """fn(), a sharded solve with ``options``, with its reads to the host
+    counted (solve.graph.HostReads on the card) and appended to ``reads``;
+    prints them and raises unless they are the sharded schedule's: none at
+    fixed work, one before each step and one at the exit (unless the steps
+    ran out) to a tolerance.  Returns fn()."""
+    from collocfem_tpu_torch.solve.graph import HostReads
+    from collocfem_tpu_torch.solve.lm_core import stops_early
+    from collocfem_tpu_torch.solve.newton import SolverOptions
+
+    with HostReads("cuda") as counted:
+        out = fn()
+    o, its = SolverOptions(**options), int(out[1].iterations)
+    want = (its + (its < o.maxiter)
+            if stops_early(o.gtol, o.ftol, o.xtol) else 0)
+    reads.append(counted.count)
+    print(f"  {label}: host reads during the call {counted.count} (gate "
+          f"{want}, {its} iterations)")
+    if counted.count != want:
+        raise RuntimeError(f"{label}: {counted.count} host reads during the "
+                           f"call, not {want}")
     return out
 
 
@@ -3075,6 +3114,7 @@ def _phase2_sp(dev, card):
 # five iterations for dp x sp, and IRLS to convergence (tests/
 # test_sharded_sp.py's IRLS options).
 SP_FIXED = dict(maxiter=15, gtol=0.0, lam0=3e-6, lam_max=1e30)
+SP_CONVERGED = dict(maxiter=60, gtol=1e-10, xtol=1e-12)    # phase 4's
 DPSP_FIXED = dict(C5_FIXED, maxiter=5)
 SP_IRLS = dict(maxiter=40, gtol=1e-9, xtol=1e-12, irls_delta=2.0)
 VDP_SYM = dict(name="VanDerPolSym", states="x0 x1", inputs="u0",
@@ -3083,9 +3123,10 @@ VDP_SYM = dict(name="VanDerPolSym", states="x0 x1", inputs="u0",
 
 
 def _world_cases():
-    """Phase 14's cases for the world of SP_MAX ranks sharing the card (a 2
-    x 2 grid runs each sp = 2 or dp = 2 case on both of its rows or
-    columns), and for the NCCL world of one."""
+    """Phase 14's cases for the world of SP_MAX gloo ranks sharing the card
+    (a 2 x 2 grid runs each sp = 2 or dp = 2 case on both of its rows or
+    columns).  Each runs the solver's ``.eager``: a CUDA graph cannot
+    capture gloo's collectives (the captured call raises ValueError)."""
     import torch
 
     from collocfem_tpu_torch import testing
@@ -3094,10 +3135,11 @@ def _world_cases():
     head = dict(kind="headline", elements=ELEMENTS_SP)
     c5 = dict(kind="config5", n_exp=N_EXP, elements=10)
     sp = lambda grid, dtype=f64: (testing.sp_gn_case, dict(
-        mesh=grid, spec=head, options=SP_FIXED, dtype=dtype))
+        mesh=grid, spec=head, options=SP_FIXED, dtype=dtype, mode="eager"))
     dp = lambda grid, layout: (testing.dp_case, dict(
-        mesh=grid, spec=c5, options=C5_FIXED, layout=layout, dtype=f64))
-    world = {
+        mesh=grid, spec=c5, options=C5_FIXED, layout=layout, dtype=f64,
+        mode="eager"))
+    return {
         "sp=4 float64": sp((1, 4)), "sp=2 float64": sp((2, 2)),
         "sp=4 float32": sp((1, 4), torch.float32),
         **{f"dp={n} {layout}": dp(grid, layout)
@@ -3105,15 +3147,107 @@ def _world_cases():
            for layout in ("soa", "blocks")},
         "dp x sp": (testing.dp_case, dict(
             mesh=(2, 2), spec=dict(kind="config5", n_exp=4, elements=511),
-            options=DPSP_FIXED, layout="blocks", dtype=f64, sp_chain=True)),
+            options=DPSP_FIXED, layout="blocks", dtype=f64, sp_chain=True,
+            mode="eager")),
         "irls sp=2": (testing.sp_gn_case, dict(
             mesh=(2, 2), spec=head, options=SP_IRLS, dtype=f64,
-            irls_rounds=2)),
+            irls_rounds=2, mode="eager")),
     }
-    one = {"sp=1 float64": sp((1, 1)),
-           **{f"dp=1 {layout}": dp((1, 1), layout)
-              for layout in ("soa", "blocks")}}
-    return world, one
+
+
+def _nccl_world_of_one(dev, card, record):
+    """Phase 14's NCCL world of one in this process (NCCL takes one rank a
+    card): make_sp_gn_solver on the headline at N = 9,999, float64, at
+    SP_FIXED and to SP_CONVERGED (its step graph replayed with a read of
+    done a step, as on several ranks), and make_multi_experiment_solver on
+    config 5 with dp_axis in both layouts at C5_FIXED, each replaying CUDA
+    graphs with its collectives inside (in a world of one, NCCL launches no
+    kernel for them).  Each case's first call (warm-up, capture, replay;
+    its reads to the host gated by _reads_a_step), a replay and
+    ``solve.eager`` are counted: the three give the same bits and the same
+    launches.  Prints
+    each case's walls, host reads, launches and the idle share of the
+    captured and of the eager wall.  Returns {case: {"out": the first
+    call's result on the host, "counts": {kernel: (launches, {shape:
+    n})}, "wall": the replay's}}, as a world's ranks report them."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from collocfem_tpu_torch.parallel import make_device_mesh
+    from collocfem_tpu_torch.parallel.batch import \
+        make_multi_experiment_solver
+    from collocfem_tpu_torch.parallel.sharded import make_sp_gn_solver
+    from collocfem_tpu_torch.solve.newton import SolverOptions
+    from collocfem_tpu_torch.testing import (_host, batch_inputs, bit_equal,
+                                             estimation_inputs)
+
+    f64 = torch.float64
+    out, rec = {}, record.setdefault("phase14_nccl_one", {})
+    with tempfile.TemporaryDirectory() as wd:
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo",
+            init_method=f"file://{wd}/init", world_size=1, rank=0)
+        try:
+            dm = make_device_mesh(1, 1, device=dev)
+            prob, z0, data = estimation_inputs(
+                dict(kind="headline", elements=ELEMENTS_SP), dtype=f64,
+                device=dev)
+            c5 = batch_inputs(dict(kind="config5", n_exp=N_EXP,
+                                   elements=10), dtype=f64, device=dev)
+            sp = lambda opts: make_sp_gn_solver(prob, dm,
+                                                SolverOptions(**opts))
+            chain = lambda o: {"blocktri_solve_spike_fused":
+                               2 * int(o[1].iterations)}
+            cases = {
+                "sp=1 float64": (sp(SP_FIXED), (z0, data), chain, SP_FIXED),
+                "sp=1 converging": (sp(SP_CONVERGED), (z0, data), chain,
+                                    SP_CONVERGED),
+                **{f"dp=1 {layout}": (make_multi_experiment_solver(
+                    c5[0], SolverOptions(**C5_FIXED), dp_axis=dm.dp_group,
+                    layout=layout), c5[1:], lambda o, k=kernel: {k: 15},
+                    C5_FIXED) for layout, kernel in (
+                        ("soa", "blocktri_solve_spike_fused"),
+                        ("blocks", "batched_thomas_solve"))}}
+            for name, (solve, args, want, opts) in cases.items():
+                tag = f"phase 14 NCCL world of one {name}"
+                runs, reads = {}, []
+                for run, fn in (
+                        ("first call", lambda: _reads_a_step(
+                            f"{tag} first call", lambda: solve(*args),
+                            opts, reads)),
+                        ("captured", lambda: solve(*args)),
+                        ("eager", lambda: solve.eager(*args))):
+                    res, wall, counts = _counted(f"{tag} {run}", fn, want)
+                    runs[run] = (res, wall, {k: (n, dict(LAST_SHAPES[k]))
+                                             for k, n in counts.items() if n})
+                first, walls = runs["first call"], {
+                    r: v[1] for r, v in runs.items()}
+                same = all(bit_equal(v[0], first[0]) and v[2] == first[2]
+                           for v in runs.values())
+                profile = _profile_captured(tag, lambda: solve(*args),
+                                            walls["captured"], walls["eager"])
+                print(f"  {tag}: {_three_walls(walls, same, card)}; host "
+                      f"reads {reads[0]}; launches {first[2]}; idle share of the "
+                      f"captured wall {profile['idle_share']:.3f}, of the "
+                      f"eager wall {profile['eager_idle_share']:.3f}")
+                if not same:
+                    raise RuntimeError(f"{tag}: the captured solve differs "
+                                       "from solve.eager")
+                rec[name] = dict(walls_s=walls, launches={
+                    k: [n, {str(shape): m for shape, m in shapes.items()}]
+                    for k, (n, shapes) in first[2].items()},
+                                 iterations=int(first[0][1].iterations),
+                                 host_reads=reads[0],
+                                 idle_share=profile["idle_share"],
+                                 eager_idle_share=profile[
+                                     "eager_idle_share"])
+                out[name] = {"out": _host(first[0]), "counts": first[2],
+                             "wall": walls["captured"]}
+        finally:
+            dist.destroy_process_group()
+    return out
 
 
 def _rank_results(ranks, one):
@@ -3131,7 +3265,8 @@ def _rank_results(ranks, one):
 
 def _phase14_refs(dev):
     """The single-rank runs phase 14 holds the sharded ones against: the
-    captured make_gn_solver on the headline at N = 9,999 (fixed work),
+    captured make_gn_solver on the headline at N = 9,999 (fixed work and
+    to SP_CONVERGED),
     make_multi_experiment_solver on config 5 in each layout and on the four
     experiments of 511 elements, and make_irls_solver; each (z, stats)."""
     import torch
@@ -3147,6 +3282,8 @@ def _phase14_refs(dev):
     prob, z0, data = estimation_inputs(
         dict(kind="headline", elements=ELEMENTS_SP), dtype=f64, device=dev)
     refs = {"sp": make_gn_solver(prob, SolverOptions(**SP_FIXED))(z0, data),
+            "sp converging": make_gn_solver(
+                prob, SolverOptions(**SP_CONVERGED))(z0, data),
             "irls": make_irls_solver(prob, SolverOptions(**SP_IRLS), 2)(
                 z0, data)}
     c5 = batch_inputs(dict(kind="config5", n_exp=N_EXP, elements=10),
@@ -3166,11 +3303,10 @@ def _phase14(dev, card, record):
     ranks sharing the card (testing.run_world) and an NCCL world of one in
     this process, held against single-rank runs; then the symbolic model.
     Returns the kernels' launches ({kernel: n}; by shape into MAIN_SHAPES),
-    summed over every rank."""
+    summed over every rank (the world of one: its first calls')."""
     import tempfile
 
     import torch
-    import torch.distributed as dist
 
     from collocfem_tpu_torch import symbolic_model, testing
     from collocfem_tpu_torch.headline import build_headline_problem
@@ -3178,26 +3314,16 @@ def _phase14(dev, card, record):
     from collocfem_tpu_torch.solve.newton import SolverOptions, make_gn_solver
 
     t_start = time.perf_counter()
-    world, one = _world_cases()
     with tempfile.TemporaryDirectory() as wd:
         ranks = testing.run_world(
-            SP_MAX, [(n, fn, kw) for n, (fn, kw) in world.items()], wd,
-            device=str(dev))
+            SP_MAX, [(n, fn, kw) for n, (fn, kw) in _world_cases().items()],
+            wd, device=str(dev))
     world_wall = time.perf_counter() - t_start
-    with tempfile.TemporaryDirectory() as wd:
-        dist.init_process_group(
-            "nccl" if dev.type == "cuda" else "gloo",
-            init_method=f"file://{wd}/init", world_size=1, rank=0)
-        try:
-            alone = {n: fn(**kw, device=str(dev)) for n, (fn, kw) in
-                     one.items()}
-        finally:
-            dist.destroy_process_group()
-    res = _rank_results(ranks, alone)
-    refs = _phase14_refs(dev)
     print(f"phase 14: {SP_MAX} gloo ranks sharing {card} ({world_wall:.1f} s "
-          "with the spawn) and an NCCL world of one; every case's ranks "
-          "bit-identical")
+          "with the spawn; .eager) and an NCCL world of one (captured)")
+    res = _rank_results(ranks, _nccl_world_of_one(dev, card, record))
+    refs = _phase14_refs(dev)
+    print("  every case's ranks bit-identical")
     walls = {n: [r["wall"] for r in rs] for n, rs in res.items()}
     record["phase14_walls_s"] = walls
     print("  walls of ranks sharing one card (they measure correctness, not "
@@ -3237,6 +3363,16 @@ def _phase14(dev, card, record):
             raise RuntimeError(f"phase 14 (a) {name} disagrees with the "
                                "single-rank solver")
         counted(name, two_shapes(15))
+    z, st = res["sp=1 converging"][0]["out"]
+    its = int(st["iterations"])
+    dp_abs = float((z["p"] - refs["sp converging"][0].p.cpu()).abs().max())
+    print(f"  (a) sp=1 converging: {its} iterations, |p - p_1rank| "
+          f"{dp_abs:.3e} (<= 1e-8), the single-rank solver's "
+          f"{int(refs['sp converging'][1].iterations)}")
+    if not (dp_abs <= 1e-8 and bool(st["converged"]) and its < 60):
+        raise RuntimeError("phase 14 (a) sp=1 converging disagrees with the "
+                           "single-rank solver")
+    counted("sp=1 converging", two_shapes(its))
     z, st = res["sp=4 float32"][0]["out"]
     c0, c_end = float(st["history"][0, 0]), float(st["cost"])
     print(f"  (a) sp=4 float32: cost {c0:.6e} -> {c_end:.6e}, p "

@@ -36,7 +36,8 @@ Main paths:
 On a CUDA device ``make_gn_solver``'s and ``make_multi_experiment_solver``'s
 solves and ``MovingHorizonEstimator.step`` run from CUDA graphs captured at
 their first call, as the JAX package runs them jitted
-(:mod:`collocfem_tpu_torch.solve.graph`); ``solve.eager`` and
+(:mod:`collocfem_tpu_torch.solve.graph`); so do the sharded solves on an
+NCCL group, with their all-reduces inside the graphs.  ``solve.eager`` and
 ``step_eager`` are the eager loops.
 
 Importing the package turns TF32 off for float32 matmuls

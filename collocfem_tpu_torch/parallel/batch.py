@@ -25,8 +25,10 @@ Where the JAX package jits the solve, the port replays it from CUDA graphs
 on a CUDA device (``solve.newton.captured_lm_solve``).  With ``dp_axis`` (a
 process group, :mod:`parallel.meshes`) each rank passes its own experiments
 and the Schur pieces and the LM loop's scalars are all-reduced over the
-group, as the JAX package's ``psum`` / ``pmax`` do inside ``shard_map``; that
-solve runs eagerly (its collectives are not captured).
+group, as the JAX package's ``psum`` / ``pmax`` do inside ``shard_map``; on
+an NCCL group those all-reduces (and, for dp x sp, the SPIKE exchanges of
+``parallel.spike.spike_chain_solver``) are captured in the graphs with the
+rest of the step.
 """
 
 from __future__ import annotations
@@ -43,7 +45,8 @@ from collocfem_tpu_torch.ops.assemble import (
     cost64_from_residuals,
 )
 from collocfem_tpu_torch.ops.smallblocks import spd_solve
-from collocfem_tpu_torch.parallel.meshes import all_max, all_sum
+from collocfem_tpu_torch.parallel.meshes import (all_max, all_sum,
+                                                  capture_refusal)
 from collocfem_tpu_torch.solve.lm_core import LMAux, grad_inf_norm
 from collocfem_tpu_torch.solve.newton import SolverOptions, captured_lm_solve
 
@@ -264,7 +267,12 @@ def make_multi_experiment_solver(problem, options: SolverOptions =
     the experiments are sharded over, the counterpart of the JAX package's
     call inside ``shard_map``: each rank passes its own experiments (z0.V
     and data_batch) and the shared p, prior and options alike, and gets its
-    experiments' V and the shared p.  That solve runs eagerly.
+    experiments' V and the shared p.  On a CUDA device with an NCCL group
+    the graphs hold the group's all-reduces (with a tolerance the host
+    reads ``done`` once a step, as in ``parallel.sharded``, whose docstring
+    says why); with a gloo group there (ranks sharing one card) a call
+    raises ValueError and only ``solve.eager`` runs
+    (``parallel.meshes.capture_refusal``).
 
     ``layout``: ``"soa"`` (concatenated chain, SPIKE chain kernel) or
     ``"blocks"`` (block-major, batched Thomas kernel, or ``chain_solver``:
@@ -320,5 +328,7 @@ def make_multi_experiment_solver(problem, options: SolverOptions =
                 return z_try, carry, ct, aux
             return trial_fn
 
-    solve = captured_lm_solve(initial, trial, options)
-    return solve if dp_axis is None else solve.eager
+    return captured_lm_solve(
+        initial, trial, options,
+        refused=capture_refusal(dp_axis, problem.device),
+        device_exit=dp_axis is None)

@@ -19,6 +19,13 @@ gloo on CPU tensors, gloo on CUDA tensors (several ranks sharing one card,
 which NCCL refuses) and NCCL with one rank per card.  Every sum runs in
 float64, which takes the place of the JAX package's double-word
 ``psum_dw``.
+
+Every collective here can be captured in a CUDA graph on an NCCL group: it
+allocates its buffers on the current stream (inside a capture, from the
+graph's pool), reads nothing to the host and takes its ranks and sizes from
+the group on the host.  The sharded solvers capture them where the JAX
+package jits ``shard_map``; when the solver is made, :func:`capture_refusal`
+decides by the group's backend whether it can.
 """
 
 from __future__ import annotations
@@ -70,6 +77,23 @@ def make_device_mesh(dp: int = 1, sp: int = 1, device=None) -> DeviceMesh:
     return DeviceMesh(dp=dp, sp=sp, dp_rank=rank // sp, sp_rank=rank % sp,
                       dp_group=cols[rank % sp], sp_group=rows[rank // sp],
                       device=torch.device(device))
+
+
+def capture_refusal(group, device):
+    """Why a solve whose collectives run over ``group`` cannot replay CUDA
+    graphs on ``device``, or None where nothing stands in the way: no group,
+    a device that is not CUDA (the solve runs eagerly there), or an NCCL
+    group, whose collectives a graph captures.  A gloo group on a CUDA
+    device (ranks sharing one card) reduces through the host, which no
+    graph can hold; such a solver runs only its ``.eager``."""
+    if group is None or torch.device(device).type != "cuda":
+        return None
+    backend = str(dist.get_backend(group))
+    if backend == "nccl" or "cuda:nccl" in backend:
+        return None
+    return (f"the collectives of a {backend!r} group cannot be captured in a "
+            "CUDA graph: call the solver's .eager on a CUDA device, or run "
+            "one NCCL rank per card")
 
 
 def _reduce(op, group, xs):

@@ -16,12 +16,28 @@ Each rank
      the LM loop (cost, gradient norm, the accept quantities) over the
      ranks.
 
-The LM loop is :func:`solve.lm_core.lm_loop`, the single-rank solvers'
-accept and damping logic.  Every input of an accept decision is all-reduced
-(the float64 cost and g.s, s.s partials in one sum, where the JAX package
-sums double words with ``psum_dw``), so every rank takes the same branch
-and ends with the same bits.  The solve runs eagerly: its collectives are
-not captured in CUDA graphs.
+The LM loop is the single-rank solvers' (:func:`solve.newton.
+captured_lm_solve` over :func:`solve.lm_core.lm_step`).  Every input of an
+accept decision is all-reduced (the float64 cost and g.s, s.s partials in
+one sum, where the JAX package sums double words with ``psum_dw``), so every
+rank takes the same branch, holds the same ``done`` bit for bit and ends
+with the same bits.
+
+As the JAX package jits a ``shard_map`` over its ``lax.while_loop`` and
+slices and pads outside it, a call runs in three parts: this rank's node
+rows and element data, eagerly; the LM solve on them, which on a CUDA
+device with an NCCL group replays CUDA graphs (:mod:`solve.graph`) with
+every all-reduce, halo exchange and kernel #2 launch inside them; and the
+gather of V over the ranks, eagerly.  With a tolerance set, the solve
+replays the step graph and reads ``done`` to the host after each step, as
+the eager loop does: a CUDA-graph conditional body refuses the NCCL kernels
+of several ranks (on four H100s the loop graph with them under its WHILE
+node failed to instantiate, "invalid argument").  Every rank captures the
+same graphs in the same order and replays the same steps.  On the CPU the
+solve runs eagerly; a gloo group on a CUDA device (ranks sharing one card)
+cannot be captured, and there only ``.eager`` runs
+(``parallel.meshes.capture_refusal``).  Both are decided when the solver is
+made.
 
 Sizing: K = N + 1 blocks must divide by sp with >= 2 blocks a shard.  The
 one dummy element that squares the element count with K sits in the last
@@ -37,12 +53,13 @@ from collocfem_tpu_torch.ops.assemble import (add_x0_prior,
                                               scatter_gn_blocks,
                                               x0_prior_residual)
 from collocfem_tpu_torch.ops.smallblocks import spd_solve
-from collocfem_tpu_torch.parallel.meshes import (all_max, all_sum, from_left,
+from collocfem_tpu_torch.parallel.meshes import (all_max, all_sum,
+                                                  capture_refusal, from_left,
                                                   from_right, gather)
 from collocfem_tpu_torch.parallel.spike import blocktri_solve_spike
 from collocfem_tpu_torch.problem import Decision, ElemData
-from collocfem_tpu_torch.solve.lm_core import LMAux, lm_loop
-from collocfem_tpu_torch.solve.newton import SolverOptions, SolveStats
+from collocfem_tpu_torch.solve.lm_core import LMAux
+from collocfem_tpu_torch.solve.newton import SolverOptions, captured_lm_solve
 
 
 def make_sp_gn_solver(problem, dev_mesh, options: SolverOptions =
@@ -52,7 +69,16 @@ def make_sp_gn_solver(problem, dev_mesh, options: SolverOptions =
 
     Returns ``solve(z0, data) -> (z, SolveStats)`` on GLOBAL tensors, which
     every rank of the sp group passes alike; every rank returns the global
-    ``Decision`` and stats, bit for bit the same.  It runs eagerly.
+    ``Decision`` and stats, bit for bit the same.  Counterpart of the JAX
+    package's ``jax.jit(shard_map(...))``: with ``dev_mesh`` on a CUDA
+    device and an NCCL sp group, the LM solve replays CUDA graphs captured
+    at the first call of each input shape; on the CPU it runs eagerly.
+    ``solve.eager(z0, data)`` runs the eager loop on any device and
+    ``solve.stepwise(z0, data)`` (CPU) the captured functions in replay
+    order, each with the same result bit for bit.  With a tolerance the
+    host reads ``done`` once a step (the module's docstring says why).
+    With a gloo group on a CUDA device a call raises
+    ValueError: use ``solve.eager``.
     """
     opt = options
     group, sp, sidx = dev_mesh.sp_group, dev_mesh.sp, dev_mesh.sp_rank
@@ -137,7 +163,10 @@ def make_sp_gn_solver(problem, dev_mesh, options: SolverOptions =
                          v_ext[0, :nx] - data.x0_prior)
         return D, E, B, sys_loc.C, gx, sys_loc.gp
 
-    def trial(ed, data):
+    def initial(z0, ed, data):
+        return (), total_cost(z0.V, z0.p, ed, data)[0]
+
+    def trial(z0, ed, data):
         pw2 = data.p_w**2
         eye_b = torch.eye(bd, dtype=dtype, device=device)
         tiny = torch.finfo(dtype).tiny
@@ -181,7 +210,7 @@ def make_sp_gn_solver(problem, dev_mesh, options: SolverOptions =
             else:
                 dp = p.new_zeros((0,))
                 dx = -a_g * inv
-            z_try = (V + dx.reshape(mb * d, nv), p + dp)
+            z_try = Decision(V=V + dx.reshape(mb * d, nv), p=p + dp)
             dx64 = dx.reshape(-1).double()
             ct, (gdot, snorm2) = total_cost(
                 *z_try, ed, data, torch.dot(gx.reshape(-1).double(), dx64),
@@ -208,17 +237,21 @@ def make_sp_gn_solver(problem, dev_mesh, options: SolverOptions =
             ed.width[-1] = 1.0
         return V_pad[lo * d:hi * d], ed
 
-    def solve(z0: Decision, data):
-        V_loc, ed = local_inputs(z0, data)
-        c0, _ = total_cost(V_loc, z0.p, ed, data)
-        st = lm_loop((V_loc, z0.p), (), c0, trial(ed, data),
-                     maxiter=opt.maxiter, lam0=opt.lam0, gtol=opt.gtol,
-                     ftol=opt.ftol, xtol=opt.xtol, lam_min=opt.lam_min,
-                     lam_max=opt.lam_max, dtype=dtype)
-        V_fin, p_fin = st.z
-        V = gather(V_fin, group).reshape(k * d, nv)[:problem.num_nodes]
-        return Decision(V=V, p=p_fin), SolveStats(
-            iterations=st.it, converged=st.done, cost=st.cost,
-            grad_norm=st.gnorm, lam=st.lam, history=st.history)
+    captured = captured_lm_solve(
+        initial, trial, opt, refused=capture_refusal(group, dev_mesh.device),
+        device_exit=False)
 
+    def around(run):
+        """The solve with ``run`` (the captured solve or one of its forms)
+        as its middle part."""
+        def solve(z0: Decision, data):
+            V_loc, ed = local_inputs(z0, data)
+            z, stats = run(Decision(V=V_loc, p=z0.p), ed, data)
+            V = gather(z.V, group).reshape(k * d, nv)[:problem.num_nodes]
+            return Decision(V=V, p=z.p), stats
+        return solve
+
+    solve = around(captured)
+    solve.eager = around(captured.eager)
+    solve.stepwise = around(captured.stepwise)
     return solve

@@ -37,12 +37,14 @@ tolerance set the iteration is the body of a WHILE conditional node
 (:meth:`_Plan.loop`, built by ``csrc/graph_loop.cu``): the device tests
 ``~done & (it < maxiter)`` before each step, ``lax.while_loop``'s
 condition, and one launch runs the whole loop, so the host reads nothing
-during the solve.  ``lm_core.lm_step`` leaves a finished state as it is, so
-either schedule gives ``lm_core.lm_loop``'s iteration count, history and
-result bit for bit.  The outputs are clones: a later call never overwrites
-an earlier result.  :class:`CapturedFunction` is the one-graph form, for a
-step's work before its solve (the MHE's arrival cost).
-:class:`CapturedOuterLoop` is the form of an outer loop around inner LM
+during the solve (a sharded solve, whose NCCL kernels of several ranks a
+conditional body refuses, replays the iteration graph and reads ``done``
+after each replay instead).  ``lm_core.lm_step`` leaves a finished state as
+it is, so every schedule gives ``lm_core.lm_loop``'s iteration count,
+history and result bit for bit.  The outputs are clones: a later call
+never overwrites an earlier result.  :class:`CapturedFunction` is the
+one-graph form, for a step's work before its solve (the MHE's arrival
+cost).  :class:`CapturedOuterLoop` is the form of an outer loop around inner LM
 solves (the barrier homotopy of ``make_bounded_solver`` and
 ``make_constrained_solver``, the AL homotopy of ``make_ocp_solver``): a
 prelude, a *round* (begin, the inner loop on a WHILE node, end) replayed
@@ -56,13 +58,15 @@ steps it ran to a counter on the device, which ``ops._build.settle`` reads
 when the counts are read (``ops._build.snapshot``), not during the solve.
 
 A capture or a replay that fails raises: nothing falls back to the eager
-loop or to a host-read loop.  On the CPU a call runs the eager function.
-``stepwise`` runs the captured functions there in replay order on the static
-buffers, with no graph, which is how the CPU tests hold the captured path
-against the eager loop bit for bit; it runs a loop's step ``maxiter`` times
-with no read of ``done``, a step after ``done`` leaving the state as it is,
-and counts the steps as the device does.  ``.eager`` is the eager function
-on any device.  :class:`HostReads` counts the reads to the host of a block.
+loop or to a host-read loop (a solve's schedule is fixed when it is made).
+On the CPU a call runs the eager function.  ``stepwise`` runs the captured
+functions there in replay order on the static buffers, with no graph,
+which is how the CPU tests hold the captured path against the eager loop
+bit for bit; it runs a loop's step ``maxiter`` times with no read of
+``done``, a step after ``done`` leaving the state as it is, and counts the
+steps as the device does (a host-read schedule reads ``done`` there too).
+``.eager`` is the eager function on any device.  :class:`HostReads`
+counts the reads to the host of a block.
 """
 
 from __future__ import annotations
@@ -248,7 +252,9 @@ class _Plan:
                 state.done.data_ptr(), state.it.data_ptr(), maxiter,
                 ctypes.byref(graph), ctypes.byref(execu), ctypes.byref(stage))
         if rc != 0:
-            names = {3: "before", 6: "step", 8: "after"}
+            # At stage 9 (instantiation) the WHILE body is the likely
+            # culprit: a node the body refuses fails there.
+            names = {3: "before", 6: "step", 8: "after", 9: "step"}
             failed = dict(before=g_before, step=g_step, after=g_after).get(
                 names.get(stage.value))
             where = ""
@@ -324,11 +330,21 @@ def _loop_library():
 
 class _Captured:
     """What :class:`CapturedSolve` and :class:`CapturedFunction` share: the
-    plan cache and the dispatch on the inputs' device."""
+    plan cache and the dispatch on the inputs' device.
 
-    def __init__(self, eager):
+    ``refused``: why the functions cannot be captured where the solver was
+    made to run (``parallel.meshes.capture_refusal``: collectives of a group
+    whose backend a CUDA graph cannot hold), or None.  A call and
+    ``stepwise`` then raise ValueError with it, and only ``eager`` runs."""
+
+    def __init__(self, eager, refused=None):
         self.eager = eager
+        self.refused = refused
         self._plans: dict = {}
+
+    def _refuse(self):
+        if self.refused is not None:
+            raise ValueError(self.refused)
 
     def _make_plan(self, leaves, spec, capture):
         raise NotImplementedError
@@ -346,6 +362,7 @@ class _Captured:
     def __call__(self, *args):
         """On a CUDA device: replay the captured graphs (capturing them at
         the first call of a key).  On the CPU: the eager function."""
+        self._refuse()
         leaves, spec = tree_flatten(args)
         device = _device(leaves)
         if device.type == "cpu":
@@ -357,6 +374,7 @@ class _Captured:
     def stepwise(self, *args):
         """On the CPU: the captured functions in replay order on the static
         buffers, with no graph."""
+        self._refuse()
         leaves, spec = tree_flatten(args)
         device = _device(leaves)
         if device.type != "cpu":
@@ -372,14 +390,20 @@ class CapturedSolve(_Captured):
     ``maxiter`` bounds the iterations.  With ``early_exit`` (a tolerance is
     set) the iterations run on the device as one loop graph
     (:meth:`_Plan.loop`) that stops at ``done``; without, the iteration
-    graph is replayed ``maxiter`` times.
+    graph is replayed ``maxiter`` times.  With ``early_exit`` and not
+    ``device_exit`` (a step with collectives over a process group, whose
+    NCCL kernels of several ranks a conditional body refuses: the solvers
+    of ``parallel.sharded`` and ``parallel.batch``) the iteration graph
+    is replayed while a read of ``done`` to the host after each replay says
+    the loop goes on, as the eager loop reads it.
     """
 
     def __init__(self, prelude, step, finish, eager, *, maxiter: int,
-                 early_exit: bool):
-        super().__init__(eager)
+                 early_exit: bool, refused=None, device_exit: bool = True):
+        super().__init__(eager, refused)
         self.prelude, self.step, self.finish = prelude, step, finish
         self.maxiter, self.early_exit = maxiter, early_exit
+        self.device_exit = device_exit
 
     def _make_plan(self, leaves, spec, capture):
         plan = _Plan(leaves, spec, capture)
@@ -399,16 +423,18 @@ class CapturedSolve(_Captured):
         def step():
             _write(plan.state, self.step(plan.state, *args))
 
-        if self.early_exit:
+        if self.early_exit and self.device_exit:
             plan.run_loop = plan.loop(step, plan.state, self.maxiter)
         else:
             run_step = plan.graph(step)
 
-            def fixed_work():
+            def steps():
                 for _ in range(self.maxiter):
+                    if self.early_exit and bool(plan.state.done):
+                        break
                     run_step()
 
-            plan.run_loop = fixed_work
+            plan.run_loop = steps
         return plan
 
     def _run(self, plan, leaves):

@@ -81,12 +81,14 @@ class SolveStats(NamedTuple):
     history: torch.Tensor     # (maxiter, 5) per-iteration table
 
 
-def captured_lm_solve(initial, trial, options: SolverOptions):
+def captured_lm_solve(initial, trial, options: SolverOptions, *,
+                      refused=None, device_exit: bool = True):
     """A :class:`solve.graph.CapturedSolve` of the LM loop whose initial
     (carry, cost) is ``initial(*inputs)`` and whose trial function is
     ``trial(*inputs)``; the first input is z0.  It returns (z,
     :class:`SolveStats`), and ``.eager`` runs :func:`lm_core.lm_loop`.  The
-    initial state's constants are made once per dtype and device."""
+    initial state's constants are made once per dtype and device.
+    ``refused``, ``device_exit``: see :class:`solve.graph.CapturedSolve`."""
     opt = options
     lm_args = dict(gtol=opt.gtol, ftol=opt.ftol, xtol=opt.xtol,
                    lam_min=opt.lam_min, lam_max=opt.lam_max)
@@ -114,7 +116,8 @@ def captured_lm_solve(initial, trial, options: SolverOptions):
         return lm_step(st, trial(*inputs), **lm_args)
 
     return CapturedSolve(prelude, step, finish, eager, maxiter=opt.maxiter,
-                         early_exit=stops_early(opt.gtol, opt.ftol, opt.xtol))
+                         early_exit=stops_early(opt.gtol, opt.ftol, opt.xtol),
+                         refused=refused, device_exit=device_exit)
 
 
 def make_gn_solver(problem, options: SolverOptions = SolverOptions()):

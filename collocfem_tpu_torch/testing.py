@@ -299,19 +299,44 @@ def _host(tree):
     return tree
 
 
-def _counted(run, device):
+def _traffic():
+    """``solve.graph.HostReads`` (any device) that also counts the
+    all-reduces (``c10d.allreduce_``) of the block in ``all_reduces``."""
+    from collocfem_tpu_torch.solve.graph import HostReads
+
+    class Traffic(HostReads):
+        all_reduces = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is torch.ops.c10d.allreduce_.default:
+                self.all_reduces += 1
+            return super().__torch_dispatch__(func, types, args, kwargs)
+
+    return Traffic()
+
+
+def _counted(run, device, traffic=False):
     """Run ``run()`` with the kernel counts read just before and just after.
     Returns {"out": its result on the host, "wall": seconds, "counts":
     {function name: (calls, {shape: n})}} (kernel wrappers and plain
-    versions that ran)."""
+    versions that ran); with ``traffic`` also "host_reads" and
+    "all_reduces", the run's reads to the host and all-reduces
+    (:func:`_traffic`)."""
+    import contextlib
+
     from collocfem_tpu_torch.ops import _build
     from collocfem_tpu_torch.utils.profiling import timed
 
+    mode = _traffic() if traffic else contextlib.nullcontext()
     before = _build.snapshot()
-    wall, out = timed(run, device=device, reps=1, warmup=0)
+    with mode:
+        wall, out = timed(run, device=device, reps=1, warmup=0)
     made = _build.difference(before, _build.snapshot())
-    return {"out": _host(out), "wall": wall,
-            "counts": {fn.__name__: c for fn, c in made.items()}}
+    res = {"out": _host(out), "wall": wall,
+           "counts": {fn.__name__: c for fn, c in made.items()}}
+    if traffic:
+        res.update(host_reads=mode.count, all_reduces=mode.all_reduces)
+    return res
 
 
 def spike_case(*, mesh, D, E, G, dtype, device):
@@ -324,9 +349,13 @@ def spike_case(*, mesh, D, E, G, dtype, device):
     return _counted(lambda: solve(*args), device)
 
 
-def sp_gn_case(*, mesh, spec, options, dtype, device, irls_rounds=None):
+def sp_gn_case(*, mesh, spec, options, dtype, device, irls_rounds=None,
+               mode="call", traffic=False):
     """``parallel.make_sp_gn_solver`` on ``estimation_inputs(spec)``, or
-    with ``irls_rounds`` the IRLS solver with it as the inner solver."""
+    with ``irls_rounds`` the IRLS solver with it as the inner solver;
+    ``mode`` "call" runs the solver itself (captured on a CUDA device with
+    an NCCL group, eager on the CPU), "eager" or "stepwise" that form of
+    it; counted (:func:`_counted`)."""
     from collocfem_tpu_torch.parallel import make_device_mesh
     from collocfem_tpu_torch.parallel.sharded import make_sp_gn_solver
     from collocfem_tpu_torch.solve.newton import (SolverOptions,
@@ -338,14 +367,17 @@ def sp_gn_case(*, mesh, spec, options, dtype, device, irls_rounds=None):
                               opts)
     if irls_rounds is not None:
         solve = make_irls_solver(prob, opts, irls_rounds, inner_solver=solve)
-    return _counted(lambda: solve(z0, data), device)
+    run = solve if mode == "call" else getattr(solve, mode)
+    return _counted(lambda: run(z0, data), device, traffic)
 
 
-def dp_case(*, mesh, spec, options, layout, dtype, device, sp_chain=False):
+def dp_case(*, mesh, spec, options, layout, dtype, device, sp_chain=False,
+            mode="call", traffic=False):
     """``make_multi_experiment_solver(dp_axis=...)`` on ``batch_inputs(
     spec)``, this rank's dp share of the experiments; with ``sp_chain`` the
     block layout's chains go through ``spike_chain_solver`` over the sp
-    ranks.  The result's V is gathered over dp: the whole batch."""
+    ranks.  ``mode`` as :func:`sp_gn_case`'s; counted (:func:`_counted`).
+    The result's V is gathered over dp: the whole batch."""
     from collocfem_tpu_torch.parallel import make_device_mesh
     from collocfem_tpu_torch.parallel.batch import (
         BatchDecision, make_multi_experiment_solver)
@@ -366,7 +398,8 @@ def dp_case(*, mesh, spec, options, layout, dtype, device, sp_chain=False):
         chain_solver=chain, layout=layout)
     args = (BatchDecision(V=mine(z0.V), p=z0.p),
             ProblemData(*(mine(x) for x in data)), p_prior, p_w)
-    res = _counted(lambda: solve(*args), device)
+    run = solve if mode == "call" else getattr(solve, mode)
+    res = _counted(lambda: run(*args), device, traffic)
     z, stats = res["out"]
     V = gather(z["V"].to(device), dm.dp_group)
     res["out"] = [{"V": V.reshape(-1, *V.shape[2:]).cpu(), "p": z["p"]},

@@ -229,7 +229,7 @@ def test_multi_experiment_solver_builds_its_kernel_when_made(layout, want,
 
     loaded = []
     monkeypatch.setattr(_build, "load", loaded.append)
-    monkeypatch.setattr(batch, "captured_lm_solve", lambda *a: "solve")
+    monkeypatch.setattr(batch, "captured_lm_solve", lambda *a, **k: "solve")
     assert batch.make_multi_experiment_solver(
         _problem(2, 2, 2, "cuda"), layout=layout) == "solve"
     assert [(i.lib, i.b, i.r) for i in loaded] == [want]

@@ -1626,9 +1626,10 @@ def test_chain_kernel_at_r19_matches_plain(cuda_device, k):
 
 @pytest.mark.cuda
 def test_sp_solve_on_the_card_matches_one_rank(cuda_device, tmp_path):
-    """A 2-rank gloo world sharing the card runs make_sp_gn_solver on the
-    headline problem at N = 511 (K = 512) in float64, 10 fixed-work LM
-    iterations: both ranks give the same bits, p within 1e-8 of the
+    """A 2-rank gloo world sharing the card runs make_sp_gn_solver's eager
+    loop (gloo collectives cannot be captured) on the headline problem at
+    N = 511 (K = 512) in float64, 10 fixed-work LM iterations: both ranks
+    give the same bits, p within 1e-8 of the
     single-rank make_gn_solver's, and each rank launches kernel #2 once at
     (8, 19) and once at (8, 3) per iteration and no plain version."""
     from collocfem_tpu_torch.solve.newton import (SolverOptions,
@@ -1640,7 +1641,7 @@ def test_sp_solve_on_the_card_matches_one_rank(cuda_device, tmp_path):
     opts = dict(maxiter=10, gtol=0.0, lam0=3e-6, lam_max=1e30)
     ranks = run_world(2, [("sp", sp_gn_case,
                            dict(mesh=(1, 2), spec=spec, options=opts,
-                                dtype=torch.float64))],
+                                dtype=torch.float64, mode="eager"))],
                       tmp_path, device="cuda")
     prob, z0, data = estimation_inputs(spec, dtype=torch.float64,
                                        device=cuda_device)
@@ -1652,6 +1653,137 @@ def test_sp_solve_on_the_card_matches_one_rank(cuda_device, tmp_path):
     for r in outs:
         assert r["counts"] == {"blocktri_solve_spike_fused":
                                (20, {(8, 19): 10, (8, 3): 10})}
+
+
+# ---- the sharded solves captured with NCCL (parallel/) ----------------------
+
+
+@pytest.fixture(scope="module")
+def nccl_world(tmp_path_factory):
+    """An NCCL world of one in this process (NCCL takes one rank a card):
+    the default group, destroyed after the module's tests."""
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (NCCL)")
+    wd = tmp_path_factory.mktemp("nccl")
+    dist.init_process_group("nccl", init_method=f"file://{wd}/init",
+                            world_size=1, rank=0)
+    yield dist.group.WORLD
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_probe_body_captured_in_an_nccl_world_of_one(nccl_world):
+    """tools/nccl_graph_probe.py's body (kernel #2, an all_sum, a halo and
+    a done flag all-reduced by all_max) captured into one graph replayed
+    step by step, and as the loop graph's WHILE body, on an NCCL world of
+    one: both give the eager buffers bit for bit and the loop stops where
+    the flag sets done.  A world of one launches no NCCL kernel: the step
+    graph's only nodes besides kernels are device-to-device copies
+    (cudaGraphNodeType 1, kind 3).  So this cannot meet the refusal of
+    several ranks' NCCL kernels under a WHILE node, which only a machine
+    with several cards shows (the probe with --ranks 4)."""
+    from collocfem_tpu_torch.tools.nccl_graph_probe import probe
+
+    report = probe(nccl_world, torch.device("cuda"))
+    assert report["fixed"] == "ok", report
+    assert report["loop"] == "ok", report
+    assert report["non_kernel_nodes"], report
+    assert all(": type 1 memcpy kind 3 " in line
+               for line in report["non_kernel_nodes"]), report
+
+
+def _reads_a_step(stats, maxiter):
+    """The reads of ``done`` to the host of the sharded solves' converging
+    schedule, for the SolveStats of each of its solves: one before each
+    step and one at the exit, unless the solve ran out of steps."""
+    return sum(int(st.iterations) + (int(st.iterations) < maxiter)
+               for st in stats)
+
+
+def _sp_solver(options, device, elements=511):
+    from collocfem_tpu_torch.parallel import make_device_mesh
+    from collocfem_tpu_torch.parallel.sharded import make_sp_gn_solver
+    from collocfem_tpu_torch.solve.newton import SolverOptions
+    from collocfem_tpu_torch.testing import estimation_inputs
+
+    prob, z0, data = estimation_inputs(
+        dict(kind="headline", elements=elements), dtype=torch.float64,
+        device=device)
+    return prob, make_sp_gn_solver(
+        prob, make_device_mesh(1, 1, device=device),
+        SolverOptions(**options)), (z0, data)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["fixed", "converging", "irls"])
+def test_captured_sp_solve_matches_eager_on_nccl(cuda_device, nccl_world,
+                                                 case):
+    """make_sp_gn_solver on an NCCL world of one, the headline at N = 511,
+    float64: 10 fixed-work iterations, a solve to gtol 1e-10 and IRLS over
+    it (2 rounds, the reweighting eager): the first call and a replay equal
+    solve.eager bit for bit with the same launches (kernel #2 at (8, 19)
+    and (8, 3) once each a step).  Fixed work reads nothing to the host; a
+    solve to a tolerance replays its step graph and reads done once a step
+    and once at the exit, as on several ranks."""
+    from collocfem_tpu_torch.solve.newton import (SolverOptions,
+                                                  make_irls_solver)
+
+    opts = {"fixed": dict(maxiter=10, gtol=0.0, lam0=3e-6, lam_max=1e30),
+            "converging": dict(maxiter=60, gtol=1e-10, xtol=1e-12),
+            "irls": dict(maxiter=40, gtol=1e-9, xtol=1e-12,
+                         irls_delta=2.0)}[case]
+    prob, solve, args = _sp_solver(opts, cuda_device)
+    if case == "irls":
+        solve = make_irls_solver(prob, SolverOptions(**opts), 2,
+                                 inner_solver=solve)
+    out, reads = _reads_and_hold(solve, *args)
+    rounds = out[1] if case == "irls" else (out[1],)
+    assert reads == [_reads_a_step(rounds, opts["maxiter"])
+                     if case != "fixed" else 0] * 2
+    its = sum(int(st.iterations) for st in rounds)
+    assert its == 10 if case == "fixed" else 0 < its
+    if case == "converging":
+        assert bool(out[1].converged) and its < 60
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["soa", "blocks", "dp x sp"])
+@pytest.mark.parametrize("tol", ["fixed", "converging"])
+def test_captured_dp_solve_matches_eager_on_nccl(cuda_device, nccl_world,
+                                                 layout, tol):
+    """make_multi_experiment_solver with dp_axis an NCCL group of one,
+    config 5 at 8 experiments x 10 elements, float64, in each layout and
+    as dp x sp (the blocks layout through spike_chain_solver over the sp
+    group of one), at 15 fixed-work iterations and to gtol 1e-10: the
+    first call and a replay equal solve.eager bit for bit with the same
+    launches; fixed work reads nothing to the host, a solve to a tolerance
+    done once a step and once at the exit."""
+    from collocfem_tpu_torch.batched import build_config5_problem
+    from collocfem_tpu_torch.parallel import make_device_mesh
+    from collocfem_tpu_torch.parallel.batch import \
+        make_multi_experiment_solver
+    from collocfem_tpu_torch.parallel.spike import spike_chain_solver
+    from collocfem_tpu_torch.solve.newton import SolverOptions
+
+    opts = (dict(maxiter=15, gtol=0.0, lam0=1e-6, lam_max=1e30)
+            if tol == "fixed" else dict(maxiter=60, gtol=1e-10, xtol=1e-12,
+                                        lam0=1e-6, lam_max=1e30))
+    prob, z0, data, p_prior, p_w = build_config5_problem(
+        8, 10, dtype=torch.float64, device=cuda_device)
+    dm = make_device_mesh(1, 1, device=cuda_device)
+    chain = (spike_chain_solver(prob.mesh.num_blocks, 1, group=dm.sp_group)
+             if layout == "dp x sp" else None)
+    solve = make_multi_experiment_solver(
+        prob, SolverOptions(**opts), dp_axis=dm.dp_group, chain_solver=chain,
+        layout="soa" if layout == "soa" else "blocks")
+    assert solve.refused is None
+    out, reads = _reads_and_hold(solve, z0, data, p_prior, p_w)
+    assert reads == [_reads_a_step([out[1]], opts["maxiter"])
+                     if tol == "converging" else 0] * 2
+    its = int(out[1].iterations)
+    assert its == 15 if tol == "fixed" else 0 < its < 60
 
 
 # ---- the Kalman tier's captured scans (kalman/scan.py) ------------------------

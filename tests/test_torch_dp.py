@@ -7,7 +7,10 @@ frequency).
 
 The port's runs share ONE spawned gloo world of 4 CPU ranks
 (``testing.run_world``): dp = 4 on a 4 x 1 grid, dp = 2 and dp x sp = 2 x 2
-on a 2 x 2 grid; every case's 4 ranks must agree bit for bit."""
+on a 2 x 2 grid; every case's 4 ranks must agree bit for bit.  Each solve
+runs twice: ``solve.eager`` and ``solve.stepwise``, the functions that the
+CUDA graphs capture on an NCCL group, in replay order, which must agree bit
+for bit."""
 
 import jax
 import jax.numpy as jnp
@@ -71,13 +74,16 @@ def specs():
 
 @pytest.fixture(scope="module")
 def world(specs, tmp_path_factory):
-    cases = [(f"dp={dp} {layout}", testing.dp_case,
-              dict(mesh=GRID[dp], spec=specs["dp"], options=OPTS,
-                   layout=layout, dtype=F64))
-             for dp in GRID for layout in LAYOUTS]
-    cases.append(("dp x sp", testing.dp_case,
-                  dict(mesh=(2, 2), spec=specs["dpsp"], options=OPTS,
-                       layout="blocks", dtype=F64, sp_chain=True)))
+    cases = []
+    for mode, tag in (("eager", ""), ("stepwise", " stepwise")):
+        cases += [(f"dp={dp} {layout}{tag}", testing.dp_case,
+                   dict(mesh=GRID[dp], spec=specs["dp"], options=OPTS,
+                        layout=layout, dtype=F64, mode=mode))
+                  for dp in GRID for layout in LAYOUTS]
+        cases.append((f"dp x sp{tag}", testing.dp_case,
+                      dict(mesh=(2, 2), spec=specs["dpsp"], options=OPTS,
+                           layout="blocks", dtype=F64, sp_chain=True,
+                           mode=mode)))
     return testing.run_world(4, cases, tmp_path_factory.mktemp("world"))
 
 
@@ -135,3 +141,17 @@ def test_dp_times_sp_matches_jax(world, specs):
                                rtol=1e-8, atol=1e-8)
     np.testing.assert_allclose(z["V"].numpy(), np.asarray(z_ref.V),
                                rtol=1e-6, atol=1e-8)
+
+
+@pytest.mark.parametrize("name", [f"dp={dp} {layout}" for dp in GRID
+                                  for layout in LAYOUTS] + ["dp x sp"])
+def test_dp_stepwise_matches_eager(world, name):
+    """The captured structure over ranks: solve.stepwise (prelude, then the
+    step with a read of done after each one, as the graphs replay) equals
+    solve.eager bit for bit on every rank, V, p and every SolveStats field,
+    in both layouts at dp = 4 and 2 and for dp x sp (so it meets the JAX
+    bars above as the eager loop does)."""
+    want = _rank0(world, name)
+    assert 0 < int(want[1]["iterations"]) < OPTS["maxiter"]
+    for rank in world:
+        assert bit_equal(rank[f"{name} stepwise"]["out"], want)

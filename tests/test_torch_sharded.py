@@ -6,8 +6,12 @@ The port's sharded solvers run in ONE spawned gloo world of 4 CPU ranks
 (``testing.run_world``) that runs every case of this module: sp = 4 on a
 1 x 4 grid and sp = 2 on a 2 x 2 grid, whose two dp rows solve the same
 problem, so every case has 4 ranks whose results must agree bit for bit.
-The JAX references run here on the conftest's virtual CPU mesh (SPIKE) or
-on one device (the solvers), in float64."""
+Each GN solve runs twice: ``solve.eager`` and ``solve.stepwise``, the
+functions that the CUDA graphs capture on an NCCL group, in replay order,
+which must agree bit for bit (a converging solve reads ``done`` after each
+step, on several ranks and on one).  The JAX references
+run here on the conftest's virtual CPU mesh (SPIKE) or on one device (the
+solvers), in float64."""
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +41,12 @@ SPIKE_SHAPES = {4: [(16, 4, 3), (8, 5, 2)], 2: [(16, 4, 3), (4, 5, 2)]}
 GRID = {4: (1, 4), 2: (2, 2)}
 OPTS = dict(maxiter=30, gtol=1e-9, xtol=1e-12)
 IRLS = dict(OPTS, irls_delta=2.0)
+# The all-reduces of one sp LM step: the halo of the trial assembly's
+# element flats, the spill to the right neighbour, the Schur pieces' sum,
+# the max, the scaling's halo, SPIKE's interface gather, the reduced Schur
+# sum, and the trial cost's halo and sum.  A prelude makes 2 (the cost's
+# halo and sum).
+SP_STEP_ALL_REDUCES, SP_PRELUDE_ALL_REDUCES = 9, 2
 
 
 def _sp_problem():
@@ -83,8 +93,14 @@ def world(spec, tmp_path_factory):
             D, E, G = _chain(k, b, r)
             cases.append((f"spike sp={sp} K={k}", testing.spike_case,
                           dict(mesh=GRID[sp], D=D, E=E, G=G, dtype=F64)))
-        cases.append((f"gn sp={sp}", testing.sp_gn_case,
-                      dict(mesh=GRID[sp], spec=spec, options=OPTS, dtype=F64)))
+        for mode in ("eager", "stepwise"):
+            # sp = 2 also counts its reads to the host and its all-reduces,
+            # in both runs: on the CPU the counting dispatch mode changes
+            # the sp assembly's last bits.
+            cases.append((f"gn sp={sp}" + (" stepwise" if mode == "stepwise"
+                                           else ""), testing.sp_gn_case,
+                          dict(mesh=GRID[sp], spec=spec, options=OPTS,
+                               dtype=F64, mode=mode, traffic=sp == 2)))
     cases.append(("irls sp=4", testing.sp_gn_case,
                   dict(mesh=GRID[4], spec=spec, options=IRLS, dtype=F64,
                        irls_rounds=2)))
@@ -140,6 +156,110 @@ def test_sp_gn_solver_matches_jax(world, jax_gn, sp):
     np.testing.assert_allclose(z["V"].numpy(), np.asarray(z_ref.V),
                                rtol=1e-6, atol=1e-8)
     assert bool(stats["converged"])
+
+
+@pytest.mark.parametrize("sp", [4, 2])
+def test_sp_gn_stepwise_matches_eager(world, sp):
+    """The captured structure over ranks: solve.stepwise (prelude, then the
+    step maxiter times, as the graphs replay) equals solve.eager bit for
+    bit on every rank, z and every SolveStats field (so it meets the JAX
+    bars above as the eager loop does)."""
+    want = _rank0(world, f"gn sp={sp}")
+    for rank in world:
+        assert bit_equal(rank[f"gn sp={sp} stepwise"]["out"], want)
+
+
+def test_sp_gn_stepwise_on_several_ranks_reads_done_once_a_step(world):
+    """With a tolerance (gtol 1e-9) on an sp group of 2 ranks, whose NCCL
+    kernels a CUDA-graph conditional body refuses, the step-wise solve
+    replays the step and reads done after each one, as the eager loop
+    does: on every rank the same reads to the host and the same iterations
+    as .eager, and one prelude's all-reduces more (its plan's warm-up)."""
+    for rank in world:
+        eager, stepwise = rank["gn sp=2"], rank["gn sp=2 stepwise"]
+        its = int(eager["out"][1]["iterations"])
+        assert 0 < its < OPTS["maxiter"]
+        assert int(stepwise["out"][1]["iterations"]) == its
+        assert stepwise["host_reads"] == eager["host_reads"] > its
+        assert (stepwise["all_reduces"] - eager["all_reduces"]
+                == SP_PRELUDE_ALL_REDUCES)
+
+
+def _world_of_one(tmp_path):
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/init",
+                            world_size=1, rank=0)
+    return dist.group.WORLD
+
+
+def test_sp_gn_stepwise_on_one_rank_reads_done_once_a_step(spec, tmp_path):
+    """With a tolerance on an sp group of one rank (here a gloo world of
+    one in this process, as the card's NCCL world of one) the solve takes
+    the schedule of several ranks: the step-wise solve replays the step
+    and reads done after each one, with .eager's reads, iterations and
+    result bit for bit, and exactly one prelude's all-reduces more (its
+    plan's warm-up); the eager loop makes SP_STEP_ALL_REDUCES a step."""
+    import torch.distributed as dist
+
+    _world_of_one(tmp_path)
+    try:
+        run = {mode: testing.sp_gn_case(
+            mesh=(1, 1), spec=spec, options=OPTS, dtype=F64, device="cpu",
+            mode=mode, traffic=True) for mode in ("eager", "stepwise")}
+    finally:
+        dist.destroy_process_group()
+    eager, stepwise = run["eager"], run["stepwise"]
+    its = int(eager["out"][1]["iterations"])
+    assert 0 < its < OPTS["maxiter"]
+    assert bit_equal(stepwise["out"], eager["out"])
+    assert stepwise["host_reads"] == eager["host_reads"] > its
+    assert stepwise["all_reduces"] - eager["all_reduces"] == (
+        SP_PRELUDE_ALL_REDUCES)
+    # The eager loop's: its prelude, its steps and the gather of V.
+    assert eager["all_reduces"] == (SP_PRELUDE_ALL_REDUCES
+                                    + its * SP_STEP_ALL_REDUCES + 1)
+
+
+def test_a_cuda_mesh_with_a_gloo_group_refuses_capture(spec, tmp_path,
+                                                       monkeypatch):
+    """A solver made for a CUDA device whose group is gloo (ranks sharing
+    one card) cannot be captured: capture_refusal says so when the solver
+    is made, and then a call raises ValueError naming .eager before any
+    collective, while .eager stays; an NCCL group, a CPU device or no
+    group has no refusal.  Checked without a card: the decision reads only
+    the group's backend (an NCCL one faked by its name) and the device's
+    type."""
+    import torch.distributed as dist
+
+    from collocfem_tpu_torch.parallel.meshes import (DeviceMesh,
+                                                      capture_refusal)
+    from collocfem_tpu_torch.parallel.sharded import make_sp_gn_solver
+    from collocfem_tpu_torch.solve.newton import SolverOptions
+
+    prob, z0, data = testing.estimation_inputs(spec, dtype=F64, device="cpu")
+    group = _world_of_one(tmp_path)
+    try:
+        cuda = torch.device("cuda")
+        assert "eager" in capture_refusal(group, cuda)
+        assert capture_refusal(group, "cpu") is None
+        assert capture_refusal(None, cuda) is None
+        solve = make_sp_gn_solver(
+            prob, DeviceMesh(dp=1, sp=1, dp_rank=0, sp_rank=0,
+                             dp_group=group, sp_group=group, device=cuda),
+            SolverOptions(**OPTS))
+        with pytest.raises(ValueError, match=r"\.eager"):
+            solve(z0, data)
+        with pytest.raises(ValueError, match=r"\.eager"):
+            solve.stepwise(z0, data)
+        z, stats = solve.eager(z0, data)
+        assert bool(stats.converged)
+        for backend in ("nccl", "cuda:nccl,cpu:gloo"):
+            monkeypatch.setattr(dist, "get_backend", lambda g: backend)
+            assert capture_refusal(group, cuda) is None
+    finally:
+        monkeypatch.undo()
+        dist.destroy_process_group()
 
 
 def test_irls_with_sharded_inner_solver_matches_jax(world, jax_solver):
