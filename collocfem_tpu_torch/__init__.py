@@ -36,9 +36,10 @@ Main paths:
 On a CUDA device ``make_gn_solver``'s and ``make_multi_experiment_solver``'s
 solves and ``MovingHorizonEstimator.step`` run from CUDA graphs captured at
 their first call, as the JAX package runs them jitted
-(:mod:`collocfem_tpu_torch.solve.graph`); so do the sharded solves on an
-NCCL group, with their all-reduces inside the graphs.  ``solve.eager`` and
-``step_eager`` are the eager loops.
+(:mod:`collocfem_tpu_torch.solve.graph`); so do the sharded solves, with
+their all-reduces (the peer-memory kernel of :mod:`parallel.peer`) inside
+the graphs, on ranks sharing one card or one rank a card.  ``solve.eager``
+and ``step_eager`` are the eager loops.
 
 Importing the package turns TF32 off for float32 matmuls
 (:mod:`collocfem_tpu_torch.precision`).

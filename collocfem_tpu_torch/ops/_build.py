@@ -2,7 +2,8 @@
 
 A kernel library is compiled once per shape, as Pallas traces a kernel once
 per shape: an :class:`Instance` is a library (``kkt_spike``, ``spike_chain``,
-``thomas`` or ``cr``) at one block size b and one right-hand-side count r,
+``thomas`` or ``cr``; ``graph_loop`` and ``peer_reduce`` at b = r = 0) at
+one block size b and one right-hand-side count r,
 and ``nvcc`` compiles its source in ``csrc/`` for Hopper (``sm_90a``) with
 the shape as defines (``-DCF_B=<b> -DCF_R=<r>``) into a shared object with a
 plain C interface, ``collocfem_tpu_torch/build/<lib>-b<b>-r<r>-<digest>.so``.
@@ -43,6 +44,7 @@ LIBRARIES = {
     "thomas": ("thomas.cu", ()),                       # kernel #7
     "cr": ("cr.cu", ()),   # r = 0: kernel #4; r >= 1: kernels #3, #5, #6
     "graph_loop": ("graph_loop.cu", ()),   # solve/graph.py's loop; b = r = 0
+    "peer_reduce": ("peer_reduce.cu", ()),  # parallel/peer.py; b = r = 0
 }
 MAX_BLOCK = 16   # the largest block size any library is built for
 

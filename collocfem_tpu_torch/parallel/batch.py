@@ -26,9 +26,10 @@ on a CUDA device (``solve.newton.captured_lm_solve``).  With ``dp_axis`` (a
 process group, :mod:`parallel.meshes`) each rank passes its own experiments
 and the Schur pieces and the LM loop's scalars are all-reduced over the
 group, as the JAX package's ``psum`` / ``pmax`` do inside ``shard_map``; on
-an NCCL group those all-reduces (and, for dp x sp, the SPIKE exchanges of
-``parallel.spike.spike_chain_solver``) are captured in the graphs with the
-rest of the step.
+a CUDA device those all-reduces (and, for dp x sp, the SPIKE exchanges of
+``parallel.spike.spike_chain_solver``) are the peer all-reduce's kernel
+(``parallel.peer``), captured in the graphs with the rest of the step, and
+with a tolerance the steps run under the loop graph's WHILE node.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ from collocfem_tpu_torch.ops.assemble import (
     cost64_from_residuals,
 )
 from collocfem_tpu_torch.ops.smallblocks import spd_solve
+from collocfem_tpu_torch.parallel import peer
 from collocfem_tpu_torch.parallel.meshes import (all_max, all_sum,
                                                   capture_refusal)
 from collocfem_tpu_torch.solve.lm_core import LMAux, grad_inf_norm
@@ -267,11 +269,12 @@ def make_multi_experiment_solver(problem, options: SolverOptions =
     the experiments are sharded over, the counterpart of the JAX package's
     call inside ``shard_map``: each rank passes its own experiments (z0.V
     and data_batch) and the shared p, prior and options alike, and gets its
-    experiments' V and the shared p.  On a CUDA device with an NCCL group
-    the graphs hold the group's all-reduces (with a tolerance the host
-    reads ``done`` once a step, as in ``parallel.sharded``, whose docstring
-    says why); with a gloo group there (ranks sharing one card) a call
-    raises ValueError and only ``solve.eager`` runs
+    experiments' V and the shared p.  On a CUDA device the graphs hold the
+    group's all-reduces, and with a tolerance the loop graph reads nothing
+    to the host, as in ``parallel.sharded``; a call, ``solve.eager`` and
+    ``solve.stepwise`` end with ``parallel.peer.check`` of ``dp_axis`` and
+    of ``chain_solver.groups`` where it has them.  If the group's
+    ranks cannot map each other's memory a call raises ValueError
     (``parallel.meshes.capture_refusal``).
 
     ``layout``: ``"soa"`` (concatenated chain, SPIKE chain kernel) or
@@ -328,7 +331,24 @@ def make_multi_experiment_solver(problem, options: SolverOptions =
                 return z_try, carry, ct, aux
             return trial_fn
 
-    return captured_lm_solve(
+    captured = captured_lm_solve(
         initial, trial, options,
-        refused=capture_refusal(dp_axis, problem.device),
-        device_exit=dp_axis is None)
+        refused=capture_refusal(dp_axis, problem.device))
+    if dp_axis is None:
+        return captured
+    groups = (dp_axis, *getattr(chain_solver, "groups", ()))
+
+    def checked(run):
+        """``run`` (the captured solve or one of its forms), then
+        ``parallel.peer.check`` of the solver's groups."""
+        def solve(*args):
+            out = run(*args)
+            peer.check(*groups)
+            return out
+        return solve
+
+    solve = checked(captured)
+    solve.eager = checked(captured.eager)
+    solve.stepwise = checked(captured.stepwise)
+    solve.refused = captured.refused
+    return solve

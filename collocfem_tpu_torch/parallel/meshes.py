@@ -11,21 +11,23 @@ Counterpart of ``collocfem_tpu/parallel/meshes.py``.  Two axes:
 
 The grid lives on an initialised ``torch.distributed`` world: rank =
 dp_index * sp + sp_index, so consecutive ranks hold consecutive chain
-shards.  Every cross-rank operation is an ``all_reduce`` (a sum, or a max
-for the JAX package's ``pmax``): a halo ``ppermute`` or an ``all_gather`` is
-an ``all_reduce`` of a buffer each rank fills in its own slot, which adds
-only zeros, so every rank gets the same bits.  One code path then serves
-gloo on CPU tensors, gloo on CUDA tensors (several ranks sharing one card,
-which NCCL refuses) and NCCL with one rank per card.  Every sum runs in
-float64, which takes the place of the JAX package's double-word
-``psum_dw``.
+shards.  Every cross-rank operation is one call of the peer all-reduce
+(:mod:`parallel.peer`) on one float64 vector: a sum, a max (the JAX
+package's ``pmax``) or a gather in rank order, whose rows a halo
+``ppermute`` or an ``all_gather`` reads; every rank gets the same bits.
+On a CUDA tensor that is a hand-written kernel over the ranks' peer-mapped
+buffers, which serves ranks sharing one card and one rank a card alike; on
+a CPU tensor its plain version over ``torch.distributed`` (gloo).  Every
+sum runs in float64 in rank order, which takes the place of the JAX
+package's double-word ``psum_dw``.
 
-Every collective here can be captured in a CUDA graph on an NCCL group: it
-allocates its buffers on the current stream (inside a capture, from the
-graph's pool), reads nothing to the host and takes its ranks and sizes from
-the group on the host.  The sharded solvers capture them where the JAX
-package jits ``shard_map``; when the solver is made, :func:`capture_refusal`
-decides by the group's backend whether it can.
+Every collective here can be captured in a CUDA graph, under a WHILE
+conditional node too: it allocates its buffers on the current stream
+(inside a capture, from the graph's pool), reads nothing to the host and
+takes its ranks and sizes from the group on the host.  The sharded solvers
+capture them where the JAX package jits ``shard_map``.  A group's peer
+buffers are set up when a CUDA mesh or a sharded solver is made;
+:func:`capture_refusal` says whether they could be.
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ import dataclasses
 
 import torch
 import torch.distributed as dist
+
+from collocfem_tpu_torch.parallel import peer
 
 DP_AXIS = "dp"
 SP_AXIS = "sp"
@@ -63,7 +67,10 @@ def make_device_mesh(dp: int = 1, sp: int = 1, device=None) -> DeviceMesh:
     ``sp`` is the minor axis: rank r sits at (r // sp, r % sp).  Every rank
     must call this with the same sizes (``dist.new_group`` is collective).
     ``device`` is where this rank computes: by default the current CUDA
-    device; pass ``"cpu"`` for CPU tensors (gloo).
+    device; pass ``"cpu"`` for CPU tensors (gloo).  On a CUDA device the
+    peer buffers of this rank's sp row and dp column are set up here
+    (:func:`parallel.peer.setup`; a group that cannot be is refused by the
+    solvers made on it).
     """
     world = dist.get_world_size()
     if dp * sp != world:
@@ -74,35 +81,37 @@ def make_device_mesh(dp: int = 1, sp: int = 1, device=None) -> DeviceMesh:
     cols = [dist.new_group([i * sp + j for i in range(dp)]) for j in range(sp)]
     if device is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    return DeviceMesh(dp=dp, sp=sp, dp_rank=rank // sp, sp_rank=rank % sp,
+    mesh = DeviceMesh(dp=dp, sp=sp, dp_rank=rank // sp, sp_rank=rank % sp,
                       dp_group=cols[rank % sp], sp_group=rows[rank // sp],
                       device=torch.device(device))
+    if mesh.device.type == "cuda":
+        for group in (mesh.sp_group, mesh.dp_group):   # rows, then columns
+            peer.setup(group, mesh.device)
+    return mesh
 
 
 def capture_refusal(group, device):
     """Why a solve whose collectives run over ``group`` cannot replay CUDA
     graphs on ``device``, or None where nothing stands in the way: no group,
-    a device that is not CUDA (the solve runs eagerly there), or an NCCL
-    group, whose collectives a graph captures.  A gloo group on a CUDA
-    device (ranks sharing one card) reduces through the host, which no
-    graph can hold; such a solver runs only its ``.eager``."""
+    a device that is not CUDA (the solve runs eagerly there), or a group
+    whose ranks map each other's memory, whatever its backend: ranks
+    sharing one card, or one rank a card of one host.  Sets the group up
+    (:func:`parallel.peer.setup`, collective over the group).  A group
+    that cannot be mapped (ranks of several hosts, a process without a
+    card) is refused with the reason; its collectives cannot run on a card
+    at all, eagerly or captured."""
     if group is None or torch.device(device).type != "cuda":
         return None
-    backend = str(dist.get_backend(group))
-    if backend == "nccl" or "cuda:nccl" in backend:
-        return None
-    return (f"the collectives of a {backend!r} group cannot be captured in a "
-            "CUDA graph: call the solver's .eager on a CUDA device, or run "
-            "one NCCL rank per card")
+    return peer.setup(group, device)
 
 
 def _reduce(op, group, xs):
-    """All-reduce the tensors ``xs`` over ``group`` in one float64 buffer;
+    """All-reduce the tensors ``xs`` over ``group`` in one float64 vector;
     each comes back in its own dtype and shape."""
     if group is None:
         return xs
-    buf = torch.cat([x.reshape(-1).double() for x in xs])
-    dist.all_reduce(buf, op=op, group=group)
+    buf = peer.peer_reduce(torch.cat([x.reshape(-1).double() for x in xs]),
+                           group, op)
     out, at = [], 0
     for x in xs:
         out.append(buf[at:at + x.numel()].reshape(x.shape).to(x.dtype))
@@ -112,22 +121,20 @@ def _reduce(op, group, xs):
 
 def all_sum(group, *xs):
     """The sums of ``xs`` over ``group`` (a list, one per input; the inputs
-    themselves when ``group`` is None), accumulated in float64."""
-    return _reduce(dist.ReduceOp.SUM, group, xs)
+    themselves when ``group`` is None), accumulated in float64 in rank
+    order."""
+    return _reduce(peer.SUM, group, xs)
 
 
 def all_max(group, *xs):
     """The elementwise maxima of ``xs`` over ``group``, as :func:`all_sum`."""
-    return _reduce(dist.ReduceOp.MAX, group, xs)
+    return _reduce(peer.MAX, group, xs)
 
 
 def gather(x, group):
     """(P, *x.shape): every rank's ``x`` in rank order, on every rank."""
-    size, rank = dist.get_world_size(group), dist.get_rank(group)
-    buf = x.new_zeros((size, *x.shape))
-    buf[rank] = x
-    dist.all_reduce(buf, group=group)
-    return buf
+    buf = peer.peer_reduce(x.reshape(-1).double(), group, peer.GATHER)
+    return buf.reshape(-1, *x.shape).to(x.dtype)
 
 
 def from_right(x, group):

@@ -26,18 +26,18 @@ with the same bits.
 As the JAX package jits a ``shard_map`` over its ``lax.while_loop`` and
 slices and pads outside it, a call runs in three parts: this rank's node
 rows and element data, eagerly; the LM solve on them, which on a CUDA
-device with an NCCL group replays CUDA graphs (:mod:`solve.graph`) with
-every all-reduce, halo exchange and kernel #2 launch inside them; and the
-gather of V over the ranks, eagerly.  With a tolerance set, the solve
-replays the step graph and reads ``done`` to the host after each step, as
-the eager loop does: a CUDA-graph conditional body refuses the NCCL kernels
-of several ranks (on four H100s the loop graph with them under its WHILE
-node failed to instantiate, "invalid argument").  Every rank captures the
-same graphs in the same order and replays the same steps.  On the CPU the
-solve runs eagerly; a gloo group on a CUDA device (ranks sharing one card)
-cannot be captured, and there only ``.eager`` runs
-(``parallel.meshes.capture_refusal``).  Both are decided when the solver is
-made.
+device replays CUDA graphs (:mod:`solve.graph`) with every all-reduce, halo
+exchange and kernel #2 launch inside them; and the gather of V over the
+ranks, eagerly.  The collectives are the peer all-reduce's kernel
+(:mod:`parallel.peer`), so with a tolerance set the LM steps run under the
+loop graph's WHILE node, as a single-rank solve's do: the device decides
+the exit and the host reads nothing during the solve, on ranks sharing one
+card as on one rank a card.  Every rank captures the same graphs in the
+same order, and the ranks' ``done`` is the same bit for bit, so they run
+the same steps.  A call ends with :func:`parallel.peer.check` (one
+synchronisation, then a read of the sp group's error word).  On the CPU the
+solve runs eagerly; a group whose ranks cannot map each other's memory is
+refused when the solver is made (``parallel.meshes.capture_refusal``).
 
 Sizing: K = N + 1 blocks must divide by sp with >= 2 blocks a shard.  The
 one dummy element that squares the element count with K sits in the last
@@ -53,6 +53,7 @@ from collocfem_tpu_torch.ops.assemble import (add_x0_prior,
                                               scatter_gn_blocks,
                                               x0_prior_residual)
 from collocfem_tpu_torch.ops.smallblocks import spd_solve
+from collocfem_tpu_torch.parallel import peer
 from collocfem_tpu_torch.parallel.meshes import (all_max, all_sum,
                                                   capture_refusal, from_left,
                                                   from_right, gather)
@@ -71,14 +72,13 @@ def make_sp_gn_solver(problem, dev_mesh, options: SolverOptions =
     every rank of the sp group passes alike; every rank returns the global
     ``Decision`` and stats, bit for bit the same.  Counterpart of the JAX
     package's ``jax.jit(shard_map(...))``: with ``dev_mesh`` on a CUDA
-    device and an NCCL sp group, the LM solve replays CUDA graphs captured
-    at the first call of each input shape; on the CPU it runs eagerly.
-    ``solve.eager(z0, data)`` runs the eager loop on any device and
-    ``solve.stepwise(z0, data)`` (CPU) the captured functions in replay
-    order, each with the same result bit for bit.  With a tolerance the
-    host reads ``done`` once a step (the module's docstring says why).
-    With a gloo group on a CUDA device a call raises
-    ValueError: use ``solve.eager``.
+    device, the LM solve replays CUDA graphs captured at the first call of
+    each input shape (with a tolerance, one loop graph that reads nothing
+    to the host); on the CPU it runs eagerly.  ``solve.eager(z0, data)``
+    runs the eager loop on any device and ``solve.stepwise(z0, data)``
+    (CPU) the captured functions in replay order, each with the same result
+    bit for bit.  If the sp group's ranks cannot map each other's memory a
+    call raises ValueError with the reason.
     """
     opt = options
     group, sp, sidx = dev_mesh.sp_group, dev_mesh.sp, dev_mesh.sp_rank
@@ -238,8 +238,7 @@ def make_sp_gn_solver(problem, dev_mesh, options: SolverOptions =
         return V_pad[lo * d:hi * d], ed
 
     captured = captured_lm_solve(
-        initial, trial, opt, refused=capture_refusal(group, dev_mesh.device),
-        device_exit=False)
+        initial, trial, opt, refused=capture_refusal(group, dev_mesh.device))
 
     def around(run):
         """The solve with ``run`` (the captured solve or one of its forms)
@@ -248,6 +247,7 @@ def make_sp_gn_solver(problem, dev_mesh, options: SolverOptions =
             V_loc, ed = local_inputs(z0, data)
             z, stats = run(Decision(V=V_loc, p=z0.p), ed, data)
             V = gather(z.V, group).reshape(k * d, nv)[:problem.num_nodes]
+            peer.check(group)
             return Decision(V=V, p=z.p), stats
         return solve
 

@@ -118,7 +118,9 @@ def spike_chain_solver(num_blocks: int, sp_size: int, *, group):
     make_multi_experiment_solver``'s block layout at once (one kernel #2
     call for the experiments' interiors, one for their interface systems),
     which composes dp x sp.  K must be divisible by ``sp_size`` with >= 2
-    blocks a shard.
+    blocks a shard.  ``solve.groups``: ``(group,)``, the groups whose
+    collectives a solver using it checks after a solve
+    (``parallel.peer.check``).
     """
     if dist.get_world_size(group) != sp_size:
         raise ValueError(f"the group has {dist.get_world_size(group)} ranks, "
@@ -136,6 +138,7 @@ def spike_chain_solver(num_blocks: int, sp_size: int, *, group):
         # (P, ..., m, b, r) -> (..., K, b, r)
         return gather(X, group).movedim(0, -4).reshape(G.shape)
 
+    solve.groups = (group,)
     return solve
 
 

@@ -37,15 +37,14 @@ tolerance set the iteration is the body of a WHILE conditional node
 (:meth:`_Plan.loop`, built by ``csrc/graph_loop.cu``): the device tests
 ``~done & (it < maxiter)`` before each step, ``lax.while_loop``'s
 condition, and one launch runs the whole loop, so the host reads nothing
-during the solve (a sharded solve, whose NCCL kernels of several ranks a
-conditional body refuses, replays the iteration graph and reads ``done``
-after each replay instead).  ``lm_core.lm_step`` leaves a finished state as
-it is, so every schedule gives ``lm_core.lm_loop``'s iteration count,
-history and result bit for bit.  The outputs are clones: a later call
-never overwrites an earlier result.  :class:`CapturedFunction` is the
-one-graph form, for a step's work before its solve (the MHE's arrival
-cost).  :class:`CapturedOuterLoop` is the form of an outer loop around inner LM
-solves (the barrier homotopy of ``make_bounded_solver`` and
+during the solve (the sharded solves too: their collectives are the peer
+all-reduce's kernel nodes, ``parallel.peer``).  ``lm_core.lm_step`` leaves
+a finished state as it is, so every schedule gives ``lm_core.lm_loop``'s
+iteration count, history and result bit for bit.  The outputs are clones:
+a later call never overwrites an earlier result.  :class:`CapturedFunction`
+is the one-graph form, for a step's work before its solve (the MHE's
+arrival cost).  :class:`CapturedOuterLoop` is the form of an outer loop
+around inner LM solves (the barrier homotopy of ``make_bounded_solver`` and
 ``make_constrained_solver``, the AL homotopy of ``make_ocp_solver``): a
 prelude, a *round* (begin, the inner loop on a WHILE node, end) replayed
 once per outer iteration, and a finish.
@@ -64,9 +63,8 @@ functions there in replay order on the static buffers, with no graph,
 which is how the CPU tests hold the captured path against the eager loop
 bit for bit; it runs a loop's step ``maxiter`` times with no read of
 ``done``, a step after ``done`` leaving the state as it is, and counts the
-steps as the device does (a host-read schedule reads ``done`` there too).
-``.eager`` is the eager function on any device.  :class:`HostReads`
-counts the reads to the host of a block.
+steps as the device does.  ``.eager`` is the eager function on any device.
+:class:`HostReads` counts the reads to the host of a block.
 """
 
 from __future__ import annotations
@@ -333,9 +331,9 @@ class _Captured:
     plan cache and the dispatch on the inputs' device.
 
     ``refused``: why the functions cannot be captured where the solver was
-    made to run (``parallel.meshes.capture_refusal``: collectives of a group
-    whose backend a CUDA graph cannot hold), or None.  A call and
-    ``stepwise`` then raise ValueError with it, and only ``eager`` runs."""
+    made to run (``parallel.meshes.capture_refusal``: collectives over a
+    group whose ranks cannot map each other's memory), or None.  A call
+    and ``stepwise`` then raise ValueError with it."""
 
     def __init__(self, eager, refused=None):
         self.eager = eager
@@ -390,20 +388,15 @@ class CapturedSolve(_Captured):
     ``maxiter`` bounds the iterations.  With ``early_exit`` (a tolerance is
     set) the iterations run on the device as one loop graph
     (:meth:`_Plan.loop`) that stops at ``done``; without, the iteration
-    graph is replayed ``maxiter`` times.  With ``early_exit`` and not
-    ``device_exit`` (a step with collectives over a process group, whose
-    NCCL kernels of several ranks a conditional body refuses: the solvers
-    of ``parallel.sharded`` and ``parallel.batch``) the iteration graph
-    is replayed while a read of ``done`` to the host after each replay says
-    the loop goes on, as the eager loop reads it.
+    graph is replayed ``maxiter`` times.  ``refused``: see
+    :class:`_Captured`.
     """
 
     def __init__(self, prelude, step, finish, eager, *, maxiter: int,
-                 early_exit: bool, refused=None, device_exit: bool = True):
+                 early_exit: bool, refused=None):
         super().__init__(eager, refused)
         self.prelude, self.step, self.finish = prelude, step, finish
         self.maxiter, self.early_exit = maxiter, early_exit
-        self.device_exit = device_exit
 
     def _make_plan(self, leaves, spec, capture):
         plan = _Plan(leaves, spec, capture)
@@ -423,15 +416,13 @@ class CapturedSolve(_Captured):
         def step():
             _write(plan.state, self.step(plan.state, *args))
 
-        if self.early_exit and self.device_exit:
+        if self.early_exit:
             plan.run_loop = plan.loop(step, plan.state, self.maxiter)
         else:
             run_step = plan.graph(step)
 
             def steps():
                 for _ in range(self.maxiter):
-                    if self.early_exit and bool(plan.state.done):
-                        break
                     run_step()
 
             plan.run_loop = steps

@@ -82,13 +82,13 @@ class SolveStats(NamedTuple):
 
 
 def captured_lm_solve(initial, trial, options: SolverOptions, *,
-                      refused=None, device_exit: bool = True):
+                      refused=None):
     """A :class:`solve.graph.CapturedSolve` of the LM loop whose initial
     (carry, cost) is ``initial(*inputs)`` and whose trial function is
     ``trial(*inputs)``; the first input is z0.  It returns (z,
     :class:`SolveStats`), and ``.eager`` runs :func:`lm_core.lm_loop`.  The
     initial state's constants are made once per dtype and device.
-    ``refused``, ``device_exit``: see :class:`solve.graph.CapturedSolve`."""
+    ``refused``: see :class:`solve.graph.CapturedSolve`."""
     opt = options
     lm_args = dict(gtol=opt.gtol, ftol=opt.ftol, xtol=opt.xtol,
                    lam_min=opt.lam_min, lam_max=opt.lam_max)
@@ -117,7 +117,7 @@ def captured_lm_solve(initial, trial, options: SolverOptions, *,
 
     return CapturedSolve(prelude, step, finish, eager, maxiter=opt.maxiter,
                          early_exit=stops_early(opt.gtol, opt.ftol, opt.xtol),
-                         refused=refused, device_exit=device_exit)
+                         refused=refused)
 
 
 def make_gn_solver(problem, options: SolverOptions = SolverOptions()):

@@ -299,9 +299,11 @@ def _host(tree):
     return tree
 
 
-def _traffic():
-    """``solve.graph.HostReads`` (any device) that also counts the
-    all-reduces (``c10d.allreduce_``) of the block in ``all_reduces``."""
+def _traffic(device):
+    """``solve.graph.HostReads`` that also counts the all-reduces
+    (``c10d.allreduce_``) of the block in ``all_reduces``: on the CPU it
+    counts every read (what would be a read on the card), on a CUDA device
+    the reads of CUDA tensors."""
     from collocfem_tpu_torch.solve.graph import HostReads
 
     class Traffic(HostReads):
@@ -312,7 +314,7 @@ def _traffic():
                 self.all_reduces += 1
             return super().__torch_dispatch__(func, types, args, kwargs)
 
-    return Traffic()
+    return Traffic(None if torch.device(device).type == "cpu" else "cuda")
 
 
 def _counted(run, device, traffic=False):
@@ -327,7 +329,7 @@ def _counted(run, device, traffic=False):
     from collocfem_tpu_torch.ops import _build
     from collocfem_tpu_torch.utils.profiling import timed
 
-    mode = _traffic() if traffic else contextlib.nullcontext()
+    mode = _traffic(device) if traffic else contextlib.nullcontext()
     before = _build.snapshot()
     with mode:
         wall, out = timed(run, device=device, reps=1, warmup=0)
@@ -349,13 +351,10 @@ def spike_case(*, mesh, D, E, G, dtype, device):
     return _counted(lambda: solve(*args), device)
 
 
-def sp_gn_case(*, mesh, spec, options, dtype, device, irls_rounds=None,
-               mode="call", traffic=False):
-    """``parallel.make_sp_gn_solver`` on ``estimation_inputs(spec)``, or
-    with ``irls_rounds`` the IRLS solver with it as the inner solver;
-    ``mode`` "call" runs the solver itself (captured on a CUDA device with
-    an NCCL group, eager on the CPU), "eager" or "stepwise" that form of
-    it; counted (:func:`_counted`)."""
+def _sp_solver(mesh, spec, options, dtype, device, irls_rounds=None):
+    """(``parallel.make_sp_gn_solver`` on ``estimation_inputs(spec)``, or
+    with ``irls_rounds`` the IRLS solver with it as the inner solver; its
+    arguments)."""
     from collocfem_tpu_torch.parallel import make_device_mesh
     from collocfem_tpu_torch.parallel.sharded import make_sp_gn_solver
     from collocfem_tpu_torch.solve.newton import (SolverOptions,
@@ -367,17 +366,25 @@ def sp_gn_case(*, mesh, spec, options, dtype, device, irls_rounds=None,
                               opts)
     if irls_rounds is not None:
         solve = make_irls_solver(prob, opts, irls_rounds, inner_solver=solve)
+    return solve, (z0, data)
+
+
+def sp_gn_case(*, mesh, spec, options, dtype, device, irls_rounds=None,
+               mode="call", traffic=False):
+    """``parallel.make_sp_gn_solver`` on ``estimation_inputs(spec)``, or
+    with ``irls_rounds`` the IRLS solver with it as the inner solver;
+    ``mode`` "call" runs the solver itself (captured on a CUDA device,
+    eager on the CPU), "eager" or "stepwise" that form of it; counted
+    (:func:`_counted`)."""
+    solve, args = _sp_solver(mesh, spec, options, dtype, device, irls_rounds)
     run = solve if mode == "call" else getattr(solve, mode)
-    return _counted(lambda: run(z0, data), device, traffic)
+    return _counted(lambda: run(*args), device, traffic)
 
 
-def dp_case(*, mesh, spec, options, layout, dtype, device, sp_chain=False,
-            mode="call", traffic=False):
-    """``make_multi_experiment_solver(dp_axis=...)`` on ``batch_inputs(
-    spec)``, this rank's dp share of the experiments; with ``sp_chain`` the
-    block layout's chains go through ``spike_chain_solver`` over the sp
-    ranks.  ``mode`` as :func:`sp_gn_case`'s; counted (:func:`_counted`).
-    The result's V is gathered over dp: the whole batch."""
+def _dp_solver(mesh, spec, options, layout, dtype, device, sp_chain=False):
+    """(``make_multi_experiment_solver(dp_axis=...)`` on ``batch_inputs(
+    spec)``, this rank's dp share of the experiments as its arguments, a
+    function that gathers a result's V over dp: the whole batch)."""
     from collocfem_tpu_torch.parallel import make_device_mesh
     from collocfem_tpu_torch.parallel.batch import (
         BatchDecision, make_multi_experiment_solver)
@@ -398,19 +405,238 @@ def dp_case(*, mesh, spec, options, layout, dtype, device, sp_chain=False,
         chain_solver=chain, layout=layout)
     args = (BatchDecision(V=mine(z0.V), p=z0.p),
             ProblemData(*(mine(x) for x in data)), p_prior, p_w)
+
+    def whole(res):
+        z, stats = res["out"]
+        V = gather(z["V"].to(device), dm.dp_group)
+        res["out"] = [{"V": V.reshape(-1, *V.shape[2:]).cpu(), "p": z["p"]},
+                      stats]
+        return res
+
+    return solve, args, whole
+
+
+def dp_case(*, mesh, spec, options, layout, dtype, device, sp_chain=False,
+            mode="call", traffic=False):
+    """``make_multi_experiment_solver(dp_axis=...)`` on ``batch_inputs(
+    spec)``, this rank's dp share of the experiments; with ``sp_chain`` the
+    block layout's chains go through ``spike_chain_solver`` over the sp
+    ranks.  ``mode`` as :func:`sp_gn_case`'s; counted (:func:`_counted`).
+    The result's V is gathered over dp: the whole batch."""
+    solve, args, whole = _dp_solver(mesh, spec, options, layout, dtype,
+                                    device, sp_chain)
     run = solve if mode == "call" else getattr(solve, mode)
-    res = _counted(lambda: run(*args), device, traffic)
-    z, stats = res["out"]
-    V = gather(z["V"].to(device), dm.dp_group)
-    res["out"] = [{"V": V.reshape(-1, *V.shape[2:]).cpu(), "p": z["p"]},
-                  stats]
-    return res
+    return whole(_counted(lambda: run(*args), device, traffic))
+
+
+def _profiled(run, device):
+    """Device time (ms) and kernel count of one run() under torch.profiler,
+    device activity only."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from collocfem_tpu_torch.tools.spike_tiles import _device_us
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize(device)
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and _device_us(e)]
+    return dict(device_ms=sum(_device_us(e) for e in events) / 1e3,
+                kernels=sum(e.count for e in events))
+
+
+def captured_case(*, kind, mesh, spec, options, dtype, device, layout=None,
+                  profile=False):
+    """One sharded solver (``kind`` "sp": :func:`_sp_solver`; "dp":
+    :func:`_dp_solver` in ``layout``) run as ``.eager``, its first call
+    (warm-up, capture, replay), a replay and ``.eager`` again, in that
+    order on the same groups (so the collectives' epochs run on through
+    eager and captured calls), each counted with its reads to the host
+    (:func:`_counted`).  Returns {"runs": {run: result}} and, with
+    ``profile``, "profile": one more ``.eager`` run's device time on the
+    world's rank 0 (:func:`_profiled`; torch.profiler does not trace a loop
+    graph's body), None on the others."""
+    if kind == "sp":
+        solve, args = _sp_solver(mesh, spec, options, dtype, device)
+        whole = lambda res: res
+    else:
+        solve, args, whole = _dp_solver(mesh, spec, options, layout, dtype,
+                                        device)
+    runs = {}
+    for name, run in (("eager", solve.eager), ("first call", solve),
+                      ("captured", solve), ("eager again", solve.eager)):
+        runs[name] = whole(_counted(lambda: run(*args), device, True))
+    out = {"runs": runs}
+    if profile:   # every rank runs it; rank 0 of the world profiles it
+        import torch.distributed as dist
+
+        run = lambda: solve.eager(*args)
+        out["profile"] = None
+        if dist.get_rank() == 0:
+            out["profile"] = _profiled(run, device)
+        else:
+            run()
+    return out
+
+
+def collective_case(*, mesh, seed, sizes, device):
+    """The collectives of ``parallel.meshes`` on both groups of a (dp, sp)
+    grid: ``all_sum`` and ``all_max`` of a float64 and of a float32
+    payload of each length in ``sizes`` and ``gather`` of the float64 one,
+    each rank's payload drawn by ``numpy.random.default_rng(seed + its
+    rank in the group)``.  Returns {group: {"rank": r, "size": P, (op,
+    dtype name, n): result on the host}}."""
+    from collocfem_tpu_torch.parallel import make_device_mesh
+    from collocfem_tpu_torch.parallel.meshes import (all_max, all_sum,
+                                                      gather)
+
+    dm = make_device_mesh(*mesh, device=device)
+    out = {}
+    for name, group, rank, size in (("sp", dm.sp_group, dm.sp_rank, dm.sp),
+                                    ("dp", dm.dp_group, dm.dp_rank, dm.dp)):
+        res = {"rank": rank, "size": size}
+        for n in sizes:
+            x = np.random.default_rng(seed + rank).standard_normal(n)
+            for dtype in (torch.float64, torch.float32):
+                xt = torch.as_tensor(x, dtype=dtype, device=device)
+                key = str(dtype).split(".")[1]
+                res[("sum", key, n)] = all_sum(group, xt)[0].cpu()
+                res[("max", key, n)] = all_max(group, xt)[0].cpu()
+            res[("gather", "float64", n)] = gather(
+                torch.as_tensor(x, device=device), group).cpu()
+        out[name] = res
+    return out
+
+
+def _per_call_ms(fn, reps):
+    """ms a call of fn() over ``reps`` calls after one, by the host clock
+    bracketed by torch.cuda.synchronize() (a gloo all-reduce of a CUDA
+    tensor runs partly on the host, which CUDA events would not see)."""
+    import time
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def peer_case(*, mesh, seed, sizes, reps, device):
+    """The peer all-reduce's kernel against its plain version on the sp
+    group of a (dp, sp) grid on a card: for SUM and MAX at each length in
+    ``sizes``, each rank's float64 payload drawn by
+    ``numpy.random.default_rng(seed + its rank)``; whether the two agree
+    bit for bit, and the ms a call of the kernel, of the plain version and
+    of ``dist.all_reduce`` (the group's backend) on the same payload, each
+    the mean of ``reps`` calls (:func:`_per_call_ms`).  Returns {(op, n):
+    {"same", "kernel_ms", "plain_ms", "library_ms"}} and "launches", the
+    kernel's count over the comparisons (not the timing)."""
+    import torch.distributed as dist
+
+    from collocfem_tpu_torch.parallel import make_device_mesh, peer
+
+    dm = make_device_mesh(*mesh, device=device)
+    group, out = dm.sp_group, {}
+    ops = (("sum", peer.SUM, dist.ReduceOp.SUM),
+           ("max", peer.MAX, dist.ReduceOp.MAX))
+    payloads = {n: torch.as_tensor(np.random.default_rng(seed + dm.sp_rank)
+                                   .standard_normal(n), device=device)
+                for n in sizes}
+    before = peer.peer_reduce.launches
+    for n, x in payloads.items():
+        for name, op, _ in ops:
+            out[(name, n)] = {"same": bit_equal(
+                peer.peer_reduce(x, group, op),
+                peer.peer_reduce_ref(x, group, op))}
+    launches = peer.peer_reduce.launches - before
+    for n, x in payloads.items():
+        for name, op, red in ops:
+            lib_x = x.clone()
+            out[(name, n)].update(
+                kernel_ms=_per_call_ms(
+                    lambda: peer.peer_reduce(x, group, op), reps),
+                plain_ms=_per_call_ms(
+                    lambda: peer.peer_reduce_ref(x, group, op), reps),
+                library_ms=_per_call_ms(
+                    lambda: dist.all_reduce(lib_x, op=red, group=group),
+                    reps))
+    peer.check(group)
+    out["launches"] = launches
+    return out
+
+
+def release_case(*, mesh, device):
+    """A (dp, sp) grid's peer buffers freed (``parallel.peer.release``) and
+    set up anew at the next collective: {"same": whether an ``all_sum``
+    over sp before and after the release gives the same bits, "gone":
+    whether the release left no entry of the two groups}."""
+    from collocfem_tpu_torch.parallel import make_device_mesh, peer
+    from collocfem_tpu_torch.parallel.meshes import all_sum
+
+    dm = make_device_mesh(*mesh, device=device)
+    groups = (dm.sp_group, dm.dp_group)
+    x = torch.arange(5, dtype=torch.float64, device=device) + dm.sp_rank
+    before, = all_sum(dm.sp_group, x)
+    peer.release(*groups)
+    gone = not any(key[0] is g for key in peer._GROUPS for g in groups)
+    after, = all_sum(dm.sp_group, x)
+    peer.check(dm.sp_group)
+    return {"same": bit_equal(before, after), "gone": gone}
+
+
+def stalled_rank_case(*, mesh, timeout_s, device):
+    """A rank that never makes its call: the last rank of the sp group
+    skips an ``all_sum`` that the others make with every wait bounded by
+    ``timeout_s``.  Returns, on the others, {"raised": the message of
+    ``parallel.peer.check``'s error or None, "wall": seconds to it, "nan":
+    whether the sum came back NaN, "other group raised": whether the check
+    of the mesh's other group (which made no call) raised first}; on the
+    last rank {"skipped": True}.
+    Every rank then meets at a barrier of the (gloo) group, so that no
+    rank frees its buffer while another's kernel may still write to it."""
+    import time
+
+    import torch.distributed as dist
+
+    from collocfem_tpu_torch.parallel import make_device_mesh, peer
+    from collocfem_tpu_torch.parallel.meshes import all_sum
+
+    dm = make_device_mesh(*mesh, device=device)
+    if dm.sp_rank == dm.sp - 1:
+        dist.barrier(group=dm.sp_group)
+        return {"skipped": True}
+    default, peer.SPIN_TIMEOUT_S = peer.SPIN_TIMEOUT_S, timeout_s
+    t0, got = time.perf_counter(), None
+    try:
+        got, = all_sum(dm.sp_group, torch.ones(3, dtype=torch.float64,
+                                               device=device))
+        other = False
+        try:
+            peer.check(dm.dp_group)
+        except RuntimeError:
+            other = True
+        peer.check(dm.sp_group)
+        raised = None
+    except RuntimeError as exc:
+        raised = str(exc)
+    finally:
+        peer.SPIN_TIMEOUT_S = default
+    out = {"raised": raised, "wall": time.perf_counter() - t0,
+           "nan": got is not None and bool(torch.isnan(got).all()),
+           "other group raised": other}
+    dist.barrier(group=dm.sp_group)
+    return out
 
 
 def _rank_main(rank, n_ranks, workdir, cases, device):
     import datetime
 
     import torch.distributed as dist
+
+    from collocfem_tpu_torch.parallel import peer
 
     if device == "cpu":
         torch.set_num_threads(1)
@@ -420,6 +646,7 @@ def _rank_main(rank, n_ranks, workdir, cases, device):
     try:
         out = {name: fn(**kwargs, device=device) for name, fn, kwargs in cases}
         torch.save(out, f"{workdir}/rank{rank}.pt")
+        peer.release()
     finally:
         dist.destroy_process_group()
 

@@ -1,5 +1,6 @@
-"""Whether CUDA graphs hold the sharded solves' NCCL collectives, at fixed
-work and under the loop graph's WHILE conditional node.
+"""Whether CUDA graphs hold the sharded solves' collectives (the peer
+all-reduce's kernel, ``parallel.peer``) on an NCCL world, at fixed work
+and under the loop graph's WHILE conditional node.
 
 Usage (on a machine with CUDA cards, one rank a card):
 
@@ -7,7 +8,9 @@ Usage (on a machine with CUDA cards, one rank a card):
         [--solves] [--out FILE]
 
 Spawns an NCCL world of N ranks (default 1; tcp://localhost rendezvous),
-rank r on card r.  Each rank runs :func:`probe` on a body with one of each
+rank r on card r; NCCL carries the set-up's exchange of the ranks' IPC
+handles and the plain version's all-reduce, the collectives of a step are
+the peer kernel.  Each rank runs :func:`probe` on a body with one of each
 kind of work a sharded LM step does (``parallel.sharded`` and
 ``parallel.batch``): kernel #2 on a seeded chain at (8, 3) (the SPIKE
 interface shape), one ``meshes.all_sum`` of float64 partials, one halo
@@ -26,19 +29,20 @@ headline at N = 9,999 (fixed work and to gtol 1e-10) at sp = N,
 make_multi_experiment_solver on config 5 (1,024 experiments) at dp = N in
 both layouts at fixed work and in the soa layout to gtol 1e-10, and with 4
 ranks dp x sp = 2 x 2 (four experiments of 511 elements through
-spike_chain_solver).  A solve to a tolerance replays its step graph and
-reads ``done`` once a step (``parallel.sharded``).  Each solve's first
-call (capture), a replay and ``.eager`` are timed (walls bracketed by
-torch.cuda.synchronize), its reads to the host counted, and the three
-results compared bit for bit; a digest of the result lets the ranks be
-compared with each other.
+spike_chain_solver).  A solve to a tolerance runs its LM steps under the
+WHILE node.  Each solve's first call (capture), a replay and ``.eager``
+are timed (walls bracketed by torch.cuda.synchronize), its reads to the
+host counted, and the three results compared bit for bit; a digest of the
+result lets the ranks be compared with each other.  Then the peer kernel
+against its plain version and NCCL's ``dist.all_reduce`` on the world
+(``testing.peer_case``: bit for bit, ms a call).
 
 Prints one JSON line per rank: for each schedule "ok" or the error (a
 refused node in the WHILE body names the node types the step graph holds
 besides kernels), and the step graph's non-kernel nodes (cudaGraphNodeType
 numbers: 1 memcpy, 2 memset, 3 host, 4 child graph, 5 empty, 6 event wait,
-7 event record, 10 memory allocation); with --solves, each solve's record.
-With --out, appends them to FILE.
+7 event record, 10 memory allocation); with --solves, each solve's record
+and the peer kernel's.  With --out, appends them to FILE.
 """
 
 from __future__ import annotations
@@ -172,7 +176,8 @@ def _wall(fn):
 def solves(device) -> dict:
     """The sharded solvers on the grid of the world's ranks (module
     docstring): {case: {"same", "host_reads", "walls_s", "iterations",
-    "p", "digest"} or {"error"}}."""
+    "p", "digest"} or {"error"}}, and "peer": the peer kernel's
+    comparison."""
     from collocfem_tpu_torch.parallel import make_device_mesh
     from collocfem_tpu_torch.parallel.batch import (
         BatchDecision, make_multi_experiment_solver)
@@ -182,7 +187,7 @@ def solves(device) -> dict:
     from collocfem_tpu_torch.solve.graph import HostReads
     from collocfem_tpu_torch.solve.newton import SolverOptions
     from collocfem_tpu_torch.testing import (batch_inputs, bit_equal,
-                                             estimation_inputs)
+                                             estimation_inputs, peer_case)
 
     f64, n = torch.float64, dist.get_world_size()
     fixed = dict(maxiter=15, gtol=0.0, lam0=3e-6, lam_max=1e30)
@@ -239,10 +244,20 @@ def solves(device) -> dict:
         except Exception as exc:    # the report says what the solve raised
             report[name] = {"error": f"{type(exc).__name__}: {exc}"[:3000],
                             "trace": traceback.format_exc()[-3000:]}
+    try:
+        peer = peer_case(mesh=(1, n), seed=3, sizes=(1, n * 2 * 8 * 19),
+                         reps=200, device=device)
+        report["peer"] = {f"{op} n={m}": v for (op, m), v in
+                          ((k, v) for k, v in peer.items()
+                           if k != "launches")}
+    except Exception as exc:    # the report says what the comparison raised
+        report["peer"] = {"error": f"{type(exc).__name__}: {exc}"[:3000]}
     return report
 
 
 def _rank_main(rank, n, port, with_solves, out):
+    from collocfem_tpu_torch.parallel import peer
+
     torch.cuda.set_device(rank)
     dev = torch.device("cuda", rank)
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
@@ -260,6 +275,7 @@ def _rank_main(rank, n, port, with_solves, out):
         if out:
             with open(out, "a") as fh:
                 fh.write(line + "\n")
+        peer.release()
     finally:
         dist.destroy_process_group()
 

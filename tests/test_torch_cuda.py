@@ -1,9 +1,10 @@
 """The port's CUDA kernels on the card, against their plain PyTorch versions.
 
 Kernel #1 (fused damped KKT), kernel #2 (SPIKE chain solve), kernels #3-#6
-(the per-level cyclic reduction) and kernel #7 (batched block Thomas); and
-the solves captured as CUDA graphs (``solve/graph.py``) against their eager
-loops, bit for bit.
+(the per-level cyclic reduction), kernel #7 (batched block Thomas) and the
+multi-rank tier's peer all-reduce (``parallel/peer.py``, in worlds of
+ranks sharing the card); and the solves captured as CUDA graphs
+(``solve/graph.py``) against their eager loops, bit for bit.
 Every test here is marked ``cuda`` and skips where
 there is no GPU (the kernels have no CPU mode).  The file imports no JAX, so
 it also runs on a machine without it:
@@ -1627,11 +1628,12 @@ def test_chain_kernel_at_r19_matches_plain(cuda_device, k):
 @pytest.mark.cuda
 def test_sp_solve_on_the_card_matches_one_rank(cuda_device, tmp_path):
     """A 2-rank gloo world sharing the card runs make_sp_gn_solver's eager
-    loop (gloo collectives cannot be captured) on the headline problem at
-    N = 511 (K = 512) in float64, 10 fixed-work LM iterations: both ranks
-    give the same bits, p within 1e-8 of the
-    single-rank make_gn_solver's, and each rank launches kernel #2 once at
-    (8, 19) and once at (8, 3) per iteration and no plain version."""
+    loop on the headline problem at N = 511 (K = 512) in float64, 10
+    fixed-work LM iterations: both ranks give the same bits, p within 1e-8
+    of the single-rank make_gn_solver's, and each rank launches kernel #2
+    once at (8, 19) and once at (8, 3) per iteration, the peer all-reduce
+    9 times per iteration and 3 times around the loop (parallel.peer), and
+    no plain version."""
     from collocfem_tpu_torch.solve.newton import (SolverOptions,
                                                   make_gn_solver)
     from collocfem_tpu_torch.testing import (bit_equal, estimation_inputs,
@@ -1651,18 +1653,157 @@ def test_sp_solve_on_the_card_matches_one_rank(cuda_device, tmp_path):
     z, _ = outs[0]["out"]
     assert float((z["p"] - z_ref.p.cpu()).abs().max()) <= 1e-8
     for r in outs:
-        assert r["counts"] == {"blocktri_solve_spike_fused":
-                               (20, {(8, 19): 10, (8, 3): 10})}
+        counts = dict(r["counts"])
+        assert counts.pop("peer_reduce")[0] == 3 + 9 * 10
+        assert counts == {"blocktri_solve_spike_fused":
+                          (20, {(8, 19): 10, (8, 3): 10})}
 
 
-# ---- the sharded solves captured with NCCL (parallel/) ----------------------
+# ---- the sharded solves captured (parallel/; collectives: parallel.peer) ----
+
+
+@pytest.fixture(scope="module")
+def card_world(tmp_path_factory):
+    """One world of 4 gloo ranks sharing the card (testing.run_world), whose
+    cases every test below reads: the peer kernel against its plain
+    version (with a payload past one slot's CAPACITY, which goes in
+    chunks), the collectives against numpy, make_sp_gn_solver on the
+    headline at N = 511 and make_multi_experiment_solver on config 5 at 8
+    experiments (soa) to gtol 1e-10 over 4 ranks, each captured between
+    two .eager runs (testing.captured_case), a grid's buffers released and
+    set up anew (testing.release_case), and last a rank that stalls
+    (testing.stalled_rank_case, a 2 s bound)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernel has no CPU mode)")
+    from collocfem_tpu_torch import testing
+
+    f64 = torch.float64
+    converging = dict(maxiter=60, gtol=1e-10, xtol=1e-12)
+    cases = [
+        ("peer", testing.peer_case, dict(mesh=(1, 4), seed=3,
+                                         sizes=PEER_SIZES, reps=3)),
+        ("collectives", testing.collective_case,
+         dict(mesh=(2, 2), seed=7, sizes=(1, 1216))),
+        ("sp", testing.captured_case, dict(
+            kind="sp", mesh=(1, 4), spec=dict(kind="headline", elements=511),
+            options=converging, dtype=f64)),
+        ("dp", testing.captured_case, dict(
+            kind="dp", mesh=(4, 1), spec=dict(kind="config5", n_exp=8,
+                                              elements=10),
+            options=dict(converging, lam0=1e-6, lam_max=1e30),
+            layout="soa", dtype=f64)),
+        ("released", testing.release_case, dict(mesh=(2, 2))),
+        ("stalled", testing.stalled_rank_case, dict(mesh=(1, 4),
+                                                    timeout_s=2.0)),
+    ]
+    return testing.run_world(4, cases, tmp_path_factory.mktemp("card"),
+                             device="cuda")
+
+
+PEER_SIZES = (1, 1216, 40000)   # one element, the SPIKE gather, two chunks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("n", PEER_SIZES)
+def test_peer_kernel_matches_plain_in_a_world_on_the_card(card_world, op, n):
+    """The peer all-reduce's kernel against its plain version (the exact
+    gather through gloo, then the rank-ordered accumulation) at P = 4 ranks
+    sharing the card, seeded float64 payloads: bit for bit on every rank,
+    at 1 element, at the SPIKE interface gather's size and at 40,000
+    doubles (two launches: a slot holds CAPACITY)."""
+    for rank in card_world:
+        assert rank["peer"][(op, n)]["same"]
+        assert rank["peer"]["launches"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", ["sp", "dp"])
+def test_collectives_on_the_card_are_rank_ordered(card_world, group):
+    """meshes.all_sum / all_max / gather on the card over each group of 2
+    of a 2 x 2 grid: float64 and float32 payloads, every rank's result
+    numpy's accumulation in rank order (in float64, cast to the input's
+    dtype) bit for bit, the gather the payloads in rank order."""
+    import numpy as np
+
+    from collocfem_tpu_torch.testing import bit_equal
+
+    for rank in card_world:
+        res = rank["collectives"][group]
+        for n in (1, 1216):
+            raw = [np.random.default_rng(7 + r).standard_normal(n)
+                   for r in range(2)]
+            for dtype in ("float64", "float32"):
+                xs = [x.astype(dtype).astype(np.float64) for x in raw]
+                want = {"sum": xs[0] + xs[1], "max": np.maximum(*xs)}
+                for op, acc in want.items():
+                    assert bit_equal(res[(op, dtype, n)], torch.as_tensor(
+                        acc).to(getattr(torch, dtype)))
+            assert bit_equal(res[("gather", "float64", n)],
+                             torch.as_tensor(np.stack(raw)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sp", "dp"])
+def test_converging_solve_on_four_ranks_runs_under_the_while_node(
+        card_world, kind):
+    """make_sp_gn_solver (headline, N = 511) and the dp soa solver (config
+    5, 8 experiments) to gtol 1e-10 on 4 ranks sharing the card, run as
+    .eager, the first captured call, a replay and .eager again on the same
+    groups (the peer kernel's epochs run on through all four): the
+    captured calls read nothing to the host (the WHILE node decides the
+    exit), and every run gives the first call's bits, iterations and
+    launches on every rank, the ranks the same bits."""
+    from collocfem_tpu_torch.testing import bit_equal
+
+    want = card_world[0][kind]["runs"]["first call"]["out"]
+    its = int(want[1]["iterations"])
+    assert 0 < its < 60 and bool(want[1]["converged"])
+    for rank in card_world:
+        runs = rank[kind]["runs"]
+        assert runs["first call"]["host_reads"] == 0
+        assert runs["captured"]["host_reads"] == 0
+        for run in runs.values():
+            assert bit_equal(run["out"], want)
+            assert run["counts"] == runs["first call"]["counts"]
+        assert runs["first call"]["counts"]["peer_reduce"][0] > its
+
+
+@pytest.mark.cuda
+def test_a_stalled_rank_makes_the_others_raise_not_hang(card_world):
+    """A rank that never makes its call: the other three wait at most the
+    2 s bound, get NaN and raise from parallel.peer.check of the sp group;
+    the check of the mesh's other group, which made no call, does not."""
+    for rank in card_world[:-1]:
+        res = rank["stalled"]
+        assert res["raised"] is not None and "waited more than" in \
+            res["raised"]
+        assert res["nan"]
+        assert not res["other group raised"]
+        assert res["wall"] < 60.0
+    assert card_world[-1]["stalled"] == {"skipped": True}
+
+
+@pytest.mark.cuda
+def test_released_peer_buffers_are_set_up_anew(card_world):
+    """parallel.peer.release frees a 2 x 2 grid's buffers and mappings on
+    every rank and drops the groups' entries; the next all_sum sets them
+    up again and gives the same bits as before the release."""
+    for rank in card_world:
+        assert rank["released"] == {"same": True, "gone": True}
+
+
+# ---- an NCCL world of one (parallel/; collectives: parallel.peer at P = 1) --
 
 
 @pytest.fixture(scope="module")
 def nccl_world(tmp_path_factory):
     """An NCCL world of one in this process (NCCL takes one rank a card):
-    the default group, destroyed after the module's tests."""
+    the default group, its peer buffers released and the group destroyed
+    after the module's tests."""
     import torch.distributed as dist
+
+    from collocfem_tpu_torch.parallel import peer
 
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (NCCL)")
@@ -1670,6 +1811,7 @@ def nccl_world(tmp_path_factory):
     dist.init_process_group("nccl", init_method=f"file://{wd}/init",
                             world_size=1, rank=0)
     yield dist.group.WORLD
+    peer.release()
     dist.destroy_process_group()
 
 
@@ -1679,11 +1821,11 @@ def test_probe_body_captured_in_an_nccl_world_of_one(nccl_world):
     a done flag all-reduced by all_max) captured into one graph replayed
     step by step, and as the loop graph's WHILE body, on an NCCL world of
     one: both give the eager buffers bit for bit and the loop stops where
-    the flag sets done.  A world of one launches no NCCL kernel: the step
-    graph's only nodes besides kernels are device-to-device copies
-    (cudaGraphNodeType 1, kind 3).  So this cannot meet the refusal of
-    several ranks' NCCL kernels under a WHILE node, which only a machine
-    with several cards shows (the probe with --ranks 4)."""
+    the flag sets done.  The collectives are the peer kernel at P = 1:
+    the step graph's only nodes besides kernels are the body's
+    device-to-device copies (cudaGraphNodeType 1, kind 3).  Several ranks
+    under the WHILE node: card_world's tests and the probe with --ranks
+    4."""
     from collocfem_tpu_torch.tools.nccl_graph_probe import probe
 
     report = probe(nccl_world, torch.device("cuda"))
@@ -1692,14 +1834,6 @@ def test_probe_body_captured_in_an_nccl_world_of_one(nccl_world):
     assert report["non_kernel_nodes"], report
     assert all(": type 1 memcpy kind 3 " in line
                for line in report["non_kernel_nodes"]), report
-
-
-def _reads_a_step(stats, maxiter):
-    """The reads of ``done`` to the host of the sharded solves' converging
-    schedule, for the SolveStats of each of its solves: one before each
-    step and one at the exit, unless the solve ran out of steps."""
-    return sum(int(st.iterations) + (int(st.iterations) < maxiter)
-               for st in stats)
 
 
 def _sp_solver(options, device, elements=511):
@@ -1724,9 +1858,9 @@ def test_captured_sp_solve_matches_eager_on_nccl(cuda_device, nccl_world,
     float64: 10 fixed-work iterations, a solve to gtol 1e-10 and IRLS over
     it (2 rounds, the reweighting eager): the first call and a replay equal
     solve.eager bit for bit with the same launches (kernel #2 at (8, 19)
-    and (8, 3) once each a step).  Fixed work reads nothing to the host; a
-    solve to a tolerance replays its step graph and reads done once a step
-    and once at the exit, as on several ranks."""
+    and (8, 3) once each a step) and read nothing to the host (with a
+    tolerance the steps run under the WHILE node, as on several
+    ranks)."""
     from collocfem_tpu_torch.solve.newton import (SolverOptions,
                                                   make_irls_solver)
 
@@ -1740,8 +1874,7 @@ def test_captured_sp_solve_matches_eager_on_nccl(cuda_device, nccl_world,
                                  inner_solver=solve)
     out, reads = _reads_and_hold(solve, *args)
     rounds = out[1] if case == "irls" else (out[1],)
-    assert reads == [_reads_a_step(rounds, opts["maxiter"])
-                     if case != "fixed" else 0] * 2
+    assert reads == [0, 0]
     its = sum(int(st.iterations) for st in rounds)
     assert its == 10 if case == "fixed" else 0 < its
     if case == "converging":
@@ -1758,8 +1891,7 @@ def test_captured_dp_solve_matches_eager_on_nccl(cuda_device, nccl_world,
     as dp x sp (the blocks layout through spike_chain_solver over the sp
     group of one), at 15 fixed-work iterations and to gtol 1e-10: the
     first call and a replay equal solve.eager bit for bit with the same
-    launches; fixed work reads nothing to the host, a solve to a tolerance
-    done once a step and once at the exit."""
+    launches and read nothing to the host."""
     from collocfem_tpu_torch.batched import build_config5_problem
     from collocfem_tpu_torch.parallel import make_device_mesh
     from collocfem_tpu_torch.parallel.batch import \
@@ -1780,8 +1912,7 @@ def test_captured_dp_solve_matches_eager_on_nccl(cuda_device, nccl_world,
         layout="soa" if layout == "soa" else "blocks")
     assert solve.refused is None
     out, reads = _reads_and_hold(solve, z0, data, p_prior, p_w)
-    assert reads == [_reads_a_step([out[1]], opts["maxiter"])
-                     if tol == "converging" else 0] * 2
+    assert reads == [0, 0]
     its = int(out[1].iterations)
     assert its == 15 if tol == "fixed" else 0 < its < 60
 

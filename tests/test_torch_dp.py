@@ -9,8 +9,10 @@ The port's runs share ONE spawned gloo world of 4 CPU ranks
 (``testing.run_world``): dp = 4 on a 4 x 1 grid, dp = 2 and dp x sp = 2 x 2
 on a 2 x 2 grid; every case's 4 ranks must agree bit for bit.  Each solve
 runs twice: ``solve.eager`` and ``solve.stepwise``, the functions that the
-CUDA graphs capture on an NCCL group, in replay order, which must agree bit
-for bit."""
+CUDA graphs capture, in replay order, which must agree bit for bit.  The
+world also runs the plain version of the peer all-reduce
+(``parallel.peer``) over both groups of 2 ranks of the 2 x 2 grid, held to
+numpy's rank-ordered accumulation bit for bit."""
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +37,7 @@ MU_TRUE, B_TRUE = 1.3, 0.5
 OPTS = dict(maxiter=40, gtol=1e-9, xtol=1e-10)
 GRID = {4: (4, 1), 2: (2, 2)}
 LAYOUTS = ("soa", "blocks")
+COLLECTIVE_SIZES = (1, 2 * 8 * 19)   # one element; the SPIKE gather's row
 
 
 def _batch(n_exp, tf, elements, degree, n_meas, seed):
@@ -84,6 +87,8 @@ def world(specs, tmp_path_factory):
                       dict(mesh=(2, 2), spec=specs["dpsp"], options=OPTS,
                            layout="blocks", dtype=F64, sp_chain=True,
                            mode=mode)))
+    cases.append(("collectives 2 x 2", testing.collective_case,
+                  dict(mesh=(2, 2), seed=9, sizes=COLLECTIVE_SIZES)))
     return testing.run_world(4, cases, tmp_path_factory.mktemp("world"))
 
 
@@ -147,11 +152,36 @@ def test_dp_times_sp_matches_jax(world, specs):
                                   for layout in LAYOUTS] + ["dp x sp"])
 def test_dp_stepwise_matches_eager(world, name):
     """The captured structure over ranks: solve.stepwise (prelude, then the
-    step with a read of done after each one, as the graphs replay) equals
-    solve.eager bit for bit on every rank, V, p and every SolveStats field,
+    step maxiter times with no read of done, as the loop graph's WHILE body
+    runs; a step after done leaves the state as it is) equals solve.eager
+    bit for bit on every rank, V, p and every SolveStats field,
     in both layouts at dp = 4 and 2 and for dp x sp (so it meets the JAX
     bars above as the eager loop does)."""
     want = _rank0(world, name)
     assert 0 < int(want[1]["iterations"]) < OPTS["maxiter"]
     for rank in world:
         assert bit_equal(rank[f"{name} stepwise"]["out"], want)
+
+
+@pytest.mark.parametrize("group", ["sp", "dp"])
+@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_plain_collective_over_two_ranks_is_rank_ordered(world, group, op,
+                                                         dtype):
+    """The peer all-reduce's plain version through meshes.all_sum /
+    all_max over each group of 2 ranks of the 2 x 2 grid (the sp rows and
+    the dp columns): the ranks of a group get the same bits, numpy's
+    float64 accumulation in rank order cast to the input's dtype, exactly;
+    the gather gives both payloads in rank order."""
+    results = [rank["collectives 2 x 2"][group] for rank in world]
+    for n in COLLECTIVE_SIZES:
+        raw = [np.random.default_rng(9 + r).standard_normal(n)
+               for r in range(2)]
+        xs = [x.astype(dtype).astype(np.float64) for x in raw]
+        acc = xs[0] + xs[1] if op == "sum" else np.maximum(xs[0], xs[1])
+        want = torch.as_tensor(acc).to(getattr(torch, dtype))
+        for r in results:
+            assert r["size"] == 2
+            assert bit_equal(r[(op, dtype, n)], want)
+            assert bit_equal(r[("gather", "float64", n)],
+                             torch.as_tensor(np.stack(raw)))

@@ -7,9 +7,12 @@ The port's sharded solvers run in ONE spawned gloo world of 4 CPU ranks
 1 x 4 grid and sp = 2 on a 2 x 2 grid, whose two dp rows solve the same
 problem, so every case has 4 ranks whose results must agree bit for bit.
 Each GN solve runs twice: ``solve.eager`` and ``solve.stepwise``, the
-functions that the CUDA graphs capture on an NCCL group, in replay order,
-which must agree bit for bit (a converging solve reads ``done`` after each
-step, on several ranks and on one).  The JAX references
+functions that the CUDA graphs capture, in replay order, which must agree
+bit for bit (a converging solve runs its steps as the loop graph's WHILE
+body does, with no read of ``done``, on several ranks and on one).  The
+world also runs the plain version of the peer all-reduce
+(``parallel.peer``) over 4 ranks, held to numpy's rank-ordered
+accumulation bit for bit.  The JAX references
 run here on the conftest's virtual CPU mesh (SPIKE) or on one device (the
 solvers), in float64."""
 
@@ -47,6 +50,9 @@ IRLS = dict(OPTS, irls_delta=2.0)
 # sum, and the trial cost's halo and sum.  A prelude makes 2 (the cost's
 # halo and sum).
 SP_STEP_ALL_REDUCES, SP_PRELUDE_ALL_REDUCES = 9, 2
+# The plain collective's payload lengths: one element and the SPIKE
+# interface gather's at sp = 4, (8, 19): P x 2 x b x r / P.
+COLLECTIVE_SIZES = (1, 2 * 8 * 19)
 
 
 def _sp_problem():
@@ -104,6 +110,8 @@ def world(spec, tmp_path_factory):
     cases.append(("irls sp=4", testing.sp_gn_case,
                   dict(mesh=GRID[4], spec=spec, options=IRLS, dtype=F64,
                        irls_rounds=2)))
+    cases.append(("collectives sp=4", testing.collective_case,
+                  dict(mesh=GRID[4], seed=5, sizes=COLLECTIVE_SIZES)))
     return testing.run_world(4, cases, tmp_path_factory.mktemp("world"))
 
 
@@ -169,20 +177,34 @@ def test_sp_gn_stepwise_matches_eager(world, sp):
         assert bit_equal(rank[f"gn sp={sp} stepwise"]["out"], want)
 
 
-def test_sp_gn_stepwise_on_several_ranks_reads_done_once_a_step(world):
-    """With a tolerance (gtol 1e-9) on an sp group of 2 ranks, whose NCCL
-    kernels a CUDA-graph conditional body refuses, the step-wise solve
-    replays the step and reads done after each one, as the eager loop
-    does: on every rank the same reads to the host and the same iterations
-    as .eager, and one prelude's all-reduces more (its plan's warm-up)."""
+def _loop_traffic(eager, stepwise, maxiter):
+    """The loop schedule's traffic against the eager loop's, on one rank:
+    the same iterations; no read to the host in the step-wise solve (the
+    eager loop reads done before each step); the eager loop's all-reduces
+    a prelude, one step each iteration and the gather of V, the step-wise
+    solve's a prelude more (its plan's warm-up) and one step each of the
+    maxiter steps the WHILE body may run (a step after done leaves the
+    state as it is)."""
+    its = int(eager["out"][1]["iterations"])
+    assert 0 < its < maxiter
+    assert int(stepwise["out"][1]["iterations"]) == its
+    assert stepwise["host_reads"] == 0
+    assert eager["host_reads"] > its
+    assert eager["all_reduces"] == (SP_PRELUDE_ALL_REDUCES
+                                    + its * SP_STEP_ALL_REDUCES + 1)
+    assert stepwise["all_reduces"] == (2 * SP_PRELUDE_ALL_REDUCES
+                                       + maxiter * SP_STEP_ALL_REDUCES + 1)
+
+
+def test_sp_gn_stepwise_on_several_ranks_reads_nothing_during_the_solve(
+        world):
+    """With a tolerance (gtol 1e-9) on an sp group of 2 ranks the step-wise
+    solve runs the loop graph's schedule, whose WHILE body the device
+    repeats while ~done: on every rank no read to the host, .eager's
+    iterations, and the all-reduces of maxiter steps (_loop_traffic)."""
     for rank in world:
-        eager, stepwise = rank["gn sp=2"], rank["gn sp=2 stepwise"]
-        its = int(eager["out"][1]["iterations"])
-        assert 0 < its < OPTS["maxiter"]
-        assert int(stepwise["out"][1]["iterations"]) == its
-        assert stepwise["host_reads"] == eager["host_reads"] > its
-        assert (stepwise["all_reduces"] - eager["all_reduces"]
-                == SP_PRELUDE_ALL_REDUCES)
+        _loop_traffic(rank["gn sp=2"], rank["gn sp=2 stepwise"],
+                      OPTS["maxiter"])
 
 
 def _world_of_one(tmp_path):
@@ -193,13 +215,13 @@ def _world_of_one(tmp_path):
     return dist.group.WORLD
 
 
-def test_sp_gn_stepwise_on_one_rank_reads_done_once_a_step(spec, tmp_path):
+def test_sp_gn_stepwise_on_one_rank_reads_nothing_during_the_solve(
+        spec, tmp_path):
     """With a tolerance on an sp group of one rank (here a gloo world of
-    one in this process, as the card's NCCL world of one) the solve takes
-    the schedule of several ranks: the step-wise solve replays the step
-    and reads done after each one, with .eager's reads, iterations and
-    result bit for bit, and exactly one prelude's all-reduces more (its
-    plan's warm-up); the eager loop makes SP_STEP_ALL_REDUCES a step."""
+    one in this process) the step-wise solve runs the same loop schedule
+    as on several ranks: no read to the host, .eager's iterations and
+    result bit for bit, and the all-reduces of maxiter steps
+    (_loop_traffic)."""
     import torch.distributed as dist
 
     _world_of_one(tmp_path)
@@ -209,29 +231,23 @@ def test_sp_gn_stepwise_on_one_rank_reads_done_once_a_step(spec, tmp_path):
             mode=mode, traffic=True) for mode in ("eager", "stepwise")}
     finally:
         dist.destroy_process_group()
-    eager, stepwise = run["eager"], run["stepwise"]
-    its = int(eager["out"][1]["iterations"])
-    assert 0 < its < OPTS["maxiter"]
-    assert bit_equal(stepwise["out"], eager["out"])
-    assert stepwise["host_reads"] == eager["host_reads"] > its
-    assert stepwise["all_reduces"] - eager["all_reduces"] == (
-        SP_PRELUDE_ALL_REDUCES)
-    # The eager loop's: its prelude, its steps and the gather of V.
-    assert eager["all_reduces"] == (SP_PRELUDE_ALL_REDUCES
-                                    + its * SP_STEP_ALL_REDUCES + 1)
+    assert bit_equal(run["stepwise"]["out"], run["eager"]["out"])
+    _loop_traffic(run["eager"], run["stepwise"], OPTS["maxiter"])
 
 
-def test_a_cuda_mesh_with_a_gloo_group_refuses_capture(spec, tmp_path,
-                                                       monkeypatch):
-    """A solver made for a CUDA device whose group is gloo (ranks sharing
-    one card) cannot be captured: capture_refusal says so when the solver
-    is made, and then a call raises ValueError naming .eager before any
-    collective, while .eager stays; an NCCL group, a CPU device or no
-    group has no refusal.  Checked without a card: the decision reads only
-    the group's backend (an NCCL one faked by its name) and the device's
-    type."""
+def test_capture_is_refused_only_where_the_ranks_cannot_map_each_other(
+        spec, tmp_path, monkeypatch):
+    """What capture_refusal still refuses: a group whose ranks cannot map
+    each other's buffers for the peer all-reduce.  A solver made for a CUDA
+    device in a process without one (this box) is refused with the reason
+    when it is made; then a call and .stepwise raise ValueError naming it,
+    while .eager runs the plain collectives on CPU tensors.  A gloo group
+    whose ranks do map each other (set-up faked here, as on ranks sharing
+    one card) has no refusal, nor has a CPU device or no group: the
+    backend no longer decides."""
     import torch.distributed as dist
 
+    from collocfem_tpu_torch.parallel import peer
     from collocfem_tpu_torch.parallel.meshes import (DeviceMesh,
                                                       capture_refusal)
     from collocfem_tpu_torch.parallel.sharded import make_sp_gn_solver
@@ -239,27 +255,55 @@ def test_a_cuda_mesh_with_a_gloo_group_refuses_capture(spec, tmp_path,
 
     prob, z0, data = testing.estimation_inputs(spec, dtype=F64, device="cpu")
     group = _world_of_one(tmp_path)
+    monkeypatch.setattr(peer, "_GROUPS", {})
     try:
         cuda = torch.device("cuda")
-        assert "eager" in capture_refusal(group, cuda)
+        refusal = capture_refusal(group, cuda)
+        assert "cannot map each other's memory" in refusal
+        assert "no CUDA device" in refusal
         assert capture_refusal(group, "cpu") is None
         assert capture_refusal(None, cuda) is None
         solve = make_sp_gn_solver(
             prob, DeviceMesh(dp=1, sp=1, dp_rank=0, sp_rank=0,
                              dp_group=group, sp_group=group, device=cuda),
             SolverOptions(**OPTS))
-        with pytest.raises(ValueError, match=r"\.eager"):
+        with pytest.raises(ValueError, match="no CUDA device"):
             solve(z0, data)
-        with pytest.raises(ValueError, match=r"\.eager"):
+        with pytest.raises(ValueError, match="no CUDA device"):
             solve.stepwise(z0, data)
         z, stats = solve.eager(z0, data)
         assert bool(stats.converged)
-        for backend in ("nccl", "cuda:nccl,cpu:gloo"):
-            monkeypatch.setattr(dist, "get_backend", lambda g: backend)
-            assert capture_refusal(group, cuda) is None
+        monkeypatch.setattr(peer, "_GROUPS", {})
+        monkeypatch.setattr(peer, "_open_group", lambda g, d: object())
+        assert capture_refusal(group, cuda) is None
     finally:
         monkeypatch.undo()
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_plain_collective_over_four_ranks_is_rank_ordered(world, op, dtype):
+    """The peer all-reduce's plain version (parallel.peer.peer_reduce_ref)
+    through meshes.all_sum / all_max over the sp group of 4: every rank
+    gets the same bits, and they are numpy's accumulation in rank order,
+    acc = x0; acc = acc + x1; ... (np.maximum for max) in float64, cast to
+    the input's dtype (float32 inputs are summed in float64), exactly; the
+    gather gives every rank's payload in rank order."""
+    results = [rank["collectives sp=4"]["sp"] for rank in world]
+    assert [r["rank"] for r in results] == [0, 1, 2, 3]
+    for n in COLLECTIVE_SIZES:
+        raw = [np.random.default_rng(5 + r).standard_normal(n)
+               for r in range(4)]
+        xs = [x.astype(dtype).astype(np.float64) for x in raw]
+        acc = xs[0]
+        for x in xs[1:]:
+            acc = acc + x if op == "sum" else np.maximum(acc, x)
+        want = torch.as_tensor(acc).to(getattr(torch, dtype))
+        for r in results:
+            assert bit_equal(r[(op, dtype, n)], want)
+            assert bit_equal(r[("gather", "float64", n)],
+                             torch.as_tensor(np.stack(raw)))
 
 
 def test_irls_with_sharded_inner_solver_matches_jax(world, jax_solver):
