@@ -72,6 +72,11 @@ Phases, each printing its own line; any failure raises and exits non-zero:
      split actuator; #3-#6 at b = 12, config 3 with method='cr', and at b
      = 4 on the degree-2 Van der Pol), and seeded chains at b in
      SEEDED_BLOCKS (1, 2, 3, 4, 9, 16): #1, #2 at K in EDGES, #7, #3-#6.
+     At the fine level of bench.py's ladder past refine.CR_DW_CHAIN
+     (_phase2_cr_dw): kernels #3-#6 on the headline's equilibrated, damped
+     chain at N = 100,000 (K = 100,001 padded to 131,072: 14 levels a
+     sweep), level by level, the sweeps and whole solves, in both dtypes at
+     the bars above, timed by CUDA events beside the float32 bound.
      At the shapes of configs 2 and 4 (_phase2_configs): kernel #1 at
      nq = 3 and 5 on each config's damped system at its initial guess (K =
      1,001 and 201) and on seeded chains, K in EDGES + {201, 1001}, timed
@@ -177,7 +182,7 @@ Phases, each printing its own line; any failure raises and exits non-zero:
      1.5e-3 of the numpy RTS smoother; (e) examples/pem_kalman.py (Duffing,
      400 samples) end to end from p0: the EKF NLL and its gradient through
      the captured scan (kalman/scan.py) at p0 within 1e-9 (relative) of the
-     JAX package's; over the first 100 samples the captured scan
+     JAX package's; over the first 50 samples the captured scan
      bit-identical to the same scan uncaptured and within 1e-12 of the
      tape-recording loop, each within 1e-9 of JAX's; the PEM (run_lbfgs
      from p0, one replayed value and gradient an evaluation, torch.profiler
@@ -246,18 +251,34 @@ Phases, each printing its own line; any failure raises and exits non-zero:
      kkt_refine=2, #2 at (8, 4) / (8, 6) and (8, 1); (f) parameter_std on
      the degree-2 Van der Pol, #3 and #6 at (4, 2), within 1e-9 of the
      plain solve.  Each prints its wall, launches by shape, construction
-     and first-call walls and its instances' phase-1 build walls.
+     and first-call walls and its instances' phase-1 build walls;
+ 16. bench.py past refine.CR_DW_CHAIN at N = 100,000 (_phase16), float64
+     where the JAX package runs its double-word tiers: (a) run_fixed, 15 LM
+     iterations on method='cr' (kernels #4-#6 launch exactly 15 x 14 times,
+     no other kernel or plain version), float32 (best-of-3 wall; p finite,
+     the cost falls) and float64 (p and the cost ratio within 1e-6 of the
+     JAX package's float64 run: its ratio is 8.34x, below bench.py's 10x at
+     this N); (b) headline.ConvergedLadder(100000, dtype=float32): 6,250
+     elements in float32, the same mesh in float64 (state_dw's place), then
+     100,000 elements in float64 on 'cr' (state_dw and cr_dw's place),
+     captured and eager bit for bit, 0 host reads in each level, kernel #1
+     60 + 80 times and #4-#6 40 x 14 times; p within 1e-6 of the JAX
+     package's float64 run of the same levels and ||p - [1, 1]||_inf <
+     1e-4 (printed beside the JAX package's 7.15e-7, measured on a TPU with
+     its double-word tiers); the walls (captured, eager, first run, the
+     per-level split), a torch.profiler run, the memory peak and the
+     phase's wall.
 
-Phases 3-9 and 13 run each solve as it runs by default on a CUDA device:
+Phases 3-9, 13 and 16 run each solve as it runs by default on a CUDA device:
 from CUDA graphs captured at its first call (collocfem_tpu_torch/solve/
 graph.py), and every launch count above is the captured run's (each replay
 adds its graph's share).  Each of these phases also runs ``solve.eager`` once
 on the same inputs and raises unless it gives the captured result bit for
 bit (z, cost, iterations, history and the other SolveStats fields, by
 torch.equal on their bit patterns); phase 13 does so for the first 20 MHE
-steps (``step_eager``) in both dtypes, and phase 7 for the ladder
+steps (``step_eager``) in both dtypes, and phases 7 and 16 for the ladder
 (``ConvergedLadder.eager``).  A phase line's wall is the captured one, with
-the eager wall beside it; phases 3, 5 and 7 also profile one captured run
+the eager wall beside it; phases 3, 5, 7 and 16 also profile one captured run
 (device time, and the idle share of the captured and of the eager wall).
 Phases 10-12 do the same with the constrained drivers (solve/auglag.py:
 the AL homotopy captured; solve/bounds.py, constrained.py: the barrier
@@ -271,7 +292,8 @@ maxiter) (csrc/graph_loop.cu), so the host reads nothing during the solve.
 Every converging captured solve of phases 4, 6, 8 (d), (e), 9 (d), (e),
 10-12 and 13 (d), (e) counts the reads to the host of its first call
 (solve.graph.HostReads: .item(), bool(t), a copy to the CPU) and raises
-unless there are none (phase 14's sharded ones too, on one rank and on
+unless there are none (so does each level of phases 7 and 16's ladders,
+warm start included, in the ladder's first run) (phase 14's sharded ones too, on one rank and on
 4); phase 13 (a), (b) counts them over the 20 captured MHE steps it holds
 to step_eager.  Phases 4, 6
 and 10-12 print each converging solve's captured wall beside the parent's
@@ -306,6 +328,7 @@ import time
 
 ELEMENTS = 10000
 ELEMENTS_CR = 20000       # K = 20,001: past the TPU fused kernel's 16,384
+ELEMENTS_DW = 100000      # K = 100,001: past refine.CR_DW_CHAIN (40,000)
 ELEMENTS_SP = 9999        # K = 10,000 blocks: divides by sp = 1, 2 and 4
 SP_MAX = 4                # ranks of phase 14's world, sharing the one card
 N_EXP = 1024
@@ -439,6 +462,52 @@ P_ERR_JAX_LADDER_F32 = 2.2470951080322266e-05
 #   EOF
 CR_FIXED_JAX_F64_P = (2.855885277895221, -0.5179073605763589)
 CR_FIXED_JAX_F32_RATIO = 36.434286928965115
+# The same command at N = 100,000 (build_headline_problem(100000)) in
+# float64: p and the cost ratio after 15 iterations (116 s on 8 CPU
+# cores, beside the ladder's run below).
+# The ratio is below bench.py's 10x: 15 cold iterations at this N have not
+# reached the basin, in either package.
+DW_FIXED_JAX_F64_P = (5.6987405391073835, -1.3892310783015092)
+DW_FIXED_JAX_F64_RATIO = 8.335066494300493
+# The JAX package's float64 run of bench.py's schedule past CR_DW_CHAIN
+# (bench.py:142-158) at N = 100,000 with no double-word option (float64
+# needs none): 6,250 elements, maxiter 60, lam0 3e-6; the same mesh warm
+# started from that solution, 80, 1e-9; 100,000 elements through
+# make_prolongation, 40, 1e-9; gtol=0 at every level.  Produced from the
+# root of the repo by
+#   JAX_PLATFORMS=cpu python - <<'EOF'
+#   import jax; jax.config.update("jax_enable_x64", True)
+#   import numpy as np
+#   from baseline_cpu.run_baseline import TF, build_headline_problem
+#   from collocfem_tpu.models import VanDerPol
+#   from collocfem_tpu.ops.mesh import make_prolongation, uniform_mesh
+#   from collocfem_tpu.problem import Decision, EstimationProblem
+#   from collocfem_tpu.solve import SolverOptions
+#   from collocfem_tpu.solve.newton import make_gn_solver
+#   _, t_meas, y, _ = build_headline_problem(100000)
+#   z = prev = None
+#   for n, maxiter, lam0 in ((6250, 60, 3e-6), (6250, 80, 1e-9),
+#                            (100000, 40, 1e-9)):
+#       mesh = uniform_mesh(0.0, TF, n, 4)
+#       prob = EstimationProblem.build(VanDerPol(), mesh, t_meas,
+#                                      defect_weight=100.0)
+#       data = prob.pack_data(y, t_meas,
+#                             u_nodes=np.sin(0.9 * mesh.elem_times)[..., None])
+#       if z is None:
+#           z0 = prob.initial_guess_from_data(t_meas, y, p0=[0.5, 0.5])
+#       elif prev.num_elements == n:
+#           z0 = z
+#       else:
+#           z0 = Decision(V=make_prolongation(prev, mesh.node_times)(
+#               z.V).astype(prob.dtype), p=z.p)
+#       z, st = make_gn_solver(prob, SolverOptions(
+#           maxiter=maxiter, gtol=0.0, lam0=lam0))(z0, data)
+#       prev = mesh
+#   print(repr(np.asarray(z.p, np.float64).tolist()))
+#   EOF
+# (278 s on 8 CPU cores, the first 116 s beside the fixed work above; on
+# the CPU 'auto' runs the XLA cyclic reduction.)
+P_JAX_LADDER_DW_F64 = (0.9999999999962791, 1.0000000000000566)
 
 # The JAX package's float64 p on configs 2 and 4 on the CPU (on the CPU
 # 'auto' is its XLA cyclic reduction): the fixed work of
@@ -812,7 +881,7 @@ MHE_JAX_COV = ((0.00038851490178060615, 0.00037059510721289116),
 # Phase 13 (e): examples/pem_kalman.py, the JAX package's float64 run on the
 # CPU: the EKF NLL and its gradient at p0 and at the PEM optimum (18 L-BFGS
 # iterations), the UKF NLL and its gradient at p0, the EKF NLL and its
-# gradient over the first 100 samples at p0, the smoother warm start V0 at
+# gradient over the first 50 samples at p0, the smoother warm start V0 at
 # that optimum (every 50th of its 801 nodes, the sum of its entries and of
 # their squares), the MAP polish's p (converged in 12 iterations) and
 # parameter_std, produced from the root of the repo by
@@ -849,9 +918,9 @@ MHE_JAX_COV = ((0.00038851490178060615, 0.00037059510721289116),
 #   unll = make_ukf_nll(model, t_meas, y, R, Qc, m0, P0, substeps=4)
 #   v, g = jax.jit(jax.value_and_grad(unll))(p0)
 #   print(repr(float(v)), repr(np.asarray(g).tolist()))
-#   nll100 = make_ekf_nll(model, t_meas[:100], y[:100], R, Qc, m0, P0,
-#                         substeps=4)
-#   v, g = jax.jit(jax.value_and_grad(nll100))(p0)
+#   nll50 = make_ekf_nll(model, t_meas[:50], y[:50], R, Qc, m0, P0,
+#                        substeps=4)
+#   v, g = jax.jit(jax.value_and_grad(nll50))(p0)
 #   print(repr(float(v)), repr(np.asarray(g).tolist()))
 #   prob = EstimationProblem.build(model, uniform_mesh(0.0, TF, 200, 4),
 #                                  t_meas, defect_weight=1.0 / PROC_NOISE)
@@ -878,13 +947,13 @@ PEM_JAX_OPT = (1.0114232502436258, 5.0020321609471985, 0.18893252321379087)
 PEM_JAX_NLL_OPT = (-1220.9262145370647,
                    (-5.971195760068326e-12, 5.909148170779588e-12,
                     -2.2683431522008135e-11))
-PEM_PREFIX = 100
+PEM_PREFIX = 50       # samples the uncaptured scan and the tape loop each run
 # The eager loop's EKF NLL-and-gradient and smoother_initial_guess before the
 # filters became captured scans, in s (H100 80GB HBM3, 700 W).
 PEM_EAGER_S = (28.9, 15.5)
-PEM_JAX_NLL_P0_PREFIX = (17742.39766740401,
-                         (-7356.735296331002, -7524.770696588967,
-                          4.430024268736528))
+PEM_JAX_NLL_P0_PREFIX = (10443.741412233909,
+                         (-4371.912119820258, -4624.906260142176,
+                          324.9904667443012))
 PEM_JAX_UKF_P0 = (115935.24072142856,
                   (-40663.37746928187, -49559.43523110624,
                    1456.3544849597672))
@@ -1546,7 +1615,7 @@ def _vs_eager(label, solve, args, got):
     return wall, eager_wall
 
 
-def _run_ladder(ladder, label, card):
+def _run_ladder(ladder, label, card, main=None):
     """Run a ConvergedLadder once with the launch counts read after every
     level (each level's solve captures its graphs here), then once more
     without the reads for the wall, then eagerly (``ladder.eager``), which
@@ -1555,14 +1624,32 @@ def _run_ladder(ladder, label, card):
     its progress, not its loop), so a level on 'auto' launches kernel #1
     maxiter times and a level on 'cr' launches kernels #4-#6 (levels x
     maxiter) times each; nothing else may launch and no plain version may run.
-    Returns (z of every level, stats, per-level records, wall, eager
-    wall)."""
-    zs, per_level = [], []
+    The first run also counts each level's reads to the host (its warm start
+    and its solve, solve.graph.HostReads) and raises unless there are none.
+    With a dict ``main`` the levels' launches are added to it, and their
+    shapes to MAIN_SHAPES.  Returns (z of every level, stats,
+    per-level records (with the first run's wall of each level), wall,
+    eager wall)."""
+    import torch
+
+    from collocfem_tpu_torch.solve.graph import HostReads
+
+    zs, per_level, modes, marks = [], [], [], []
+
+    def watch():
+        modes.append(HostReads("cuda"))
+        modes[-1].__enter__()
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
 
     def on_level(i, z, stats):
-        import torch
-
         torch.cuda.synchronize()
+        level_s = time.perf_counter() - marks[-1]
+        modes[-1].__exit__(None, None, None)
+        host_reads = modes[-1].count
+        if host_reads:
+            raise RuntimeError(f"{label} level {i}: {host_reads} host reads, "
+                               "first at\n" + modes[-1].where[0])
         counts, plain = _counts()
         lvl = ladder.levels[i]
         n = lvl.options.maxiter
@@ -1571,23 +1658,32 @@ def _run_ladder(ladder, label, card):
                 {k: _cr_level_count(lvl.elements + 1) * n
                  for k in CR_NAMES[1:]})
         _expect_only(counts, plain, want, f"{label} level {i}")
+        if main is not None:
+            _keep_shapes(want)
+            for k, v in want.items():
+                main[k] = main.get(k, 0) + v
         per_level.append(dict(elements=lvl.elements,
+                              dtype=str(lvl.problem.dtype).split(".")[1],
                               method=lvl.options.method,
                               iterations=int(stats.iterations),
-                              launches=want, p=z.p.tolist()))
+                              launches=want, p=z.p.tolist(),
+                              first_wall_s=level_s, host_reads=host_reads))
         zs.append(z)
         _reset_counts()
+        if i + 1 < len(ladder.levels):
+            watch()
 
     from collocfem_tpu_torch.testing import bit_equal
 
     _reset_counts()
-    (z, stats), first = _timed(lambda: ladder(on_level))
+    (z, stats), first = _timed(lambda: (watch(), ladder(on_level))[1])
     again, wall = _timed(ladder)
     want, eager_wall = _timed(ladder.eager)
     for r in per_level:
-        print(f"  {label} level {r['elements']} ({r['method']}): "
-              f"{r['iterations']} iterations, launches {r['launches']}, "
-              f"p={r['p']}")
+        print(f"  {label} level {r['elements']} {r['dtype']} "
+              f"({r['method']}): {r['iterations']} iterations, launches "
+              f"{r['launches']}, p={r['p']}; first run {r['first_wall_s']:.3f}"
+              f" s, host reads {r['host_reads']} (gate 0)")
     ok = bit_equal(again, (z, stats)) and bit_equal(want, (z, stats))
     print(f"  {label}: wall {wall:.3f} s captured, {eager_wall:.3f} s eager "
           f"(first run, with the captures and per-level reads: {first:.3f} "
@@ -1599,6 +1695,59 @@ def _run_ladder(ladder, label, card):
     return zs, stats, per_level, wall, eager_wall
 
 
+def _cr_fixed_work(label, elements, dtype, dev, card):
+    """bench.py's run_fixed at ``elements`` on method='cr' (what the JAX
+    package's 'auto' resolves to past its fused kernel's reach): 15 LM
+    iterations with every tolerance 0, kkt_refine=0, lam0 3e-6 and the
+    lambda rail off, captured.  Raises unless kernels #4-#6 launched 15 x
+    levels times each and nothing else did, the captured run gives
+    solve.eager's result bit for bit, p is finite and the cost falls.
+    Returns (record, the first call's launch counts): the wall (best of 3 in
+    float32, one run in float64), the eager wall, one captured run's
+    profile, the cost before and after, p, accepts and lambdas."""
+    import torch
+
+    from collocfem_tpu_torch.solve.newton import SolverOptions, make_gn_solver
+
+    name = str(dtype).split(".")[1]
+    prob, data, z0 = _headline(dtype, dev, elements)
+    solve = make_gn_solver(prob, SolverOptions(
+        maxiter=15, gtol=0.0, ftol=0.0, xtol=0.0, kkt_refine=0,
+        lam0=3e-6, lam_max=1e30, method="cr"))
+    _reset_counts()
+    z, stats = solve(z0, data)
+    torch.cuda.synchronize()
+    counts, plain_calls = _counts()
+    walls = [_timed(lambda: solve(z0, data))[1]
+             for _ in range(3 if dtype == torch.float32 else 1)]
+    c0, c_end = float(prob.cost(z0, data)), float(stats.cost)
+    p = z.p.tolist()
+    print(f"{label}: N={elements} {name} method='cr', 15 LM "
+          f"iterations: cost {c0:.6e} -> {c_end:.6e} ({c0 / c_end:.2f}x), "
+          f"p={p}, accepted {int(stats.history[:, 4].sum())} of 15, "
+          f"launches { {k: v for k, v in counts.items() if v} }, plain "
+          f"calls {plain_calls}; wall {min(walls):.4f} s captured (best "
+          f"of {len(walls)}) on {card}")
+    _expect_only(counts, plain_calls,
+                 {k: 15 * _cr_level_count(elements + 1)
+                  for k in CR_NAMES[1:]},
+                 f"{label} fixed work {name}")
+    _, eager_wall = _vs_eager(f"{label} fixed work {name}", solve,
+                              (z0, data), (z, stats))
+    rec = dict(
+        wall_s=min(walls), walls_s=walls, eager_wall_s=eager_wall,
+        profile=_profile_captured(f"{label} fixed work {name}",
+                                  lambda: solve(z0, data), min(walls),
+                                  eager_wall),
+        cost=[c0, c_end], p=p, launches=counts,
+        accepts=stats.history[:, 4].tolist(),
+        lam=stats.history[:, 2].tolist())
+    if not (c_end < c0 and all(math.isfinite(v) for v in p)):
+        raise RuntimeError(f"{label}: the CR fixed-work solve ({name}) did "
+                           "no useful work")
+    return rec, counts
+
+
 def _phase7(dev, card, record):
     """Phase 7: the headline at N = ELEMENTS_CR through the CR kernels.
     Returns the launches of kernels #3-#6 on their main paths."""
@@ -1608,7 +1757,6 @@ def _phase7(dev, card, record):
     from collocfem_tpu_torch.ops.assemble import assemble_gn
     from collocfem_tpu_torch.solve import blocktri as bt
     from collocfem_tpu_torch.solve import covariance as cov
-    from collocfem_tpu_torch.solve.newton import SolverOptions, make_gn_solver
     from collocfem_tpu_torch.testing import rel_err
 
     n_levels = _cr_level_count(ELEMENTS_CR + 1)
@@ -1617,40 +1765,9 @@ def _phase7(dev, card, record):
     # (held against the JAX package's float64 run).
     for dtype in (torch.float32, torch.float64):
         name = str(dtype).split(".")[1]
-        prob, data, z0 = _headline(dtype, dev, ELEMENTS_CR)
-        solve = make_gn_solver(prob, SolverOptions(
-            maxiter=15, gtol=0.0, ftol=0.0, xtol=0.0, kkt_refine=0,
-            lam0=3e-6, lam_max=1e30, method="cr"))
-        _reset_counts()
-        z, stats = solve(z0, data)
-        torch.cuda.synchronize()
-        counts, plain_calls = _counts()
-        walls = [_timed(lambda: solve(z0, data))[1]
-                 for _ in range(3 if dtype == torch.float32 else 1)]
-        c0, c_end = float(prob.cost(z0, data)), float(stats.cost)
-        p = z.p.tolist()
-        print(f"phase 7: N={ELEMENTS_CR} {name} method='cr', 15 LM "
-              f"iterations: cost {c0:.6e} -> {c_end:.6e} ({c0 / c_end:.2f}x), "
-              f"p={p}, accepted {int(stats.history[:, 4].sum())} of 15, "
-              f"launches { {k: v for k, v in counts.items() if v} }, plain "
-              f"calls {plain_calls}; wall {min(walls):.4f} s captured (best "
-              f"of {len(walls)}) on {card}")
-        _expect_only(counts, plain_calls,
-                     {k: 15 * n_levels for k in CR_NAMES[1:]},
-                     f"phase 7 fixed work {name}")
-        _, eager_wall = _vs_eager(f"phase 7 fixed work {name}", solve,
-                                  (z0, data), (z, stats))
-        record[f"cr_fixed_work_{name}"] = dict(
-            wall_s=min(walls), walls_s=walls, eager_wall_s=eager_wall,
-            profile=_profile_captured(f"phase 7 fixed work {name}",
-                                      lambda: solve(z0, data), min(walls),
-                                      eager_wall),
-            cost=[c0, c_end], p=p, launches=counts,
-            accepts=stats.history[:, 4].tolist(),
-            lam=stats.history[:, 2].tolist())
-        if not (c_end < c0 and all(math.isfinite(v) for v in p)):
-            raise RuntimeError(f"the CR fixed-work solve ({name}) did no "
-                               "useful work")
+        rec, counts = _cr_fixed_work("phase 7", ELEMENTS_CR, dtype, dev, card)
+        record[f"cr_fixed_work_{name}"] = rec
+        c0, c_end = rec["cost"]
         if dtype == torch.float32:
             # No >10x bar here: at N = 20,000 the float32 LM drives lam
             # below the float32 rounding of the unit diagonal, and whether
@@ -1661,14 +1778,13 @@ def _phase7(dev, card, record):
             launches.update({k: counts[k] for k in CR_NAMES[1:]})
             _keep_shapes(CR_NAMES[1:])
         else:
-            p_dev = _p_dev(p, CR_FIXED_JAX_F64_P)
-            record["cr_fixed_work_float64"]["p_vs_jax"] = p_dev
+            p_dev = _p_dev(rec["p"], CR_FIXED_JAX_F64_P)
+            rec["p_vs_jax"] = p_dev
             print(f"  float64: |p - p_jax|/|p_jax| {p_dev:.3e} (<= 1e-6), "
                   f"cost falls more than 10x")
             if not (c_end < 0.1 * c0 and p_dev <= 1e-6):
                 raise RuntimeError("the float64 CR fixed work disagrees with "
                                    "the JAX package's")
-        del prob, data, z0, solve, z, stats
 
     # The converged ladder, float32 then float64.
     ladder = ConvergedLadder(ELEMENTS_CR, device=dev, dtype=torch.float32)
@@ -1731,6 +1847,155 @@ def _phase7(dev, card, record):
           f"inverse is a sequential recursion, no kernel)")
     if not ok or tuple(sstd.shape) != (coarse.problem.num_nodes, 2):
         raise RuntimeError("state_std returned no usable band")
+    return launches
+
+
+def _phase2_cr_dw(dev, card, lam):
+    """Phase 2 at N = ELEMENTS_DW (K = 100,001, padded to 131,072: 14
+    levels a sweep), float32 and float64: kernels #3-#5 level by level and
+    the sweeps of #4, #5 and #6 on the headline's equilibrated, damped chain
+    at the initial guess, against their plain versions at phase 2's bars,
+    whole solves against the plain solves, and the times by CUDA events of
+    one solve beside the float32 bound at 14 levels (_cr_bounds).  Returns
+    {kernel #4-#6 name: [at_configs record]}."""
+    import torch
+
+    n_levels = _cr_level_count(ELEMENTS_DW + 1)
+    errs, out = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[1]
+        padded, unpadded = _cr_chain(*_headline(dtype, dev, ELEMENTS_DW), lam)
+        levels, tail = _cr_levels(*padded)
+        if len(levels) != n_levels:
+            raise RuntimeError(f"CR at K={ELEMENTS_DW + 1}: {len(levels)} "
+                               f"levels, _cr_level_count says {n_levels}")
+        for i, (D, E, G, B, *_) in enumerate(levels):
+            for k, v in _hold_cr(f"CR N={ELEMENTS_DW} {name} level {i} "
+                                 f"m={D.shape[-1]}", dtype, D, E, G,
+                                 B).items():
+                errs[(k, name)] = max(errs.get((k, name), 0.0), v)
+        label = f"CR sweeps N={ELEMENTS_DW} {name}"
+        facs, s_gs, x_tail = _hold_cr_sweeps(
+            label, levels, tail, *_cr_levels(*(a.double() for a in padded)))
+        errs[("cr_backsub", name)] = max(
+            errs[("cr_backsub", name)],
+            _hold_backsub_sweep(label, facs, s_gs, x_tail))
+        _hold_cr_solves(f"CR N={ELEMENTS_DW} {name} K={ELEMENTS_DW + 1}",
+                        dtype, *unpadded)
+        ms, per_level = _cr_times(levels, facs, s_gs, x_tail)
+        bounds = _cr_bounds(levels, 3, 2)
+        for k, (k_ms, p_ms) in ms.items():
+            print(f"  {k} {name} at K={ELEMENTS_DW + 1} ({n_levels} levels): "
+                  f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms per solve"
+                  + (f" (one sweep call; {per_level[k]:.3f} ms through "
+                     f"{n_levels} per-level calls)" if k in per_level else "")
+                  + (f"; float32 bound {bounds[k][0] * 1e3:.2f} us "
+                     f"({bounds[k][1]})" if dtype == torch.float32 else ""))
+            if dtype == torch.float32 and k in CR_NAMES[1:]:
+                out[k] = dict(config=f"headline N={ELEMENTS_DW}",
+                              K=ELEMENTS_DW + 1, b=8, r=3, levels=n_levels,
+                              ms=k_ms, plain_ms=p_ms,
+                              per_level_calls_ms=per_level[k],
+                              bound_ms=bounds[k][0], bound_by=bounds[k][1],
+                              library_ms=None)
+        del padded, unpadded, levels, tail, facs, s_gs, x_tail
+        torch.cuda.empty_cache()
+    print(f"  kernels #3-#6 at K={ELEMENTS_DW + 1}: every level, the sweeps "
+          "and whole solves ok in both dtypes; max abs err (float64) "
+          + ", ".join(f"{k} {errs[(k, 'float64')]:.3e}" for k in CR_NAMES))
+    return {k: [dict(rec, max_abs_err=errs[(k, "float64")])]
+            for k, rec in out.items()}
+
+
+def _phase16(dev, card, record):
+    """Phase 16: bench.py past refine.CR_DW_CHAIN at N = ELEMENTS_DW, with
+    float64 where the JAX package runs its double-word tiers.  (a)
+    run_fixed at N = 100,000 on method='cr' (_cr_fixed_work) in float32 and
+    float64; float64 within 1e-6 of the JAX package's float64 run, p and the
+    cost ratio.  (b) ConvergedLadder(ELEMENTS_DW, dtype=float32): 6,250
+    float32 -> 6,250 float64 -> 100,000 float64 on 'cr', captured and
+    eager bit for bit, 0 host reads in each level; p within 1e-6 of the JAX
+    package's float64 run of the same levels, ||p - 1||_inf < 1e-4.
+    Returns the launches of kernels #1 and #4-#6."""
+    import torch
+
+    from collocfem_tpu_torch.headline import ConvergedLadder
+
+    t_phase = time.perf_counter()
+    launches = {}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[1]
+        rec, counts = _cr_fixed_work("phase 16", ELEMENTS_DW, dtype, dev, card)
+        record[f"dw_fixed_work_{name}"] = rec
+        _keep_shapes(CR_NAMES[1:])
+        for k in CR_NAMES[1:]:
+            launches[k] = launches.get(k, 0) + counts[k]
+        if dtype == torch.float64:
+            c0, c_end = rec["cost"]
+            p_dev = _p_dev(rec["p"], DW_FIXED_JAX_F64_P)
+            r_dev = abs(c0 / c_end / DW_FIXED_JAX_F64_RATIO - 1)
+            rec.update(p_vs_jax=p_dev, ratio_vs_jax=r_dev)
+            print(f"  float64: |p - p_jax|/|p_jax| {p_dev:.3e} (<= 1e-6); "
+                  f"cost ratio {c0 / c_end:.6f}x, the JAX package's "
+                  f"{DW_FIXED_JAX_F64_RATIO:.6f}x (within 1e-6 relative: "
+                  f"{r_dev:.3e})")
+            if not (p_dev <= 1e-6 and r_dev <= 1e-6):
+                raise RuntimeError("the float64 fixed work at N="
+                                   f"{ELEMENTS_DW} disagrees with the JAX "
+                                   "package's")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    (ladder, build_s) = _timed(lambda: ConvergedLadder(
+        ELEMENTS_DW, device=dev, dtype=torch.float32))
+    print(f"phase 16: ladder at N={ELEMENTS_DW} built in {build_s:.3f} s: "
+          + " -> ".join(f"{lv.elements} {str(lv.problem.dtype)[6:]} "
+                        f"({lv.options.method}, maxiter "
+                        f"{lv.options.maxiter}, lam0 {lv.options.lam0:g})"
+                        for lv in ladder.levels))
+    zs, _, per_level, wall, eager_wall = _run_ladder(
+        ladder, "phase 16 ladder", card, main=launches)
+    marks = []
+
+    def mark(i, z, stats):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    ladder(mark)
+    split = [b - a for a, b in zip(marks, marks[1:])]
+    prof = _profile_captured("phase 16 ladder", ladder, wall, eager_wall)
+    peak = torch.cuda.max_memory_allocated(dev)
+    p = per_level[-1]["p"]
+    p_dev = _p_dev(p, P_JAX_LADDER_DW_F64)
+    p_err = max(abs(v - 1.0) for v in p)
+    first = sum(r["first_wall_s"] for r in per_level)
+    record["ladder_dw"] = dict(
+        build_s=build_s, wall_s=wall, eager_wall_s=eager_wall,
+        first_run_s=first, split_s=split, levels=per_level, profile=prof,
+        p_vs_jax=p_dev, p_err=p_err, max_memory_allocated=peak,
+        memory_held_before=held,
+        replaced={"polish (6,250, float64)": "state_dw",
+                  f"fine ({ELEMENTS_DW}, float64, 'cr')":
+                      "state_dw + method='cr_dw'"})
+    print(f"  phase 16 ladder: wall {wall:.4f} s captured, {eager_wall:.4f} s "
+          f"eager, first run {first:.3f} s (captures, per-level reads); "
+          f"per-level split of a captured run "
+          + " / ".join(f"{t:.4f}" for t in split) + " s; peak memory "
+          f"allocated {peak / 2**30:.3f} GiB ({(peak - held) / 2**30:.3f} GiB "
+          f"above what the earlier phases held), on {card}")
+    print(f"  phase 16 ladder: p={p}, |p - p_jax|/|p_jax| {p_dev:.3e} (<= "
+          f"1e-6, the JAX package's float64 run of the same levels); "
+          f"||p - 1||_inf {p_err:.3e} (< 1e-4; the JAX package measured "
+          f"7.15e-7 with its double-word tiers on a TPU v5e, BASELINE.md: "
+          f"information only)")
+    print("  float64 took the place of: state_dw on the polish level, "
+          "state_dw and method='cr_dw' on the fine level")
+    if not (p_dev <= 1e-6 and p_err < 1e-4):
+        raise RuntimeError(f"the ladder at N={ELEMENTS_DW} missed its gates")
+    record["phase16_s"] = time.perf_counter() - t_phase
+    print(f"phase 16: wall {record['phase16_s']:.1f} s (budget 60 s)")
     return launches
 
 
@@ -4499,6 +4764,10 @@ def main() -> int:
     record["sp_shapes"] = _phase2_sp(dev, card)
     new_shapes = _phase2_new_shapes(dev, card)
     record["new_shapes"] = new_shapes
+    dw_shapes = _phase2_cr_dw(dev, card, lam)
+    record["dw_shapes"] = dw_shapes
+    for k, v in dw_shapes.items():
+        new_shapes.setdefault(k, []).extend(v)
     elapsed()
 
     # ---- phase 3: headline fixed work, float32 -----------------------------
@@ -4635,7 +4904,7 @@ def main() -> int:
     # the serving path and the Kalman tier ----------------------------------
     elapsed()
     for phase in (_ocp_solves, _constrained_estimation, _serving, _phase14,
-                  _phase15):
+                  _phase15, _phase16):
         for k, v in phase(dev, card, record).items():
             main_launches[k] = main_launches.get(k, 0) + v
         elapsed()

@@ -4,8 +4,10 @@
 ``baseline_cpu/run_baseline.py::build_headline_problem``, in numpy and scipy
 only: the same horizon, measurement times, reference trajectory
 (``solve_ivp`` at rtol 1e-10, atol 1e-11) and input at the collocation
-nodes.  :class:`ConvergedLadder` is the schedule of ``bench.py``'s converged
-run (``run_converged``).
+nodes.  :func:`converged_schedule` is the per-level schedule of ``bench.py``'s
+converged run (``run_converged``), with float64 levels where the JAX package
+runs its double-word tiers past :data:`refine.CR_DW_CHAIN`, and
+:class:`ConvergedLadder` runs it.
 """
 
 from __future__ import annotations
@@ -13,12 +15,13 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
 from scipy.integrate import solve_ivp
 
+from collocfem_tpu_torch import refine
 from collocfem_tpu_torch.models import VanDerPol
 from collocfem_tpu_torch.ops.mesh import make_prolongation, uniform_mesh
 from collocfem_tpu_torch.problem import Decision, EstimationProblem, ProblemData
-from collocfem_tpu_torch.refine import level_sizes
 from collocfem_tpu_torch.solve.newton import SolverOptions, make_gn_solver
 
 MU_TRUE, B_TRUE = 1.0, 1.0
@@ -62,6 +65,47 @@ def headline_problem(num_elements: int, *, dtype, device):
 TPU_SPIKE_CHAIN = 16_384
 
 
+class ScheduledLevel(NamedTuple):
+    elements: int
+    dtype: torch.dtype
+    options: SolverOptions
+
+
+def _method(elements: int) -> str:
+    return "cr" if elements + 1 > TPU_SPIKE_CHAIN else "auto"
+
+
+def converged_schedule(elements: int, dtype) -> list[ScheduledLevel]:
+    """``bench.run_converged``'s levels at ``elements``, coarsest first,
+    every one with ``gtol=0`` (the lambda rail ends each level).
+
+    Up to :data:`refine.CR_DW_CHAIN` blocks: three uniform meshes, each 4x
+    coarser than the next (:func:`refine.level_sizes`), 60 / 30 / 30 LM
+    iterations, lam0 3e-6 on the cold level and 1e-9 on the warm ones, all
+    in ``dtype``.  Past it (``bench.py:142-158``): a cold level at
+    ``elements // 16`` (60 iterations, lam0 3e-6) in ``dtype``, a polish on
+    the same mesh (80, 1e-9) and the fine level (40, 1e-9) on
+    ``method='cr'``.  Where the JAX package runs the polish with
+    ``state_dw=True`` and the fine level with ``state_dw=True`` and
+    ``method='cr_dw'``, both levels here are float64.  A level whose chain
+    exceeds the TPU's fused kernel (:data:`TPU_SPIKE_CHAIN`) runs 'cr', as
+    the JAX package's 'auto' does there; the others 'auto'.
+    """
+    if elements + 1 > refine.CR_DW_CHAIN:
+        nc = max(2, elements // 16)
+        return [
+            ScheduledLevel(nc, dtype, SolverOptions(
+                maxiter=60, gtol=0.0, lam0=3e-6, method=_method(nc))),
+            ScheduledLevel(nc, torch.float64, SolverOptions(
+                maxiter=80, gtol=0.0, lam0=1e-9, method=_method(nc))),
+            ScheduledLevel(elements, torch.float64, SolverOptions(
+                maxiter=40, gtol=0.0, lam0=1e-9, method="cr")),
+        ]
+    return [ScheduledLevel(n, dtype, SolverOptions(
+        maxiter=60 if i == 0 else 30, gtol=0.0, lam0=3e-6 if i == 0 else 1e-9,
+        method=_method(n))) for i, n in enumerate(refine.level_sizes(elements))]
+
+
 class LadderLevel(NamedTuple):
     elements: int
     options: SolverOptions
@@ -73,34 +117,33 @@ class LadderLevel(NamedTuple):
 
 class ConvergedLadder:
     """``bench.run_converged``'s warm-started nested iteration on the
-    headline problem: three uniform meshes, each 4x coarser than the next
-    (:func:`refine.level_sizes`), 60 / 30 / 30 LM iterations with
-    ``gtol=0`` (the lambda rail ends each level), lam0 3e-6 on the cold
-    level and 1e-9 on the warm ones.
+    headline problem, level by level as :func:`converged_schedule` gives
+    it: each level in its own dtype, warm-started from the previous one's
+    solution cast to that dtype (on the same mesh as it is, else through
+    the device prolongation).
 
-    Every level's problem, data, solver and device prolongation is built
-    here, up front; calling the ladder runs it from the cold initial guess
-    and returns (z, stats) of the finest level.
+    Every level's problem, data, solver and prolongation is built here, up
+    front, in that level's dtype; calling the ladder runs it from the cold
+    initial guess and returns (z, stats) of the finest level.
     """
 
     def __init__(self, elements: int, *, device, dtype):
         _, self.t_meas, self.y, _ = build_headline_problem(elements)
         self.levels = []
         prev = None
-        for i, n in enumerate(level_sizes(elements)):
+        for n, level_dtype, opts in converged_schedule(elements, dtype):
             mesh = uniform_mesh(0.0, TF, n, 4)
             prob = EstimationProblem.build(VanDerPol(), mesh, self.t_meas,
                                            defect_weight=100.0, device=device,
-                                           dtype=dtype)
+                                           dtype=level_dtype)
             data = prob.pack_data(
                 self.y, self.t_meas,
                 u_nodes=np.sin(0.9 * mesh.elem_times)[..., None])
-            method = "cr" if mesh.num_blocks > TPU_SPIKE_CHAIN else "auto"
-            opts = SolverOptions(maxiter=60 if i == 0 else 30, gtol=0.0,
-                                 lam0=3e-6 if i == 0 else 1e-9,
-                                 method=method)
-            prolong = (None if prev is None else make_prolongation(
-                prev, mesh.node_times, device=device, dtype=dtype))
+            prolong = (None if prev is None
+                       or prev.num_elements == mesh.num_elements
+                       else make_prolongation(prev, mesh.node_times,
+                                              device=device,
+                                              dtype=level_dtype))
             self.levels.append(LadderLevel(n, opts, prob, data,
                                            make_gn_solver(prob, opts),
                                            prolong))
@@ -110,7 +153,7 @@ class ConvergedLadder:
         """Run every level; ``on_level(index, z, stats)`` is called after
         each one.  Returns (z, stats) of the last level.  Each level's solve
         replays its CUDA graphs on a CUDA device (captured at its first
-        call); the prolongation between levels runs eagerly."""
+        call); the casts and the prolongation between levels run eagerly."""
         return self._run(on_level, lambda lvl: lvl.solve)
 
     def eager(self, on_level=None):
@@ -121,11 +164,14 @@ class ConvergedLadder:
     def _run(self, on_level, solver_of):
         z = None
         for i, lvl in enumerate(self.levels):
+            dtype = lvl.problem.dtype
             if z is None:
                 z0 = lvl.problem.initial_guess_from_data(self.t_meas, self.y,
                                                          p0=[0.5, 0.5])
+            elif lvl.prolong is None:       # the same mesh: a polish level
+                z0 = Decision(V=z.V.to(dtype), p=z.p.to(dtype))
             else:
-                z0 = Decision(V=lvl.prolong(z.V), p=z.p)
+                z0 = Decision(V=lvl.prolong(z.V.to(dtype)), p=z.p.to(dtype))
             z, stats = solver_of(lvl)(z0, lvl.data)
             if on_level is not None:
                 on_level(i, z, stats)

@@ -86,8 +86,9 @@ def resolve_method(problem, method: str, refine: int = 0) -> str:
     and no library load happens inside a CUDA-graph capture."""
     if method == "cr_dw":
         raise NotImplementedError(
-            "method='cr_dw' is not ported: float64 takes the place of the "
-            "double-word factorisation (ROADMAP queue A)")
+            "method='cr_dw' is not ported: a float64 level on method='cr' "
+            "takes its place, as headline.ConvergedLadder runs its fine level "
+            "past refine.CR_DW_CHAIN")
     block_size = problem.mesh.degree * problem.nv
     nq = problem.model.nq
     if method == "auto":
@@ -233,8 +234,9 @@ def solve_kkt_soa(sys, lam, refine: int = 0, dw: bool = False,
     """
     if dw:
         raise NotImplementedError(
-            "the double-word factorisation (dw=True) is not ported: float64 "
-            "takes its place on the card (ROADMAP queue A)")
+            "the double-word factorisation (dw=True) is not ported: a float64 "
+            "solve takes its place, as headline.ConvergedLadder runs its fine "
+            "level past refine.CR_DW_CHAIN")
     if spike and sys.C.shape[0] > 0 and refine == 0:
         from collocfem_tpu_torch.ops.spike import kkt_solve_spike_fused
 

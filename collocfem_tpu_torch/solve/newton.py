@@ -135,8 +135,9 @@ def make_gn_solver(problem, options: SolverOptions = SolverOptions()):
                          f"{opt.hessian!r}")
     if opt.state_dw:
         raise NotImplementedError(
-            "state_dw is not ported: float64 takes its place (ROADMAP queue "
-            "A)")
+            "state_dw is not ported: a float64 level takes its place, as "
+            "headline.ConvergedLadder runs its polish and fine levels past "
+            "refine.CR_DW_CHAIN")
     method = resolve_method(problem, opt.method, opt.kkt_refine)
     nv = problem.nv
     num_nodes = problem.num_nodes

@@ -218,7 +218,7 @@ def test_sweeps_equal_the_per_level_walk_and_match_jax(k):
 
 
 @pytest.mark.parametrize("arrays,rows", [(5, 64), (2, 24), (2, 8)])
-@pytest.mark.parametrize("k", [9, 16, 17, 130, 20001])
+@pytest.mark.parametrize("k", [9, 16, 17, 130, 20001, 100001])
 def test_sweep_workspace_layout(k, arrays, rows):
     """The views of a sweep's workspace (5 arrays of b b rows for the factor
     sweep, 2 of b r for the apply sweep) follow each other without gap or
@@ -303,7 +303,7 @@ def _cuda_function(name):
 
 
 @pytest.mark.parametrize("rows", [24, 16, 8])
-@pytest.mark.parametrize("k", [9, 16, 17, 130, 20001])
+@pytest.mark.parametrize("k", [9, 16, 17, 130, 20001, 100001])
 def test_backsub_workspace_layout(k, rows):
     """A back-substitution sweep's intermediate X (rows, 2h), levels 1 ..
     levels - 1, follow each other without gap or overlap and fill the
@@ -371,3 +371,33 @@ def test_sweep_views_on_demand(k):
                                              for lv in range(levels)]
     assert cr._pointers(s_g) == [a.data_ptr() for a in s_g]
     assert cr._pointers(list(s_g)) == cr._pointers(s_g)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_layout_at_the_ladders_fine_chain(itemsize):
+    """The fine level of bench.py's ladder past CR_DW_CHAIN: K = 100,001
+    blocks padded to 131,072, 14 levels a sweep (12 at K = 20,001); the
+    back-substitution sweep launches once for each of the 10 levels of more
+    than 64 pairs and once for the other 4; the workspaces' offsets are the
+    CUDA source's, and the largest (the factor sweep's 5 b^2 rows at b = 16)
+    stays below 2^31 elements, though the library passes them as 64-bit."""
+    k, b, r = 100_001, 8, 3
+    kp = 1 << (k - 1).bit_length()
+    D, E, _ = random_chain(1, b, 1, seed=0)
+    assert bt._pad_pow2_soa(D.expand(b, b, k), E.expand(b, b, k))[0].shape[
+        -1] == kp == 131_072
+    levels, h0 = cr.sweep_levels(kp, bt.TAIL), kp // 2
+    assert levels == _cr_level_count(k) == 14
+    small = cr.backsub_small_pairs(b, r, itemsize)
+    assert small == cr.BACKSUB_SMALL_PAIRS == 64
+    assert cr.backsub_sweep_launches(h0, levels, small) == 11
+    for arrays, rows in ((5, b * b), (2, b * r)):
+        starts, total = cr.sweep_layout(arrays, rows, h0, levels)
+        assert starts == [eval(_cuda_function("sweep_offset"), {
+            "arrays": arrays, "rows": rows, "h0": h0, "h": h0 >> lv})
+            for lv in range(levels)]
+        assert total == arrays * rows * 2 * (h0 - (h0 >> levels))
+    starts, total = cr.backsub_layout(b * r, h0, levels)
+    assert starts == [eval(_cuda_function("backsub_offset"), {
+        "rows": b * r, "h0": h0, "h": h0 >> lv}) for lv in range(1, levels)]
+    assert cr.sweep_layout(5, 16 * 16, h0, levels)[1] < 2 ** 31

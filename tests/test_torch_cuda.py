@@ -1129,6 +1129,29 @@ def test_captured_gn_solver_matches_eager(cuda_device, case):
 
 
 @pytest.mark.cuda
+def test_captured_ladder_past_the_chain_matches_eager(cuda_device,
+                                                      monkeypatch):
+    """ConvergedLadder through bench.py's branch past CR_DW_CHAIN (lowered
+    to 100 blocks: 10 float32 -> 10 float64 -> 160 float64 elements on
+    'cr'): the captured ladder equals ladder.eager bit for bit, with the
+    same launches, and its p is float64."""
+    from collocfem_tpu_torch import refine
+    from collocfem_tpu_torch.headline import ConvergedLadder
+    from collocfem_tpu_torch.testing import bit_equal
+
+    monkeypatch.setattr(refine, "CR_DW_CHAIN", 100)
+    ladder = ConvergedLadder(160, device=cuda_device, dtype=torch.float32)
+    assert [(lv.elements, lv.problem.dtype, lv.options.method)
+            for lv in ladder.levels] == [
+        (10, torch.float32, "auto"), (10, torch.float64, "auto"),
+        (160, torch.float64, "cr")]
+    got, counts = _counted_call(ladder)
+    want, eager_counts = _counted_call(ladder.eager)
+    assert bit_equal(got, want) and counts == eager_counts and counts
+    assert got[0].p.dtype == torch.float64
+
+
+@pytest.mark.cuda
 def test_captured_irls_matches_eager(cuda_device):
     """make_irls_solver (two rounds of the captured inner solve, the
     reweighting eager between them) against solve.eager; the later round's

@@ -209,7 +209,8 @@ def test_unported_solver_paths_raise(change):
     tprob = EstimationProblem.build(VanDerPol(), uniform_mesh(0.0, 1.0, 4, 4),
                                     np.linspace(0.1, 0.9, 5), device="cpu",
                                     dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError,
+                       match="float64 .*ConvergedLadder .*CR_DW_CHAIN"):
         make_gn_solver(tprob, SolverOptions(**change))
 
 

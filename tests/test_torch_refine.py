@@ -156,3 +156,143 @@ def test_level_schedule_refuses_float32_past_the_chain_limit(monkeypatch,
     assert refine.level_schedule(opts, ns[:1], torch.float32) == [opts]
     with pytest.raises(ValueError, match="entries"):
         refine.level_schedule([opts], ns, torch.float64)
+
+
+# ---- bench.py's converged ladder past CR_DW_CHAIN ---------------------------
+
+def test_converged_schedule_is_bench_pys(monkeypatch):
+    """Past CR_DW_CHAIN the schedule is bench.py:145-156's level by level,
+    with float64 where the JAX package sets state_dw and cr_dw; below it the
+    three uniform levels; the limit is read at each call."""
+    from collocfem_tpu_torch.headline import converged_schedule
+
+    def rows(levels):
+        return [(lv.elements, lv.dtype, lv.options.maxiter, lv.options.lam0,
+                 lv.options.gtol, lv.options.method, lv.options.state_dw)
+                for lv in levels]
+
+    f32, f64 = torch.float32, torch.float64
+    assert rows(converged_schedule(100_000, f32)) == [
+        (6250, f32, 60, 3e-6, 0.0, "auto", False),
+        (6250, f64, 80, 1e-9, 0.0, "auto", False),
+        (100_000, f64, 40, 1e-9, 0.0, "cr", False)]
+    assert [r[1] for r in rows(converged_schedule(100_000, f64))] == [f64] * 3
+    # Below the chain: refine.level_sizes, 'cr' past the TPU's fused kernel.
+    for dtype in (f32, f64):
+        assert rows(converged_schedule(20_000, dtype)) == [
+            (1250, dtype, 60, 3e-6, 0.0, "auto", False),
+            (5000, dtype, 30, 1e-9, 0.0, "auto", False),
+            (20_000, dtype, 30, 1e-9, 0.0, "cr", False)]
+    assert rows(converged_schedule(10_000, f32)) == [
+        (625, f32, 60, 3e-6, 0.0, "auto", False),
+        (2500, f32, 30, 1e-9, 0.0, "auto", False),
+        (10_000, f32, 30, 1e-9, 0.0, "auto", False)]
+    assert [r[0] for r in rows(converged_schedule(39_999, f32))] == [
+        2500, 10_000, 39_999]
+    assert [r[0] for r in rows(converged_schedule(40_000, f32))] == [
+        2500, 2500, 40_000]
+    monkeypatch.setattr(refine, "CR_DW_CHAIN", 100)
+    assert rows(converged_schedule(160, f32)) == [
+        (10, f32, 60, 3e-6, 0.0, "auto", False),
+        (10, f64, 80, 1e-9, 0.0, "auto", False),
+        (160, f64, 40, 1e-9, 0.0, "cr", False)]
+
+
+# A ladder past a chain limit lowered to 8 blocks: 2 -> 2 -> 15 elements, the
+# fine chain of 16 blocks one CR level deep (the JAX package's trace and
+# compile of its cyclic reduction grow by ~15 s a level on the CPU).
+DW_ELEMENTS, DW_CHAIN = 15, 8
+
+
+def _jax_ladder_past_the_chain(dtype, dw):
+    """The JAX package's bench.py:145-156 schedule at DW_ELEMENTS in
+    ``dtype``: a cold level at max(2, DW_ELEMENTS // 16), a polish on the same mesh
+    (warm-started from the cold solution as it is) and the fine level
+    (through make_prolongation); with ``dw`` the polish carries state_dw
+    and the fine level state_dw and method='cr_dw', as bench.py runs them.
+    Returns (p, the fine level's V) in float64."""
+    from baseline_cpu.run_baseline import TF as HTF, build_headline_problem
+    from collocfem_tpu.solve.newton import make_gn_solver as jax_gn_solver
+
+    _, t_meas, y, _ = build_headline_problem(DW_ELEMENTS)
+    nc = max(2, DW_ELEMENTS // 16)
+    tier = dict(state_dw=True) if dw else {}
+    schedule = [
+        (nc, dict(maxiter=60, lam0=3e-6)),
+        (nc, dict(maxiter=80, lam0=1e-9, **tier)),
+        (DW_ELEMENTS, dict(maxiter=40, lam0=1e-9,
+                           **(dict(tier, method="cr_dw") if dw else {}))),
+    ]
+    z = prev = None
+    for n, opts in schedule:
+        mesh = jax_mesh.uniform_mesh(0.0, HTF, n, 4)
+        prob = JaxProblem.build(JaxVanDerPol(), mesh, t_meas,
+                                defect_weight=100.0, dtype=dtype)
+        data = prob.pack_data(y, t_meas,
+                              u_nodes=np.sin(0.9 * mesh.elem_times)[..., None])
+        if z is None:
+            z0 = prob.initial_guess_from_data(t_meas, y, p0=[0.5, 0.5])
+        elif prev.num_elements == n:
+            z0 = z
+        else:
+            z0 = JaxDecision(V=jax_mesh.make_prolongation(
+                prev, mesh.node_times)(z.V).astype(prob.dtype), p=z.p)
+        z, _ = jax_gn_solver(prob, JaxSolverOptions(gtol=0.0, **opts))(z0,
+                                                                      data)
+        prev = mesh
+    return np.asarray(z.p, np.float64), np.asarray(z.V, np.float64)
+
+
+def _port_ladder_past_the_chain(monkeypatch, dtype):
+    from collocfem_tpu_torch.headline import ConvergedLadder
+
+    monkeypatch.setattr(refine, "CR_DW_CHAIN", DW_CHAIN)
+    ladder = ConvergedLadder(DW_ELEMENTS, device="cpu", dtype=dtype)
+    assert [(lv.elements, lv.problem.dtype, lv.prolong is None)
+            for lv in ladder.levels] == [
+        (2, dtype, True), (2, torch.float64, True),
+        (DW_ELEMENTS, torch.float64, False)]
+    z, _ = ladder()
+    assert z.p.dtype == torch.float64
+    return z.p.numpy(), z.V.numpy()
+
+
+def test_ladder_past_the_chain_matches_jax_in_float64(monkeypatch):
+    """The port's float64 ladder through the branch past CR_DW_CHAIN
+    (lowered to DW_CHAIN blocks in the port's refine, so N = 15 takes it: 2
+    -> 2 -> 15 elements) against the JAX package's float64 run of the same
+    three levels, which needs no double-word option: p within 1e-7
+    relative, the fine level's V within 1e-7 of max |V|."""
+    p, V = _port_ladder_past_the_chain(monkeypatch, torch.float64)
+    jp, jV = _jax_ladder_past_the_chain(np.float64, dw=False)
+    np.testing.assert_allclose(p, jp, rtol=1e-7)
+    np.testing.assert_allclose(V, jV, rtol=0, atol=1e-7 * np.abs(jV).max())
+
+
+def check_float64_levels_replace_the_double_word_tiers(monkeypatch):
+    """The port's ladder past CR_DW_CHAIN as the main path runs it (float32
+    cold level, float64 polish and fine level) against the JAX package's
+    own schedule there: a float32 cold level, the polish with state_dw and
+    the fine level with state_dw and method='cr_dw'.  The float64 levels
+    take the double-word tiers' place: p within 1e-6 relative (3.2e-7
+    measured at DW_ELEMENTS).  Not a Tier-1 test: the JAX package's trace
+    and compile of its double-word solvers alone take ~34 s on 8 CPU cores;
+    run it with ``PYTHONPATH=. python tests/test_torch_refine.py``.  Returns
+    the relative deviation of p."""
+    p, _ = _port_ladder_past_the_chain(monkeypatch, torch.float32)
+    jp, _ = _jax_ladder_past_the_chain(np.float32, dw=True)
+    np.testing.assert_allclose(p, jp, rtol=1e-6)
+    return np.abs(p - jp) / np.abs(jp)
+
+
+if __name__ == "__main__":
+    import time
+
+    import conftest  # noqa: F401  (the JAX package on the CPU, float64)
+
+    with pytest.MonkeyPatch.context() as mp:
+        start = time.perf_counter()
+        dev = check_float64_levels_replace_the_double_word_tiers(mp)
+    print(f"float64 levels against the double-word tiers at N = "
+          f"{DW_ELEMENTS}: |p - p_jax| / |p_jax| = {dev.tolist()} (<= 1e-6), "
+          f"{time.perf_counter() - start:.1f} s")
