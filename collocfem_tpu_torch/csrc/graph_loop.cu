@@ -22,6 +22,14 @@
 // nodes: graph_loop_build then fails at its stage 6 and
 // graph_loop_describe lists the step graph's nodes that are not kernels.
 //
+// The same library holds trace_mark, the device half of utils/profiling.py's
+// spans: a one-thread kernel that appends (code, solve, cause, %globaltimer)
+// to a device log at a device-side cursor, launched on the current stream
+// like any other kernel, so a capture (and a WHILE body) holds it.  A mark
+// passed solve >= 0 (one launched outside a capture) sets the log's current
+// solve and cause first; a captured mark passes -1 and reads them.  A full
+// log counts the mark as dropped instead of writing it.
+//
 // Needs CUDA 12.4 or later (WHILE conditional nodes).
 // Build (ops/_build.py does this at first use):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -143,9 +151,48 @@ void describe(cudaGraph_t graph, char* buf, size_t len, size_t* used,
   delete[] nodes;
 }
 
+// state: {cursor, dropped, solve, cause}; log: capacity rows of {code,
+// solve, cause, time in ns}.
+__global__ void trace_mark(long long* state, long long* log,
+                           long long capacity, long long code,
+                           long long solve, long long cause) {
+  unsigned long long now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+  if (solve >= 0) {
+    state[2] = solve;
+    state[3] = cause;
+  }
+  const long long i = state[0];
+  if (i < capacity) {
+    long long* row = log + 4 * i;
+    row[0] = code;
+    row[1] = state[2];
+    row[2] = state[3];
+    row[3] = static_cast<long long>(now);
+    state[0] = i + 1;
+  } else {
+    state[1] += 1;
+  }
+}
+
 }  // namespace
 
 extern "C" {
+
+// One trace_mark on ``stream``; returns the launch's cudaError_t.
+int trace_mark_launch(void* state, void* log, long long capacity,
+                      long long code, long long solve, long long cause,
+                      void* stream) {
+  trace_mark<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<long long*>(state), static_cast<long long*>(log), capacity,
+      code, solve, cause);
+  return cudaGetLastError();
+}
+
+// cudaStreamSynchronize, for the round trips that calibrate the timer.
+int trace_sync(void* stream) {
+  return cudaStreamSynchronize(static_cast<cudaStream_t>(stream));
+}
 
 // Build and instantiate the loop graph.  before and after may be null.
 // *stage names the call that failed (1 create, 2 handle, 3 before, 4 the

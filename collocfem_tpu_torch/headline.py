@@ -23,6 +23,7 @@ from collocfem_tpu_torch.models import VanDerPol
 from collocfem_tpu_torch.ops.mesh import make_prolongation, uniform_mesh
 from collocfem_tpu_torch.problem import Decision, EstimationProblem, ProblemData
 from collocfem_tpu_torch.solve.newton import SolverOptions, make_gn_solver
+from collocfem_tpu_torch.utils.profiling import device_span, span
 
 MU_TRUE, B_TRUE = 1.0, 1.0
 TF = 10.0
@@ -153,7 +154,10 @@ class ConvergedLadder:
         """Run every level; ``on_level(index, z, stats)`` is called after
         each one.  Returns (z, stats) of the last level.  Each level's solve
         replays its CUDA graphs on a CUDA device (captured at its first
-        call); the casts and the prolongation between levels run eagerly."""
+        call); the casts and the prolongation between levels run eagerly.
+        Level i is the host span ``ladder.level[i]``, the cold initial guess
+        ``ladder.initial_guess`` and the casts and prolongation the device
+        span ``ladder.prolong``."""
         return self._run(on_level, lambda lvl: lvl.solve)
 
     def eager(self, on_level=None):
@@ -164,15 +168,22 @@ class ConvergedLadder:
     def _run(self, on_level, solver_of):
         z = None
         for i, lvl in enumerate(self.levels):
-            dtype = lvl.problem.dtype
-            if z is None:
-                z0 = lvl.problem.initial_guess_from_data(self.t_meas, self.y,
-                                                         p0=[0.5, 0.5])
-            elif lvl.prolong is None:       # the same mesh: a polish level
-                z0 = Decision(V=z.V.to(dtype), p=z.p.to(dtype))
-            else:
-                z0 = Decision(V=lvl.prolong(z.V.to(dtype)), p=z.p.to(dtype))
-            z, stats = solver_of(lvl)(z0, lvl.data)
+            with span(f"ladder.level[{i}]"):
+                z, stats = self._level(lvl, z, solver_of)
             if on_level is not None:
                 on_level(i, z, stats)
         return z, stats
+
+    def _level(self, lvl, z, solver_of):
+        dtype, device = lvl.problem.dtype, lvl.problem.device
+        if z is None:
+            with span("ladder.initial_guess"):
+                z0 = lvl.problem.initial_guess_from_data(self.t_meas, self.y,
+                                                         p0=[0.5, 0.5])
+        else:
+            with device_span("ladder.prolong", device):
+                V = z.V.to(dtype)
+                # The same mesh (a polish level) takes V as it is.
+                z0 = Decision(V=V if lvl.prolong is None
+                              else lvl.prolong(V), p=z.p.to(dtype))
+        return solver_of(lvl)(z0, lvl.data)

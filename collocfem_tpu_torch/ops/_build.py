@@ -30,6 +30,8 @@ from pathlib import Path
 
 import torch
 
+from collocfem_tpu_torch.utils import profiling
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
@@ -225,11 +227,13 @@ def _compile_one(inst: Instance) -> float:
     """Run nvcc on the instance's source; returns its wall in seconds."""
     so, log = inst.paths()
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    profiling.count("kernel_compiles")
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, *inst.defines, "-o", str(tmp),
-         str(inst.source)],
-        capture_output=True, text=True, check=False)
+    with profiling.span("build.compile"):
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, *inst.defines, "-o", str(tmp),
+             str(inst.source)],
+            capture_output=True, text=True, check=False)
     seconds = time.perf_counter() - t0
     log.write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
@@ -273,8 +277,11 @@ def load_all(instances) -> dict[Instance, Built]:
     for inst in instances:
         if inst not in _LOADED:
             so, log = inst.paths()
+            profiling.count("kernel_loads")
+            with profiling.span("build.load"):
+                lib = ctypes.CDLL(str(so))
             _LOADED[inst] = Built(
-                lib=ctypes.CDLL(str(so)), path=so,
+                lib=lib, path=so,
                 seconds=seconds.get(inst, 0.0),
                 log=log.read_text() if log.exists() else "")
     return {inst: _LOADED[inst] for inst in instances}

@@ -51,6 +51,7 @@ from collocfem_tpu_torch.parallel.meshes import (all_max, all_sum,
                                                   capture_refusal)
 from collocfem_tpu_torch.solve.lm_core import LMAux, grad_inf_norm
 from collocfem_tpu_torch.solve.newton import SolverOptions, captured_lm_solve
+from collocfem_tpu_torch.utils.profiling import device_span
 
 
 class BatchDecision(NamedTuple):
@@ -97,12 +98,13 @@ def batch_cost(problem, z: BatchDecision, data_batch, p_prior, p_w,
     with ``dp_axis``, over every rank's experiments.
 
     Per-experiment ``data_batch.p_w`` must be zero: the shared prior enters
-    exactly once, here.
+    exactly once, here.  The device span ``assemble``.
     """
-    r = problem.residuals_batched(z.V, z.p, data_batch)
-    return _finish_cost(cost64_from_residuals(problem, r, z.V, z.p,
-                                              data_batch),
-                        z.p, p_prior, p_w, dp_axis)
+    with device_span("assemble", z.p.device):
+        r = problem.residuals_batched(z.V, z.p, data_batch)
+        return _finish_cost(cost64_from_residuals(problem, r, z.V, z.p,
+                                                  data_batch),
+                            z.p, p_prior, p_w, dp_axis)
 
 
 def _finish_cost(local, p, p_prior, p_w, dp_axis):
@@ -182,23 +184,26 @@ def shared_gn_step_soa(problem, sys, lam, p, p_prior, p_w, *, n_exp: int,
     Jacobi-scaled chain; the damping quadratic form in ``aux.sds`` is that
     of the block-diagonal damping matrix, sum_e dmax_e ||dx_e||^2 +
     smax ||dp||^2.  ``dp_axis``: the process group the experiments are
-    sharded over (None: one rank).
+    sharded over (None: one rank).  The damped chain solve is the device
+    span ``kkt``, the shared-parameter Schur step ``shared``.
 
     Returns (dV (n_exp, M, nv), dp (nq,), aux: LMAux).
     """
     bd, _, kt = sys.D.shape
     k = kt // n_exp
     nv = problem.nv
-    Dsc, Esc, rhs, inv, dmax_e = scale_concat_chain(sys, lam, n_exp)
-    x = chain_solve(Dsc, Esc, rhs)                           # (bd, 1+nq, Kt)
-    # Unscale: A_d^-1 = S X~ S for the state-side Jacobi scaling S.
-    a_g = x[:, 0, :] * inv
-    a_b = x[:, 1:, :] * inv[:, None, :]
-    s_loc, r_loc, gp_sum = all_sum(
-        dp_axis, sys.C - torch.einsum("bqk,brk->qr", sys.B, a_b),
-        sys.gp - torch.einsum("bqk,bk->q", sys.B, a_g), sys.gp)
-    dp, gp_tot, smax = _shared_schur_step(s_loc, r_loc, gp_sum, lam, p,
-                                          p_prior, p_w)
+    with device_span("kkt", p.device):
+        Dsc, Esc, rhs, inv, dmax_e = scale_concat_chain(sys, lam, n_exp)
+        x = chain_solve(Dsc, Esc, rhs)                       # (bd, 1+nq, Kt)
+        # Unscale: A_d^-1 = S X~ S for the state-side Jacobi scaling S.
+        a_g = x[:, 0, :] * inv
+        a_b = x[:, 1:, :] * inv[:, None, :]
+    with device_span("shared", p.device):
+        s_loc, r_loc, gp_sum = all_sum(
+            dp_axis, sys.C - torch.einsum("bqk,brk->qr", sys.B, a_b),
+            sys.gp - torch.einsum("bqk,bk->q", sys.B, a_g), sys.gp)
+        dp, gp_tot, smax = _shared_schur_step(s_loc, r_loc, gp_sum, lam, p,
+                                              p_prior, p_w)
     dx = -(a_g + torch.einsum("bqk,q->bk", a_b, dp))        # (bd, Kt)
     dV = (dx.reshape(bd, n_exp, k).permute(1, 2, 0)
           .reshape(n_exp, k * (bd // nv), nv)[:, :problem.num_nodes])
@@ -226,23 +231,29 @@ def shared_gn_step(problem, z: BatchDecision, data_batch, lam, p_prior,
     ``solve(D, E, G) -> X`` on the whole (E, K, b, ·) batch (default
     :func:`batched_chain_solver`; ``parallel.spike.spike_chain_solver``
     shards every chain over "sp").
-    ``dp_axis``: the process group the experiments are sharded over.
+    ``dp_axis``: the process group the experiments are sharded over.  The
+    device spans ``assemble``, ``kkt`` (the damped chain solves) and
+    ``shared`` (the shared-parameter Schur step).
 
     Returns (dV (n_exp, M, nv), dp (nq,), gnorm, aux: LMAux).
     """
     chain_solver = chain_solver or batched_chain_solver()
-    sys_b = assemble_gn_batched(problem, z.V, z.p, data_batch)
-    d_damped, dmax = damp_blocks(sys_b.D, lam)
-    rhs = torch.cat([sys_b.gx[..., None], sys_b.B], dim=-1)
-    x = chain_solver(d_damped, sys_b.E, rhs)                # (E, K, bd, 1+nq)
-    a_g, a_b = x[..., 0], x[..., 1:]
-    s_loc, r_loc, gp_sum = all_sum(
-        dp_axis,
-        sys_b.C.sum(0) - torch.einsum("ekbq,ekbr->qr", sys_b.B, a_b),
-        sys_b.gp.sum(0) - torch.einsum("ekbq,ekb->q", sys_b.B, a_g),
-        sys_b.gp.sum(0))
-    dp, gp_tot, smax = _shared_schur_step(s_loc, r_loc, gp_sum, lam, z.p,
-                                          p_prior, p_w)
+    device = z.p.device
+    with device_span("assemble", device):
+        sys_b = assemble_gn_batched(problem, z.V, z.p, data_batch)
+    with device_span("kkt", device):
+        d_damped, dmax = damp_blocks(sys_b.D, lam)
+        rhs = torch.cat([sys_b.gx[..., None], sys_b.B], dim=-1)
+        x = chain_solver(d_damped, sys_b.E, rhs)            # (E, K, bd, 1+nq)
+        a_g, a_b = x[..., 0], x[..., 1:]
+    with device_span("shared", device):
+        s_loc, r_loc, gp_sum = all_sum(
+            dp_axis,
+            sys_b.C.sum(0) - torch.einsum("ekbq,ekbr->qr", sys_b.B, a_b),
+            sys_b.gp.sum(0) - torch.einsum("ekbq,ekb->q", sys_b.B, a_g),
+            sys_b.gp.sum(0))
+        dp, gp_tot, smax = _shared_schur_step(s_loc, r_loc, gp_sum, lam,
+                                              z.p, p_prior, p_w)
     dx = -(a_g + torch.einsum("ekbq,q->ekb", a_b, dp))
     dV = blocks_to_nodes(dx, problem.num_nodes, problem.nv)
     aux = _reduced_aux(grad_inf_norm(sys_b.gx, sys_b.gp), sys_b.gx, dx, dmax,
@@ -300,9 +311,10 @@ def make_multi_experiment_solver(problem, options: SolverOptions =
         chain_solve = concat_chain_solver()
 
         def initial(z, data_batch, p_prior, p_w):
-            sys, ct = assemble_gn_soa_batched(problem, z.V, z.p, data_batch,
-                                              with_cost=True)
-            return sys, _finish_cost(ct, z.p, p_prior, p_w, dp_axis)
+            with device_span("assemble", z.p.device):
+                sys, ct = assemble_gn_soa_batched(problem, z.V, z.p,
+                                                  data_batch, with_cost=True)
+                return sys, _finish_cost(ct, z.p, p_prior, p_w, dp_axis)
 
         def trial(z0, data_batch, p_prior, p_w):
             n_exp = z0.V.shape[0]

@@ -27,6 +27,7 @@ from collocfem_tpu_torch.model import Model
 from collocfem_tpu_torch.ops.assemble import x0_prior_residual
 from collocfem_tpu_torch.ops import residual as res_ops
 from collocfem_tpu_torch.ops.mesh import Mesh
+from collocfem_tpu_torch.utils.profiling import spanned
 
 
 class Decision(NamedTuple):
@@ -145,6 +146,7 @@ class EstimationProblem(nn.Module):
             self.register_buffer(name, value)
 
     @staticmethod
+    @spanned("problem.build")
     def build(model: Model, mesh: Mesh, meas_times, defect_weight=1.0,
               pad_to: int | None = None, *, device, dtype,
               defect_rule: str = "interior") -> "EstimationProblem":
@@ -191,6 +193,7 @@ class EstimationProblem(nn.Module):
         return torch.as_tensor(np.array(x, dtype=np.float64),
                                dtype=self.dtype, device=self.device)
 
+    @spanned("problem.pack_data")
     def pack_data(self, y_values, meas_times, u_nodes=None, meas_weight=1.0,
                   p_prior=None, p_weight=0.0, x0_prior=None,
                   x0_weight=0.0) -> ProblemData:

@@ -56,6 +56,15 @@ counts (``ops._build.add_counts``), and a loop graph adds the number of
 steps it ran to a counter on the device, which ``ops._build.settle`` reads
 when the counts are read (``ops._build.snapshot``), not during the solve.
 
+With device marks on (``utils.profiling.recording(device_marks=True)``)
+a key captures a marked plan beside the unmarked one (:func:`_key`): its
+graphs hold the ``trace_mark`` kernels of the device spans the captured
+functions open.  A call is a host ``solve`` span; its loads and its output
+clones are the device spans ``solve.load`` and ``solve.outputs``.  A plan's
+warm-up, captures and instantiations are the host spans ``graph.warmup``,
+``graph.capture`` and ``graph.instantiate``, whose nanoseconds the counter
+``graph_setup_ns`` sums with recording off too.
+
 A capture or a replay that fails raises: nothing falls back to the eager
 loop or to a host-read loop (a solve's schedule is fixed when it is made).
 On the CPU a call runs the eager function.  ``stepwise`` runs the captured
@@ -79,6 +88,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from collocfem_tpu_torch.ops import _build
+from collocfem_tpu_torch.utils import profiling
+from collocfem_tpu_torch.utils.profiling import device_span, span, spanned
 
 LOOP_INSTANCE = _build.Instance("graph_loop", 0, 0)
 
@@ -103,7 +114,7 @@ def _compact(x, dims):
 
 
 def _key(leaves, spec):
-    return (spec, tuple(
+    return (spec, profiling.marks_on(), tuple(
         (tuple(x.shape), x.dtype, x.device, _broadcast_dims(x))
         if torch.is_tensor(x) else ("value", x) for x in leaves))
 
@@ -134,6 +145,7 @@ class _Plan:
 
     def __init__(self, leaves, spec, capture: bool):
         self.capture = capture
+        self.device = _device(leaves)
         self._loads, views = [], []
         for x in leaves:
             if torch.is_tensor(x):
@@ -145,19 +157,19 @@ class _Plan:
                 views.append(x)
         self.args = tree_unflatten(views, spec)
         if capture:
-            device = _device(leaves)
-            self._stream = torch.cuda.Stream(device)
+            self._stream = torch.cuda.Stream(self.device)
             self._pool = torch.cuda.graph_pool_handle()
 
     def load(self, leaves) -> None:
         """Copy a call's inputs into the static buffers."""
         tensors = [x for x in leaves if torch.is_tensor(x)]
-        for (buf, dims), x in zip(self._loads, tensors):
-            buf.copy_(_compact(x, dims))
+        with device_span("solve.load", self.device):
+            for (buf, dims), x in zip(self._loads, tensors):
+                buf.copy_(_compact(x, dims))
 
     def warm_up(self, fn):
         """fn() with every count held, on the side stream when capturing."""
-        with _build.counts_held():
+        with span("graph.warmup", "graph_setup_ns"), _build.counts_held():
             if not self.capture:
                 return fn()
             current = torch.cuda.current_stream(self._stream.device)
@@ -171,6 +183,7 @@ class _Plan:
         """(``body`` captured into a CUDA graph, its share of the counts);
         with ``keep`` the graph is left uninstantiated, for
         :meth:`loop`."""
+        profiling.count("graph_captures")
         g = torch.cuda.CUDAGraph(keep_graph=keep)
         # No garbage collection inside the capture (torch.cuda.graph
         # collects before it): a plan freed there would destroy its graphs
@@ -178,7 +191,8 @@ class _Plan:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with _build.counts_held() as share:
+            with span("graph.capture", "graph_setup_ns"), \
+                    _build.counts_held() as share:
                 with torch.cuda.graph(g, pool=self._pool,
                                       stream=self._stream):
                     body()
@@ -193,9 +207,10 @@ class _Plan:
         if not self.capture:
             return body
         g, share = self._capture(body)
+        launch = _first_instantiates(g.replay)
 
         def replay():
-            g.replay()
+            launch()
             _build.add_counts(share)
 
         return replay
@@ -243,7 +258,8 @@ class _Plan:
         graph, execu, stage = ctypes.c_void_p(), ctypes.c_void_p(), \
             ctypes.c_int()
         device = state.it.device
-        with torch.cuda.device(device):
+        with torch.cuda.device(device), \
+                span("graph.instantiate", "graph_setup_ns"):
             rc = lib.graph_loop_build(
                 g_before.raw_cuda_graph() if g_before else None,
                 g_step.raw_cuda_graph(), g_after.raw_cuda_graph(),
@@ -277,10 +293,15 @@ class _Plan:
                          execu).atexit = False
         self.tally = _build.Tally(self.steps, step_share)
 
-        def run():
+        def launch():
             with torch.cuda.device(device):
-                rc = lib.graph_loop_launch(
+                return lib.graph_loop_launch(
                     execu, torch.cuda.current_stream(device).cuda_stream)
+
+        launch = _first_instantiates(launch)
+
+        def run():
+            rc = launch()
             if rc != 0:
                 raise RuntimeError("the loop graph's launch failed: "
                                    + lib.graph_loop_error_string(rc).decode())
@@ -304,6 +325,21 @@ class _Plan:
                 _build.pending(self.tally)
 
         return run
+
+
+def _first_instantiates(launch):
+    """``launch`` whose first call (which uploads the instantiated graph)
+    is timed as a ``graph.instantiate`` span."""
+    first = [True]
+
+    def run():
+        if first:
+            first.clear()
+            with span("graph.instantiate", "graph_setup_ns"):
+                return launch()
+        return launch()
+
+    return run
 
 
 def _loop_library():
@@ -336,7 +372,8 @@ class _Captured:
     and ``stepwise`` then raise ValueError with it."""
 
     def __init__(self, eager, refused=None):
-        self.eager = eager
+        self._eager = eager
+        self.eager = spanned("solve")(eager)
         self.refused = refused
         self._plans: dict = {}
 
@@ -363,11 +400,12 @@ class _Captured:
         self._refuse()
         leaves, spec = tree_flatten(args)
         device = _device(leaves)
-        if device.type == "cpu":
-            return self.eager(*args)
-        if device.type != "cuda":
+        if device.type not in ("cpu", "cuda"):
             raise ValueError(f"no CUDA graph for tensors on {device}")
-        return self._run(self._plan(leaves, spec, device), leaves)
+        with span("solve"):
+            if device.type == "cpu":
+                return self._eager(*args)
+            return self._run(self._plan(leaves, spec, device), leaves)
 
     def stepwise(self, *args):
         """On the CPU: the captured functions in replay order on the static
@@ -377,7 +415,8 @@ class _Captured:
         device = _device(leaves)
         if device.type != "cpu":
             raise ValueError(f"stepwise runs on the CPU, not on {device}")
-        return self._run(self._plan(leaves, spec, device), leaves)
+        with span("solve"):
+            return self._run(self._plan(leaves, spec, device), leaves)
 
 
 class CapturedSolve(_Captured):
@@ -410,12 +449,16 @@ class CapturedSolve(_Captured):
             return st
 
         plan.state = tree_map(_like, plan.warm_up(warm))
-        plan.run_prelude = plan.graph(
-            lambda: _write(plan.state, self.prelude(*args)))
+
+        def prelude():
+            with device_span("lm.prelude", plan.device):
+                _write(plan.state, self.prelude(*args))
 
         def step():
-            _write(plan.state, self.step(plan.state, *args))
+            with device_span("lm.step", plan.device):
+                _write(plan.state, self.step(plan.state, *args))
 
+        plan.run_prelude = plan.graph(prelude)
         if self.early_exit:
             plan.run_loop = plan.loop(step, plan.state, self.maxiter)
         else:
@@ -432,7 +475,9 @@ class CapturedSolve(_Captured):
         plan.load(leaves)
         plan.run_prelude()
         plan.run_loop()
-        return tree_map(_clone, self.finish(plan.state))
+        out = self.finish(plan.state)
+        with device_span("solve.outputs", plan.device):
+            return tree_map(_clone, out)
 
 
 class CapturedFunction(_Captured):
@@ -447,11 +492,11 @@ class CapturedFunction(_Captured):
         plan = _Plan(leaves, spec, capture)
         plan.load(leaves)
         if capture:
-            plan.warm_up(lambda: self.eager(*plan.args))
+            plan.warm_up(lambda: self._eager(*plan.args))
         plan.out = None
 
         def body():
-            plan.out = self.eager(*plan.args)
+            plan.out = self._eager(*plan.args)
 
         plan.run_body = plan.graph(body)
         return plan
@@ -515,10 +560,13 @@ class CapturedOuterLoop(_Captured):
                                                     plan.warm_up(warm))
         plan.run_prelude = plan.graph(
             lambda: _write(plan.carry, self.prelude(*args)))
+
+        def step():
+            with device_span("lm.step", plan.device):
+                _write(plan.inner, self.step(plan.inner, plan.carry, *args))
+
         plan.run_round = plan.loop(
-            lambda: _write(plan.inner,
-                           self.step(plan.inner, plan.carry, *args)),
-            plan.inner[0], self.maxiter,
+            step, plan.inner[0], self.maxiter,
             before=lambda: _write(plan.inner, self.begin(plan.carry, *args)),
             after=lambda: _write(plan.carry,
                                  self.end(plan.inner, plan.carry, *args)))
@@ -532,7 +580,8 @@ class CapturedOuterLoop(_Captured):
         for _ in range(self.n_outer):
             plan.run_round()
         plan.run_finish()
-        return tree_map(_clone, plan.out)
+        with device_span("solve.outputs", plan.device):
+            return tree_map(_clone, plan.out)
 
 
 class HostReads(TorchDispatchMode):

@@ -42,6 +42,8 @@ from typing import Any, NamedTuple
 import torch
 from torch.utils._pytree import tree_map
 
+from collocfem_tpu_torch.utils.profiling import device_span
+
 HISTORY_COLS = ("cost", "grad_norm", "lam", "step_norm", "accepted")
 
 
@@ -171,7 +173,8 @@ def lm_loop(z0, carry0, cost0, trial_fn, *, maxiter: int, lam0, gtol=0.0,
             ftol: float = 0.0, xtol: float = 0.0, lam_min: float = 1e-14,
             lam_max: float = 1e12, dtype, accept_mode: str = "gain"
             ) -> LMState:
-    """Run the LM loop eagerly; returns the final :class:`LMState`.
+    """Run the LM loop eagerly; returns the final :class:`LMState`.  Each
+    iteration is the device span ``lm.step``.
 
     Args:
       z0: initial iterate (tuple of tensors).
@@ -190,9 +193,10 @@ def lm_loop(z0, carry0, cost0, trial_fn, *, maxiter: int, lam0, gtol=0.0,
     for _ in range(maxiter):
         if early_exit and bool(st.done):
             break
-        st = lm_step(st, trial_fn, gtol=gtol, ftol=ftol, xtol=xtol,
-                     lam_min=lam_min, lam_max=lam_max,
-                     accept_mode=accept_mode)
+        with device_span("lm.step", cost0.device):
+            st = lm_step(st, trial_fn, gtol=gtol, ftol=ftol, xtol=xtol,
+                         lam_min=lam_min, lam_max=lam_max,
+                         accept_mode=accept_mode)
     return st
 
 

@@ -43,6 +43,7 @@ from collocfem_tpu_torch.solve.lm_core import (
     lm_step,
     stops_early,
 )
+from collocfem_tpu_torch.utils.profiling import device_span
 
 __all__ = ["HISTORY_COLS", "SolverOptions", "SolveStats", "captured_lm_solve",
            "make_gn_solver", "make_irls_solver"]
@@ -87,7 +88,10 @@ def captured_lm_solve(initial, trial, options: SolverOptions, *,
     (carry, cost) is ``initial(*inputs)`` and whose trial function is
     ``trial(*inputs)``; the first input is z0.  It returns (z,
     :class:`SolveStats`), and ``.eager`` runs :func:`lm_core.lm_loop`.  The
-    initial state's constants are made once per dtype and device.
+    initial state's constants are made once per dtype and device.  The
+    initial state is the device span ``lm.prelude``, each iteration
+    ``lm.step`` (:class:`solve.graph.CapturedSolve`, :func:`lm_core.lm_loop`)
+    and the outputs ``lm.finish``.
     ``refused``: see :class:`solve.graph.CapturedSolve`."""
     opt = options
     lm_args = dict(gtol=opt.gtol, ftol=opt.ftol, xtol=opt.xtol,
@@ -95,12 +99,14 @@ def captured_lm_solve(initial, trial, options: SolverOptions, *,
     consts = {}
 
     def finish(st):
-        return st.z, SolveStats(iterations=st.it, converged=st.done,
-                                cost=st.cost, grad_norm=st.gnorm, lam=st.lam,
-                                history=st.history)
+        with device_span("lm.finish", st.lam.device):
+            return st.z, SolveStats(iterations=st.it, converged=st.done,
+                                    cost=st.cost, grad_norm=st.gnorm,
+                                    lam=st.lam, history=st.history)
 
     def eager(z0, *inputs):
-        carry0, c0 = initial(z0, *inputs)
+        with device_span("lm.prelude", z0.V.device):
+            carry0, c0 = initial(z0, *inputs)
         return finish(lm_loop(z0, carry0, c0, trial(z0, *inputs),
                               maxiter=opt.maxiter, lam0=opt.lam0,
                               dtype=z0.V.dtype, **lm_args))
@@ -146,8 +152,10 @@ def make_gn_solver(problem, options: SolverOptions = SolverOptions()):
         """The damped KKT step from z on the assembled ``sys``: (z_try,
         LMAux)."""
         gnorm = grad_inf_norm(sys.gx, sys.gp)
-        dx, dp, dmax = solve_kkt_soa(sys, lam, opt.kkt_refine,
-                                     spike=method == "spike", with_dmax=True)
+        with device_span("kkt", lam.device):
+            dx, dp, dmax = solve_kkt_soa(sys, lam, opt.kkt_refine,
+                                         spike=method == "spike",
+                                         with_dmax=True)
         z_try = Decision(V=z.V + blocks_to_nodes_soa(dx, num_nodes, nv),
                          p=z.p + dp)
         gdot, snorm2 = fused_quadforms(sys.gx.reshape(-1), sys.gp,
@@ -163,19 +171,22 @@ def make_gn_solver(problem, options: SolverOptions = SolverOptions()):
 
         def trial(z0, data):
             def trial_fn(z, carry, lam):
-                z_try, aux = step(z, assemble_newton(problem, z, data), lam)
-                return z_try, carry, problem.cost(z_try, data), aux
+                with device_span("assemble", lam.device):
+                    sys = assemble_newton(problem, z, data)
+                z_try, aux = step(z, sys, lam)
+                with device_span("assemble", lam.device):
+                    ct = problem.cost(z_try, data)
+                return z_try, carry, ct, aux
             return trial_fn
     else:
         def initial(z0, data):
-            return assemble_gn_soa(problem, z0, data, with_cost=True)
+            with device_span("assemble", z0.V.device):
+                return assemble_gn_soa(problem, z0, data, with_cost=True)
 
         def trial(z0, data):
             def trial_fn(z, sys, lam):
                 z_try, aux = step(z, sys, lam)
-                sys_try, ct = assemble_gn_soa(problem, z_try, data,
-                                              with_cost=True)
-                return z_try, sys_try, ct, aux
+                return (z_try, *initial(z_try, data), aux)
             return trial_fn
 
     return captured_lm_solve(initial, trial, opt)

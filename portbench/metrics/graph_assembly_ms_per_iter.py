@@ -1,0 +1,10 @@
+"""Device milliseconds per LM step in the ``assemble`` spans (the trial
+assemblies and costs) of the captured solves of the span pass; the
+ladder's finest level."""
+
+from portbench import spans
+
+
+def read(r):
+    sp = spans.of(r)
+    return None if sp is None else spans.per_step_ms(sp.spans, "assemble")

@@ -2093,3 +2093,81 @@ def test_a_failing_scan_capture_raises(cuda_device):
     (c, ), ys = s.eager(c0, xs)
     assert c.tolist() == [24.0, 24.0] and ys.tolist() == [2.0, 2.0, 4.0,
                                                           12.0]
+
+
+@pytest.mark.cuda
+def test_device_marks_in_the_captured_loop(cuda_device):
+    """make_gn_solver on the headline at N = 40 to gtol (the WHILE-node loop
+    graph).  Marks off: a graph capture is counted at the first call and
+    nothing at the second, and a recording leaves a later plan's node
+    counts as they were.  Marks on: a second, marked plan whose step graph
+    holds exactly 6 nodes more (lm.step, kkt, assemble: a begin and an end
+    mark each), results bit for bit the unmarked plan's, one decoded
+    ``lm.step`` per iteration, every device span of the call tied to its
+    ``solve`` span and inside its call-to-synchronize wall, a calibration
+    good to 50 us, and a later recording that decodes the marked plan."""
+    import time
+
+    from collocfem_tpu_torch.headline import headline_problem
+    from collocfem_tpu_torch.solve.newton import SolverOptions, make_gn_solver
+    from collocfem_tpu_torch.testing import bit_equal
+    from collocfem_tpu_torch.utils import profiling
+
+    prob, data, z0 = headline_problem(40, dtype=torch.float64,
+                                      device=cuda_device)
+    opts = SolverOptions(**CAPTURED_CASES["early exit"])
+    solve = make_gn_solver(prob, opts)
+    c0 = profiling.counters()
+    plain = solve(z0, data)
+    torch.cuda.synchronize()
+    c1 = profiling.counters()
+    solve(z0, data)
+    torch.cuda.synchronize()
+    assert profiling.counters() == c1
+    assert c1["graph_captures"] > c0["graph_captures"]
+    with profiling.recording(device_marks=True) as rec:
+        marked = solve(z0, data)
+        torch.cuda.synchronize()
+        rec.clear()
+        t0 = time.perf_counter_ns()
+        again = solve(z0, data)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter_ns()
+    assert bit_equal(marked, plain) and bit_equal(again, plain)
+    unmarked, with_marks = solve._plans.values()
+    assert with_marks.loop_nodes["step"] == unmarked.loop_nodes["step"] + 6
+    assert with_marks.loop_nodes["after"] == unmarked.loop_nodes["after"]
+    fresh = make_gn_solver(prob, opts)
+    fresh(z0, data)
+    assert next(iter(fresh._plans.values())).loop_nodes == \
+        unmarked.loop_nodes
+    unc = max(rec.clock[k]["uncertainty_ns"] for k in ("start", "end"))
+    assert 0 < unc < 50_000 and rec.clock["dropped"] == 0
+    call, = [s for s in rec.spans if s.name == "solve"]
+    dev = [s for s in rec.spans if s.device]
+    assert dev and all(s.solve == call.id for s in dev)
+    assert all(t0 - unc <= s.start <= s.end <= t1 + unc for s in dev)
+    steps = [s for s in dev if s.name == "lm.step"]
+    assert len(steps) == int(plain[1].iterations)
+    assert all(s.parent == call.id for s in steps)
+    # A later recording replays the marked plan and reads its names.
+    with profiling.recording(device_marks=True) as later:
+        solve(z0, data)
+    assert len(solve._plans) == 2
+    assert sum(s.name == "lm.step" for s in later.spans) == len(steps)
+
+
+@pytest.mark.cuda
+def test_an_overfull_device_log_counts_its_drops(cuda_device):
+    """Marks past the log's capacity are counted as dropped (in the
+    recording's clock and the ``marks_dropped`` counter), not written."""
+    from collocfem_tpu_torch.utils import profiling
+
+    before = profiling.counters()["marks_dropped"]
+    with profiling.recording(device_marks=True) as rec:
+        for _ in range(profiling.MARK_CAPACITY // 2 + 3):
+            with profiling.device_span("kkt", cuda_device):
+                pass
+    assert rec.clock["dropped"] == 6
+    assert profiling.counters()["marks_dropped"] == before + 6
+    assert sum(s.device for s in rec.spans) == profiling.MARK_CAPACITY // 2

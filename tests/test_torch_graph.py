@@ -360,3 +360,72 @@ def test_counts_held_restores_after_an_error():
             cr.cr_level_factor_ref.launches += 7
             raise RuntimeError("capture failed")
     assert cr.cr_level_factor_ref.launches == n
+
+
+# Each LM step's device spans (their direct children of lm.step) by solver.
+STEP_PARTS = {"headline": {"kkt": 1, "assemble": 1},
+              "soa": {"kkt": 1, "shared": 1, "assemble": 1},
+              "blocks": {"assemble": 2, "kkt": 1, "shared": 1}}
+
+
+def _span_case(case):
+    """(solve, args) at 3 fixed-work iterations: the headline at N = 40,
+    config 5 at 4 x 10 in either layout."""
+    opts = SolverOptions(maxiter=3, gtol=0.0, lam0=1e-6, lam_max=1e30)
+    if case == "headline":
+        prob, data, z0 = headline_problem(40, dtype=F64, device="cpu")
+        return make_gn_solver(prob, opts), (z0, data)
+    prob, z0, data, p_prior, p_w = build_config5_problem(4, 10, dtype=F64,
+                                                         device="cpu")
+    return (make_multi_experiment_solver(prob, opts, layout=case),
+            (z0, data, p_prior, p_w))
+
+
+@pytest.mark.parametrize("case", list(STEP_PARTS))
+def test_device_spans_mark_each_lm_step(case):
+    """With device marks on (on the CPU, host times at the marks' places),
+    ``.stepwise`` and ``.eager`` each give one host ``solve`` span holding
+    the prelude, one ``lm.step`` a step with its kkt / assemble / shared
+    spans, and the solve's loads and outputs, every device span tied to its
+    solve; the results equal those with recording off bit for bit, and
+    marks on make a marked plan beside the unmarked one."""
+    from collections import Counter
+
+    from collocfem_tpu_torch.utils import profiling
+
+    solve, args = _span_case(case)
+    plain = solve.stepwise(*args), solve.eager(*args)
+    with profiling.recording(device_marks=True) as rec:
+        marked = solve.stepwise(*args), solve.eager(*args)
+    _assert_same(marked, plain)
+    assert len(solve._plans) == 2
+    solves = [s for s in rec.spans if s.name == "solve"]
+    assert len(solves) == 2 and not any(s.device for s in solves)
+    for sv in solves:
+        mine = [s for s in rec.spans if s.device and s.solve == sv.id]
+        assert all(sv.start <= s.start <= s.end <= sv.end for s in mine)
+        steps = [s for s in mine if s.name == "lm.step"]
+        assert len(steps) == 3 and all(s.parent == sv.id for s in steps)
+        for st in steps:
+            assert Counter(s.name for s in mine if s.parent == st.id) == \
+                STEP_PARTS[case]
+        assert sum(s.name == "lm.prelude" for s in mine) >= 1
+    stepwise = next(s for s in solves if any(
+        c.name == "solve.outputs" and c.solve == s.id for c in rec.spans))
+    assert stepwise.start < solves[1].start
+
+
+def test_a_plan_counts_its_set_up_once():
+    """The set-up counter moves at a key's first call (the plan's warm-up)
+    and stays put at a second call of the same shapes; on the CPU nothing
+    is captured."""
+    from collocfem_tpu_torch.utils import profiling
+
+    solve, args = _span_case("headline")
+    before = profiling.counters()
+    solve.stepwise(*args)
+    first = profiling.counters()
+    solve.stepwise(*args)
+    assert profiling.counters() == first
+    assert first["graph_setup_ns"] > before["graph_setup_ns"]
+    assert first["graph_captures"] == before["graph_captures"]
