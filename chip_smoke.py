@@ -87,6 +87,14 @@ Phases, each printing its own line; any failure raises and exits non-zero:
      fused level's right-hand side), every level, the sweeps and whole
      solves, timed, and on seeded chains, K in {16, 17, 130, 1000}, with
      the bars above.
+     The GN element kernel (ops/gn_elements.py gn_system, csrc/
+     gn_elements.cu; _phase2_gn) against its plain version gn_system_ref on
+     the same node values at the main path's shapes, the headline at its
+     initial guess at N = 10,000 (the n10k cell's) and N = 100,000 (the
+     ladder's fine level), both dtypes: every leaf of the system within
+     1e-12 (float64) or 5e-5 (float32) of its largest entry, the float64
+     cost likewise, two launches bit-identical, its ms beside the plain
+     version's and its bound (_gn_bound).
      Times each kernel and its plain version (CUDA events; kernels #3-#6:
      the sum over the 12 levels of one headline solve at N = 20,000, #4,
      #5 and #6 through their sweeps, with the per-level calls' time
@@ -96,8 +104,8 @@ Phases, each printing its own line; any failure raises and exits non-zero:
      the bytes and operations of its float32 call;
   3. the headline fixed work: Van der Pol, N = 10,000 elements, degree 4,
      float32, 15 LM iterations; the cost must fall more than 10x, p must be
-     finite, and the kernel's launch count must rise by exactly 15 with no
-     call of a plain version;
+     finite, and the kernel's launch count must rise by exactly 15 (the GN
+     element kernel's by 16) with no call of a plain version;
   4. the same problem in float64 to convergence: ||p - [1, 1]||_inf < 1e-4
      (printed beside the one-thread kernel's 2.95e-11);
   5. config 5's fixed work: 1024 experiments x 10 elements, degree 4,
@@ -272,7 +280,13 @@ Phases, each printing its own line; any failure raises and exits non-zero:
 Phases 3-9, 13 and 16 run each solve as it runs by default on a CUDA device:
 from CUDA graphs captured at its first call (collocfem_tpu_torch/solve/
 graph.py), and every launch count above is the captured run's (each replay
-adds its graph's share).  Each of these phases also runs ``solve.eager`` once
+adds its graph's share).  Wherever a counted solve assembles an
+EstimationProblem in the GN element kernel's range on the card (every
+Gauss-Newton solve of phases 3, 7-9 and 12-16 does), the GN element kernel
+is counted with the others: once an LM step and once at each solve's start
+(make_gn_solver, make_irls_solver), once an inner step (the barrier solvers
+of solve/bounds.py and constrained.py).  Each of these phases also runs
+``solve.eager`` once
 on the same inputs and raises unless it gives the captured result bit for
 bit (z, cost, iterations, history and the other SolveStats fields, by
 torch.equal on their bit patterns); phase 13 does so for the first 20 MHE
@@ -349,7 +363,11 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     # No Pallas kernel: the psum / pmax inside the JAX package's shard_map.
     "peer_reduce": ("collocfem_tpu_torch/csrc/peer_reduce.cu",
                     "collocfem_tpu/parallel/sharded.py:295"),
+    # No Pallas kernel: vmap(jacfwd) and the einsums of assemble_gn_soa.
+    "gn_system": ("collocfem_tpu_torch/csrc/gn_elements.cu",
+                  "collocfem_tpu/ops/assemble.py:351"),
 }
+GN = "gn_system"
 CR_NAMES = ("cr_level", "cr_level_factor", "cr_level_apply", "cr_backsub")
 # Launches at each shape ((b, nq) for kernel #1, (b,) for #4, (b, r) for
 # the others) over the main path's counted runs, as the wrappers recorded
@@ -1127,13 +1145,13 @@ def _hold(label, dtype, got, want, residual):
 
 def _wrappers():
     """{kernel name: (wrapper, plain version)} for every kernel."""
-    from collocfem_tpu_torch.ops import cr, spike, thomas
+    from collocfem_tpu_torch.ops import cr, gn_elements, spike, thomas
     from collocfem_tpu_torch.parallel import peer
 
     mods = {"kkt_solve_spike_fused": spike,
             "blocktri_solve_spike_fused": spike,
             "batched_thomas_solve": thomas, **{n: cr for n in CR_NAMES},
-            "peer_reduce": peer}
+            "peer_reduce": peer, GN: gn_elements}
     return {name: (getattr(mod, name), getattr(mod, name + "_ref"))
             for name, mod in mods.items()}
 
@@ -1178,6 +1196,15 @@ def _expect_only(counts, plain_calls, want, label):
     if got != want or plain_calls != 0:
         raise RuntimeError(f"{label}: expected launches {want} and no plain "
                            f"call, got {got} and {plain_calls} plain calls")
+
+
+def _assembled(want, steps, starts=1):
+    """``want`` with the GN element kernel's launches of Gauss-Newton solves
+    that took ``steps`` LM steps in all from ``starts`` starting points: one
+    assembly a step and one at each start (make_gn_solver's prelude;
+    ``starts`` = 0 for the barrier solvers, which assemble only in their
+    steps)."""
+    return {**want, GN: steps + starts}
 
 
 def _config5_systems(c5, lam):
@@ -1623,7 +1650,8 @@ def _run_ladder(ladder, label, card, main=None):
     0 every level runs all its maxiter trial solves (the lambda rail stops
     its progress, not its loop), so a level on 'auto' launches kernel #1
     maxiter times and a level on 'cr' launches kernels #4-#6 (levels x
-    maxiter) times each; nothing else may launch and no plain version may run.
+    maxiter) times each, and the GN element kernel maxiter + 1 times;
+    nothing else may launch and no plain version may run.
     The first run also counts each level's reads to the host (its warm start
     and its solve, solve.graph.HostReads) and raises unless there are none.
     With a dict ``main`` the levels' launches are added to it, and their
@@ -1653,10 +1681,10 @@ def _run_ladder(ladder, label, card, main=None):
         counts, plain = _counts()
         lvl = ladder.levels[i]
         n = lvl.options.maxiter
-        want = ({"kkt_solve_spike_fused": n}
-                if lvl.options.method == "auto" else
-                {k: _cr_level_count(lvl.elements + 1) * n
-                 for k in CR_NAMES[1:]})
+        want = _assembled({"kkt_solve_spike_fused": n}
+                          if lvl.options.method == "auto" else
+                          {k: _cr_level_count(lvl.elements + 1) * n
+                           for k in CR_NAMES[1:]}, n)
         _expect_only(counts, plain, want, f"{label} level {i}")
         if main is not None:
             _keep_shapes(want)
@@ -1700,8 +1728,9 @@ def _cr_fixed_work(label, elements, dtype, dev, card):
     package's 'auto' resolves to past its fused kernel's reach): 15 LM
     iterations with every tolerance 0, kkt_refine=0, lam0 3e-6 and the
     lambda rail off, captured.  Raises unless kernels #4-#6 launched 15 x
-    levels times each and nothing else did, the captured run gives
-    solve.eager's result bit for bit, p is finite and the cost falls.
+    levels times each, the GN element kernel 16 times and nothing else did,
+    the captured run gives solve.eager's result bit for bit, p is finite
+    and the cost falls.
     Returns (record, the first call's launch counts): the wall (best of 3 in
     float32, one run in float64), the eager wall, one captured run's
     profile, the cost before and after, p, accepts and lambdas."""
@@ -1729,8 +1758,8 @@ def _cr_fixed_work(label, elements, dtype, dev, card):
           f"calls {plain_calls}; wall {min(walls):.4f} s captured (best "
           f"of {len(walls)}) on {card}")
     _expect_only(counts, plain_calls,
-                 {k: 15 * _cr_level_count(elements + 1)
-                  for k in CR_NAMES[1:]},
+                 _assembled({k: 15 * _cr_level_count(elements + 1)
+                             for k in CR_NAMES[1:]}, 15),
                  f"{label} fixed work {name}")
     _, eager_wall = _vs_eager(f"{label} fixed work {name}", solve,
                               (z0, data), (z, stats))
@@ -1750,7 +1779,8 @@ def _cr_fixed_work(label, elements, dtype, dev, card):
 
 def _phase7(dev, card, record):
     """Phase 7: the headline at N = ELEMENTS_CR through the CR kernels.
-    Returns the launches of kernels #3-#6 on their main paths."""
+    Returns the launches of kernels #3-#6 and the GN element kernel on
+    their main paths."""
     import torch
 
     from collocfem_tpu_torch.headline import ConvergedLadder
@@ -1775,8 +1805,8 @@ def _phase7(dev, card, record):
             print(f"  (float32 at this N runs at the float32 factorisation "
                   f"cliff; the JAX package's CPU float32 run: "
                   f"{CR_FIXED_JAX_F32_RATIO:.2f}x)")
-            launches.update({k: counts[k] for k in CR_NAMES[1:]})
-            _keep_shapes(CR_NAMES[1:])
+            launches.update({k: counts[k] for k in (*CR_NAMES[1:], GN)})
+            _keep_shapes([*CR_NAMES[1:], GN])
         else:
             p_dev = _p_dev(rec["p"], CR_FIXED_JAX_F64_P)
             rec["p_vs_jax"] = p_dev
@@ -1916,7 +1946,7 @@ def _phase16(dev, card, record):
     float32 -> 6,250 float64 -> 100,000 float64 on 'cr', captured and
     eager bit for bit, 0 host reads in each level; p within 1e-6 of the JAX
     package's float64 run of the same levels, ||p - 1||_inf < 1e-4.
-    Returns the launches of kernels #1 and #4-#6."""
+    Returns the launches of kernels #1, #4-#6 and the GN element kernel."""
     import torch
 
     from collocfem_tpu_torch.headline import ConvergedLadder
@@ -1927,8 +1957,8 @@ def _phase16(dev, card, record):
         name = str(dtype).split(".")[1]
         rec, counts = _cr_fixed_work("phase 16", ELEMENTS_DW, dtype, dev, card)
         record[f"dw_fixed_work_{name}"] = rec
-        _keep_shapes(CR_NAMES[1:])
-        for k in CR_NAMES[1:]:
+        _keep_shapes([*CR_NAMES[1:], GN])
+        for k in (*CR_NAMES[1:], GN):
             launches[k] = launches.get(k, 0) + counts[k]
         if dtype == torch.float64:
             c0, c_end = rec["cost"]
@@ -2019,6 +2049,86 @@ def _dense_kkt(sys_, lam_abs):
     M[n:, n:] = C
     M.diagonal().add_(lam_abs)
     return M, -torch.cat([gx.T.reshape(n), gp])[:, None]
+
+
+def _gn_bound(prob, z, data, vals, sys_):
+    """(bound ms, binding) of one gn_system call: its operands read once (V,
+    the node values, y, meas_w and the problem's mask, rows, widths and
+    dscale) and D, E, B and gx written once; operations 2 m c^2 an element
+    (J^T [J | r] of the element's m rows and c = (d + 1) nx + nq + 1
+    columns) at the float32 peak."""
+    read = [z.V, *vals, data.y, data.meas_w, prob.mmask, prob.mrows,
+            prob.widths, prob.dscale]
+    written = [sys_.D, sys_.E, sys_.B, sys_.gx]
+    nbytes = sum(x.numel() * x.element_size() for x in read + written)
+    m = (vals.fv.shape[1] * vals.fv.shape[2]
+         + vals.hv.shape[1] * vals.hv.shape[2])
+    c = (prob.mesh.degree + 1) * prob.model.nx + prob.model.nq + 1
+    return _bound(nbytes, 2 * m * c * c * prob.mesh.num_elements)
+
+
+def _phase2_gn(dev, card):
+    """Phase 2 for the GN element kernel (ops/gn_elements.py gn_system):
+    against its plain version gn_system_ref on the same node values, on the
+    headline at its initial guess at N = ELEMENTS (the n10k cell's shape)
+    and ELEMENTS_DW (the ladder's fine level), in both dtypes: every leaf of
+    the system within 1e-12 (float64) or 5e-5 (float32) of its largest
+    entry, the float64 cost within 1e-12 (1e-6) of it, two launches bit for
+    bit; its ms and the plain version's by CUDA events, and its bound
+    (_gn_bound).  Returns {(N, dtype name): record}."""
+    import torch
+
+    from collocfem_tpu_torch.ops import gn_elements as ge
+    from collocfem_tpu_torch.testing import bit_equal
+
+    out = {}
+    for n in (ELEMENTS, ELEMENTS_DW):
+        for dtype in (torch.float32, torch.float64):
+            name = str(dtype).split(".")[1]
+            label = f"GN element kernel headline N={n} {name}"
+            prob, data, z0 = _headline(dtype, dev, n)
+            if not ge.engages(prob, z0, data):
+                raise RuntimeError(f"{label}: the kernel does not take it")
+            vals = ge.node_values(prob, z0, data)
+            kernel = lambda: ge.gn_system(prob, z0, data, vals)
+            plain = lambda: ge.gn_system_ref(prob, z0, data, vals)
+            got, again, (want, want_cost) = kernel(), kernel(), plain()
+            torch.cuda.synchronize()
+            if not bit_equal(got, again):
+                raise RuntimeError(f"{label}: two launches differ")
+            sys_, cost = got
+            tol = 1e-12 if dtype == torch.float64 else 5e-5
+            rel, err = {}, 0.0
+            for leaf in ("D", "E", "B", "C", "gx", "gp"):
+                g, w = getattr(sys_, leaf), getattr(want, leaf)
+                if not bool(torch.isfinite(g).all()):
+                    raise RuntimeError(f"{label}: {leaf} is not finite")
+                diff = float((g - w).abs().max())
+                rel[leaf] = diff / float(w.abs().max())
+                err = max(err, diff)
+            rel["cost"] = abs(float(cost - want_cost)) / float(want_cost)
+            c_tol = 1e-12 if dtype == torch.float64 else 1e-6
+            ok = (max(v for k, v in rel.items() if k != "cost") <= tol
+                  and rel["cost"] <= c_tol)
+            k_ms, p_ms = _cuda_ms(kernel, 20), _cuda_ms(plain, 3)
+            bound = _gn_bound(prob, z0, data, vals, sys_)
+            out[(n, name)] = dict(
+                N=n, K=n + 1, b=sys_.D.shape[0], nq=sys_.C.shape[0],
+                S=prob.mmask.shape[1], max_abs_err=err, rel_err=rel,
+                ms=k_ms, plain_ms=p_ms, bound_ms=bound[0],
+                bound_by=bound[1])
+            print(f"  {label} (K={n + 1}, b={sys_.D.shape[0]}, "
+                  f"S={prob.mmask.shape[1]}): leaves' rel diff "
+                  + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+                  + f" (<= {tol:g}, cost {c_tol:g}) "
+                  f"{'ok' if ok else 'FAIL'}; two launches bit-identical; "
+                  f"kernel {k_ms:.4f} ms/call, plain {p_ms:.3f} ms/call, "
+                  f"bound {bound[0] * 1e3:.2f} us ({bound[1]}) on {card}")
+            if not ok:
+                raise RuntimeError(f"{label}: the kernel disagrees with its "
+                                   "plain version")
+            del prob, data, z0, vals, got, again, want, sys_
+    return out
 
 
 def _phase2_configs(dev, card):
@@ -2172,8 +2282,13 @@ def _new_instances():
     (tests/test_multi_experiment.py's batch), #2 at (8, 4) and (8, 6)
     (configs 2 and 4 with kkt_refine) and (16, 1) (the split actuator);
     the CR kernels at (4, 2) (parameter_std at degree 2) and b = 12 (config
-    3 with method='cr')."""
-    from collocfem_tpu_torch.ops import cr, spike, thomas
+    3 with method='cr'); the GN element kernel at the shapes of the
+    Gauss-Newton problems (degree, nx, nq, samples per element, ny): the
+    headline (4, 2, 2, 2, 1) and its ladders' coarse levels (S = 17 and 5),
+    configs 2 (4, 2, 3, 3, 1) and 4 and the aircraft (4, 2, 5, 2, 3), the
+    bounded Van der Pol at degrees 4 and 2 (S = 3) and the PEM's MAP polish
+    (4, 2, 3, 2, 1)."""
+    from collocfem_tpu_torch.ops import cr, gn_elements, spike, thomas
 
     out = []
     for b in SEEDED_BLOCKS:
@@ -2183,6 +2298,9 @@ def _new_instances():
     out += [spike.kkt_instance(9, 1), spike.chain_instance(8, 4),
             spike.chain_instance(8, 6), spike.chain_instance(16, 1),
             cr.instance(4, 2), cr.instance(12, 0), cr.instance(12, 1)]
+    out += [gn_elements.instance(*shape, False) for shape in (
+        (4, 2, 2, 2, 1), (4, 2, 2, 17, 1), (4, 2, 2, 5, 1), (4, 2, 3, 3, 1),
+        (4, 2, 5, 2, 3), (4, 2, 2, 3, 1), (2, 2, 2, 3, 1), (4, 2, 3, 2, 1))]
     prebuilt = set(_prebuild_set())
     return [i for i in dict.fromkeys(out) if i not in prebuilt]
 
@@ -2432,7 +2550,7 @@ def _main_shapes(name, launches):
     """The kernels line's ``shapes`` of kernel ``name``: its main-path
     launches at each shape, as its wrapper recorded them.  Raises unless
     they add up to ``launches``."""
-    key = {"kkt_solve_spike_fused": ("b", "nq"),
+    key = {"kkt_solve_spike_fused": ("b", "nq"), GN: ("b", "nq"),
            "peer_reduce": ("P", "n")}.get(name, ("b", "r"))
     out = [{**dict(zip(key, shape)), "launches": n}
            for shape, n in sorted(MAIN_SHAPES.get(name, {}).items())]
@@ -2530,7 +2648,9 @@ def _config_phase(num, cname, build, fixed, converged, truth, jax_p,
           options) or 'newton' (the converged options with
           hessian='newton'), float64, from z0: p within 1e-6 of the JAX
           package's.
-    Returns the launches of kernels #1 and #4-#6 over (a)-(e)."""
+    Each Gauss-Newton run launches the GN element kernel once an LM
+    iteration and once at each solve's start.  Returns the launches of
+    kernels #1, #4-#6 and the GN element kernel over (a)-(e)."""
     import torch
 
     from collocfem_tpu_torch.solve.newton import (SolverOptions,
@@ -2549,13 +2669,14 @@ def _config_phase(num, cname, build, fixed, converged, truth, jax_p,
         _keep_shapes(counts)
 
     def only_kkt(out):   # once per LM iteration of an early-exit run
-        return {kkt: int(out[1].iterations)}
+        return _assembled({kkt: int(out[1].iterations)},
+                          int(out[1].iterations))
 
     # (a) float32 fixed work.
     prob, z0, data = build(dtype=torch.float32, device=dev)
     solve = make_gn_solver(prob, SolverOptions(**fixed))
     (z, st), _, counts = _counted(f"{tag} (a)", lambda: solve(z0, data),
-                                  {kkt: maxiter})
+                                  _assembled({kkt: maxiter}, maxiter))
     add(counts)
     walls = [_timed(lambda: solve(z0, data))[1] for _ in range(3)]
     c0, c_end, p = float(prob.cost(z0, data)), float(st.cost), z.p.tolist()
@@ -2585,9 +2706,11 @@ def _config_phase(num, cname, build, fixed, converged, truth, jax_p,
     n_levels = _cr_level_count(prob.mesh.num_blocks)
     c0 = float(prob.cost(z0, data))
     for part, opts, want, ref in (
-            ("(b)", dict(fixed), {kkt: maxiter}, jax_p["fixed"]),
+            ("(b)", dict(fixed), _assembled({kkt: maxiter}, maxiter),
+             jax_p["fixed"]),
             ("(c)", dict(fixed, method="cr"),
-             {k: maxiter * n_levels for k in CR_NAMES[1:]}, jax_p["fixed"]),
+             _assembled({k: maxiter * n_levels for k in CR_NAMES[1:]},
+                        maxiter), jax_p["fixed"]),
             ("(d)", dict(converged), only_kkt, jax_p["converged"])):
         solve = make_gn_solver(prob, SolverOptions(**opts))
         run = (lambda: solve(z0, data)) if part != "(d)" else (
@@ -2623,16 +2746,19 @@ def _config_phase(num, cname, build, fixed, converged, truth, jax_p,
         out, first, counts = _counted(
             f"{tag} (e)", lambda: _no_reads(f"{tag} (e) first call",
                                             lambda: solve(z0, data)),
-            lambda out: {kkt: sum(int(r.iterations) for r in out[1])})
+            lambda out: _assembled(
+                {kkt: sum(int(r.iterations) for r in out[1])},
+                sum(int(r.iterations) for r in out[1]), len(out[1])))
         z, rounds, _ = out
         st = rounds[-1]
     else:
         solve = make_gn_solver(prob, SolverOptions(**converged,
                                                    hessian="newton"))
+        # hessian='newton' assembles by assemble_newton: no GN element kernel.
         out, first, counts = _counted(
             f"{tag} (e)", lambda: _no_reads(f"{tag} (e) first call",
                                             lambda: solve(z0, data)),
-            only_kkt)
+            lambda out: {kkt: int(out[1].iterations)})
         z, st = out
         rounds = (st,)
         if not bool(st.converged):
@@ -2813,12 +2939,14 @@ def _profile_run(label, run, best_wall):
                 idle_share=idle, top_us=top)
 
 
-def _captured_and_eager(tag, solve, args, kernel, shape, iters):
+def _captured_and_eager(tag, solve, args, kernel, shape, iters,
+                        assembled=False):
     """Run the captured ``solve`` on ``args`` twice (the first call: warm-up,
     capture and replays; then a replay) and ``solve.eager`` once, each
     counted: each must launch ``kernel`` ``iters(result)`` times, all at
-    ``shape``, and no plain version.  The first call's launches join the
-    main path's.  Returns (the first call's result, its counts, {run:
+    ``shape`` (with ``assembled``, the GN element kernel as often: a barrier
+    solver assembles once an inner step), and no plain version.  The first
+    call's launches join the main path's.  Returns (the first call's result, its counts, {run:
     wall}, whether the three runs launched alike and the replay and the
     eager run gave the first call's result bit for bit: z and every stats
     field, by torch.equal on their bit patterns)."""
@@ -2829,8 +2957,10 @@ def _captured_and_eager(tag, solve, args, kernel, shape, iters):
             f"{tag} first call", lambda: solve(*args))),
                       ("captured", lambda: solve(*args)),
                       ("eager", lambda: solve.eager(*args))):
-        runs[name] = _counted(f"{tag} {name}", run,
-                              lambda out: {kernel: iters(out)})
+        runs[name] = _counted(
+            f"{tag} {name}", run, lambda out: (
+                _assembled({kernel: iters(out)}, iters(out), 0)
+                if assembled else {kernel: iters(out)}))
         if LAST_SHAPES[kernel] != {shape: runs[name][2][kernel]}:
             raise RuntimeError(f"{tag} {name}: launches by shape "
                                f"{LAST_SHAPES[kernel]}, expected {shape}")
@@ -2984,9 +3114,10 @@ def _constrained_estimation(dev, card, record):
     degree 2 (kernel #1 at (4, 2)): p within 1e-6 of the JAX package's.
     Each solver replays its whole barrier homotopy from CUDA graphs
     (solve.bounds.barrier_homotopy).  Each case runs captured twice and
-    eagerly once (_captured_and_eager): each run launches kernel #1 once
-    per inner LM iteration (the sum of history[:, 3]) at the case's shape
-    and no plain version, and the three agree bit for bit.  Prints the
+    eagerly once (_captured_and_eager): each run launches kernel #1 and the
+    GN element kernel once per inner LM iteration (the sum of history[:,
+    3]), #1 at the case's shape, and no plain version, and the three agree
+    bit for bit.  Prints the
     three walls and the idle share of the captured and of the eager wall
     (one more captured run under torch.profiler).  Returns the first calls'
     launches."""
@@ -3025,10 +3156,11 @@ def _constrained_estimation(dev, card, record):
         tag = f"phase 12 {part}"
         (z, st), counts, walls, same = _captured_and_eager(
             tag, solve, args, kkt, shape,
-            lambda out: int(out[1].history[:, 3].sum()))
+            lambda out: int(out[1].history[:, 3].sum()), assembled=True)
         first_wall, wall = walls["first call"], walls["captured"]
         eager_wall = walls["eager"]
-        launches[kkt] = launches.get(kkt, 0) + counts[kkt]
+        for k in (kkt, GN):
+            launches[k] = launches.get(k, 0) + counts[k]
         p = z.p.tolist()
         d_p = _p_dev(p, ref)
         extra = ""
@@ -3039,7 +3171,8 @@ def _constrained_estimation(dev, card, record):
             ok = ok and g <= 0
         print(f"{tag}: p={p}, |p - p_JAX|/|p_JAX| {d_p:.3e} (<= 1e-6){extra},"
               f" {counts[kkt]} inner LM iterations = kernel #1 launches at "
-              f"{shape} in each run, no plain call; "
+              f"{shape} = GN element kernel launches in each run, no plain "
+              "call; "
               + _three_walls(walls, same, card))
         prof = (_profile_loop(tag, lambda: solve.eager(*args), wall,
                               eager_wall) if part.startswith("(a)") else None)
@@ -3216,7 +3349,7 @@ def _phase15(dev, card, record):
         solve, (z, st), r = case(
             tag, lambda: make_gn_solver(prob, opts),
             lambda solve: solve(z0, data),
-            {"blocktri_solve_spike_fused": 3 * its},
+            _assembled({"blocktri_solve_spike_fused": 3 * its}, its),
             [spike.chain_instance(8, 1 + nq), spike.chain_instance(8, 1)])
         want = {(8, 1 + nq): its, (8, 1): 2 * its}
         wall = _timed(lambda: solve(z0, data))[1]
@@ -3232,7 +3365,9 @@ def _phase15(dev, card, record):
     _, (z, st), _ = case(
         f"{tag}: the estimate", lambda: make_gn_solver(
             prob, SolverOptions(maxiter=60, gtol=1e-10, xtol=1e-12)),
-        lambda solve: solve(z0, data), {"kkt_solve_spike_fused"},
+        lambda solve: solve(z0, data),
+        lambda out: _assembled({"kkt_solve_spike_fused": int(
+            out[1].iterations)}, int(out[1].iterations)),
         [spike.kkt_instance(4, 2)])
     lv = _cr_level_count(prob.mesh.num_elements + 1)
     _, std, _ = case(tag, lambda: None,
@@ -3878,7 +4013,7 @@ def _phase14(dev, card, record):
             solve = make_gn_solver(prob, SolverOptions(**SP_FIXED))
             (z, st), wall, counts = _counted(
                 "phase 14 (e)", lambda: solve(z0, data),
-                {"kkt_solve_spike_fused": 15})
+                _assembled({"kkt_solve_spike_fused": 15}, 15))
             c0, c_end = float(prob.cost(z0, data)), float(st.cost)
             print(f"  (e) symbolic model N={ELEMENTS} float32, 15 LM "
                   f"iterations captured: cost {c0:.6e} -> {c_end:.6e}, "
@@ -3886,8 +4021,8 @@ def _phase14(dev, card, record):
                   f"wall {wall:.4f} s")
             if not (c_end < 0.1 * c0 and bool(torch.isfinite(z.p).all())):
                 raise RuntimeError("phase 14 (e) float32 did no useful work")
-            launches["kkt_solve_spike_fused"] = 15
-            _keep_shapes(["kkt_solve_spike_fused"])
+            launches.update({"kkt_solve_spike_fused": 15, GN: 16})
+            _keep_shapes(["kkt_solve_spike_fused", GN])
         else:
             opts = SolverOptions(maxiter=60, gtol=1e-10, xtol=1e-12)
             hand, hdata, hz0 = _headline(dtype, dev, ELEMENTS)
@@ -4443,8 +4578,10 @@ def _pem_pipeline(dev, card, rec, keep, launches):
     (z, st), first, counts = _counted(
         f"{tag} MAP polish", lambda: _no_reads(
             f"{tag} MAP polish first call", lambda: solve(z0, data)),
-        lambda out: {kkt: int(out[1].iterations)})
-    keep(f"{tag} MAP polish", counts, 0, {kkt: counts[kkt]}, (8, 3))
+        lambda out: _assembled({kkt: int(out[1].iterations)},
+                               int(out[1].iterations)))
+    keep(f"{tag} MAP polish", counts, 0, {kkt: counts[kkt], GN: counts[GN]},
+         (8, 3))
     n_map = counts[kkt]
     wall, eager_wall = _vs_eager(f"{tag} MAP polish", solve, (z0, data),
                                  (z, st))
@@ -4768,6 +4905,14 @@ def main() -> int:
     record["dw_shapes"] = dw_shapes
     for k, v in dw_shapes.items():
         new_shapes.setdefault(k, []).extend(v)
+    gn = _phase2_gn(dev, card)
+    record["gn_shapes"] = {f"N={n} {d}": r for (n, d), r in gn.items()}
+    fine = gn[(ELEMENTS_DW, "float32")]
+    new_shapes[GN] = [dict(
+        config=f"ladder fine level N={ELEMENTS_DW}", K=fine["K"], b=fine["b"],
+        r=fine["nq"], max_abs_err=gn[(ELEMENTS_DW, "float64")]["max_abs_err"],
+        ms=fine["ms"], plain_ms=fine["plain_ms"], bound_ms=fine["bound_ms"],
+        bound_by=fine["bound_by"], library_ms=None)]
     elapsed()
 
     # ---- phase 3: headline fixed work, float32 -----------------------------
@@ -4779,8 +4924,9 @@ def main() -> int:
     z, stats = solve(z0, data)
     torch.cuda.synchronize()
     counts, plain_calls = _counts()
-    _keep_shapes(["kkt_solve_spike_fused"])
+    _keep_shapes(["kkt_solve_spike_fused", GN])
     launches = counts["kkt_solve_spike_fused"]
+    gn_launches = counts[GN]
     c0, c_end = float(prob.cost(z0, data)), float(stats.cost)
     walls = [_timed(lambda: solve(z0, data))[1] for _ in range(3)]
     p = z.p.tolist()
@@ -4790,8 +4936,8 @@ def main() -> int:
           f"{card}")
     if not (c_end < 0.1 * c0 and all(math.isfinite(v) for v in p)):
         raise RuntimeError("the fixed-work solve did no useful work")
-    _expect_only(counts, plain_calls, {"kkt_solve_spike_fused": 15},
-                 "phase 3")
+    _expect_only(counts, plain_calls,
+                 _assembled({"kkt_solve_spike_fused": 15}, 15), "phase 3")
     _, eager_wall = _vs_eager("phase 3", solve, (z0, data), (z, stats))
     record.update(fixed_work_wall_s=min(walls), fixed_work_walls_s=walls,
                   fixed_work_eager_wall_s=eager_wall,
@@ -4824,7 +4970,7 @@ def main() -> int:
     # ---- phase 5: config 5 fixed work, float32, both layouts ---------------
     prob, z0, data, p_prior, p_w = c5[torch.float32]
     c0 = float(batch_cost(prob, z0, data, p_prior, p_w))
-    main_launches = {"kkt_solve_spike_fused": launches}
+    main_launches = {"kkt_solve_spike_fused": launches, GN: gn_launches}
     for layout, kname in (("soa", "blocktri_solve_spike_fused"),
                           ("blocks", "batched_thomas_solve")):
         solve = make_multi_experiment_solver(
@@ -4882,7 +5028,8 @@ def main() -> int:
                   config5_f64_p=p, config5_f64_p_vs_jax=p_dev)
 
     elapsed()
-    main_launches.update(_phase7(dev, card, record))
+    for k, v in _phase7(dev, card, record).items():
+        main_launches[k] = main_launches.get(k, 0) + v
     elapsed()
 
     # ---- phases 8, 9: configs 2 and 4 at full size -------------------------
@@ -4914,13 +5061,18 @@ def main() -> int:
           "blocktri_solve_spike_fused": c5_ms["float32"]["chain"],
           "batched_thomas_solve": c5_ms["float32"]["thomas"],
           **cr_ms["float32"],
-          "peer_reduce": (peer_k["ms"], peer_k["plain_ms"])}
+          "peer_reduce": (peer_k["ms"], peer_k["plain_ms"]),
+          GN: (gn[(ELEMENTS, "float32")]["ms"],
+               gn[(ELEMENTS, "float32")]["plain_ms"])}
     err = {"kkt_solve_spike_fused": max_err,
            "blocktri_solve_spike_fused": errs[("chain", "float64")],
            "batched_thomas_solve": errs[("thomas", "float64")],
            **{k: cr_errs[(k, "float64")] for k in CR_NAMES},
-           "peer_reduce": 0.0}    # bit for bit, or phase 14 raised
+           "peer_reduce": 0.0,    # bit for bit, or phase 14 raised
+           GN: gn[(ELEMENTS, "float64")]["max_abs_err"]}
     bounds["peer_reduce"] = peer_k["bound"]
+    bounds[GN] = (gn[(ELEMENTS, "float32")]["bound_ms"],
+                  gn[(ELEMENTS, "float32")]["bound_by"])
     library = {"batched_thomas_solve": lib_ms,
                "peer_reduce": peer_k["library_ms"]}
     kernels = {"kernels": [{

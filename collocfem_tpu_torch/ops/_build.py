@@ -2,8 +2,9 @@
 
 A kernel library is compiled once per shape, as Pallas traces a kernel once
 per shape: an :class:`Instance` is a library (``kkt_spike``, ``spike_chain``,
-``thomas`` or ``cr``; ``graph_loop`` and ``peer_reduce`` at b = r = 0) at
-one block size b and one right-hand-side count r,
+``thomas``, ``cr`` or ``gn_elements``; ``graph_loop`` and ``peer_reduce`` at
+b = r = 0) at one block size b and one right-hand-side count r (and, for
+``gn_elements``, the further sizes its ``more`` names),
 and ``nvcc`` compiles its source in ``csrc/`` for Hopper (``sm_90a``) with
 the shape as defines (``-DCF_B=<b> -DCF_R=<r>``) into a shared object with a
 plain C interface, ``collocfem_tpu_torch/build/<lib>-b<b>-r<r>-<digest>.so``.
@@ -47,6 +48,7 @@ LIBRARIES = {
     "cr": ("cr.cu", ()),   # r = 0: kernel #4; r >= 1: kernels #3, #5, #6
     "graph_loop": ("graph_loop.cu", ()),   # solve/graph.py's loop; b = r = 0
     "peer_reduce": ("peer_reduce.cu", ()),  # parallel/peer.py; b = r = 0
+    "gn_elements": ("gn_elements.cu", ()),  # ops/gn_elements.py; r = nq
 }
 MAX_BLOCK = 16   # the largest block size any library is built for
 
@@ -166,11 +168,15 @@ def counts_held():
 class Instance:
     """One library compiled for one shape: block size ``b`` and ``r``
     right-hand sides (for ``kkt_spike`` r = 1 + nq, the group [gx | B]; for
-    ``cr`` r = 0 is the factor kernel, which needs only b)."""
+    ``cr`` r = 0 is the factor kernel, which needs only b).  ``more`` holds
+    further (name, size) pairs of a library whose shape b and r do not name
+    (``gn_elements``: the degree, samples per element, outputs and defect
+    rule), each a define ``-DCF_<name>=<size>`` and a part of the name."""
 
     lib: str
     b: int
     r: int
+    more: tuple[tuple[str, int], ...] = ()
 
     def __post_init__(self):
         if self.lib not in LIBRARIES:
@@ -178,7 +184,8 @@ class Instance:
 
     @property
     def name(self) -> str:
-        return f"{self.lib}-b{self.b}-r{self.r}"
+        return "-".join([f"{self.lib}-b{self.b}-r{self.r}",
+                         *(f"{k.lower()}{v}" for k, v in self.more)])
 
     @property
     def source(self) -> Path:
@@ -187,6 +194,7 @@ class Instance:
     @property
     def defines(self) -> tuple[str, ...]:
         return (f"-DCF_B={self.b}", f"-DCF_R={self.r}",
+                *(f"-DCF_{k}={v}" for k, v in self.more),
                 *LIBRARIES[self.lib][1])
 
     def paths(self) -> tuple[Path, Path]:

@@ -9,8 +9,9 @@ corner, eliminated by a Schur complement in the solver.
 Two layouts:
   * structure of arrays (:class:`BlockTriSystemSoA`, the hot path): the
     chain index K on the LAST axis; :func:`assemble_gn_soa` for one
-    experiment, :func:`assemble_gn_soa_batched` for a batch laid side by
-    side as one concatenated chain;
+    experiment (on the card through the kernel of :mod:`ops.gn_elements`
+    where it engages), :func:`assemble_gn_soa_batched` for a batch laid
+    side by side as one concatenated chain;
   * block-major (:class:`BlockTriSystem`): (..., K, b, b) with optional
     leading experiment axes; :func:`assemble_gn` and
     :func:`assemble_gn_batched` (config 5's ``layout="blocks"``).
@@ -31,6 +32,8 @@ from typing import NamedTuple
 
 import torch
 from torch.func import grad, jacfwd, vmap
+
+from collocfem_tpu_torch.utils import profiling
 
 
 class BlockTriSystemSoA(NamedTuple):
@@ -135,17 +138,55 @@ def _scatter_soa(problem, z, data, *, h11, h22, h12, b1, b2, g1, g2, hpp,
     )
 
 
+def normal_equations_soa(problem, z, data, r, jx, jp,
+                         with_cost: bool = False):
+    """The SoA system from every element's residual r (N, m) and Jacobians
+    jx (N, m, (d + 1) nv), jp (N, m, nq): the normal-equation contractions
+    emit the element axis last, and the chain scatter is two static lane
+    slices (element e -> chain slots e and e+1).  With ``with_cost`` also
+    the float64 cost 0.5 ||r||^2 with the priors' residuals."""
+    bd = problem.mesh.degree * problem.nv
+    jx1, jx2 = jx[:, :, :bd], jx[:, :, bd:]
+    out = _scatter_soa(
+        problem, z, data,
+        h11=torch.einsum("emi,emj->ije", jx1, jx1),
+        h22=torch.einsum("emi,emj->ije", jx2, jx2),
+        h12=torch.einsum("emi,emj->ije", jx1, jx2),
+        b1=torch.einsum("emi,emq->iqe", jx1, jp),
+        b2=torch.einsum("emi,emq->iqe", jx2, jp),
+        g1=torch.einsum("emi,em->ie", jx1, r),
+        g2=torch.einsum("emi,em->ie", jx2, r),
+        hpp=torch.einsum("emq,emr->qr", jp, jp),
+        gpe=torch.einsum("emq,em->q", jp, r))
+    if not with_cost:
+        return out
+    r64 = torch.cat([r.reshape(-1), problem.prior_residuals(z, data)])
+    r64 = r64.double()
+    return out, 0.5 * torch.sum(r64 * r64)
+
+
 def assemble_gn_soa(problem, z, data, with_cost: bool = False):
     """Assemble the Gauss-Newton system at iterate ``z``.
 
-    Residuals and Jacobians come from ``vmap(jacfwd(elem_residual))`` over
-    the elements; the normal-equation contractions emit the element axis
-    last, and the chain scatter is two static lane slices (element e ->
-    chain slots e and e+1).  With ``with_cost`` it also returns the float64
-    cost 0.5 * ||r||^2 at ``z``, read off the same residuals (this replaces
-    the double-word cost of the JAX package: the GPU has native float64).
+    On the card, for an :class:`EstimationProblem` in the kernel's range
+    (:func:`ops.gn_elements.engages`), the model's values at the nodes and
+    the hand-written kernel ``csrc/gn_elements.cu`` build it
+    (:mod:`ops.gn_elements`; counted in ``profiling.COUNTERS
+    ["assembly_fused"]``).  Otherwise (``["assembly_generic"]``) residuals
+    and Jacobians come from ``vmap(jacfwd(elem_residual))`` over the
+    elements, then :func:`normal_equations_soa`.  With ``with_cost`` it
+    also returns the float64 cost 0.5 * ||r||^2 at ``z``, read off the same
+    residuals (this replaces the double-word cost of the JAX package: the
+    GPU has native float64).
     """
-    bd = problem.mesh.degree * problem.nv
+    from collocfem_tpu_torch.ops import gn_elements
+
+    if gn_elements.engages(problem, z, data):
+        profiling.count("assembly_fused")
+        out = gn_elements.gn_system(
+            problem, z, data, gn_elements.node_values(problem, z, data))
+        return out if with_cost else out[0]
+    profiling.count("assembly_generic")
     xe = problem.gather_elements(z.V)
     ed = problem._elem_data(data)
 
@@ -159,24 +200,7 @@ def assemble_gn_soa(problem, z, data, with_cost: bool = False):
         return r, jx, jp
 
     r, jx, jp = vmap(per_elem)(xe, ed)          # (N, m), (N, m, s), (N, m, nq)
-
-    jx1, jx2 = jx[:, :, :bd], jx[:, :, bd:]
-    out = _scatter_soa(
-        problem, z, data,
-        h11=torch.einsum("emi,emj->ije", jx1, jx1),
-        h22=torch.einsum("emi,emj->ije", jx2, jx2),
-        h12=torch.einsum("emi,emj->ije", jx1, jx2),
-        b1=torch.einsum("emi,emq->iqe", jx1, jp),
-        b2=torch.einsum("emi,emq->iqe", jx2, jp),
-        g1=torch.einsum("emi,em->ie", jx1, r),
-        g2=torch.einsum("emi,em->ie", jx2, r),
-        hpp=torch.einsum("emq,emr->qr", jp, jp),
-        gpe=torch.einsum("emq,em->q", jp, r))
-    if with_cost:
-        r64 = torch.cat([r.reshape(-1), problem.prior_residuals(z, data)])
-        r64 = r64.double()
-        return out, 0.5 * torch.sum(r64 * r64)
-    return out
+    return normal_equations_soa(problem, z, data, r, jx, jp, with_cost)
 
 
 def scatter_gn_blocks_soa(hxx, hxp, hpp, gxe, gpe, *, num_blocks, nv,

@@ -255,6 +255,42 @@ def estimation_inputs(spec: dict, *, dtype, device):
                                               p0=spec["p0"]), data
 
 
+GN_REFERENCE_LEAVES = ("D", "E", "B", "C", "gx", "gp", "cost")
+
+
+def stored_assembly_case(arrays, case: str, *, dtype, device):
+    """One case of a stored reference of the one-experiment assembly
+    (``arrays``: a mapping with keys ``<case>.<name>``, as
+    ``tests/data/gn_assembly_jax.npz`` holds them): Van der Pol on a uniform
+    mesh (``tf``, ``elements``, ``degree``; ``full``: the 'full' defect
+    rule), its samples ``t_meas``, ``y``, ``u_nodes``, the weights
+    ``defect_weight``, ``meas_w`` (shared (ny,) or per-sample (N, S, ny)),
+    the priors ``p_prior``, ``p_w``, ``x0_prior``, ``x0_w`` (per-state or a
+    full matrix) and the iterate ``V``, ``p``.  Returns ((prob, z, data)
+    built by the port, {leaf: the stored float64 value} for
+    GN_REFERENCE_LEAVES)."""
+    from collocfem_tpu_torch.models import VanDerPol
+    from collocfem_tpu_torch.ops.mesh import uniform_mesh
+    from collocfem_tpu_torch.problem import Decision, EstimationProblem
+
+    a = {k.split(".", 1)[1]: np.asarray(v) for k, v in arrays.items()
+         if k.startswith(case + ".")}
+    mesh = uniform_mesh(0.0, float(a["tf"]), int(a["elements"]),
+                        int(a["degree"]))
+    prob = EstimationProblem.build(
+        VanDerPol(), mesh, a["t_meas"],
+        defect_weight=float(a["defect_weight"]), device=device, dtype=dtype,
+        defect_rule="full" if int(a["full"]) else "interior")
+    data = prob.pack_data(a["y"], a["t_meas"], u_nodes=a["u_nodes"],
+                          p_prior=a["p_prior"], p_weight=a["p_w"],
+                          x0_prior=a["x0_prior"], x0_weight=a["x0_w"])
+    data = data._replace(meas_w=torch.as_tensor(a["meas_w"], dtype=dtype,
+                                                device=device))
+    z = Decision(V=torch.as_tensor(a["V"], dtype=dtype, device=device),
+                 p=torch.as_tensor(a["p"], dtype=dtype, device=device))
+    return (prob, z, data), {k: a[k] for k in GN_REFERENCE_LEAVES}
+
+
 def batch_inputs(spec: dict, *, dtype, device):
     """(prob, z0, data_batch, p_prior, p_w) of a Van der Pol batch:
     ``{"kind": "config5", "n_exp", "elements"}``

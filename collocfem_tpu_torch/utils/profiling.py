@@ -48,7 +48,8 @@ from torch.profiler import (ProfilerActivity, profile, record_function,
 # (nvcc runs) and library loads, device marks that found the log full, and
 # the host nanoseconds spent in graph warm-ups, captures and instantiations.
 COUNTERS = {"graph_captures": 0, "kernel_compiles": 0, "kernel_loads": 0,
-            "marks_dropped": 0, "graph_setup_ns": 0}
+            "marks_dropped": 0, "graph_setup_ns": 0, "assembly_fused": 0,
+            "assembly_generic": 0}
 
 # Records the device log holds (4 int64 each: code, solve, cause, time).
 MARK_CAPACITY = 1 << 17

@@ -3,7 +3,9 @@
 Kernel #1 (fused damped KKT), kernel #2 (SPIKE chain solve), kernels #3-#6
 (the per-level cyclic reduction), kernel #7 (batched block Thomas) and the
 multi-rank tier's peer all-reduce (``parallel/peer.py``, in worlds of
-ranks sharing the card); and the solves captured as CUDA graphs
+ranks sharing the card), the GN element kernel (``ops/gn_elements.py``;
+also against the JAX package's assembly that ``tests/test_torch_assemble.py``
+stores in ``tests/data``); and the solves captured as CUDA graphs
 (``solve/graph.py``) against their eager loops, bit for bit.
 Every test here is marked ``cuda`` and skips where
 there is no GPU (the kernels have no CPU mode).  The file imports no JAX, so
@@ -2171,3 +2173,254 @@ def test_an_overfull_device_log_counts_its_drops(cuda_device):
     assert rec.clock["dropped"] == 6
     assert profiling.counters()["marks_dropped"] == before + 6
     assert sum(s.device for s in rec.spans) == profiling.MARK_CAPACITY // 2
+
+
+# ---- the GN element kernel (ops/gn_elements.py, csrc/gn_elements.cu) --------
+
+
+def _gn_case(n, dtype, device):
+    """The headline's problem at N elements with priors on p and x(t0) and
+    an iterate off the data's guess (seeded)."""
+    from collocfem_tpu_torch.headline import headline_problem
+    from collocfem_tpu_torch.problem import Decision
+
+    prob, data, z0 = headline_problem(n, dtype=dtype, device=device)
+    g = torch.Generator().manual_seed(n)
+    noise = 0.1 * torch.randn(z0.V.shape, generator=g, dtype=torch.float64)
+    z = Decision(V=z0.V + noise.to(device, dtype), p=z0.p + 0.3)
+    data = data._replace(
+        p_w=torch.tensor([0.3, 0.2], dtype=dtype, device=device),
+        x0_w=torch.tensor([0.7, 0.4], dtype=dtype, device=device),
+        x0_prior=torch.tensor([1.0, 0.1], dtype=dtype, device=device))
+    return prob, z, data
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [1, 40, 10_000, 100_000])
+def test_gn_kernel_matches_plain(cuda_device, n, dtype):
+    """The kernel against its plain version on the same node values, at
+    the n10k cell's shape and the ladder's fine shape (and N = 1, 40):
+    every leaf within 1e-12 (float64) or 5e-5 (float32) of the leaf's
+    largest entry, the float64 cost within 1e-12 / 1e-6 of it; a second
+    launch equal bit for bit; assemble_gn_soa takes the kernel's path."""
+    from collocfem_tpu_torch.ops import gn_elements as ge
+    from collocfem_tpu_torch.ops.assemble import assemble_gn_soa
+    from collocfem_tpu_torch.testing import bit_equal
+    from collocfem_tpu_torch.utils import profiling
+
+    prob, z, data = _gn_case(n, dtype, cuda_device)
+    assert ge.engages(prob, z, data)
+    vals = ge.node_values(prob, z, data)
+    launches = ge.gn_system.launches
+    got = ge.gn_system(prob, z, data, vals)
+    again = ge.gn_system(prob, z, data, vals)
+    torch.cuda.synchronize()
+    assert ge.gn_system.launches == launches + 2
+    assert bit_equal(got, again)
+    sys_, cost = got
+    want, want_cost = ge.gn_system_ref(prob, z, data, vals)
+    tol = 1e-12 if dtype == torch.float64 else 5e-5
+    for name in ("D", "E", "B", "C", "gx", "gp"):
+        g, w = getattr(sys_, name), getattr(want, name)
+        assert g.shape == w.shape and g.dtype == w.dtype == dtype
+        err = float((g - w).abs().max() / w.abs().max())
+        assert err <= tol, (name, err)
+    assert cost.dtype == torch.float64
+    assert abs(float(cost - want_cost)) <= \
+        (1e-12 if dtype == torch.float64 else 1e-6) * float(want_cost)
+    before = profiling.counters()
+    assert bit_equal(assemble_gn_soa(prob, z, data, with_cost=True), got)
+    after = profiling.counters()
+    assert after["assembly_fused"] == before["assembly_fused"] + 1
+    assert after["assembly_generic"] == before["assembly_generic"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", ["interior", "full"])
+def test_gn_kernel_per_sample_weights_and_full_x0(cuda_device, rule):
+    """The IRLS form of meas_w (N, S, ny) and a full x0 sqrt-information
+    matrix, on both defect rules: the kernel within 1e-12 of its plain
+    version (float64)."""
+    from collocfem_tpu_torch.ops import gn_elements as ge
+    from collocfem_tpu_torch.ops.mesh import uniform_mesh
+    from collocfem_tpu_torch.models import VanDerPol
+    from collocfem_tpu_torch.problem import Decision, EstimationProblem
+
+    n, f64 = 300, torch.float64
+    g = torch.Generator().manual_seed(7)
+    t = torch.sort(torch.rand(3 * n, generator=g, dtype=f64) * 6.0).values
+    prob = EstimationProblem.build(VanDerPol(), uniform_mesh(0.0, 6.0, n, 4),
+                                   t.numpy(), defect_weight=30.0,
+                                   device=cuda_device, dtype=f64,
+                                   defect_rule=rule)
+    y = torch.randn(t.numel(), 1, generator=g, dtype=f64).numpy()
+    data = prob.pack_data(y, t.numpy(), p_weight=0.2, x0_weight=[[0.5, 0.0],
+                                                                 [0.2, 0.3]])
+    w = torch.rand(*prob.mmask.shape, 1, generator=g, dtype=f64) + 0.5
+    data = data._replace(meas_w=w.to(cuda_device))
+    z = Decision(V=torch.randn(prob.num_nodes, 2, generator=g,
+                               dtype=f64).to(cuda_device),
+                 p=torch.tensor([0.8, 1.2], dtype=f64, device=cuda_device))
+    assert ge.engages(prob, z, data)
+    vals = ge.node_values(prob, z, data)
+    (sys_, cost), (want, want_cost) = (ge.gn_system(prob, z, data, vals),
+                                       ge.gn_system_ref(prob, z, data, vals))
+    for name in ("D", "E", "B", "C", "gx", "gp"):
+        g_, w_ = getattr(sys_, name), getattr(want, name)
+        assert float((g_ - w_).abs().max() / w_.abs().max()) <= 1e-12, name
+    assert abs(float(cost - want_cost)) <= 1e-12 * float(want_cost)
+
+
+@pytest.mark.cuda
+def test_gn_kernel_captured_equals_eager(cuda_device):
+    """assemble_gn_soa on the kernel's path captured in a CUDA graph: each
+    replay equals the eager call bit for bit, and again after the iterate
+    changes in place."""
+    from collocfem_tpu_torch.ops.assemble import assemble_gn_soa
+    from collocfem_tpu_torch.testing import bit_equal
+
+    prob, z, data = _gn_case(10_000, torch.float64, cuda_device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        assemble_gn_soa(prob, z, data, with_cost=True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = assemble_gn_soa(prob, z, data, with_cost=True)
+    for shift in (0.0, 0.01):
+        z.V.add_(shift)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert bit_equal(out, assemble_gn_soa(prob, z, data, with_cost=True))
+
+
+@pytest.mark.cuda
+def test_gn_kernel_shrinks_the_loop_graph(cuda_device, monkeypatch):
+    """make_gn_solver on the headline at N = 40 to gtol: the loop graph's
+    step holds fewer nodes on the kernel's path than forced onto the
+    element-level path, both solves counted on their own path, and land on
+    the same p (float64, relative difference <= 1e-9)."""
+    from collocfem_tpu_torch.headline import headline_problem
+    from collocfem_tpu_torch.ops import gn_elements as ge
+    from collocfem_tpu_torch.solve.newton import SolverOptions, make_gn_solver
+    from collocfem_tpu_torch.utils import profiling
+
+    prob, data, z0 = headline_problem(40, dtype=torch.float64,
+                                      device=cuda_device)
+    opts = SolverOptions(**CAPTURED_CASES["early exit"])
+    runs = {}
+    for path in ("fused", "generic"):
+        if path == "generic":
+            monkeypatch.setattr(ge, "engages", lambda *args: False)
+        solve = make_gn_solver(prob, opts)
+        before = profiling.counters()
+        z, _ = solve(z0, data)
+        torch.cuda.synchronize()
+        after = profiling.counters()
+        moved = {k: after[f"assembly_{k}"] - before[f"assembly_{k}"]
+                 for k in ("fused", "generic")}
+        other = "generic" if path == "fused" else "fused"
+        assert moved[path] > 0 and moved[other] == 0
+        plan, = solve._plans.values()
+        runs[path] = (plan.loop_nodes["step"], z.p.cpu())
+    print(f"loop step nodes: fused {runs['fused'][0]}, generic "
+          f"{runs['generic'][0]}")
+    assert runs["fused"][0] < runs["generic"][0]
+    assert rel_err(runs["fused"][1], runs["generic"][1]) <= 1e-9
+
+
+@pytest.mark.cuda
+def test_gn_kernel_rejects_what_it_does_not_take(cuda_device):
+    """ValueError before any launch: a shape outside the kernel's range (nq
+    = 0), a node value of the wrong shape, and CPU tensors."""
+    from collocfem_tpu_torch.models import Pendulum
+    from collocfem_tpu_torch.ops import gn_elements as ge
+    from collocfem_tpu_torch.ops.mesh import uniform_mesh
+    from collocfem_tpu_torch.problem import Decision, EstimationProblem
+
+    launches = ge.gn_system.launches
+    mesh = uniform_mesh(0.0, 2.0, 6, 4)
+    t = torch.linspace(0.05, 1.95, 12, dtype=torch.float64).numpy()
+    pend = EstimationProblem.build(Pendulum(), mesh, t, device=cuda_device,
+                                   dtype=torch.float64)
+    pdata = pend.pack_data(torch.zeros(12, pend.model.ny).numpy(), t)
+    pz = Decision(V=torch.zeros(mesh.num_nodes, 2, dtype=torch.float64,
+                                device=cuda_device),
+                  p=torch.zeros(0, dtype=torch.float64, device=cuda_device))
+    assert not ge.engages(pend, pz, pdata)
+    with pytest.raises(ValueError, match="GN element kernel takes"):
+        ge.gn_system(pend, pz, pdata, ge.node_values(pend, pz, pdata))
+    prob, z, data = _gn_case(40, torch.float64, cuda_device)
+    vals = ge.node_values(prob, z, data)
+    with pytest.raises(ValueError, match="fx has shape"):
+        ge.gn_system(prob, z, data, vals._replace(fx=vals.fx[:, :3]))
+    cpu = lambda x: x.cpu()
+    with pytest.raises(ValueError, match="no kernel for tensors on cpu"):
+        ge.gn_system(prob.to("cpu"), type(z)(*map(cpu, z)),
+                     type(data)(*map(cpu, data)),
+                     type(vals)(*map(cpu, vals)))
+    torch.cuda.synchronize()
+    assert ge.gn_system.launches == launches
+
+
+@pytest.mark.cuda
+def test_gn_kernel_on_a_model_with_float64_derivatives(cuda_device):
+    """Config 4's aircraft in float32, whose h under jacfwd gives float64
+    derivatives: assemble_gn_soa takes the kernel's path (the node values
+    come in float32) and matches the plain version within 5e-5 of each
+    leaf's largest entry."""
+    from collocfem_tpu_torch import configs
+    from collocfem_tpu_torch.ops import gn_elements as ge
+    from collocfem_tpu_torch.ops.assemble import assemble_gn_soa
+
+    prob, z, data = configs.build_config4_problem(dtype=torch.float32,
+                                                  device=cuda_device)
+    assert ge.engages(prob, z, data)
+    launches = ge.gn_system.launches
+    sys_, cost = assemble_gn_soa(prob, z, data, with_cost=True)
+    torch.cuda.synchronize()
+    assert ge.gn_system.launches == launches + 1
+    want, want_cost = ge.gn_system_ref(prob, z, data,
+                                       ge.node_values(prob, z, data))
+    for name in ("D", "E", "B", "C", "gx", "gp"):
+        g, w = getattr(sys_, name), getattr(want, name)
+        assert g.dtype == torch.float32, name
+        assert float((g - w).abs().max() / w.abs().max()) <= 5e-5, name
+    assert abs(float(cost - want_cost)) <= 1e-6 * float(want_cost)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["headline", "full_per_sample"])
+def test_gn_kernel_matches_the_jax_package(cuda_device, case):
+    """assemble_gn_soa on the kernel's path against the JAX package's
+    assembly of the same inputs, stored by tests/test_torch_assemble.py
+    (the headline at N = 40 with a shared meas_w and per-state x0 weights;
+    the 'full' rule with a per-sample meas_w and a full x0 matrix): every
+    leaf and the cost within rtol 1e-12, with an absolute floor of 1e-12 x
+    the leaf's largest entry, as the CPU parity tests hold the
+    element-level path."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from collocfem_tpu_torch.ops import gn_elements as ge
+    from collocfem_tpu_torch.ops.assemble import assemble_gn_soa
+    from collocfem_tpu_torch.testing import stored_assembly_case
+
+    path = Path(__file__).parent / "data" / "gn_assembly_jax.npz"
+    with np.load(path) as ref:
+        (prob, z, data), want = stored_assembly_case(
+            ref, case, dtype=torch.float64, device=cuda_device)
+    assert ge.engages(prob, z, data)
+    launches = ge.gn_system.launches
+    sys_, cost = assemble_gn_soa(prob, z, data, with_cost=True)
+    torch.cuda.synchronize()
+    assert ge.gn_system.launches == launches + 1
+    got = {**{name: getattr(sys_, name) for name in sys_._fields},
+           "cost": cost}
+    for name, w in want.items():
+        np.testing.assert_allclose(got[name].cpu().numpy(), w, rtol=1e-12,
+                                   atol=1e-12 * float(np.abs(w).max()),
+                                   err_msg=name)

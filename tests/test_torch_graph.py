@@ -418,14 +418,23 @@ def test_device_spans_mark_each_lm_step(case):
 def test_a_plan_counts_its_set_up_once():
     """The set-up counter moves at a key's first call (the plan's warm-up)
     and stays put at a second call of the same shapes; on the CPU nothing
-    is captured."""
+    is captured.  The assembly counters count every assembly a call builds
+    (on the CPU the element-level path's): the prelude's and one a step,
+    and at the first call the plan's warm-up besides."""
     from collocfem_tpu_torch.utils import profiling
 
+    assembly = ("assembly_fused", "assembly_generic")
     solve, args = _span_case("headline")
     before = profiling.counters()
     solve.stepwise(*args)
     first = profiling.counters()
     solve.stepwise(*args)
-    assert profiling.counters() == first
+    second = profiling.counters()
+    assert {k: v for k, v in second.items() if k not in assembly} == \
+        {k: v for k, v in first.items() if k not in assembly}
     assert first["graph_setup_ns"] > before["graph_setup_ns"]
     assert first["graph_captures"] == before["graph_captures"]
+    built = second["assembly_generic"] - first["assembly_generic"]
+    assert built == 1 + 3
+    assert first["assembly_generic"] - before["assembly_generic"] > built
+    assert second["assembly_fused"] == before["assembly_fused"]
